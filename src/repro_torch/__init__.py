@@ -1,0 +1,16 @@
+"""repro_torch — the PyTorch / CUDA port of ``repro`` for one NVIDIA H100.
+
+The module layout mirrors ``src/repro`` so that each port module has one
+reference module to be held against: ``repro_torch/ps/runtime.py`` is the
+counterpart of ``repro/ps/runtime.py``. The port imports ``torch`` and
+numpy, never ``jax`` and nothing of ``repro``; what it needs of a reference
+module it keeps as its own copy.
+
+Entry points take an explicit ``device``. They run on ``cuda`` unless the
+caller passes ``device="cpu"``; a missing GPU without an explicit ``cpu``
+is an error, never a silent fallback (``utils.device.resolve_device``).
+
+Ported so far (see ROADMAP.md for what is still to come): the Sync EASGD /
+Sync SGD parameter-server trainer on the thread transport, with its fused
+f64 update kernels written in CUDA (``kernels/csrc/elastic_update.cu``).
+"""

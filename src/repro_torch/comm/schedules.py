@@ -1,0 +1,157 @@
+"""The exchange-schedule registry: each schedule's message rounds and its
+α–β cost (the port of ``repro/comm/schedules.py``, rounds-and-cost half).
+
+The reference registry also carries a runnable ``shard_map`` all-reduce per
+schedule; those are JAX collectives of the multi-pod step and wait for that
+slice. Here the PS runtime executes ``Schedule.rounds`` over its mailbox
+tensor, and ``cost`` prices the same exchange.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from repro_torch.core import costmodel
+from repro_torch.comm.rounds import (butterfly_rounds, hierarchical_rounds,
+                                     inner_size, psum_rounds, ring_rounds,
+                                     round_robin_rounds, t_rounds,
+                                     tree_rounds)
+
+_NET = costmodel.PCIE3_X16
+
+
+def t_hierarchical_allreduce(n: float, p: int, net: costmodel.Network
+                             ) -> float:
+    """Ring over the inner group + butterfly across groups (paper §6.2)."""
+    m = inner_size(p)
+    return (costmodel.t_ring_allreduce(n, m, net)
+            + costmodel.t_butterfly_allreduce(n, max(p // m, 1), net))
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """One exchange schedule: its message rounds and its α–β cost.
+
+    ``cost_fn(n_bytes, p, net)`` — seconds for one full exchange of an
+    n-byte buffer among p participants; ``rounds_fn(p, n_bytes, net)`` —
+    the same exchange as explicit message rounds."""
+
+    name: str
+    cost_fn: Callable
+    rounds_fn: Callable
+    pow2_only: bool = False
+    doc: str = ""
+
+    def cost(self, n_bytes: float, p: int,
+             net: costmodel.Network = _NET) -> float:
+        """α–β time of one full exchange (0 for a single participant)."""
+        if p <= 1:
+            return 0.0
+        return self.cost_fn(n_bytes, p, net)
+
+    def rounds(self, p: int, n_bytes: float = 0.0,
+               net: costmodel.Network = _NET,
+               topology: costmodel.Topology | None = None) -> list:
+        """The exchange as explicit message rounds (empty for p ≤ 1). A
+        ``topology`` groups hierarchical by host and lifts its flat
+        power-of-two gate (hierarchical_rounds checks the group count)."""
+        if p <= 1:
+            return []
+        if self.pow2_only and p & (p - 1) != 0 and not (
+                self.name == "hierarchical" and topology is not None):
+            raise ValueError(
+                f"schedule '{self.name}' needs a power-of-two participant "
+                f"count, got {p} — its round structure would address "
+                f"nonexistent ranks (use ring/round_robin instead)")
+        if topology is not None:
+            return self.rounds_fn(p, n_bytes, net, topology=topology)
+        return self.rounds_fn(p, n_bytes, net)
+
+    def cost_topo(self, n_bytes: float, p: int,
+                  topology: costmodel.Topology | None = None) -> float:
+        """α–β time on a two-level fabric: the schedule's own rounds priced
+        message by message; a missing or uniform topology is ``cost`` on
+        its intra network."""
+        if topology is None or topology.uniform:
+            return self.cost(n_bytes, p,
+                             topology.intra if topology is not None else _NET)
+        if p <= 1:
+            return 0.0
+        return t_rounds(
+            self.rounds(p, n_bytes, topology.intra, topology=topology),
+            n_bytes, net=topology.intra, topology=topology)
+
+
+SCHEDULES: dict[str, Schedule] = {}
+
+
+def register(schedule: Schedule) -> Schedule:
+    SCHEDULES[schedule.name] = schedule
+    return schedule
+
+
+def get(name: str) -> Schedule:
+    try:
+        return SCHEDULES[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown schedule '{name}', have {sorted(SCHEDULES)}"
+        ) from None
+
+
+def names() -> tuple:
+    """Registered schedule names, in registration order."""
+    return tuple(SCHEDULES)
+
+
+register(Schedule(
+    "psum", costmodel.t_allreduce_best, psum_rounds,
+    doc="a tuned library's all-reduce; priced as min(butterfly, ring)."))
+register(Schedule(
+    "tree", costmodel.t_tree_allreduce, tree_rounds, pow2_only=True,
+    doc="reduce-to-root + broadcast, 2·⌈log2 P⌉ rounds (paper §5.1)."))
+register(Schedule(
+    "butterfly", costmodel.t_butterfly_allreduce, butterfly_rounds,
+    pow2_only=True,
+    doc="recursive doubling, ⌈log2 P⌉ rounds — latency-optimal."))
+register(Schedule(
+    "ring", costmodel.t_ring_allreduce, ring_rounds,
+    doc="reduce-scatter + all-gather, 2(P−1) steps of n/P bytes — "
+        "bandwidth-optimal."))
+register(Schedule(
+    "round_robin", costmodel.t_round_robin_allreduce, round_robin_rounds,
+    doc="Original EASGD's serialized master↔worker exchange, Θ(P) — the "
+        "paper's baseline."))
+register(Schedule(
+    "hierarchical", t_hierarchical_allreduce, hierarchical_rounds,
+    pow2_only=True,
+    doc="ring within groups of 2^⌈log2(P)/2⌉ ranks, butterfly across "
+        "groups (paper §6.2)."))
+
+
+def choose(n_bytes: float, p: int, net: costmodel.Network = _NET,
+           topology: costmodel.Topology | None = None) -> str:
+    """α–β-driven choice: latency-bound small buffers → butterfly,
+    bandwidth-bound → ring; butterfly only for a power-of-two p. On a
+    non-uniform ``topology`` hierarchical joins the candidates and each is
+    priced link by link; candidate order breaks ties."""
+    if p <= 1:
+        return "psum"
+    if topology is not None and not topology.uniform:
+        cands = ["butterfly"] if p & (p - 1) == 0 else []
+        cands.append("ring")
+        try:
+            get("hierarchical").rounds(p, n_bytes, topology.intra,
+                                       topology=topology)
+        except ValueError:
+            pass
+        else:
+            cands.append("hierarchical")
+        return min(cands,
+                   key=lambda nm: get(nm).cost_topo(n_bytes, p, topology))
+    if topology is not None:
+        net = topology.intra
+    if p & (p - 1) == 0 and get("butterfly").cost(n_bytes, p, net) <= \
+            get("ring").cost(n_bytes, p, net):
+        return "butterfly"
+    return "ring"

@@ -1,0 +1,173 @@
+"""The fused f64 sync-family updates: CUDA kernels, their plain versions,
+and their launch counters (the port of the f64 half of
+``repro/kernels/elastic_update.py``).
+
+    fused_sync_easgd_update   W' = W − η(G + ρ(W − C))
+                              C' = C + ηρP(R/P − C)     (into center_out)
+    fused_sync_sgd_update     V' = μV − η(R/P);  C' = C + V'
+
+R is the exchanged sum of the P workers' rows. Both update their tensors
+IN PLACE, as the reference's numpy path mutates its buffers; the center
+output of the easgd update goes to ``center_out`` (the version-flipped
+center buffer), or nowhere when it is None.
+
+A wrapper takes the plain version only for tensors on the CPU. For CUDA
+tensors it launches the kernel of ``csrc/elastic_update.cu`` on the current
+stream or raises: there is no fallback. Each launch adds one to the
+wrapper's ``launches`` attribute, a plain integer.
+
+The plain versions are eager torch in the reference's operation order.
+Every op rounds once, and the division by P goes through a tensor divisor
+(PyTorch's CUDA ``div`` by a Python scalar multiplies by the reciprocal,
+which is not the same bits), so the plain versions equal numpy on the CPU
+and the kernels on the card bit for bit.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from repro_torch.kernels import _build
+
+_COUNT_LOCK = threading.Lock()
+_c_ptr, _c_long, _c_double, _c_int = (ctypes.c_void_p, ctypes.c_long,
+                                      ctypes.c_double, ctypes.c_int)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("elastic_update")
+    if lib.repro_sync_easgd_update.argtypes is None:
+        lib.repro_sync_easgd_update.argtypes = [
+            _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_long,
+            _c_double, _c_double, _c_double, _c_int, _c_ptr]
+        lib.repro_sync_easgd_update.restype = ctypes.c_int
+        lib.repro_sync_sgd_update.argtypes = [
+            _c_ptr, _c_ptr, _c_ptr, _c_long, _c_double, _c_double, _c_int,
+            _c_ptr]
+        lib.repro_sync_sgd_update.restype = ctypes.c_int
+    return lib
+
+
+def _check(*tensors: torch.Tensor) -> int:
+    """All 1-D f64 contiguous tensors of one length on one device; returns
+    the length."""
+    t0 = tensors[0]
+    for t in tensors:
+        if t.dtype != torch.float64:
+            raise TypeError(f"expected float64, got {t.dtype}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError("expected contiguous 1-D rows")
+        if t.device != t0.device:
+            raise ValueError(f"rows on {t0.device} and {t.device}")
+        if t.numel() != t0.numel():
+            raise ValueError(f"row lengths {t0.numel()} != {t.numel()}")
+    if t0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t0.device}")
+    return t0.numel()
+
+
+def _launched(wrapper) -> None:
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def _divisor(p: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(float(p), dtype=torch.float64, device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# Sync EASGD
+# ---------------------------------------------------------------------------
+
+def fused_sync_easgd_update_ref(w, grad, center, row, p: int, eta: float,
+                                rho: float, center_out=None) -> None:
+    """Plain version of ``fused_sync_easgd_update``: ``worker_step``'s
+    elastic rule, then eq 2 on the exchanged sum, in place."""
+    w.sub_(eta * (grad + rho * (w - center)))
+    if center_out is not None:
+        mean = row / _divisor(p, row)
+        center_out.copy_(center + ((eta * rho) * p) * (mean - center))
+
+
+def fused_sync_easgd_update(w, grad, center, row, p: int, eta: float,
+                            rho: float, center_out=None) -> None:
+    """One fused Sync EASGD update over a row (or a bucket of it), in place:
+    ``w`` ← W' for this worker; ``center_out`` ← C' when given (rank 0
+    writes the flipped center buffer; the other ranks pass None and read
+    neither ``row`` nor write a center). The bits of W' are the same either
+    way."""
+    rows = (w, grad, center, row) + (() if center_out is None
+                                      else (center_out,))
+    n = _check(*rows)
+    if w.device.type == "cpu":
+        fused_sync_easgd_update_ref(w, grad, center, row, p, eta, rho,
+                                    center_out)
+        return
+    if n == 0:
+        return
+    lib = _lib()
+    with torch.cuda.device(w.device):
+        rc = lib.repro_sync_easgd_update(
+            w.data_ptr(), grad.data_ptr(), center.data_ptr(), row.data_ptr(),
+            None if center_out is None else center_out.data_ptr(), n,
+            float(eta), float(rho), (float(eta) * float(rho)) * p, int(p),
+            torch.cuda.current_stream(w.device).cuda_stream)
+    _raise_on(rc, "fused_sync_easgd_update")
+    _launched(fused_sync_easgd_update)
+
+
+fused_sync_easgd_update.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Sync SGD
+# ---------------------------------------------------------------------------
+
+def fused_sync_sgd_update_ref(center, vel, row, p: int, eta: float,
+                              mu: float) -> None:
+    """Plain version of ``fused_sync_sgd_update``: ``sync_master_sgd`` on
+    the mean gradient row / P, in place."""
+    vel.copy_(mu * vel - eta * (row / _divisor(p, row)))
+    center.add_(vel)
+
+
+def fused_sync_sgd_update(center, vel, row, p: int, eta: float,
+                          mu: float) -> None:
+    """One fused synchronous momentum-SGD master update, in place on
+    ``center`` and ``vel``: V̄ ← μV̄ − η(R/P);  W̄ ← W̄ + V̄."""
+    n = _check(center, vel, row)
+    if center.device.type == "cpu":
+        fused_sync_sgd_update_ref(center, vel, row, p, eta, mu)
+        return
+    if n == 0:
+        return
+    lib = _lib()
+    with torch.cuda.device(center.device):
+        rc = lib.repro_sync_sgd_update(
+            center.data_ptr(), vel.data_ptr(), row.data_ptr(), n,
+            float(eta), float(mu), int(p),
+            torch.cuda.current_stream(center.device).cuda_stream)
+    _raise_on(rc, "fused_sync_sgd_update")
+    _launched(fused_sync_sgd_update)
+
+
+fused_sync_sgd_update.launches = 0
+
+KERNELS = (fused_sync_easgd_update, fused_sync_sgd_update)
+
+
+def reset_launch_counts() -> None:
+    with _COUNT_LOCK:
+        for k in KERNELS:
+            k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}

@@ -1,0 +1,96 @@
+"""The paper's CNNs as PS problems (the port of ``repro/ps/zoo.py``:
+``make_zoo_cnn`` and ``resolve``).
+
+The gradient is computed on the run's device. The f64 row is cast to ONE
+f32 leaf with ``requires_grad``; the parameters are views of that leaf in
+``ravel_pytree`` order, so after forward and backward ``leaf.grad`` already
+is the flat gradient in the reference's order. ``grad_fn.layer_sizes``
+gives the per-leaf sizes in the same order, for the bucket cuts.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.data.synthetic import make_classification_dataset
+from repro_torch.models import cnn
+from repro_torch.ps.problems import (NUMPY_MLP, NUMPY_MLP_MED, ProblemSpec,
+                                     spec)
+from repro_torch.utils.device import resolve_device
+
+_CNNS = {"lenet": ((28, 28, 1), cnn.lenet_init, cnn.lenet_apply),
+         "alexnet": ((32, 32, 3), cnn.alexnet_init, cnn.alexnet_apply)}
+
+
+def make_zoo_cnn(model: str = "lenet", seed: int = 0, n_train: int = 512,
+                 n_test: int = 256, batch: int = 8, noise: float = 1.6,
+                 w0=None, device=None):
+    """LeNet on 28×28×1 or AlexNet on 32×32×3 Gaussian-mixture images.
+
+    ``w0`` is a flat row in the reference's layout (for instance the
+    reference's own init, carried across by ``cnn.params_from_jax``);
+    without it the port draws He-normal weights from
+    ``torch.Generator().manual_seed(seed)``."""
+    if model not in _CNNS:
+        raise ValueError(f"unknown cnn '{model}' (lenet/alexnet)")
+    dev = resolve_device(device)
+    # The reference's math is full f32. cuDNN convolutions default to TF32
+    # (about three decimal digits), and even in full f32 cuDNN's backward
+    # algorithms put AlexNet's conv weight gradients 3.9e-5 (relative norm)
+    # away from the CPU's on an H100, where PyTorch's native convolution
+    # stays at 1.9e-6. So TF32 is off for matmuls and convolutions, and the
+    # convolutions do not go through cuDNN at all (process-wide settings).
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.enabled = False
+    shape, init, apply = _CNNS[model]
+    x, y = make_classification_dataset(n_train + n_test, shape=shape,
+                                       n_classes=10, noise=noise, seed=seed)
+    x = torch.from_numpy(x).to(dev)
+    y = torch.from_numpy(y.astype(np.int64)).to(dev)
+    xtr, ytr, xte, yte = x[:n_train], y[:n_train], x[n_train:], y[n_train:]
+    if w0 is None:
+        gen = torch.Generator().manual_seed(seed)
+        row = cnn.flatten_params(init(gen, device=dev))
+    elif isinstance(w0, torch.Tensor):
+        row = w0.detach().to(dev, torch.float64).clone()
+    else:
+        row = torch.from_numpy(np.array(w0, dtype=np.float64)).to(dev)
+    layout = cnn.ravel_layout(model)
+    if row.numel() != sum(math.prod(s) for _, s in layout):
+        raise ValueError(f"w0 has {row.numel()} elements, not {model}'s")
+
+    rngs: dict = {}
+
+    def grad_fn(w, step, worker):
+        rng = rngs.setdefault(worker, np.random.RandomState(1000 + worker))
+        idx = torch.from_numpy(rng.randint(0, n_train, size=batch)).to(dev)
+        leaf = w.detach().to(torch.float32).requires_grad_(True)
+        loss = cnn.xent_loss(apply(cnn.unflatten(leaf, model), xtr[idx]),
+                             ytr[idx])
+        loss.backward()
+        return leaf.grad.to(torch.float64)
+
+    @torch.no_grad()
+    def eval_fn(w):
+        params = cnn.unflatten(w.to(torch.float32), model)
+        return 1.0 - float(cnn.accuracy(apply(params, xte), yte))
+
+    grad_fn.layer_sizes = [math.prod(s) for _, s in layout]
+    return row, grad_fn, eval_fn
+
+
+def resolve(name: str) -> ProblemSpec:
+    """``--model`` name -> ProblemSpec. The reference's other zoo entries
+    (jax-mlp, mlp-large and the decoder LMs of ``repro.configs``) are not
+    ported yet."""
+    fixed = {"tiny-mlp": NUMPY_MLP_MED, "mlp": NUMPY_MLP}
+    if name in fixed:
+        return fixed[name]
+    if name in _CNNS:
+        return spec("repro_torch.ps.zoo:make_zoo_cnn", model=name)
+    raise NotImplementedError(
+        f"model '{name}' is not ported to repro_torch yet (this slice has "
+        f"{sorted(fixed) + sorted(_CNNS)}); see ROADMAP.md, queue 1")

@@ -25,6 +25,11 @@ def run_with_devices(code: str, n_devices: int = 8, timeout: int = 900):
     return proc.stdout
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one)")
+
+
 @pytest.fixture(scope="session")
 def subproc():
     return run_with_devices
