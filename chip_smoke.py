@@ -14,10 +14,26 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    for bit to the reference ``repro.ps`` by tests/test_torch_ps.py);
 4. hold the card's AlexNet and LeNet gradients against the CPU's
    (TF32 off, relative norm ≤ 1e-5);
-5. the main path: ``run_ps`` on full-width AlexNet (6,976,842 parameters),
-   P = 4 workers, ring, 4 MiB buckets, Sync EASGD and then Sync SGD, with
-   the kernels' launch counters set to 0 just before each run and read just
-   after; each kernel must have launched in its run.
+5. the first main path: ``run_ps`` on full-width AlexNet (6,976,842
+   parameters), P = 4 workers, ring, 4 MiB buckets, Sync EASGD and then
+   Sync SGD, with the kernels' launch counters set to 0 just before each
+   run and read just after; each kernel must have launched in its run;
+6. hold the attention and cross-entropy kernels (forward and backward)
+   against their plain versions on the card, at gemma3-4b's full width
+   (attention B 1, S 4096, H 8, KVH 4, D 256, bf16, window 1024 and 0;
+   cross-entropy T 4096, d 2560, V 262144, bf16) and at small ragged f32
+   shapes, and time kernel, plain version and the library call with CUDA
+   events beside the bound;
+7. gemma3-4b at full width, depth cut to 6 layers (1,237,356,032
+   parameters, f32 params, bf16 compute), B 1, S 4096: ``lm_loss`` and its
+   gradient through the kernels and through the plain versions, held to a
+   relative 1e-3 (loss) and 2e-2 (gradient norm), with exact launch counts
+   per gradient;
+8. the second main path: ``run_ps`` on ``--model gemma3-4b`` (the reduced
+   decoder, as the reference's PS trainer runs it), P = 4, ring, 64 KiB
+   buckets, 16 rounds, Sync EASGD and then Sync SGD, counters 0 before each
+   run and read after: every kernel must have launched exactly as often as
+   the warm-up, the rounds and the evals imply.
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, a JSON ``kernels`` line, and the JSON result line
@@ -26,6 +42,8 @@ sources beside this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -36,13 +54,21 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parent / "src"
 
 # data-sheet peaks per card (memory bytes/s, f64 operations/s outside the
-# tensor cores), matched on the name nvidia-smi reports; first match wins
-PEAKS = (("H100 PCIe", 2.0e12, 25.6e12), ("H100 NVL", 3.9e12, 30e12),
-         ("H200", 4.8e12, 34e12), ("H100", 3.35e12, 34e12))
+# tensor cores, dense bf16 tensor-core operations/s), matched on the name
+# nvidia-smi reports; first match wins
+PEAKS = (("H100 PCIe", 2.0e12, 25.6e12, 756e12),
+         ("H100 NVL", 3.9e12, 30e12, 835e12),
+         ("H200", 4.8e12, 34e12, 989e12),
+         ("H100", 3.35e12, 34e12, 989e12))
 
 ETA, RHO, MU = 0.05, 0.07, 0.9
 N_ALEXNET = 6_976_842
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/elastic_update.cu"
+N_GEMMA_6L = 1_237_356_032
+CSRC = "src/repro_torch/kernels/csrc/"
+KERNEL_SOURCE = CSRC + "elastic_update.cu"
+# tolerances of tests/test_kernels.py: f32 forward / backward, bf16
+TOL = {("float32", "fwd"): 1e-5, ("float32", "bwd"): 1e-4,
+       ("bfloat16", "fwd"): 2e-2, ("bfloat16", "bwd"): 2e-2}
 
 
 def check(ok: bool, what: str) -> None:
@@ -59,9 +85,9 @@ def card_line() -> str:
 
 
 def peaks_for(name: str) -> tuple:
-    for key, bw, f64 in PEAKS:
+    for key, *peaks in PEAKS:
         if key in name:
-            return bw, f64
+            return tuple(peaks)
     raise RuntimeError(f"no data-sheet peaks for card '{name}'")
 
 
@@ -209,7 +235,7 @@ def phase_gradients(torch, zoo, timing) -> None:
               f"({ms[True]:.2f} ms through cuDNN)", flush=True)
 
 
-def phase_main_path(torch, runtime, zoo, eu, EASGDConfig) -> dict:
+def phase_main_path(torch, runtime, zoo, eu, EASGDConfig) -> None:
     """Full-width AlexNet, P = 4, ring, 4 MiB buckets; counters 0 before
     each run and read just after."""
     p, rounds = 4, 16
@@ -217,7 +243,6 @@ def phase_main_path(torch, runtime, zoo, eu, EASGDConfig) -> dict:
     # the port and on the reference alike; 0.005 stays finite
     easgd = EASGDConfig(eta=0.005, rho=0.01, mu=MU)
     problem = zoo.resolve("alexnet")
-    launches = {}
     # the update runs over the whole row once per round: every worker's
     # easgd launch (rank 0's also writes the center), one sgd launch
     for algo, kernel, expected in (
@@ -229,7 +254,6 @@ def phase_main_path(torch, runtime, zoo, eu, EASGDConfig) -> dict:
         eu.reset_launch_counts()
         res = runtime.run_ps(problem, easgd, cfg, device="cuda")
         counts = eu.launch_counts()
-        launches[kernel.__name__] = counts[kernel.__name__]
         check(res.center.numel() == N_ALEXNET and res.workers.shape
               == (p, N_ALEXNET), f"{algo} result shapes")
         check(bool(torch.isfinite(res.center).all())
@@ -244,7 +268,383 @@ def phase_main_path(torch, runtime, zoo, eu, EASGDConfig) -> dict:
               f"{res.total_time_s:.3f} s = {us:.1f} us/iter, final err "
               f"{res.final_metric:.4f}, counters {res.counters}, launches "
               f"{counts}", flush=True)
-    return launches
+
+
+# ---------------------------------------------------------------------------
+# the gemma3-4b slice: attention and cross-entropy kernels
+# ---------------------------------------------------------------------------
+
+def held(got, want) -> tuple:
+    """(max |got - want|, max |got - want| / (1 + |want|)); the second is
+    what an allclose with rtol = atol = tol holds to tol."""
+    diff = (got.float() - want.float()).abs()
+    return (diff.max().item(),
+            (diff / (1.0 + want.float().abs())).max().item())
+
+
+def attn_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave in one head: the work this run's
+    masks need, not the S² a dense product would do."""
+    total = 0
+    for q in range(S):
+        lo = max(0, q - window + 1) if window else 0
+        hi = q + 1 if causal else S
+        total += max(0, hi - lo)
+    return total
+
+
+# B, S, H, KVH, D, causal, window, dtype, timed: gemma3-4b's local and
+# global layers at full width, and small ragged f32 shapes
+ATTN_CASES = ((1, 4096, 8, 4, 256, True, 1024, "bfloat16", True),
+              (1, 4096, 8, 4, 256, True, 0, "bfloat16", True),
+              (1, 100, 4, 2, 16, True, 9, "float32", False),
+              (1, 100, 4, 2, 16, False, 0, "float32", False))
+# T, d, V, dtype, timed: gemma3-4b's loss head at full width, and small
+CE_CASES = ((4096, 2560, 262144, "bfloat16", True),
+            (100, 16, 300, "float32", False))
+
+
+def phase_attention(torch, F, fa, timing, dev, bw, bf16,
+                    cases=ATTN_CASES) -> dict:
+    """Attention kernels against their plain versions; times at full
+    width beside the bound and scaled_dot_product_attention."""
+    rows = {"flash_attention_fwd": {}, "flash_attention_bwd": {}}
+    for i, (B, S, H, KVH, D, causal, window, dt, timed) in \
+            enumerate(cases):
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device=dev)
+                       .to(dtype) for h in (H, KVH, KVH, H))
+        args = (causal, window)
+        out, lse = fa.flash_attention_fwd(q, k, v, *args)
+        p_out, p_lse = fa.flash_attention_fwd_ref(q, k, v, *args)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
+        p_grads = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, *args)
+        torch.cuda.synchronize()
+        tag = (f"B={B} S={S} H={H} KVH={KVH} D={D} causal={causal} "
+               f"window={window} {dt}")
+        for name, pairs, kind in (
+                ("flash_attention_fwd", ((out, p_out), (lse, p_lse)), "fwd"),
+                ("flash_attention_bwd", tuple(zip(grads, p_grads)), "bwd")):
+            tol = TOL[dt, kind]
+            errs = [held(a, b) for a, b in pairs]
+            abs_err = max(e[0] for e in errs)
+            rel_err = max(e[1] for e in errs)
+            check(rel_err <= tol, f"{name} {tag}: error {rel_err:.3e} > "
+                  f"tol {tol:g}")
+            row = rows[name]
+            row["max_abs_err"] = max(row.get("max_abs_err", 0.0), abs_err)
+            row["max_err"] = max(row.get("max_err", 0.0), rel_err)
+            row["tol"] = max(row.get("tol", 0.0), tol)
+            print(f"{name} {tag}: kernel vs plain max |err| {abs_err:.3e}, "
+                  f"max |err|/(1+|plain|) {rel_err:.3e} (tol {tol:g})",
+                  flush=True)
+        if not timed:
+            continue
+        es = q.element_size()
+        pairs = B * H * attn_pairs(S, causal, window)
+        qo = B * S * H * D * es
+        kv = B * S * KVH * D * es
+        lse_b = B * S * H * 4
+        # forward: s = q·kᵀ and p·v over the unmasked pairs; backward: s
+        # again, dp, dv, dq, dk (the flash backward's five products)
+        b_fwd = bound(2 * qo + 2 * kv + lse_b, 4 * pairs * D, bw, bf16)
+        b_bwd = bound(4 * qo + 4 * kv + lse_b, 10 * pairs * D, bw, bf16)
+        # the library's same function: the (B, H, S, D) layout, GQA by
+        # enable_gqa, the window as a boolean mask
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        mask = None
+        if window:
+            ii = torch.arange(S, device=dev)
+            mask = ((ii[:, None] >= ii[None, :])
+                    & (ii[:, None] - ii[None, :] < window))
+
+        def lib(qt=qt, kt=kt, vt=vt, mask=mask):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+
+        ql, kl, vl = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+        lib_out = lib(ql, kl, vl)
+        t = {
+            "fwd": timing.cuda_time_ms(
+                lambda: fa.flash_attention_fwd(q, k, v, *args), reps=10),
+            "fwd_plain": timing.cuda_time_ms(
+                lambda: fa.flash_attention_fwd_ref(q, k, v, *args), reps=5),
+            "fwd_lib": timing.cuda_time_ms(lib, reps=10),
+            "bwd": timing.cuda_time_ms(
+                lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, *args),
+                reps=10),
+            "bwd_plain": timing.cuda_time_ms(
+                lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                   *args), reps=3),
+            "bwd_lib": timing.cuda_time_ms(
+                lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dot,
+                                            retain_graph=True), reps=10),
+        }
+        suffix = "" if window == 0 else f"_window{window}"
+        for name, kind, (b_ms, by) in (("flash_attention_fwd", "fwd", b_fwd),
+                                       ("flash_attention_bwd", "bwd", b_bwd)):
+            rows[name].update({
+                "ms" + suffix: t[kind],
+                "plain_ms" + suffix: t[kind + "_plain"],
+                "library_ms" + suffix: t[kind + "_lib"],
+                "bound_ms" + suffix: b_ms, "bound_by" + suffix: by})
+            print(f"{name} {tag}: kernel {t[kind]:.4f} ms, plain "
+                  f"{t[kind + '_plain']:.4f} ms, scaled_dot_product_attention "
+                  f"{t[kind + '_lib']:.4f} ms, bound {b_ms:.4f} ms ({by})",
+                  flush=True)
+    rows["flash_attention_fwd"]["replaces"] = \
+        "src/repro/kernels/flash_attention.py:75"
+    rows["flash_attention_bwd"]["replaces"] = \
+        "src/repro/models/attention.py:222"
+    return rows
+
+
+def phase_cross_entropy(torch, F, ce, timing, dev, bw, bf16,
+                        cases=CE_CASES) -> dict:
+    """Cross-entropy kernels against their plain versions; times at full
+    width beside the bound and the two-call library form."""
+    rows = {"fused_ce_fwd": {}, "fused_ce_bwd": {}}
+    for i, (T, d, V, dt, timed) in enumerate(cases):
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=dev).manual_seed(200 + i)
+        h = torch.randn(T, d, generator=gen, device=dev).to(dtype)
+        # w = eᵀ with e (V, d) contiguous: the tied embedding's layout
+        e = (torch.randn(V, d, generator=gen, device=dev) * 0.02).to(dtype)
+        w = e.t()
+        y = torch.randint(0, V, (T,), generator=gen, device=dev)
+        g = torch.rand(T, generator=gen, device=dev)
+        loss, lse, pred = ce.fused_ce_fwd(h, w, y)
+        p_loss, p_lse, p_pred = ce.fused_ce_fwd_ref(h, w, y)
+        dh, dw = ce.fused_ce_bwd(h, w, y, lse, g)
+        p_dh, p_dw = ce.fused_ce_bwd_ref(h, w, y, lse, g)
+        torch.cuda.synchronize()
+        tag = f"T={T} d={d} V={V} {dt}"
+        # an argmax may differ only where the top logits tie within the
+        # rounding of two f32 sums
+        off = (pred != p_pred).nonzero().flatten()
+        if off.numel():
+            logits = h[off].float() @ w.float()
+            top = logits.max(dim=-1).values
+            picked = logits.gather(1, pred[off, None])[:, 0]
+            check(bool(((top - picked) <= 1e-5 * (1 + top.abs())).all()),
+                  f"fused_ce_fwd {tag}: argmax off by more than a tie")
+        for name, pairs, kind in (
+                ("fused_ce_fwd", ((loss, p_loss), (lse, p_lse)), "fwd"),
+                ("fused_ce_bwd", ((dh, p_dh), (dw, p_dw)), "bwd")):
+            tol = TOL[dt, kind]
+            errs = [held(a, b) for a, b in pairs]
+            abs_err = max(x[0] for x in errs)
+            rel_err = max(x[1] for x in errs)
+            check(rel_err <= tol, f"{name} {tag}: error {rel_err:.3e} > "
+                  f"tol {tol:g}")
+            row = rows[name]
+            row["max_abs_err"] = max(row.get("max_abs_err", 0.0), abs_err)
+            row["max_err"] = max(row.get("max_err", 0.0), rel_err)
+            row["tol"] = max(row.get("tol", 0.0), tol)
+            ties = (f"; argmax differs on {off.numel()} of {T} tokens "
+                    f"(ties)" if kind == "fwd" else "")
+            print(f"{name} {tag}: kernel vs plain max |err| {abs_err:.3e}, "
+                  f"max |err|/(1+|plain|) {rel_err:.3e} (tol {tol:g}){ties}",
+                  flush=True)
+        if not timed:
+            continue
+        es = h.element_size()
+        flop = 2.0 * T * d * V
+        b_fwd = bound(T * d * es + d * V * es + T * 8 + T * (4 + 4 + 8),
+                      flop, bw, bf16)
+        # backward: logits again, dh = dlogits·wᵀ, dw = hᵀ·dlogits
+        b_bwd = bound(2 * (T * d * es + d * V * es) + T * (8 + 4 + 4),
+                      3 * flop, bw, bf16)
+        t = {
+            "fwd": timing.cuda_time_ms(lambda: ce.fused_ce_fwd(h, w, y),
+                                       reps=5, warmup=1),
+            "fwd_plain": timing.cuda_time_ms(
+                lambda: ce.fused_ce_fwd_ref(h, w, y), reps=5, warmup=1),
+            "bwd": timing.cuda_time_ms(
+                lambda: ce.fused_ce_bwd(h, w, y, lse, g), reps=3, warmup=1),
+            "bwd_plain": timing.cuda_time_ms(
+                lambda: ce.fused_ce_bwd_ref(h, w, y, lse, g), reps=3,
+                warmup=1),
+            "two_calls": timing.cuda_time_ms(
+                lambda: F.cross_entropy(h @ w, y), reps=5, warmup=1),
+        }
+        for name, kind, (b_ms, by) in (("fused_ce_fwd", "fwd", b_fwd),
+                                       ("fused_ce_bwd", "bwd", b_bwd)):
+            rows[name].update({"ms": t[kind], "plain_ms": t[kind + "_plain"],
+                               "bound_ms": b_ms, "bound_by": by,
+                               "library_ms": None})
+            print(f"{name} {tag}: kernel {t[kind]:.4f} ms, plain "
+                  f"{t[kind + '_plain']:.4f} ms, bound {b_ms:.4f} ms ({by})",
+                  flush=True)
+        print(f"F.cross_entropy(h @ W, y) {tag}: {t['two_calls']:.4f} ms "
+              f"(two calls, a matmul and the loss: no single PyTorch call "
+              f"computes the fused function)", flush=True)
+        rows["fused_ce_fwd"]["two_call_library_ms"] = t["two_calls"]
+    rows["fused_ce_fwd"]["replaces"] = "src/repro/kernels/fused_ce.py:67"
+    rows["fused_ce_bwd"]["replaces"] = "src/repro/models/transformer.py:302"
+    return rows
+
+
+@contextlib.contextmanager
+def plain_versions(fa, ce):
+    """Route the autograd functions through the plain versions on the card
+    (the wrappers themselves never fall back)."""
+    saved = (fa.flash_attention_fwd, fa.flash_attention_bwd,
+             ce.fused_ce_fwd, ce.fused_ce_bwd)
+    fa.flash_attention_fwd = fa.flash_attention_fwd_ref
+    fa.flash_attention_bwd = fa.flash_attention_bwd_ref
+    ce.fused_ce_fwd, ce.fused_ce_bwd = ce.fused_ce_fwd_ref, ce.fused_ce_bwd_ref
+    try:
+        yield
+    finally:
+        (fa.flash_attention_fwd, fa.flash_attention_bwd, ce.fused_ce_fwd,
+         ce.fused_ce_bwd) = saved
+
+
+def phase_full_width(torch, np, cfg, S, tfm, common, fa, ce, kernels,
+                     timing, dev) -> dict:
+    """gemma3-4b at full width, 6 layers, B 1, S 4096: loss and gradient
+    through the kernels against the plain versions."""
+    n = tfm.n_params(cfg)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    init = common.init_params(tfm.model_defs(cfg),
+                              torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+    leaf = torch.cat([t.reshape(-1) for _, t in
+                      common.tree_leaves_with_path(init)])
+    del init
+    tok = torch.from_numpy(np.random.RandomState(7).randint(
+        0, cfg.vocab_size, size=(1, S + 1))).to(dev)
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:],
+             "mask": torch.ones((1, S), device=dev)}
+
+    def gradient():
+        w = leaf.detach().requires_grad_(True)
+        loss, metrics = tfm.lm_loss(cfg, tfm.unflatten(w, cfg), batch)
+        loss.backward()
+        return loss.detach(), w.grad, metrics
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    loss_k, grad_k, metrics = gradient()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {"fused_sync_easgd_update": 0, "fused_sync_sgd_update": 0,
+            "flash_attention_fwd": 6, "flash_attention_bwd": 6,
+            "fused_ce_fwd": 1, "fused_ce_bwd": 1}
+    check(counts == want, f"launches per full-width gradient {counts}")
+    peak = torch.cuda.max_memory_allocated()
+    with timing.Timer("cuda") as tm:
+        gradient()
+    ms = 1e3 * tm.elapsed
+    with plain_versions(fa, ce):
+        loss_p, grad_p, _ = gradient()
+        with timing.Timer("cuda") as tm_p:
+            gradient()
+    rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    rel_grad = (torch.linalg.vector_norm(grad_k - grad_p)
+                / torch.linalg.vector_norm(grad_p)).item()
+    check(math.isfinite(loss_k.item())
+          and bool(torch.isfinite(grad_k).all()),
+          "full-width loss and gradient finite")
+    check(rel_loss <= 1e-3, f"full-width loss kernels vs plain {rel_loss:.3e}")
+    check(rel_grad <= 2e-2, f"full-width gradient kernels vs plain "
+          f"{rel_grad:.3e}")
+    out = {"params": n, "loss": loss_k.item(), "loss_plain": loss_p.item(),
+           "rel_loss": rel_loss, "rel_grad": rel_grad, "ms": ms,
+           "plain_ms": 1e3 * tm_p.elapsed, "peak_bytes": peak,
+           "accuracy": metrics["accuracy"].item(), "launches": counts}
+    print(f"full width {cfg.name} {cfg.n_layers} layers n={n} B=1 S={S}: "
+          f"loss kernels "
+          f"{out['loss']:.6f} plain {out['loss_plain']:.6f} (rel "
+          f"{rel_loss:.3e}, limit 1e-3), gradient rel norm {rel_grad:.3e} "
+          f"(limit 2e-2); {ms:.1f} ms per gradient through the kernels, "
+          f"{out['plain_ms']:.1f} ms through the plain versions; peak "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated); launches per "
+          f"gradient {counts}", flush=True)
+    return out
+
+
+def phase_lm_main_path(torch, runtime, zoo, kernels, comm_rounds,
+                       EASGDConfig, timing, device="cuda") -> dict:
+    """``--model gemma3-4b`` on the PS trainer, P = 4, ring, 64 KiB
+    buckets, 16 rounds; counters 0 before each run and read just after.
+    First the time of one gradient alone, on a private minibatch stream,
+    to set a round's four gradients against the round."""
+    p, rounds = 4, 16
+    easgd = EASGDConfig(eta=0.05, rho=0.05, mu=MU)
+    problem = zoo.resolve("gemma3-4b")
+    w0, grad_fn, _ = problem.build(device)
+    n = w0.numel()
+    grad_fn(w0, 0, -9)                                   # warm-up
+    with timing.Timer(device) as tm:
+        for k in range(10):
+            grad_fn(w0, k, -9)
+    print(f"gemma3-4b reduced gradient (n={n}) alone: "
+          f"{1e3 * tm.elapsed / 10:.2f} ms per gradient", flush=True)
+    bounds = comm_rounds.default_bucket_boundaries(
+        grad_fn.layer_sizes, n + (-n) % p, 64 << 10)
+    # every worker warms up on 2 gradients, then takes one per round; the
+    # run ends with one eval (a forward without backward)
+    grads, evals = 2 * p + rounds * p, 1
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+    for algo, update, n_update in (
+            ("sync_easgd", "fused_sync_easgd_update", p * rounds),
+            ("sync_sgd", "fused_sync_sgd_update", rounds)):
+        cfg = runtime.PSConfig(algorithm=algo, n_workers=p,
+                               total_iters=p * rounds, schedule="ring",
+                               eval_every_iters=10**9, bucket_bytes=64 << 10)
+        kernels.reset_launch_counts()
+        res = runtime.run_ps(problem, easgd, cfg, device=device)
+        counts = kernels.launch_counts()
+        expected = {"fused_sync_easgd_update": 0, "fused_sync_sgd_update": 0,
+                    "flash_attention_fwd": 6 * (grads + evals),
+                    "flash_attention_bwd": 6 * grads,
+                    "fused_ce_fwd": grads + evals, "fused_ce_bwd": grads}
+        expected[update] = n_update
+        check(counts == expected, f"{algo} on gemma3-4b launched {counts}, "
+              f"expected {expected}")
+        check(res.center.numel() == n and bool(
+            torch.isfinite(res.center).all()) and bool(
+            torch.isfinite(res.workers).all())
+            and math.isfinite(res.final_metric), f"{algo} finite result")
+        for k, v in counts.items():
+            totals[k] += v
+        us = 1e6 * res.total_time_s / res.total_iters
+        print(f"main path {algo} gemma3-4b reduced n={n} P={p} ring "
+              f"bucket=64KiB ({len(bounds) - 1} buckets): {res.total_iters} "
+              f"iters in {res.total_time_s:.3f} s = {us:.1f} us/iter, final "
+              f"eval loss {res.final_metric:.4f}, counters {res.counters}, "
+              f"launches {counts}", flush=True)
+    return totals
+
+
+SOURCES = {"fused_sync_easgd_update": "elastic_update.cu",
+           "fused_sync_sgd_update": "elastic_update.cu",
+           "flash_attention_fwd": "flash_attention.cu",
+           "flash_attention_bwd": "flash_attention.cu",
+           "fused_ce_fwd": "fused_ce.cu", "fused_ce_bwd": "fused_ce.cu"}
+FIRST_KEYS = ("name", "route", "source", "replaces", "launches",
+              "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
+
+
+def kernel_rows(rows: dict, launches: dict) -> list:
+    """The ``kernels`` JSON line: one entry per kernel of the port, the
+    contract's keys first, then what else the phases measured."""
+    out = []
+    for k, src in SOURCES.items():
+        row = dict(rows[k], name=k, route="cuda", source=CSRC + src,
+                   launches=launches[k])
+        row.setdefault("library_ms", None)
+        row.setdefault("tol", 0.0)          # the f64 updates: bitwise
+        out.append({**{x: row[x] for x in FIRST_KEYS},
+                    **{x: row[x] for x in row if x not in FIRST_KEYS}})
+    return out
 
 
 def main() -> int:
@@ -257,18 +657,28 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch import configs, kernels
+    from repro_torch.comm import rounds as comm_rounds
     from repro_torch.core.easgd import EASGDConfig
     from repro_torch.kernels import _build
     from repro_torch.kernels import elastic_update as eu
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_ce as ce
+    from repro_torch.models import common
+    from repro_torch.models import transformer as tfm
     from repro_torch.ps import problems, runtime, zoo
     from repro_torch.utils import timing
 
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    bw, f64 = peaks_for(card)
+    bw, f64, bf16 = peaks_for(card)
     print(f"card: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | peaks {bw / 1e12:g} TB/s, f64 "
-          f"{f64 / 1e12:g} TFLOP/s", flush=True)
+          f"{f64 / 1e12:g} TFLOP/s, bf16 {bf16 / 1e12:g} TFLOP/s",
+          flush=True)
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
@@ -289,22 +699,30 @@ def main() -> int:
     phase_gradients(torch, zoo, timing)
     print(f"phase gradients: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
-    launches = phase_main_path(torch, runtime, zoo, eu, EASGDConfig)
+    phase_main_path(torch, runtime, zoo, eu, EASGDConfig)
     print(f"phase main path: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    rows.update(phase_attention(torch, F, fa, timing, dev, bw, bf16))
+    rows.update(phase_cross_entropy(torch, F, ce, timing, dev, bw, bf16))
+    print(f"phase lm kernels: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    full = dataclasses.replace(configs.get("gemma3-4b").config, n_layers=6)
+    check(tfm.n_params(full) == N_GEMMA_6L, "gemma3-4b at 6 layers")
+    phase_full_width(torch, np, full, 4096, tfm, common, fa, ce, kernels,
+                     timing, dev)
+    print(f"phase full width: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    launches = phase_lm_main_path(torch, runtime, zoo, kernels, comm_rounds,
+                                  EASGDConfig, timing)
+    print(f"phase lm main path: {time.perf_counter() - t:.1f} s", flush=True)
 
     check("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),
         "no jax and no reference module imported")
-    kernels = [dict(name=k, route="cuda", source=KERNEL_SOURCE,
-                    replaces=row["replaces"], launches=launches[k],
-                    max_abs_err=row["max_abs_err"], ms=row["ms"],
-                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                    bound_by=row["bound_by"], library_ms=None, equal=True,
-                    **{x: row[x] for x in row if x.endswith("without_center")})
-               for k, row in rows.items()]
+    rows_out = kernel_rows(rows, launches)
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,29 @@
+"""Architecture registry (the port of ``repro/configs/__init__.py``).
+
+The registry knows every arch id of the reference. Only gemma3-4b is
+ported; ``get`` raises ``NotImplementedError`` for the others.
+"""
+from __future__ import annotations
+
+from repro_torch.configs import gemma3_4b
+from repro_torch.configs.base import (ALL_SHAPES, QUADRATIC_SHAPES, SHAPES,
+                                      ArchSpec)
+
+ARCH_IDS = ("gemma3-4b", "qwen1.5-4b", "phi3-mini-3.8b", "gemma3-27b",
+            "qwen2-vl-72b", "mamba2-780m", "musicgen-medium",
+            "recurrentgemma-2b", "grok-1-314b", "deepseek-v2-236b")
+
+ARCHS = {gemma3_4b.SPEC.arch_id: gemma3_4b.SPEC}
+
+__all__ = ["ALL_SHAPES", "ARCHS", "ARCH_IDS", "ArchSpec", "QUADRATIC_SHAPES",
+           "SHAPES", "get"]
+
+
+def get(arch_id: str) -> ArchSpec:
+    if arch_id in ARCHS:
+        return ARCHS[arch_id]
+    if arch_id in ARCH_IDS:
+        raise NotImplementedError(
+            f"arch '{arch_id}' is not ported to repro_torch yet (ported: "
+            f"{sorted(ARCHS)}); see ROADMAP.md, queue 1")
+    raise ValueError(f"unknown arch '{arch_id}'; have: {sorted(ARCH_IDS)}")

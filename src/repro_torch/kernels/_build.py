@@ -1,4 +1,5 @@
-"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``,
+and keep the wrappers' launch counts.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/repro_torch_kernels/lib<name>-<hash>.so`` at the root of the
@@ -96,3 +97,40 @@ def load(name: str) -> ctypes.CDLL:
                 _finish(name, started)
             lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+# ---------------------------------------------------------------------------
+# launch bookkeeping shared by the wrappers
+# ---------------------------------------------------------------------------
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a plain integer); called right after
+    a kernel launch succeeded, nowhere else."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
+def check_rc(rc: int, name: str) -> None:
+    """Raise if a C launcher returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def reset_counts(wrappers) -> None:
+    with _COUNT_LOCK:
+        for w in wrappers:
+            w.launches = 0
+
+
+def counts(wrappers) -> dict:
+    return {w.__name__: w.launches for w in wrappers}
+
+
+def stream_of(t) -> int:
+    """The current CUDA stream on ``t``'s device, as the C launchers take
+    it."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

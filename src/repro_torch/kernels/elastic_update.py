@@ -25,13 +25,11 @@ and the kernels on the card bit for bit.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
 from repro_torch.kernels import _build
 
-_COUNT_LOCK = threading.Lock()
 _c_ptr, _c_long, _c_double, _c_int = (ctypes.c_void_p, ctypes.c_long,
                                       ctypes.c_double, ctypes.c_int)
 
@@ -66,16 +64,6 @@ def _check(*tensors: torch.Tensor) -> int:
     if t0.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {t0.device}")
     return t0.numel()
-
-
-def _launched(wrapper) -> None:
-    with _COUNT_LOCK:
-        wrapper.launches += 1
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
 def _divisor(p: int, like: torch.Tensor) -> torch.Tensor:
@@ -119,8 +107,8 @@ def fused_sync_easgd_update(w, grad, center, row, p: int, eta: float,
             None if center_out is None else center_out.data_ptr(), n,
             float(eta), float(rho), (float(eta) * float(rho)) * p, int(p),
             torch.cuda.current_stream(w.device).cuda_stream)
-    _raise_on(rc, "fused_sync_easgd_update")
-    _launched(fused_sync_easgd_update)
+    _build.check_rc(rc, "fused_sync_easgd_update")
+    _build.count_launch(fused_sync_easgd_update)
 
 
 fused_sync_easgd_update.launches = 0
@@ -154,8 +142,8 @@ def fused_sync_sgd_update(center, vel, row, p: int, eta: float,
             center.data_ptr(), vel.data_ptr(), row.data_ptr(), n,
             float(eta), float(mu), int(p),
             torch.cuda.current_stream(center.device).cuda_stream)
-    _raise_on(rc, "fused_sync_sgd_update")
-    _launched(fused_sync_sgd_update)
+    _build.check_rc(rc, "fused_sync_sgd_update")
+    _build.count_launch(fused_sync_sgd_update)
 
 
 fused_sync_sgd_update.launches = 0
@@ -164,10 +152,8 @@ KERNELS = (fused_sync_easgd_update, fused_sync_sgd_update)
 
 
 def reset_launch_counts() -> None:
-    with _COUNT_LOCK:
-        for k in KERNELS:
-            k.launches = 0
+    _build.reset_counts(KERNELS)
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    return _build.counts(KERNELS)

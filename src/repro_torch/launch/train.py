@@ -6,10 +6,15 @@ Sync SGD parameter-server runtime on the thread transport (the port of
         --algorithm sync_easgd --transport thread --model alexnet \\
         --ps-workers 4 --ps-iters 64 --bucket-bytes 4194304 --device cuda
 
+    PYTHONPATH=src python -m repro_torch.launch.train --mode ps \\
+        --model gemma3-4b --ps-workers 2 --ps-iters 8 --device cpu
+
 Each algorithm prints the reference's result line without the DES columns
-(the DES cross-check is not ported yet), plus the fused kernels' launch
-counts for the run. ``--device`` defaults to ``cuda``; ``--device cpu``
-runs the kernels' plain versions on the CPU.
+(the DES cross-check is not ported yet), plus the launch counts of every
+kernel of the port for the run (the update kernels; with ``--model
+gemma3-4b`` also the attention and cross-entropy kernels). ``--device``
+defaults to ``cuda``; ``--device cpu`` runs the kernels' plain versions on
+the CPU.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from repro_torch.comm import schedules as comm_schedules  # noqa: E402
 from repro_torch.core import costmodel  # noqa: E402
 from repro_torch.core.easgd import EASGDConfig  # noqa: E402
 from repro_torch.core.easgd_flat import SYNC_FAMILY  # noqa: E402
-from repro_torch.kernels import elastic_update  # noqa: E402
+from repro_torch import kernels  # noqa: E402
 from repro_torch.ps import runtime, zoo  # noqa: E402
 
 
@@ -41,13 +46,13 @@ def run_ps_mode(args) -> list:
             total_iters=args.ps_iters, eval_every_iters=args.ps_eval_every,
             emulate_net=costmodel.PS_WIRE if args.emulate == "wire" else None,
             bucket_bytes=args.bucket_bytes)
-        elastic_update.reset_launch_counts()
+        kernels.reset_launch_counts()
         res = runtime.run_ps(problem, easgd, cfg, device=args.device)
         us = 1e6 * res.total_time_s / max(res.total_iters, 1)
         print(f"{algo:16s} [{res.transport}/{res.schedule}@{res.device}] "
               f"iters={res.total_iters} err={res.final_metric:.3f} "
               f"measured={us:.1f}us/iter counters={res.counters} "
-              f"launches={elastic_update.launch_counts()}", flush=True)
+              f"launches={kernels.launch_counts()}", flush=True)
         out.append(res)
     return out
 
@@ -61,7 +66,8 @@ def main(argv=None):
                     choices=list(SYNC_FAMILY) + ["all-sync"])
     ap.add_argument("--transport", default="thread", choices=["thread"])
     ap.add_argument("--model", default="tiny-mlp",
-                    help="tiny-mlp (default), mlp, lenet or alexnet")
+                    help="tiny-mlp (default), mlp, lenet, alexnet or "
+                         "gemma3-4b (the reduced decoder LM)")
     ap.add_argument("--ps-workers", type=int, default=4)
     ap.add_argument("--ps-iters", type=int, default=400)
     ap.add_argument("--ps-eval-every", type=int, default=200)

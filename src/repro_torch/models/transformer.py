@@ -1,0 +1,222 @@
+"""Decoder LM: the dense layer kinds of the reference's pattern-cycled
+stack, its forward and its loss (the port of ``repro/models/
+transformer.py``: ``model_defs``, ``forward`` without caches,
+``_unembed_weight``, ``_divisor_chunk`` and ``lm_loss``).
+
+Per pattern slot the layer params are stacked on a leading ``n_periods``
+dim, as in the reference; the forward walks the periods in a Python loop
+(the reference's ``lax.scan``). The loss head is the fused cross-entropy
+(``kernels.fused_ce.FusedCrossEntropy``): the CUDA kernels on the card,
+the dense plain version on the CPU.
+
+Flat rows: ``ravel_layout`` / ``flatten_params`` / ``unflatten`` follow
+``jax.flatten_util.ravel_pytree``'s order (dict keys sorted: ``blocks``,
+``embed``, ``final_norm``, ``rem``; inside a block ``attn`` {k_norm,
+q_norm, wk, wo, wq, wv}, ``ffn`` {w_down, w_gate, w_up}, ``norm1``,
+``norm2``), and ``params_from_jax`` carries the reference's params across.
+
+Not ported yet (see ROADMAP.md): the ``mla``, ``moe``, ``ssm`` and
+``rglru`` kinds, caches, ``prefill`` / ``decode_step``, and ``cfg.remat``
+(the port keeps every layer's activations for the backward).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.fused_ce import FusedCrossEntropy
+from repro_torch.models import attention
+from repro_torch.models import ffn as ffn_lib
+from repro_torch.models.common import (ModelConfig, ParamDef, rms_norm,
+                                       tree_leaves_with_path, tree_map)
+from repro_torch.utils.device import resolve_device
+
+DENSE_KINDS = ("attn", "local")
+
+
+def _unported(kind):
+    return NotImplementedError(
+        f"layer kind '{kind}' is not ported to repro_torch yet (ported: "
+        f"{DENSE_KINDS}); see ROADMAP.md, queue 1")
+
+
+# ---------------------------------------------------------------------------
+# parameter definitions
+# ---------------------------------------------------------------------------
+
+def _block_defs(cfg: ModelConfig, kind: str) -> dict:
+    if kind not in DENSE_KINDS:
+        if kind in ("mla", "ssm", "rglru") or kind.startswith("moe"):
+            raise _unported(kind)
+        raise ValueError(f"unknown layer kind {kind}")
+    if cfg.moe is not None:
+        raise _unported("moe")
+    d = cfg.d_model
+    return {"norm1": ParamDef((d,), ("embed",), init="zeros"),
+            "attn": attention.attention_defs(cfg),
+            "norm2": ParamDef((d,), ("embed",), init="zeros"),
+            "ffn": ffn_lib.ffn_defs(cfg)}
+
+
+def _stack_defs(defs, n: int):
+    return tree_map(lambda p: ParamDef((n,) + p.shape, ("layers",) + p.logical,
+                                       p.init, p.scale), defs)
+
+
+def model_defs(cfg: ModelConfig) -> dict:
+    d, V = cfg.d_model, cfg.vocab_size
+    defs = {
+        "embed": ParamDef((V, d), ("vocab", "embed")),
+        "final_norm": ParamDef((d,), ("embed",), init="zeros"),
+        "blocks": tuple(_stack_defs(_block_defs(cfg, kind), cfg.n_periods)
+                        for kind in cfg.pattern),
+        "rem": tuple(_block_defs(cfg, kind) for kind in cfg.remainder_kinds),
+    }
+    if not cfg.tie_embeddings:
+        defs["unembed"] = ParamDef((d, V), ("embed", "vocab"))
+    return defs
+
+
+# ---------------------------------------------------------------------------
+# flat rows
+# ---------------------------------------------------------------------------
+
+def ravel_layout(cfg: ModelConfig) -> list:
+    """``[(path, shape)]`` in flat-row order (``ravel_pytree``)."""
+    return [(path, d.shape)
+            for path, d in tree_leaves_with_path(model_defs(cfg))]
+
+
+def n_params(cfg: ModelConfig) -> int:
+    return sum(math.prod(s) for _, s in ravel_layout(cfg))
+
+
+def flatten_params(params) -> torch.Tensor:
+    """The flat f64 row in ``ravel_pytree`` order."""
+    return torch.cat([leaf.reshape(-1).to(torch.float64)
+                      for _, leaf in tree_leaves_with_path(params)])
+
+
+def unflatten(row: torch.Tensor, cfg: ModelConfig):
+    """Views of ``row`` as the parameter pytree (no copy)."""
+    layout = ravel_layout(cfg)
+    total = sum(math.prod(s) for _, s in layout)
+    if row.dim() != 1 or row.numel() != total:
+        raise ValueError(f"row has {row.numel()} elements, {cfg.name} needs "
+                         f"{total}")
+    views, off = {}, 0
+    for path, shape in layout:
+        size = math.prod(shape)
+        views[path] = row[off:off + size].view(shape)
+        off += size
+    return _assemble(model_defs(cfg), views)
+
+
+def _assemble(defs, views, path=()):
+    if isinstance(defs, dict):
+        return {k: _assemble(v, views, path + (k,)) for k, v in defs.items()}
+    if isinstance(defs, tuple):
+        return tuple(_assemble(v, views, path + (i,))
+                     for i, v in enumerate(defs))
+    return views[path]
+
+
+def params_from_jax(params_or_flat_row, cfg: ModelConfig, device=None):
+    """Carry the reference's params across: ``params_or_flat_row`` is the
+    reference's param pytree (nested dicts / tuples of arrays) or its flat
+    ``ravel_pytree`` row. Returns ``(params, row)``: the pytree as f32
+    tensors in the same layout, and the flat f64 row."""
+    dev = resolve_device(device)
+    layout = ravel_layout(cfg)
+    if isinstance(params_or_flat_row, dict):
+        leaves = tree_leaves_with_path(params_or_flat_row)
+        if [p for p, _ in leaves] != [p for p, _ in layout]:
+            raise ValueError(f"param paths do not match {cfg.name}'s layout")
+        parts = []
+        for (path, leaf), (_, shape) in zip(leaves, layout):
+            a = np.asarray(leaf)
+            if a.shape != tuple(shape):
+                raise ValueError(f"{path}: shape {a.shape} != {shape}")
+            parts.append(np.asarray(a, np.float64).reshape(-1))
+        flat = np.concatenate(parts)
+    else:
+        flat = np.asarray(params_or_flat_row, np.float64)
+    row = torch.from_numpy(np.array(flat, dtype=np.float64)).to(dev)
+    params = tree_map(lambda t: t.to(torch.float32).clone(),
+                      unflatten(row, cfg))
+    return params, row
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _apply_block(cfg: ModelConfig, kind: str, p, x, positions):
+    h = rms_norm(x, p["norm1"])
+    y, _ = attention.attention_block(cfg, p["attn"], h, positions, kind=kind)
+    x = x + y
+    h2 = rms_norm(x, p["norm2"])
+    return x + ffn_lib.ffn_block(cfg, p["ffn"], h2)
+
+
+def forward(cfg: ModelConfig, params, tokens, *, positions=None):
+    """tokens: (B, S) int64. Returns ``(hidden (B, S, d), None, aux)`` like
+    the reference's training forward (no caches; aux is 0 for dense)."""
+    cd = cfg.compute_dtype
+    B, S = tokens.shape
+    h = params["embed"][tokens].to(cd)
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    for i in range(cfg.n_periods):
+        for s, kind in enumerate(cfg.pattern):
+            p_s = tree_map(lambda t, i=i: t[i], params["blocks"][s])
+            h = _apply_block(cfg, kind, p_s, h, positions)
+    for i, kind in enumerate(cfg.remainder_kinds):
+        h = _apply_block(cfg, kind, params["rem"][i], h, positions)
+    h = rms_norm(h, params["final_norm"])
+    return h, None, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+# ---------------------------------------------------------------------------
+# LM head / loss
+# ---------------------------------------------------------------------------
+
+def _unembed_weight(cfg: ModelConfig, params):
+    if cfg.tie_embeddings:
+        return params["embed"].T                      # (d, V)
+    return params["unembed"]
+
+
+def _divisor_chunk(T: int, want: int) -> int:
+    c = min(want, T)
+    while T % c:
+        c -= 1
+    return max(c, 1)
+
+
+def lm_loss(cfg: ModelConfig, params, batch):
+    """Next-token cross-entropy. batch: {tokens (B,S), targets (B,S),
+    mask (B,S)}. Returns ``(loss, {ce, aux, accuracy, tokens})`` like the
+    reference. The reference chunks the sequence to bound its logits
+    memory; the fused kernels never hold the logits, so the port runs the
+    whole batch through one call (only the order of the final sums
+    differs)."""
+    if cfg.logit_softcap:
+        raise NotImplementedError(
+            "logit_softcap is not supported by the fused cross-entropy; see "
+            "ROADMAP.md")
+    h, _, aux = forward(cfg, params, batch["tokens"])
+    B, S, d = h.shape
+    w = _unembed_weight(cfg, params).to(h.dtype)
+    mask = batch["mask"].to(torch.float32).reshape(-1)
+    targets = batch["targets"].reshape(-1).to(torch.int64)
+    loss_t, pred = FusedCrossEntropy.apply(h.reshape(B * S, d), w, targets)
+    n_tok = mask.sum()
+    denom = torch.clamp_min(n_tok, 1.0)
+    ce = (loss_t * mask).sum() / denom
+    correct = ((pred == targets).to(torch.float32) * mask).sum()
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux, "accuracy": correct / denom,
+                  "tokens": n_tok}

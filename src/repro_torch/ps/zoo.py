@@ -1,5 +1,5 @@
-"""The paper's CNNs as PS problems (the port of ``repro/ps/zoo.py``:
-``make_zoo_cnn`` and ``resolve``).
+"""Real models as PS problems (the port of ``repro/ps/zoo.py``:
+``make_zoo_lm``, ``make_zoo_cnn`` and ``resolve``).
 
 The gradient is computed on the run's device. The f64 row is cast to ONE
 f32 leaf with ``requires_grad``; the parameters are views of that leaf in
@@ -14,14 +14,86 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import configs
 from repro_torch.data.synthetic import make_classification_dataset
 from repro_torch.models import cnn
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import init_params
 from repro_torch.ps.problems import (NUMPY_MLP, NUMPY_MLP_MED, ProblemSpec,
                                      spec)
 from repro_torch.utils.device import resolve_device
 
 _CNNS = {"lenet": ((28, 28, 1), cnn.lenet_init, cnn.lenet_apply),
          "alexnet": ((32, 32, 3), cnn.alexnet_init, cnn.alexnet_apply)}
+
+
+def _fp32_products() -> None:
+    """The reference's f32 products are full f32 and its bf16 products sum
+    in f32; on the card that means TF32 off and no reduced-precision bf16
+    reductions in cuBLAS (process-wide settings)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def _row_from(w0, dev) -> torch.Tensor:
+    if isinstance(w0, torch.Tensor):
+        return w0.detach().to(dev, torch.float64).clone()
+    return torch.from_numpy(np.array(w0, dtype=np.float64)).to(dev)
+
+
+def make_zoo_lm(arch: str = "gemma3-4b", seq: int = 24, batch: int = 2,
+                seed: int = 0, w0=None, device=None):
+    """The reduced-config decoder LM of ``arch`` as a PS problem:
+    next-token loss on synthetic token streams, as the reference builds it
+    (``repro/ps/zoo.py:48``): worker ``w`` draws its batches from
+    ``np.random.RandomState(1000 + w)``, the eval batch comes from
+    ``RandomState(seed + 7)``, and ``grad_fn.layer_sizes`` lists the
+    leaves in ravel order. The gradient is ``lm_loss``'s on one f32 leaf
+    whose views are the params, so ``leaf.grad`` is the flat row.
+
+    ``w0`` is a flat row in the reference's layout (the reference's own
+    init, carried across); without it the port draws its own init from
+    ``torch.Generator().manual_seed(seed)``."""
+    dev = resolve_device(device)
+    _fp32_products()
+    cfg = configs.get(arch).reduced
+    if w0 is None:
+        gen = torch.Generator().manual_seed(seed)
+        row = tfm.flatten_params(
+            init_params(tfm.model_defs(cfg), gen, device=dev))
+    else:
+        row = _row_from(w0, dev)
+    layout = tfm.ravel_layout(cfg)
+    if row.numel() != sum(math.prod(s) for _, s in layout):
+        raise ValueError(f"w0 has {row.numel()} elements, not {arch}'s")
+
+    def _tokens(rng):
+        t = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                         size=(batch, seq + 1))).to(dev)
+        return {"tokens": t[:, :-1], "targets": t[:, 1:],
+                "mask": torch.ones((batch, seq), dtype=torch.float32,
+                                   device=dev)}
+
+    rngs: dict = {}
+
+    def grad_fn(w, step, worker):
+        rng = rngs.setdefault(worker, np.random.RandomState(1000 + worker))
+        leaf = w.detach().to(torch.float32).requires_grad_(True)
+        loss, _ = tfm.lm_loss(cfg, tfm.unflatten(leaf, cfg), _tokens(rng))
+        loss.backward()
+        return leaf.grad.to(torch.float64)
+
+    eval_batch = _tokens(np.random.RandomState(seed + 7))
+
+    @torch.no_grad()
+    def eval_fn(w):
+        loss, _ = tfm.lm_loss(cfg, tfm.unflatten(w.to(torch.float32), cfg),
+                              eval_batch)
+        return float(loss)
+
+    grad_fn.layer_sizes = [math.prod(s) for _, s in layout]
+    return row, grad_fn, eval_fn
 
 
 def make_zoo_cnn(model: str = "lenet", seed: int = 0, n_train: int = 512,
@@ -36,14 +108,12 @@ def make_zoo_cnn(model: str = "lenet", seed: int = 0, n_train: int = 512,
     if model not in _CNNS:
         raise ValueError(f"unknown cnn '{model}' (lenet/alexnet)")
     dev = resolve_device(device)
-    # The reference's math is full f32. cuDNN convolutions default to TF32
-    # (about three decimal digits), and even in full f32 cuDNN's backward
+    # The reference's math is full f32. Even in full f32 cuDNN's backward
     # algorithms put AlexNet's conv weight gradients 3.9e-5 (relative norm)
     # away from the CPU's on an H100, where PyTorch's native convolution
-    # stays at 1.9e-6. So TF32 is off for matmuls and convolutions, and the
-    # convolutions do not go through cuDNN at all (process-wide settings).
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # stays at 1.9e-6. So the convolutions do not go through cuDNN at all
+    # (a process-wide setting).
+    _fp32_products()
     torch.backends.cudnn.enabled = False
     shape, init, apply = _CNNS[model]
     x, y = make_classification_dataset(n_train + n_test, shape=shape,
@@ -54,10 +124,8 @@ def make_zoo_cnn(model: str = "lenet", seed: int = 0, n_train: int = 512,
     if w0 is None:
         gen = torch.Generator().manual_seed(seed)
         row = cnn.flatten_params(init(gen, device=dev))
-    elif isinstance(w0, torch.Tensor):
-        row = w0.detach().to(dev, torch.float64).clone()
     else:
-        row = torch.from_numpy(np.array(w0, dtype=np.float64)).to(dev)
+        row = _row_from(w0, dev)
     layout = cnn.ravel_layout(model)
     if row.numel() != sum(math.prod(s) for _, s in layout):
         raise ValueError(f"w0 has {row.numel()} elements, not {model}'s")
@@ -83,14 +151,17 @@ def make_zoo_cnn(model: str = "lenet", seed: int = 0, n_train: int = 512,
 
 
 def resolve(name: str) -> ProblemSpec:
-    """``--model`` name -> ProblemSpec. The reference's other zoo entries
-    (jax-mlp, mlp-large and the decoder LMs of ``repro.configs``) are not
-    ported yet."""
+    """``--model`` name -> ProblemSpec. Ported arch ids map to
+    ``make_zoo_lm``; the reference's other entries (jax-mlp, mlp-large and
+    the unported arch ids) raise ``NotImplementedError``."""
     fixed = {"tiny-mlp": NUMPY_MLP_MED, "mlp": NUMPY_MLP}
     if name in fixed:
         return fixed[name]
     if name in _CNNS:
         return spec("repro_torch.ps.zoo:make_zoo_cnn", model=name)
+    if name in configs.ARCHS:
+        return spec("repro_torch.ps.zoo:make_zoo_lm", arch=name)
     raise NotImplementedError(
         f"model '{name}' is not ported to repro_torch yet (this slice has "
-        f"{sorted(fixed) + sorted(_CNNS)}); see ROADMAP.md, queue 1")
+        f"{sorted(fixed) + sorted(_CNNS) + sorted(configs.ARCHS)}); see "
+        f"ROADMAP.md, queue 1")

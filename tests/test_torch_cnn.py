@@ -119,7 +119,11 @@ def test_zoo_resolve_names():
     assert zoo.resolve("alexnet").factory == "repro_torch.ps.zoo:make_zoo_cnn"
     assert zoo.resolve("tiny-mlp").kwargs == ref_zoo.resolve(
         "tiny-mlp").kwargs
-    for name in ("gemma3-4b", "jax-mlp"):
+    lm, ref_lm = zoo.resolve("gemma3-4b"), ref_zoo.resolve("gemma3-4b")
+    assert lm.factory == "repro_torch.ps.zoo:make_zoo_lm"
+    assert ref_lm.factory == "repro.ps.zoo:make_zoo_lm"
+    assert lm.kwargs == ref_lm.kwargs == (("arch", "gemma3-4b"),)
+    for name in ("jax-mlp", "mamba2-780m"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             zoo.resolve(name)
     with pytest.raises(ValueError):

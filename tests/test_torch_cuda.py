@@ -1,22 +1,28 @@
-"""The port on the card: its CUDA kernels against their plain versions, and
-the runtime's card runs against its CPU runs, bit for bit. Every test is
-marked ``cuda`` and skips without a GPU.
+"""The port on the card: its CUDA kernels against their plain versions (bit
+for bit for the f64 updates, at the stated tolerances for attention and
+cross-entropy), the runtime's card runs against its CPU runs, and the LM's
+gradient through the kernels. Every test is marked ``cuda`` and skips
+without a GPU.
 
 This file imports only torch, numpy and the port, so it runs on a machine
 without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The oracles are the CPU paths, which tests/test_torch_elastic_update.py
-and tests/test_torch_ps.py pin to the reference bit for bit.
+The oracles are the plain versions and the CPU paths, which
+tests/test_torch_{elastic_update,ps,attention,fused_ce,lm}.py hold against
+the reference.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import kernels
 from repro_torch.core.easgd import EASGDConfig
 from repro_torch.kernels import elastic_update as eu
-from repro_torch.ps import problems, runtime
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fused_ce
+from repro_torch.ps import problems, runtime, zoo
 
 ETA, RHO, MU = 0.05, 0.07, 0.9
 
@@ -78,3 +84,94 @@ def test_cuda_run_equals_cpu_run(cuda, algo):
                          "fused_sync_sgd_update": 0} if algo == "sync_easgd"
                         else {"fused_sync_easgd_update": 0,
                               "fused_sync_sgd_update": rounds})
+
+
+# tolerances of tests/test_kernels.py: f32 forward, f32 backward, bf16
+TOL = {(torch.float32, "fwd"): 1e-5, (torch.float32, "bwd"): 1e-4,
+       (torch.bfloat16, "fwd"): 2e-2, (torch.bfloat16, "bwd"): 2e-2}
+
+
+def _counts(**launched):
+    return {k.__name__: launched.get(k.__name__, 0) for k in kernels.KERNELS}
+
+
+def _close(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KVH,D,causal,window,dtype", [
+    (1, 100, 4, 2, 16, True, 9, torch.float32),
+    (1, 70, 2, 2, 32, False, 0, torch.float32),
+    (2, 130, 4, 2, 64, True, 0, torch.bfloat16),
+    (1, 200, 8, 4, 256, True, 64, torch.bfloat16),
+    (1, 96, 4, 1, 128, True, 0, torch.float32),
+])
+def test_attention_kernels_match_plain_versions(cuda, B, S, H, KVH, D,
+                                                causal, window, dtype):
+    rng = np.random.RandomState(S + D)
+    q, k, v, do = (torch.from_numpy(rng.randn(B, S, h, D).astype(
+        np.float32)).to(cuda, dtype) for h in (H, KVH, KVH, H))
+    kernels.reset_launch_counts()
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, window)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == _counts(flash_attention_fwd=1,
+                                              flash_attention_bwd=1)
+    p_out, p_lse = fa.flash_attention_fwd_ref(q, k, v, causal, window)
+    _close(out, p_out, TOL[dtype, "fwd"])
+    _close(lse, p_lse, TOL[dtype, "fwd"])
+    p_grads = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                         window)
+    for g, w in zip(grads, p_grads):
+        assert g.dtype == dtype
+        _close(g, w, TOL[dtype, "bwd"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,d,V,dtype", [
+    (100, 16, 300, torch.float32),
+    (257, 32, 130, torch.float32),
+    (64, 64, 1000, torch.bfloat16),     # tensor cores; ragged vocab tile
+    (256, 48, 520, torch.bfloat16),     # whole token tiles on both sides
+    (100, 24, 300, torch.bfloat16),     # d % 16 != 0: the CUDA-core route
+])
+def test_cross_entropy_kernels_match_plain_versions(cuda, T, d, V, dtype):
+    rng = np.random.RandomState(T + V)
+    h = torch.from_numpy(rng.randn(T, d).astype(np.float32)).to(cuda, dtype)
+    w = torch.from_numpy((rng.randn(d, V) * 0.1).astype(np.float32)).to(
+        cuda, dtype)
+    t = torch.from_numpy(rng.randint(0, V, size=T)).to(cuda)
+    g = torch.from_numpy(rng.rand(T).astype(np.float32)).to(cuda)
+    kernels.reset_launch_counts()
+    loss, lse, pred = fused_ce.fused_ce_fwd(h, w, t)
+    dh, dw = fused_ce.fused_ce_bwd(h, w, t, lse, g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == _counts(fused_ce_fwd=1,
+                                              fused_ce_bwd=1)
+    p_loss, p_lse, p_pred = fused_ce.fused_ce_fwd_ref(h, w, t)
+    _close(loss, p_loss, TOL[dtype, "fwd"])
+    _close(lse, p_lse, TOL[dtype, "fwd"])
+    assert torch.equal(pred, p_pred)
+    p_dh, p_dw = fused_ce.fused_ce_bwd_ref(h, w, t, lse, g)
+    assert dh.dtype == dw.dtype == dtype
+    _close(dh, p_dh, TOL[dtype, "bwd"])
+    _close(dw, p_dw, TOL[dtype, "bwd"])
+
+
+@pytest.mark.cuda
+def test_lm_gradient_on_the_card_matches_the_cpu(cuda):
+    """Reduced gemma3-4b, bf16 compute: the gradient through the kernels
+    against the CPU's plain path, and the kernels' launches per gradient
+    (one attention forward and backward per layer, one CE each)."""
+    w0, g_cpu, _ = zoo.make_zoo_lm("gemma3-4b", device="cpu")
+    w_gpu, g_gpu, _ = zoo.make_zoo_lm("gemma3-4b", w0=w0, device=cuda)
+    kernels.reset_launch_counts()
+    got = g_gpu(w_gpu, 0, 0).cpu()
+    assert kernels.launch_counts() == _counts(
+        flash_attention_fwd=6, flash_attention_bwd=6, fused_ce_fwd=1,
+        fused_ce_bwd=1)
+    want = g_cpu(w0, 0, 0)
+    rel = float(torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want))
+    assert rel <= 2e-2
