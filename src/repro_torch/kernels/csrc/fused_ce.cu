@@ -17,10 +17,11 @@
 // the forward is one T x V x d product, 5.50e12 flop, and the backward at
 // least three (logits again, dh, dW): operations, not bytes, bound it
 // (about 5.6 ms and 16.7 ms at the H100's 989 TFLOP/s in bf16). bf16 rows
-// with d a multiple of 16 take the tensor cores (wmma 16x16x16, f32
-// accumulation, staged through shared memory without a copy pipeline);
-// f32 rows, and a ragged last tile of the backward's second product, take
-// f32 FMA on the CUDA cores. Neither is near the bound: no TMA, no wgmma,
+// take the tensor cores (wmma 16x16x16, f32 accumulation, staged through
+// shared memory without a copy pipeline), and so need d a multiple of 16
+// and 32-byte-aligned bases: the launchers refuse anything else. f32 rows,
+// and a ragged last tile of the backward's second product, take f32 FMA on
+// the CUDA cores. Neither is near the bound: no TMA, no wgmma,
 // no warp specialisation. What the design keeps is the memory side: the
 // T x V logits never reach device memory.
 //
@@ -205,7 +206,7 @@ __global__ void __launch_bounds__(kThreads)
 ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ e,
               const long long* __restrict__ y, float* __restrict__ part_f,
               int* __restrict__ part_i, int n_tok, int V, int d,
-              int v_per_split, int use_tc) {
+              int v_per_split) {
     __shared__ __align__(32) float a_s[kKC * (kFwdT + 4)];
     __shared__ __align__(32) float b_s[kKC * (kFwdV + 4)];
     const int t0 = blockIdx.x * kFwdT, split = blockIdx.y;
@@ -229,20 +230,13 @@ ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ e,
     for (int v0 = v_begin; v0 < v_end; v0 += kFwdV) {
         float acc[kFwdTR][kFwdTC];
         if constexpr (std::is_same<T, Bf16>::value) {
-            if (use_tc) {
-                // the f32 staging tiles are free on this path: they hold
-                // the bf16 chunks (10,240 of 17,408 bytes) and c_s is its
-                // own 17,408 bytes
-                __shared__ __align__(32) float c_s[kFwdT * (kFwdV + 4)];
-                nt_tile_tc<kFwdT, kFwdV, kFwdTR, kFwdTC>(
-                    h + (long)t0 * d, n_tok - t0, e + (long)v0 * d,
-                    v_end - v0, d, reinterpret_cast<Bf16*>(a_s),
-                    reinterpret_cast<Bf16*>(b_s), c_s, acc);
-            } else {
-                nt_tile<T, kFwdT, kFwdV, kFwdTR, kFwdTC>(
-                    h + (long)t0 * d, n_tok - t0, e + (long)v0 * d,
-                    v_end - v0, d, a_s, b_s, acc);
-            }
+            // the f32 staging tiles hold the bf16 chunks (10,240 of 17,408
+            // bytes) and c_s is its own 17,408 bytes
+            __shared__ __align__(32) float c_s[kFwdT * (kFwdV + 4)];
+            nt_tile_tc<kFwdT, kFwdV, kFwdTR, kFwdTC>(
+                h + (long)t0 * d, n_tok - t0, e + (long)v0 * d, v_end - v0,
+                d, reinterpret_cast<Bf16*>(a_s), reinterpret_cast<Bf16*>(b_s),
+                c_s, acc);
         } else {
             nt_tile<T, kFwdT, kFwdV, kFwdTR, kFwdTC>(
                 h + (long)t0 * d, n_tok - t0, e + (long)v0 * d, v_end - v0,
@@ -347,7 +341,10 @@ constexpr int kGLd = kBwdO + 8;        // bf16 row stride of the hi / lo tiles
 // (row stride d, a multiple of 16) on the tensor cores. G is split into
 // bf16 hi + lo, which carries it to within 2^-16 of its f32 value (the
 // outputs are rounded to bf16, 2^-9), and both halves go through wmma with
-// f32 accumulation. Each warp owns 16-column strips of acc_s.
+// f32 accumulation. The tensor cores' f32 accumulation truncates, so the
+// tile's sum starts from zero and joins acc_s through one rounded add:
+// chained through acc_s, dh's 2,048 vocab tiles at V 262144 biased it by
+// about 1e-3 of its size. Each warp owns 16-column strips of acc_s.
 __device__ __forceinline__ void nn_tile_tc(float* acc_s, const Bf16* gh_s,
                                            const Bf16* gl_s,
                                            const Bf16* __restrict__ Y,
@@ -355,8 +352,8 @@ __device__ __forceinline__ void nn_tile_tc(float* acc_s, const Bf16* gh_s,
     using namespace nvcuda;
     constexpr int kWarps = kThreads / 32;
     for (int c0 = (threadIdx.x / 32) * 16; c0 < d; c0 += kWarps * 16) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf;
-        wmma::load_matrix_sync(cf, acc_s + c0, d, wmma::mem_row_major);
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf, ca;
+        wmma::fill_fragment(cf, 0.f);
 #pragma unroll
         for (int ko = 0; ko < kBwdO; ko += 16) {
             wmma::fragment<wmma::matrix_a, 16, 16, 16, Bf16, wmma::row_major>
@@ -369,21 +366,24 @@ __device__ __forceinline__ void nn_tile_tc(float* acc_s, const Bf16* gh_s,
             wmma::mma_sync(cf, ah, b, cf);
             wmma::mma_sync(cf, al, b, cf);
         }
-        wmma::store_matrix_sync(acc_s + c0, cf, d, wmma::mem_row_major);
+        // fragments of one type share one element layout
+        wmma::load_matrix_sync(ca, acc_s + c0, d, wmma::mem_row_major);
+#pragma unroll
+        for (int i = 0; i < ca.num_elements; ++i) ca.x[i] += cf.x[i];
+        wmma::store_matrix_sync(acc_s + c0, ca, d, wmma::mem_row_major);
     }
 }
 
 // kOwnTokens: the block's 16 rows are tokens and it writes dh; otherwise
-// they are vocab rows and it writes dW^T (V, d). use_tc (bf16 only): the
-// logits tiles on the tensor cores, and so the dlogits products of whole
-// tiles; a ragged last tile takes the CUDA-core product, which reads no row
-// past the end.
+// they are vocab rows and it writes dW^T (V, d). bf16: the logits tiles on
+// the tensor cores, and so the dlogits products of whole tiles; a ragged
+// last tile takes the CUDA-core product, which reads no row past the end.
 template <typename T, bool kOwnTokens>
 __global__ void __launch_bounds__(kThreads)
 ce_bwd_kernel(const T* __restrict__ h, const T* __restrict__ e,
               const long long* __restrict__ y, const float* __restrict__ lse,
               const float* __restrict__ g, T* __restrict__ out, int n_tok,
-              int V, int d, int use_tc) {
+              int V, int d) {
     extern __shared__ __align__(32) float smem[];
     float* acc_s = smem;                               // [kBwdR][d]
     float* a_s = acc_s + kBwdR * d;                    // [kKC][kBwdR + 4]
@@ -406,16 +406,12 @@ ce_bwd_kernel(const T* __restrict__ h, const T* __restrict__ e,
         float acc[kBwdTR][kBwdTC];
         bool tc_tile = false;
         if constexpr (std::is_same<T, Bf16>::value) {
-            tc_tile = use_tc && n_o == kBwdO;
-            if (use_tc)      // the f32 staging tiles hold the bf16 chunks
-                nt_tile_tc<kBwdR, kBwdO, kBwdTR, kBwdTC>(
-                    own + (long)r0 * d, n_own - r0, oth + (long)o0 * d,
-                    n_o, d, reinterpret_cast<Bf16*>(a_s),
-                    reinterpret_cast<Bf16*>(b_s), c_s, acc);
-            else
-                nt_tile<T, kBwdR, kBwdO, kBwdTR, kBwdTC>(
-                    own + (long)r0 * d, n_own - r0, oth + (long)o0 * d, n_o,
-                    d, a_s, b_s, acc);
+            tc_tile = n_o == kBwdO;
+            // the f32 staging tiles hold the bf16 chunks
+            nt_tile_tc<kBwdR, kBwdO, kBwdTR, kBwdTC>(
+                own + (long)r0 * d, n_own - r0, oth + (long)o0 * d, n_o, d,
+                reinterpret_cast<Bf16*>(a_s), reinterpret_cast<Bf16*>(b_s),
+                c_s, acc);
         } else {
             nt_tile<T, kBwdR, kBwdO, kBwdTR, kBwdTC>(
                 own + (long)r0 * d, n_own - r0, oth + (long)o0 * d, n_o, d,
@@ -500,25 +496,27 @@ size_t bwd_smem(int d) {
            sizeof(Bf16) * 2 * kBwdR * kGLd;
 }
 
-// the tensor-core path: bf16 rows, d a multiple of 16, 32-byte-aligned bases
+// what the tensor cores need of bf16 rows: d a multiple of 16 and
+// 32-byte-aligned bases (the wrapper checks first; this refuses what a
+// caller of the C function gets wrong)
 template <typename T>
-int tc_usable(const void* h, const void* e, int d) {
+bool rows_ok(const void* h, const void* e, int d) {
     const auto aligned = [](const void* p) {
         return (reinterpret_cast<std::uintptr_t>(p) & 31u) == 0;
     };
-    return std::is_same<T, Bf16>::value && d % 16 == 0 && aligned(h) &&
-           aligned(e);
+    return !std::is_same<T, Bf16>::value ||
+           (d % 16 == 0 && aligned(h) && aligned(e));
 }
 
 template <typename T>
 int fwd(const void* h, const void* e, const long long* y, float* part_f,
         int* part_i, float* loss, float* lse, long long* pred, int n_tok,
         int V, int d, int v_per_split, cudaStream_t st) {
+    if (!rows_ok<T>(h, e, d)) return (int)cudaErrorInvalidValue;
     const int n_split = (V + v_per_split - 1) / v_per_split;
     ce_fwd_kernel<T><<<dim3((n_tok + kFwdT - 1) / kFwdT, n_split), kThreads,
                        0, st>>>((const T*)h, (const T*)e, y, part_f, part_i,
-                                n_tok, V, d, v_per_split,
-                                tc_usable<T>(h, e, d));
+                                n_tok, V, d, v_per_split);
     if (int rc = (int)cudaGetLastError()) return rc;
     ce_merge_kernel<<<(n_tok + kThreads - 1) / kThreads, kThreads, 0, st>>>(
         part_f, part_i, loss, lse, pred, n_tok, n_split);
@@ -529,6 +527,7 @@ template <typename T>
 int bwd(const void* h, const void* e, const long long* y, const float* lse,
         const float* g, void* dh, void* de, int n_tok, int V, int d,
         cudaStream_t st) {
+    if (!rows_ok<T>(h, e, d)) return (int)cudaErrorInvalidValue;
     const size_t bytes = bwd_smem(d);
     auto k_dh = ce_bwd_kernel<T, true>;
     auto k_de = ce_bwd_kernel<T, false>;
@@ -538,12 +537,11 @@ int bwd(const void* h, const void* e, const long long* y, const float* lse,
     if (int rc = (int)cudaFuncSetAttribute(
             k_de, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes))
         return rc;
-    const int use_tc = tc_usable<T>(h, e, d);
     k_dh<<<(n_tok + kBwdR - 1) / kBwdR, kThreads, bytes, st>>>(
-        (const T*)h, (const T*)e, y, lse, g, (T*)dh, n_tok, V, d, use_tc);
+        (const T*)h, (const T*)e, y, lse, g, (T*)dh, n_tok, V, d);
     if (int rc = (int)cudaGetLastError()) return rc;
     k_de<<<(V + kBwdR - 1) / kBwdR, kThreads, bytes, st>>>(
-        (const T*)h, (const T*)e, y, lse, g, (T*)de, n_tok, V, d, use_tc);
+        (const T*)h, (const T*)e, y, lse, g, (T*)de, n_tok, V, d);
     return (int)cudaGetLastError();
 }
 
@@ -551,7 +549,8 @@ int bwd(const void* h, const void* e, const long long* y, const float* lse,
 
 // dtype: 0 = float32, 1 = bfloat16. part_f (n_split, T, 4) f32 and part_i
 // (n_split, T) int32 are scratch the caller allocates, n_split =
-// ceil(V / v_per_split); v_per_split is a multiple of 64.
+// ceil(V / v_per_split); v_per_split is a multiple of 64. bf16 rows need d
+// a multiple of 16 and 32-byte-aligned h and e, else cudaErrorInvalidValue.
 extern "C" int repro_ce_fwd(const void* h, const void* e, const void* y,
                             void* part_f, void* part_i, void* loss, void* lse,
                             void* pred, int n_tok, int V, int d,
@@ -567,7 +566,8 @@ extern "C" int repro_ce_fwd(const void* h, const void* e, const void* y,
                               n_tok, V, d, v_per_split, st);
 }
 
-// d must be even; dh (T, d) and de (V, d) in the inputs' dtype.
+// d must be even (bf16: as for repro_ce_fwd); dh (T, d) and de (V, d) in
+// the inputs' dtype.
 extern "C" int repro_ce_bwd(const void* h, const void* e, const void* y,
                             const void* lse, const void* g, void* dh,
                             void* de, int n_tok, int V, int d, int dtype,

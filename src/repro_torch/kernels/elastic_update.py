@@ -147,13 +147,3 @@ def fused_sync_sgd_update(center, vel, row, p: int, eta: float,
 
 
 fused_sync_sgd_update.launches = 0
-
-KERNELS = (fused_sync_easgd_update, fused_sync_sgd_update)
-
-
-def reset_launch_counts() -> None:
-    _build.reset_counts(KERNELS)
-
-
-def launch_counts() -> dict:
-    return _build.counts(KERNELS)

@@ -21,8 +21,10 @@ consumes it. They read w as its transpose ``(V, d)``, which is how the
 tied embedding already lies in memory (``w = embed.T``).
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernels of ``csrc/fused_ce.cu`` or raises. A
-nonzero ``logit_softcap`` raises ``NotImplementedError``: no config sets it.
+tensors it launches the kernels of ``csrc/fused_ce.cu`` or raises. bf16
+rows run on the tensor cores, which need d a multiple of 16 and h at a
+32-byte-aligned address; anything else raises. A nonzero
+``logit_softcap`` raises ``NotImplementedError``: no config sets it.
 """
 from __future__ import annotations
 
@@ -80,7 +82,12 @@ def _cuda_args(h, w, targets):
     d = h.shape[1]
     if d % 2 or d > MAX_D:
         raise ValueError(f"d = {d}: the kernels take an even d <= {MAX_D}")
-    return _DTYPES[h.dtype], w.t().contiguous()
+    wt = w.t().contiguous()
+    if h.dtype == torch.bfloat16 and (
+            d % 16 or h.data_ptr() % 32 or wt.data_ptr() % 32):
+        raise ValueError(f"bf16 rows on the tensor cores need d % 16 == 0 "
+                         f"(d = {d}) and 32-byte-aligned h and w")
+    return _DTYPES[h.dtype], wt
 
 
 # ---------------------------------------------------------------------------
