@@ -37,7 +37,26 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    decoder, as the reference's PS trainer runs it), P = 4, ring, 64 KiB
    buckets, 16 rounds, Sync EASGD and then Sync SGD, counters 0 before each
    run and read after: every kernel must have launched exactly as often as
-   the warm-up, the rounds and the evals imply.
+   the warm-up, the rounds and the evals imply;
+9. hold ``fused_elastic_update`` against its plain version on the card, bit
+   for bit, at n ∈ {1188, 131072+777, 6,976,842} × P ∈ {1, 2, 4} over the
+   storage dtypes (all f32; params f32 with momentum and center bf16; all
+   bf16), and time both at P = 2, f32, n = 2^28 (CUDA events, median of
+   10) beside the bytes bound;
+10. the third main path at full width: the packed multi-pod Sync EASGD step
+   (``runtime.train.build_train_step``) on gemma3-4b cut to 6 layers, P = 2
+   pods, B 1 per pod, S 4096, psum, overlap on, 3 steps, counters 0 before
+   each step and read after (the update kernel once, attention 6·P and
+   cross-entropy P times each way); the first step's update is held bit for
+   bit against the plain version on a 2^20-element slice of its own
+   inputs; it prints ms per step, the update kernel's time in the step
+   beside its bound, the exchange's time and peak memory;
+11. the launcher's path at reduced width: gemma3-4b reduced, P = 4, B 2 per
+   pod in 2 microbatches, τ = 2, ring, 4 steps, compression none and bf16:
+   overlap on and off give the same bits, the card's state equals a CPU
+   run's (loss 1e-3 relative, params by relative norm 2e-2) and the update
+   launches once per exchange step; then ``repro_torch.launch.train`` with
+   the same settings on the card, with the same exact counts.
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, a JSON ``kernels`` line, and the JSON result line
@@ -50,20 +69,23 @@ import contextlib
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
 
 # data-sheet peaks per card (memory bytes/s, f64 operations/s outside the
-# tensor cores, dense bf16 tensor-core operations/s), matched on the name
-# nvidia-smi reports; first match wins
-PEAKS = (("H100 PCIe", 2.0e12, 25.6e12, 756e12),
-         ("H100 NVL", 3.9e12, 30e12, 835e12),
-         ("H200", 4.8e12, 34e12, 989e12),
-         ("H100", 3.35e12, 34e12, 989e12))
+# tensor cores, dense bf16 tensor-core operations/s, f32 operations/s
+# outside the tensor cores), matched on the name nvidia-smi reports; first
+# match wins
+PEAKS = (("H100 PCIe", 2.0e12, 25.6e12, 756e12, 51.2e12),
+         ("H100 NVL", 3.9e12, 30e12, 835e12, 60e12),
+         ("H200", 4.8e12, 34e12, 989e12, 67e12),
+         ("H100", 3.35e12, 34e12, 989e12, 67e12))
 
 ETA, RHO, MU = 0.05, 0.07, 0.9
 N_ALEXNET = 6_976_842
@@ -243,10 +265,11 @@ def phase_gradients(torch, zoo, timing) -> None:
               f"({ms[True]:.2f} ms through cuDNN)", flush=True)
 
 
-def phase_main_path(torch, runtime, zoo, kernels, EASGDConfig) -> None:
+def phase_main_path(torch, runtime, zoo, kernels, EASGDConfig) -> dict:
     """Full-width AlexNet, P = 4, ring, 4 MiB buckets; counters 0 before
     each run and read just after."""
     p, rounds = 4, 16
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
     # η = 0.01 already diverges on this AlexNet within 64 iterations, on
     # the port and on the reference alike; 0.005 stays finite
     easgd = EASGDConfig(eta=0.005, rho=0.01, mu=MU)
@@ -272,12 +295,15 @@ def phase_main_path(torch, runtime, zoo, kernels, EASGDConfig) -> None:
         expected[update] = n_update
         check(counts == expected, f"{algo} on alexnet launched {counts}, "
               f"expected {expected}")
+        for k, v in counts.items():
+            totals[k] += v
         us = 1e6 * res.total_time_s / res.total_iters
         print(f"main path {algo} alexnet n={res.center.numel()} P={p} "
               f"ring bucket=4MiB: {res.total_iters} iters in "
               f"{res.total_time_s:.3f} s = {us:.1f} us/iter, final err "
               f"{res.final_metric:.4f}, counters {res.counters}, launches "
               f"{counts}", flush=True)
+    return totals
 
 
 # ---------------------------------------------------------------------------
@@ -577,7 +603,7 @@ def phase_full_width(torch, np, cfg, S, tfm, common, fa, ce, kernels,
     counts = kernels.launch_counts()
     want = {"fused_sync_easgd_update": 0, "fused_sync_sgd_update": 0,
             "flash_attention_fwd": 6, "flash_attention_bwd": 6,
-            "fused_ce_fwd": 1, "fused_ce_bwd": 1}
+            "fused_ce_fwd": 1, "fused_ce_bwd": 1, "fused_elastic_update": 0}
     check(counts == want, f"launches per full-width gradient {counts}")
     peak = torch.cuda.max_memory_allocated()
     with timing.Timer("cuda") as tm:
@@ -646,7 +672,8 @@ def phase_lm_main_path(torch, runtime, zoo, kernels, comm_rounds,
         expected = {"fused_sync_easgd_update": 0, "fused_sync_sgd_update": 0,
                     "flash_attention_fwd": 6 * (grads + evals),
                     "flash_attention_bwd": 6 * grads,
-                    "fused_ce_fwd": grads + evals, "fused_ce_bwd": grads}
+                    "fused_ce_fwd": grads + evals, "fused_ce_bwd": grads,
+                    "fused_elastic_update": 0}
         expected[update] = n_update
         check(counts == expected, f"{algo} on gemma3-4b launched {counts}, "
               f"expected {expected}")
@@ -665,14 +692,298 @@ def phase_lm_main_path(torch, runtime, zoo, kernels, comm_rounds,
     return totals
 
 
+# ---------------------------------------------------------------------------
+# the multi-pod slice: the packed Sync EASGD step and fused_elastic_update
+# ---------------------------------------------------------------------------
+
+# storage dtypes of (W, V, G, C, M): the update's inputs as the step holds
+# them, with ElasticConfig's momentum and center dtypes at f32 and at bf16
+ELASTIC_MIXES = (("all f32", ("float32",) * 5),
+                 ("params f32, momentum and center bf16",
+                  ("float32", "bfloat16", "float32", "bfloat16", "float32")),
+                 ("all bf16", ("bfloat16",) * 5))
+
+
+def elastic_bound(p: int, n: int, sizes, bw, f32) -> tuple:
+    """Bound of one fused_elastic_update on P pod rows of n elements whose
+    (W, V, G, C, M) are stored in ``sizes`` bytes per element: W, V and C
+    read and written, G and M read; per element index 7 operations for
+    each pod (V' 3, W' 4) and 3 for C'."""
+    w, v, g, c, m = sizes
+    n_bytes = p * n * (2 * w + 2 * v + g) + n * (2 * c + m)
+    return bound(n_bytes, (7 * p + 3) * n, bw, f32)
+
+
+def phase_elastic_kernel(torch, eu, timing, dev, bw, f32,
+                         sizes=(1188, 131072 + 777, N_ALEXNET),
+                         timed_n=1 << 28) -> dict:
+    """fused_elastic_update against its plain version on the card, bit for
+    bit, over n, P and the storage dtypes; both timed at P = 2, f32,
+    n = 2^28 beside the bytes bound."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def inputs(p, n, dtypes):
+        shapes = [(n,)] * 5 if p == 1 else [(p, n)] * 3 + [(n,)] * 2
+        return [torch.randn(s, generator=gen, device=dev).to(getattr(torch, d))
+                for s, d in zip(shapes, dtypes)]
+
+    for n in sizes:
+        for p in (1, 2, 4):
+            for label, dtypes in ELASTIC_MIXES:
+                xs = inputs(p, n, dtypes)
+                k, pl = [x.clone() for x in xs], [x.clone() for x in xs]
+                eu.fused_elastic_update(*k, eta=ETA, rho=RHO, mu=MU,
+                                        n_workers=p)
+                eu.fused_elastic_update_ref(*pl, eta=ETA, rho=RHO, mu=MU,
+                                            n_workers=p)
+                torch.cuda.synchronize()
+                check(all(torch.equal(k[i], pl[i]) and k[i].dtype == xs[i].dtype
+                          for i in (0, 1, 3)),
+                      f"fused_elastic_update == plain, n={n} P={p} {label}")
+        print(f"fused_elastic_update == plain version at n={n} (P=1, 2, 4; "
+              f"{'; '.join(lb for lb, _ in ELASTIC_MIXES)}): bitwise",
+              flush=True)
+    p, n = 2, timed_n
+    xs = inputs(p, n, ELASTIC_MIXES[0][1])
+    kw = dict(eta=ETA, rho=RHO, mu=MU, n_workers=p)
+    t = {"kernel": timing.cuda_time_ms(
+             lambda: eu.fused_elastic_update(*xs, **kw), reps=10),
+         "plain": timing.cuda_time_ms(
+             lambda: eu.fused_elastic_update_ref(*xs, **kw), reps=10)}
+    b_ms, by = elastic_bound(p, n, [x.element_size() for x in xs], bw, f32)
+    del xs
+    print(f"fused_elastic_update P={p} n={n} f32: kernel {t['kernel']:.4f} "
+          f"ms, plain {t['plain']:.4f} ms, bound {b_ms:.4f} ms ({by}); "
+          f"{b_ms / t['kernel']:.1%} of the bound", flush=True)
+    return {"fused_elastic_update": {
+        "replaces": "src/repro/kernels/elastic_update.py:45",
+        "max_abs_err": 0.0, "ms": t["kernel"], "plain_ms": t["plain"],
+        "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+        "shape": f"P={p} n={n} f32"}}
+
+
+@contextlib.contextmanager
+def watch_update(elastic, eu, torch, sl):
+    """Route the step's update through a spy that brackets each kernel
+    launch with CUDA events and, on the first call, copies the ``sl`` slice
+    of its inputs (W, V, G, C and the pod mean M). The launch itself is the
+    wrapper's, so its count is the step's."""
+    seen = {"events": [], "inputs": None}
+
+    def spy(w, v, g, c, mean_w, **kw):
+        if seen["inputs"] is None:
+            seen["inputs"] = [w[:, sl].clone(), v[:, sl].clone(),
+                              g[:, sl].clone(), c[sl].clone(),
+                              mean_w[sl].clone()]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        eu.fused_elastic_update(w, v, g, c, mean_w, **kw)
+        end.record()
+        seen["events"].append((start, end))
+
+    saved = elastic.eu
+    elastic.eu = types.SimpleNamespace(fused_elastic_update=spy)
+    try:
+        yield seen
+    finally:
+        elastic.eu = saved
+
+
+def step_counts(p: int, layers: int, micro: int = 1, updates: int = 1
+                ) -> dict:
+    """The launches one multi-pod step implies: per pod and microbatch one
+    attention forward and backward per layer and one cross-entropy forward
+    and backward; the update once per exchange step."""
+    return {"fused_sync_easgd_update": 0, "fused_sync_sgd_update": 0,
+            "flash_attention_fwd": layers * p * micro,
+            "flash_attention_bwd": layers * p * micro,
+            "fused_ce_fwd": p * micro, "fused_ce_bwd": p * micro,
+            "fused_elastic_update": updates}
+
+
+def phase_multi_pod(torch, np, cfg, S, elastic, EASGDConfig, train,
+                    synthetic, eu, kernels, timing, dev, bw, f32) -> tuple:
+    """The third main path at full width: the packed multi-pod Sync EASGD
+    step on gemma3-4b (6 layers), P = 2, B 1 per pod, S 4096, psum, overlap
+    on, 3 steps; counters 0 before each step and read after."""
+    p, steps = 2, 3
+    ecfg = elastic.ElasticConfig(easgd=EASGDConfig(eta=ETA, rho=RHO, mu=MU),
+                                 schedule="psum", overlap=True)
+    torch.cuda.empty_cache()
+    build = train.build_train_step(cfg, ecfg, n_pods=p, per_pod_batch=1,
+                                   seq=S, device=dev)
+    state = build.init_state()
+    n = state.params.shape[1]
+    check(state.params.shape == (p, n) and state.center.shape == (n,),
+          "state rows")
+    streams = [synthetic.SyntheticLMStream(cfg.vocab_size, S, 1, seed=13,
+                                           shard=i, n_shards=p)
+               for i in range(p)]
+    lo = n // 2
+    sl = slice(lo, lo + (1 << 20))
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+    ms, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with watch_update(elastic, eu, torch, sl) as seen:
+        for s in range(steps):
+            shards = [st.batch_at(s) for st in streams]
+            batch = {k: np.stack([sh[k] for sh in shards]) for k in shards[0]}
+            kernels.reset_launch_counts()
+            with timing.Timer("cuda") as tm:
+                state, metrics = build.step(state, batch)
+            counts = kernels.launch_counts()
+            want = step_counts(p, cfg.n_layers)
+            check(counts == want, f"multi-pod step {s} launched {counts}, "
+                  f"expected {want}")
+            for k, v in counts.items():
+                totals[k] += v
+            ms.append(1e3 * tm.elapsed)
+            losses.append(metrics["loss"].item())
+            check(math.isfinite(losses[-1]), f"step {s} loss finite")
+            if s == 0:
+                # the step's own update on its own inputs, against the plain
+                # version on the copies taken just before the launch
+                plain = seen["inputs"]
+                eu.fused_elastic_update_ref(*plain, eta=ETA, rho=RHO, mu=MU,
+                                            n_workers=p)
+                check(torch.equal(state.params[:, sl], plain[0])
+                      and torch.equal(state.momentum[:, sl], plain[1])
+                      and torch.equal(state.center[sl], plain[3]),
+                      "step 1's update == plain version on its inputs")
+                del plain, seen["inputs"]
+                seen["inputs"] = ()
+            print(f"multi-pod step {s + 1}: loss {losses[-1]:.6f} acc "
+                  f"{metrics['accuracy'].item():.4f}, {ms[-1]:.1f} ms, "
+                  f"launches {counts}", flush=True)
+        torch.cuda.synchronize()
+        update_ms = sorted(a.elapsed_time(b) for a, b in seen["events"])
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(state.params).all())
+          and bool(torch.isfinite(state.center).all()), "finite state")
+    # the exchange alone, on the main stream: delta = W - C, the psum over
+    # the pod rows, / P, + C (what the step runs on its second stream)
+    ex_ms = timing.cuda_time_ms(
+        lambda: elastic.start_exchange(state, ecfg, build.exchange_plan),
+        reps=5, warmup=1)
+    ex_bound, _ = bound(4 * (p + 2) * n, (2 * p + 1) * n, bw, f32)
+    # G and M are f32 (the step's gradient rows and pod mean)
+    up_bound, up_by = elastic_bound(
+        p, n, (state.params.element_size(), state.momentum.element_size(), 4,
+               state.center.element_size(), 4), bw, f32)
+    step_ms = statistics.median(ms[1:])
+    out = {"params": n, "n_pods": p, "seq": S, "losses": losses,
+           "step_ms": step_ms, "step_ms_all": ms,
+           "update_ms": statistics.median(update_ms),
+           "update_bound_ms": up_bound, "exchange_ms": ex_ms,
+           "exchange_bound_ms": ex_bound, "peak_bytes": peak}
+    print(f"main path multi-pod sync_easgd {cfg.name} {cfg.n_layers} layers "
+          f"n={n} P={p} B=1 S={S} psum overlap: {step_ms:.1f} ms per step "
+          f"(median of steps 2-{steps}; all {[round(x, 1) for x in ms]}); "
+          f"update kernel in the step {out['update_ms']:.3f} ms, bound "
+          f"{up_bound:.3f} ms ({up_by}; {up_bound / out['update_ms']:.1%}); "
+          f"exchange alone {ex_ms:.3f} ms (bound {ex_bound:.3f} ms); peak "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated); losses "
+          f"{[round(x, 6) for x in losses]}", flush=True)
+    return out, totals
+
+
+def phase_launcher_path(torch, np, configs, elastic, EASGDConfig, train,
+                        launcher, kernels, dev) -> dict:
+    """The launcher's path at reduced width: gemma3-4b reduced, P = 4, B 2
+    per pod in 2 microbatches, τ = 2, ring, 4 steps, compression none and
+    bf16; overlap on and off give the same bits on the card, and the card's
+    state equals a CPU run of the same steps from the same state (loss 1e-3
+    relative, params by relative norm 2e-2: the LM gradient's limits).
+    Then ``launch.train --mode sync`` itself on the card."""
+    cfg = configs.get("gemma3-4b").reduced
+    p, B, micro, tau, steps, S = 4, 2, 2, 2, 4, 24
+    rng = np.random.RandomState(0)
+    batches = [{"tokens": rng.randint(0, cfg.vocab_size, (p, B, S)),
+                "targets": rng.randint(0, cfg.vocab_size, (p, B, S)),
+                "mask": np.ones((p, B, S), np.float32)} for _ in range(steps)]
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+    want = {k: v * steps for k, v in step_counts(p, cfg.n_layers, micro,
+                                                 0).items()}
+    want["fused_elastic_update"] = steps // tau
+    for comp in ("none", "bf16"):
+        runs = []
+        for where, overlap in (("cpu", True), (dev, True), (dev, False)):
+            ecfg = elastic.ElasticConfig(
+                easgd=EASGDConfig(eta=0.05, rho=0.05, mu=MU, tau=tau),
+                schedule="ring", compression=comp, overlap=overlap)
+            build = train.build_train_step(cfg, ecfg, n_pods=p,
+                                           per_pod_batch=B, seq=S,
+                                           microbatches=micro, device=where)
+            if where == "cpu":
+                init = build.init_state()
+            state = init.to(where)
+            kernels.reset_launch_counts()
+            losses = []
+            for b in batches:
+                state, metrics = build.step(state, b)
+                losses.append(metrics["loss"].item())
+            counts = kernels.launch_counts()
+            if where == "cpu":
+                check(not any(counts.values()), f"CPU run launched {counts}")
+            else:  # the launch-count check: the runs on the card
+                check(counts == want, f"{comp} overlap={overlap} launched "
+                      f"{counts}, expected {want}")
+                for k, v in counts.items():
+                    totals[k] += v
+            runs.append((state.to("cpu"), losses))
+        (cpu, cpu_losses), (on, on_losses), (off, _) = runs
+        for name in ("params", "momentum", "center", "ef_error"):
+            a, b = getattr(on, name), getattr(off, name)
+            check((a is None and b is None) or torch.equal(a, b),
+                  f"{comp}: overlap on and off, the same {name}")
+        # the compression ran: its error feedback holds the rounding
+        check((on.ef_error is None) == (comp == "none") and (
+            comp == "none" or bool(on.ef_error.abs().max() > 0)),
+            f"{comp}: error feedback")
+        rel_loss = max(abs(a - b) / abs(b)
+                       for a, b in zip(on_losses, cpu_losses))
+        rel_params = rel_norm(on.params, cpu.params)
+        check(rel_loss <= 1e-3, f"{comp}: loss card vs CPU {rel_loss:.3e}")
+        check(rel_params <= 2e-2, f"{comp}: params card vs CPU "
+              f"{rel_params:.3e}")
+        print(f"main path multi-pod {cfg.name} P={p} B={B} micro={micro} "
+              f"tau={tau} ring compression={comp}: overlap on == off, "
+              f"bitwise; card vs CPU loss rel {rel_loss:.3e} (limit 1e-3), "
+              f"params rel norm {rel_params:.3e} (limit 2e-2); losses "
+              f"{[round(x, 5) for x in on_losses]}; launches {want}",
+              flush=True)
+    # the entry point a user calls, as the docs give it; it sets the counts
+    # to 0 before its loop, and they are read just after it returns
+    losses = launcher.main([
+        "--arch", "gemma3-4b", "--reduced", "--n-pods", str(p), "--batch",
+        str(p * B), "--seq", str(S), "--steps", str(steps), "--tau",
+        str(tau), "--microbatches", str(micro), "--schedule", "ring",
+        "--log-every", "1", "--device", str(torch.device(dev).type)])
+    counts = kernels.launch_counts()
+    check(counts == want, f"launcher launched {counts}, expected {want}")
+    check(len(losses) == steps and all(map(math.isfinite, losses)),
+          "launcher losses finite")
+    for k, v in counts.items():
+        totals[k] += v
+    return totals
+
+
 SOURCES = {"fused_sync_easgd_update": "elastic_update.cu",
            "fused_sync_sgd_update": "elastic_update.cu",
            "flash_attention_fwd": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention.cu",
-           "fused_ce_fwd": "fused_ce.cu", "fused_ce_bwd": "fused_ce.cu"}
+           "fused_ce_fwd": "fused_ce.cu", "fused_ce_bwd": "fused_ce.cu",
+           "fused_elastic_update": "elastic_update.cu"}
 FIRST_KEYS = ("name", "route", "source", "replaces", "launches",
               "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
+
+
+def add_counts(totals: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        totals[k] += v
 
 
 def kernel_rows(rows: dict, launches: dict) -> list:
@@ -704,23 +1015,27 @@ def main() -> int:
 
     from repro_torch import configs, kernels
     from repro_torch.comm import rounds as comm_rounds
+    from repro_torch.core import elastic
     from repro_torch.core.easgd import EASGDConfig
+    from repro_torch.data import synthetic
     from repro_torch.kernels import _build
     from repro_torch.kernels import elastic_update as eu
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_ce as ce
     from repro_torch.models import common
     from repro_torch.models import transformer as tfm
+    from repro_torch.launch import train as launcher
     from repro_torch.ps import problems, runtime, zoo
+    from repro_torch.runtime import train
     from repro_torch.utils import timing
 
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    bw, f64, bf16 = peaks_for(card)
+    bw, f64, bf16, f32 = peaks_for(card)
     print(f"card: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | peaks {bw / 1e12:g} TB/s, f64 "
-          f"{f64 / 1e12:g} TFLOP/s, bf16 {bf16 / 1e12:g} TFLOP/s",
-          flush=True)
+          f"{f64 / 1e12:g} TFLOP/s, bf16 {bf16 / 1e12:g} TFLOP/s, f32 "
+          f"{f32 / 1e12:g} TFLOP/s", flush=True)
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
@@ -741,7 +1056,7 @@ def main() -> int:
     phase_gradients(torch, zoo, timing)
     print(f"phase gradients: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
-    phase_main_path(torch, runtime, zoo, kernels, EASGDConfig)
+    launches = phase_main_path(torch, runtime, zoo, kernels, EASGDConfig)
     print(f"phase main path: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     rows.update(phase_attention(torch, F, fa, timing, dev, bw, bf16))
@@ -754,9 +1069,28 @@ def main() -> int:
                      timing, dev)
     print(f"phase full width: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
-    launches = phase_lm_main_path(torch, runtime, zoo, kernels, comm_rounds,
-                                  EASGDConfig, timing)
+    add_counts(launches, phase_lm_main_path(
+        torch, runtime, zoo, kernels, comm_rounds, EASGDConfig, timing))
     print(f"phase lm main path: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    rows.update(phase_elastic_kernel(torch, eu, timing, dev, bw, f32))
+    print(f"phase elastic kernel: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    t = time.perf_counter()
+    multi, counts = phase_multi_pod(torch, np, full, 4096, elastic,
+                                    EASGDConfig, train, synthetic, eu,
+                                    kernels, timing, dev, bw, f32)
+    add_counts(launches, counts)
+    rows["fused_elastic_update"].update(
+        ms_in_step=multi["update_ms"],
+        bound_ms_in_step=multi["update_bound_ms"])
+    print(f"phase multi-pod: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    add_counts(launches, phase_launcher_path(
+        torch, np, configs, elastic, EASGDConfig, train, launcher, kernels,
+        dev))
+    print(f"phase launcher path: {time.perf_counter() - t:.1f} s",
+          flush=True)
 
     check("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),

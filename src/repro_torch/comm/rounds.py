@@ -2,9 +2,10 @@
 ``repro/comm/rounds.py``).
 
 A schedule is a list of ROUNDS; a round is a list of point-to-point
-messages that fly concurrently. The PS runtime executes these rounds over
-its mailbox tensor (``ps.runtime.execute_rounds``), and ``t_rounds``
-prices the same structure under the α–β model. Rounds, spans and bucket
+messages that fly concurrently. ``execute_rounds`` runs them over a
+mailbox tensor of rows (the PS runtime's mailbox, and the pod rows of the
+multi-pod exchange), and ``t_rounds`` prices the same structure under the
+α–β model. Rounds, spans and bucket
 clipping keep the reference's exact semantics: the runtime's bitwise
 parity with ``repro.ps`` depends on every element seeing the same adds
 from the same sources in the same order.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core import costmodel
+from repro_torch.obs import metrics as obs_metrics
 
 MASTER = -1   # the parameter server's own endpoint (round_robin uses it)
 
@@ -257,3 +259,43 @@ def bucket_rounds(rounds, n_elements: int, boundaries) -> list:
             plan.append(clipped)
         plans.append(plan)
     return plans
+
+
+# ---------------------------------------------------------------------------
+# execution over a mailbox of rows
+# ---------------------------------------------------------------------------
+
+def _apply_round(mailbox, rnd_spans) -> None:
+    """One message round over ``(message, (a, b))`` pairs: receivers read
+    the senders' PRE-round values (snapshot every payload, then apply) —
+    messages within a round are concurrent."""
+    payloads = [(m, a, b, mailbox[m.src, a:b].clone())
+                for m, (a, b) in rnd_spans]
+    for m, a, b, pay in payloads:
+        tgt = mailbox[m.dst, a:b]
+        if m.op == "add":
+            tgt += pay
+        else:
+            tgt.copy_(pay)
+
+
+def execute_rounds(mailbox, n: int, rounds, counters=None,
+                   boundaries=None) -> None:
+    """Apply one all-reduce — the schedule's message rounds — over the
+    mailbox (rows 0..P-1 = workers, row P = the master endpoint used by
+    round_robin). With ``boundaries`` the same rounds execute bucket-major
+    with every span clipped per bucket: each element sees the same ops in
+    the same order, so the result is bitwise the monolithic one. The
+    counters are schedule-level either way."""
+    mailbox[-1].zero_()             # master endpoint accumulates from zero
+    row_len = mailbox.shape[-1]
+    if boundaries is not None and len(boundaries) > 2:
+        plans = bucket_rounds(rounds, row_len, boundaries)
+    else:
+        plans = [[[(m, m.span(row_len)) for m in rnd] for rnd in rounds]]
+    for plan in plans:
+        for rnd_spans in plan:
+            _apply_round(mailbox, rnd_spans)
+    if counters is not None:
+        for rnd in rounds:
+            obs_metrics.count_round(counters, rnd, n)

@@ -1,19 +1,26 @@
-"""The exchange-schedule registry: each schedule's message rounds and its
-α–β cost (the port of ``repro/comm/schedules.py``, rounds-and-cost half).
+"""The exchange-schedule registry: each schedule's message rounds, its α–β
+cost and its all-reduce over pod rows (the port of
+``repro/comm/schedules.py``).
 
-The reference registry also carries a runnable ``shard_map`` all-reduce per
-schedule; those are JAX collectives of the multi-pod step and wait for that
-slice. Here the PS runtime executes ``Schedule.rounds`` over its mailbox
-tensor, and ``cost`` prices the same exchange.
+The PS runtime executes ``Schedule.rounds`` over its mailbox tensor, and
+``cost`` prices the same exchange. ``Schedule.allreduce`` is the
+counterpart of the reference's ``shard_map`` collectives for the multi-pod
+step, whose pods are the rows of one tensor on one device: it sums a
+``(P, ...)`` tensor over its rows. ``psum`` is one reduction over dim 0, as
+``lax.psum`` is in the reference; every other schedule runs its message
+rounds over the rows (``comm.rounds.execute_rounds``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
+import torch
+
 from repro_torch.core import costmodel
-from repro_torch.comm.rounds import (butterfly_rounds, hierarchical_rounds,
-                                     inner_size, psum_rounds, ring_rounds,
+from repro_torch.comm.rounds import (butterfly_rounds, execute_rounds,
+                                     hierarchical_rounds, inner_size,
+                                     psum_rounds, ring_rounds,
                                      round_robin_rounds, t_rounds,
                                      tree_rounds)
 
@@ -40,7 +47,24 @@ class Schedule:
     cost_fn: Callable
     rounds_fn: Callable
     pow2_only: bool = False
+    native: bool = False        # allreduce is one reduction over dim 0
     doc: str = ""
+
+    def allreduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum a ``(P, ...)`` tensor over its P pod rows; returns the sum,
+        shaped ``x.shape[1:]``, in x's dtype (int8 signs stay int8)."""
+        p = x.shape[0]
+        if self.native or p == 1:
+            return x.sum(0, dtype=x.dtype)
+        flat = x.reshape(p, -1)
+        m = flat.shape[1]
+        # chunked schedules need rows that P divides; row P is the master
+        # endpoint round_robin gathers into
+        mailbox = torch.zeros((p + 1, m + (-m) % p), dtype=x.dtype,
+                              device=x.device)
+        mailbox[:p, :m] = flat
+        execute_rounds(mailbox, m, self.rounds(p, m * x.element_size()))
+        return mailbox[0, :m].reshape(x.shape[1:])
 
     def cost(self, n_bytes: float, p: int,
              net: costmodel.Network = _NET) -> float:
@@ -105,7 +129,7 @@ def names() -> tuple:
 
 
 register(Schedule(
-    "psum", costmodel.t_allreduce_best, psum_rounds,
+    "psum", costmodel.t_allreduce_best, psum_rounds, native=True,
     doc="a tuned library's all-reduce; priced as min(butterfly, ring)."))
 register(Schedule(
     "tree", costmodel.t_tree_allreduce, tree_rounds, pow2_only=True,

@@ -5,7 +5,8 @@ import: the CPU tests import every module on a machine without ``nvcc``.
 ``reset_launch_counts`` / ``launch_counts`` cover every wrapper below.
 """
 from repro_torch.kernels import _build
-from repro_torch.kernels.elastic_update import (fused_sync_easgd_update,
+from repro_torch.kernels.elastic_update import (fused_elastic_update,
+                                                fused_sync_easgd_update,
                                                 fused_sync_sgd_update)
 from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                  flash_attention_fwd)
@@ -13,10 +14,11 @@ from repro_torch.kernels.fused_ce import fused_ce_bwd, fused_ce_fwd
 
 KERNELS = (fused_sync_easgd_update, fused_sync_sgd_update,
            flash_attention_fwd, flash_attention_bwd, fused_ce_fwd,
-           fused_ce_bwd)
+           fused_ce_bwd, fused_elastic_update)
 
 __all__ = ["KERNELS", "flash_attention_bwd", "flash_attention_fwd",
-           "fused_ce_bwd", "fused_ce_fwd", "fused_sync_easgd_update",
+           "fused_ce_bwd", "fused_ce_fwd", "fused_elastic_update",
+           "fused_sync_easgd_update",
            "fused_sync_sgd_update", "launch_counts", "reset_launch_counts"]
 
 

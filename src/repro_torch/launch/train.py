@@ -1,6 +1,21 @@
-"""Training entry point of the port: ``--mode ps`` runs the Sync EASGD /
-Sync SGD parameter-server runtime on the thread transport (the port of
-``repro/launch/train.py --mode ps``).
+"""Training entry point of the port (the port of ``repro/launch/train.py``).
+
+``--mode sync`` (the default) runs the packed multi-pod Sync EASGD step
+(``runtime.train.build_train_step``) on the data pipeline, with
+checkpoints and the preemption watchdog:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-4b \\
+        --reduced --n-pods 2 --steps 12 --batch 8 --seq 32 --device cpu
+
+It prints the reference's lines (the ``exchange:`` banner, ``step N loss
+… acc …`` every ``--log-every`` steps, the final ``loss a -> b``) and the
+launch counts of the port's kernels for the run. The reference prints the
+final line only after more than 10 steps, comparing the means of the
+first and last 5 losses; the port prints it from 2 steps on, over the
+first and last ``min(5, steps // 2)`` (the same line past 10 steps).
+
+``--mode ps`` runs the Sync EASGD / Sync SGD parameter-server runtime on
+the thread transport:
 
     PYTHONPATH=src python -m repro_torch.launch.train --mode ps \\
         --algorithm sync_easgd --transport thread --model alexnet \\
@@ -12,25 +27,35 @@ Sync SGD parameter-server runtime on the thread transport (the port of
 Each algorithm prints the reference's result line without the DES columns
 (the DES cross-check is not ported yet), plus the launch counts of every
 kernel of the port for the run (the update kernels; with ``--model
-gemma3-4b`` also the attention and cross-entropy kernels). ``--device``
-defaults to ``cuda``; ``--device cpu`` runs the kernels' plain versions on
-the CPU.
+gemma3-4b`` also the attention and cross-entropy kernels).
+
+``--device`` defaults to ``cuda``; ``--device cpu`` runs the kernels'
+plain versions on the CPU.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 from pathlib import Path
+
+import numpy as np
 
 if __package__ in (None, ""):     # run as a file: put src on the path
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
+from repro_torch import configs, kernels  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.comm import schedules as comm_schedules  # noqa: E402
-from repro_torch.core import costmodel  # noqa: E402
+from repro_torch.core import compression, costmodel  # noqa: E402
 from repro_torch.core.easgd import EASGDConfig  # noqa: E402
 from repro_torch.core.easgd_flat import SYNC_FAMILY  # noqa: E402
-from repro_torch import kernels  # noqa: E402
+from repro_torch.core.elastic import ElasticConfig  # noqa: E402
+from repro_torch.data.pipeline import ShardedPipeline  # noqa: E402
+from repro_torch.data.synthetic import SyntheticLMStream  # noqa: E402
+from repro_torch.ft.watchdog import Watchdog  # noqa: E402
 from repro_torch.ps import runtime, zoo  # noqa: E402
+from repro_torch.runtime.train import build_train_step  # noqa: E402
 
 
 def run_ps_mode(args) -> list:
@@ -42,9 +67,10 @@ def run_ps_mode(args) -> list:
     for algo in algos:
         cfg = runtime.PSConfig(
             algorithm=algo, n_workers=args.ps_workers,
-            transport=args.transport, schedule=args.schedule,
+            transport=args.transport, schedule=args.schedule or "ring",
             total_iters=args.ps_iters, eval_every_iters=args.ps_eval_every,
-            emulate_net=costmodel.PS_WIRE if args.emulate == "wire" else None,
+            emulate_net=(costmodel.PS_WIRE if args.emulate == "wire"
+                         else None),
             bucket_bytes=args.bucket_bytes)
         kernels.reset_launch_counts()
         res = runtime.run_ps(problem, easgd, cfg, device=args.device)
@@ -57,11 +83,107 @@ def run_ps_mode(args) -> list:
     return out
 
 
+def run_sync_mode(args) -> list:
+    """--mode sync: the packed multi-pod Sync EASGD step on the pipeline,
+    with checkpoints and the watchdog, as the reference's sync mode."""
+    args.schedule = args.schedule or "psum"
+    spec = configs.get(args.arch)
+    cfg = spec.reduced if args.reduced else spec.config
+    n_pods = max(args.n_pods, 1)
+    ecfg = ElasticConfig(
+        easgd=EASGDConfig(eta=args.eta, rho=args.rho, mu=0.9, tau=args.tau),
+        schedule=args.schedule, overlap=not args.no_overlap,
+        compression=args.compression, momentum_dtype=spec.momentum_dtype,
+        center_dtype=spec.center_dtype)
+    print(f"exchange: schedule={args.schedule} "
+          f"compression={args.compression} "
+          f"overlap={not args.no_overlap} n_pods={n_pods}", flush=True)
+    per_pod = args.batch // n_pods
+    build = build_train_step(cfg, ecfg, n_pods=n_pods, per_pod_batch=per_pod,
+                             seq=args.seq, microbatches=args.microbatches,
+                             device=args.device)
+    state = build.init_state()
+
+    pipe = ShardedPipeline(
+        lambda shard, n: SyntheticLMStream(cfg.vocab_size, args.seq, per_pod,
+                                           seed=13, shard=shard, n_shards=n),
+        n_pods=n_pods).start()
+
+    ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    start_step = 0
+    if ckpt and ckpt.latest_step() is not None:
+        state, meta = ckpt.restore(state)
+        start_step = meta["extra"]["data_step"]
+        pipe.restore(start_step)
+        print(f"resumed from step {start_step}")
+
+    kernels.reset_launch_counts()
+    wd = Watchdog().start_heartbeat()
+    t0 = time.time()
+    losses = []
+    step = start_step
+    try:
+        for step in range(start_step, args.steps):
+            if wd.should_stop.is_set():
+                print("preemption signal — checkpoint + clean exit")
+                break
+            state, metrics = build.step(state, pipe.next())
+            losses.append(float(metrics["loss"]))
+            if step % args.log_every == 0:
+                print(f"step {step:5d} loss {losses[-1]:.4f} "
+                      f"acc {float(metrics['accuracy']):.3f} "
+                      f"({time.time()-t0:.1f}s)", flush=True)
+            if ckpt and step and step % args.ckpt_every == 0:
+                ckpt.save_async(step, state, extra={"data_step": step + 1})
+    finally:
+        pipe.stop()
+        if ckpt:
+            ckpt.wait()
+            ckpt.save(step, state, extra={"data_step": step + 1})
+        wd.close()
+    if len(losses) >= 2:
+        k = min(5, len(losses) // 2)
+        first = np.mean(losses[:k])
+        last = np.mean(losses[-k:])
+        print(f"loss {first:.4f} -> {last:.4f} "
+              f"({'improved' if last < first else 'NOT improved'})")
+    print(f"launches={kernels.launch_counts()}", flush=True)
+    return losses
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", default="ps", choices=["ps"],
-                    help="ps: the parameter-server runtime (the multi-pod "
-                         "sync mode is not ported yet)")
+    ap.add_argument("--mode", default="sync", choices=["sync", "ps"],
+                    help="sync: the packed multi-pod Sync EASGD step "
+                         "(default); ps: the parameter-server runtime")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; an error without a GPU) or cpu")
+    ap.add_argument("--eta", type=float, default=0.02)
+    ap.add_argument("--rho", type=float, default=0.01)
+    ap.add_argument("--tau", type=int, default=1)
+    ap.add_argument("--schedule", default=None,
+                    choices=list(comm_schedules.names()) + ["auto"],
+                    help="cross-pod exchange schedule ('auto' picks via "
+                         "comm.choose). Default: psum in sync mode, ring in "
+                         "ps mode")
+    # --mode sync options
+    ap.add_argument("--arch", default="gemma3-4b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="global batch (sequences)")
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--n-pods", type=int, default=1)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--compression", default="none",
+                    choices=sorted(compression.SCHEMES))
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="run the exchange after the gradients (Sync "
+                         "EASGD1/2 baseline, paper §6.1.3)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--log-every", type=int, default=5)
+    # --mode ps options
     ap.add_argument("--algorithm", default="all-sync",
                     choices=list(SYNC_FAMILY) + ["all-sync"])
     ap.add_argument("--transport", default="thread", choices=["thread"])
@@ -71,21 +193,16 @@ def main(argv=None):
     ap.add_argument("--ps-workers", type=int, default=4)
     ap.add_argument("--ps-iters", type=int, default=400)
     ap.add_argument("--ps-eval-every", type=int, default=200)
-    ap.add_argument("--schedule", default="ring",
-                    choices=list(comm_schedules.names()) + ["auto"])
     ap.add_argument("--bucket-bytes", type=int, default=0,
                     help="bucket the exchange into ~this many payload bytes "
                          "per bucket, cut at layer edges (0 = monolithic)")
     ap.add_argument("--emulate", default="wire", choices=["wire", "none"],
                     help="'wire' sleeps each exchange round's α+nβ under "
                          "costmodel.PS_WIRE; 'none' uses raw device memory")
-    ap.add_argument("--eta", type=float, default=0.02)
-    ap.add_argument("--rho", type=float, default=0.01)
-    ap.add_argument("--tau", type=int, default=1)
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default; an error without a GPU) or cpu")
     args = ap.parse_args(argv)
-    return run_ps_mode(args)
+    if args.mode == "ps":
+        return run_ps_mode(args)
+    return run_sync_mode(args)
 
 
 if __name__ == "__main__":

@@ -145,6 +145,15 @@ def init_params(defs, generator: torch.Generator, dtype=torch.float32,
     return _rebuild(defs, out)
 
 
+def tree_unflatten(structure, leaves):
+    """The pytree of ``structure``'s shape whose leaves, in
+    ``tree_leaves_with_path`` order, are ``leaves``."""
+    paths = [p for p, _ in tree_leaves_with_path(structure)]
+    if len(paths) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves for a tree of {len(paths)}")
+    return _rebuild(structure, dict(zip(paths, leaves)))
+
+
 def _rebuild(tree, by_path, path=()):
     if isinstance(tree, dict):
         return {k: _rebuild(v, by_path, path + (k,)) for k, v in tree.items()}

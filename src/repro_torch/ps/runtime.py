@@ -39,12 +39,12 @@ from typing import Optional
 import torch
 
 from repro_torch.comm import rounds as comm_rounds
+from repro_torch.comm.rounds import execute_rounds
 from repro_torch.comm import schedules as comm_schedules
 from repro_torch.core import costmodel, easgd_flat
 from repro_torch.core.easgd import EASGDConfig
 from repro_torch.kernels.elastic_update import (fused_sync_easgd_update,
                                                 fused_sync_sgd_update)
-from repro_torch.obs import metrics as obs_metrics
 from repro_torch.ps.transport import PSContext, ThreadTransport
 from repro_torch.utils import timing
 from repro_torch.utils.device import resolve_device
@@ -143,42 +143,6 @@ def _sleep_until(deadline: float) -> None:
     dt = deadline - time.monotonic()
     if dt > 0:
         time.sleep(dt)
-
-
-def _apply_round(mailbox, rnd_spans) -> None:
-    """One message round over ``(message, (a, b))`` pairs: receivers read
-    the senders' PRE-round values (snapshot every payload, then apply) —
-    messages within a round are concurrent."""
-    payloads = [(m, a, b, mailbox[m.src, a:b].clone())
-                for m, (a, b) in rnd_spans]
-    for m, a, b, pay in payloads:
-        tgt = mailbox[m.dst, a:b]
-        if m.op == "add":
-            tgt += pay
-        else:
-            tgt.copy_(pay)
-
-
-def execute_rounds(mailbox, n: int, rounds, counters=None,
-                   boundaries=None) -> None:
-    """Apply one all-reduce — the schedule's message rounds — over the
-    mailbox (rows 0..P-1 = workers, row P = the master endpoint used by
-    round_robin). With ``boundaries`` the same rounds execute bucket-major
-    with every span clipped per bucket: each element sees the same ops in
-    the same order, so the result is bitwise the monolithic one. The
-    counters are schedule-level either way."""
-    mailbox[-1].zero_()             # master endpoint accumulates from zero
-    row_len = mailbox.shape[-1]
-    if boundaries is not None and len(boundaries) > 2:
-        plans = comm_rounds.bucket_rounds(rounds, row_len, boundaries)
-    else:
-        plans = [[[(m, m.span(row_len)) for m in rnd] for rnd in rounds]]
-    for plan in plans:
-        for rnd_spans in plan:
-            _apply_round(mailbox, rnd_spans)
-    if counters is not None:
-        for rnd in rounds:
-            obs_metrics.count_round(counters, rnd, n)
 
 
 def _comm_executor(ctx: PSContext) -> None:

@@ -21,19 +21,10 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.common import init_params
 from repro_torch.ps.problems import (NUMPY_MLP, NUMPY_MLP_MED, ProblemSpec,
                                      spec)
-from repro_torch.utils.device import resolve_device
+from repro_torch.utils.device import fp32_products, resolve_device
 
 _CNNS = {"lenet": ((28, 28, 1), cnn.lenet_init, cnn.lenet_apply),
          "alexnet": ((32, 32, 3), cnn.alexnet_init, cnn.alexnet_apply)}
-
-
-def _fp32_products() -> None:
-    """The reference's f32 products are full f32 and its bf16 products sum
-    in f32; on the card that means TF32 off and no reduced-precision bf16
-    reductions in cuBLAS (process-wide settings)."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def _row_from(w0, dev) -> torch.Tensor:
@@ -56,7 +47,7 @@ def make_zoo_lm(arch: str = "gemma3-4b", seq: int = 24, batch: int = 2,
     init, carried across); without it the port draws its own init from
     ``torch.Generator().manual_seed(seed)``."""
     dev = resolve_device(device)
-    _fp32_products()
+    fp32_products()
     cfg = configs.get(arch).reduced
     if w0 is None:
         gen = torch.Generator().manual_seed(seed)
@@ -113,7 +104,7 @@ def make_zoo_cnn(model: str = "lenet", seed: int = 0, n_train: int = 512,
     # away from the CPU's on an H100, where PyTorch's native convolution
     # stays at 1.9e-6. So the convolutions do not go through cuDNN at all
     # (a process-wide setting).
-    _fp32_products()
+    fp32_products()
     torch.backends.cudnn.enabled = False
     shape, init, apply = _CNNS[model]
     x, y = make_classification_dataset(n_train + n_test, shape=shape,

@@ -25,3 +25,12 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev} (cuda or cpu)")
     return dev
+
+
+def fp32_products() -> None:
+    """The reference's f32 products are full f32 and its bf16 products sum
+    in f32; on the card that means TF32 off and no reduced-precision bf16
+    reductions in cuBLAS (process-wide settings)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -22,7 +22,10 @@ from repro_torch.core.easgd import EASGDConfig
 from repro_torch.kernels import elastic_update as eu
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_ce
+from repro_torch import configs
+from repro_torch.core import elastic
 from repro_torch.ps import problems, runtime, zoo
+from repro_torch.runtime.train import build_train_step
 
 ETA, RHO, MU = 0.05, 0.07, 0.9
 
@@ -193,4 +196,97 @@ def test_lm_gradient_on_the_card_matches_the_cpu(cuda):
     want = g_cpu(w0, 0, 0)
     rel = float(torch.linalg.vector_norm(got - want)
                 / torch.linalg.vector_norm(want))
+    assert rel <= 2e-2
+
+
+_DTYPE_MIX = [("float32",) * 5,
+              ("float32", "bfloat16", "float32", "bfloat16", "float32"),
+              ("bfloat16",) * 5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", _DTYPE_MIX)
+@pytest.mark.parametrize("p,n", [(1, 1188), (2, 131072 + 777), (4, 4099)])
+def test_elastic_update_kernel_equals_plain_version(cuda, dtypes, p, n):
+    """fused_elastic_update against its plain version on the card and on
+    the CPU, bit for bit, over the storage dtypes (W, V, G, C, M)."""
+    rng = np.random.RandomState(n + p)
+    shapes = [(p, n)] * 3 + [(n,)] * 2
+    if p == 1:
+        shapes = [(n,)] * 5
+    host = [torch.from_numpy(rng.randn(*s).astype(np.float32))
+            .to(getattr(torch, dt)) for s, dt in zip(shapes, dtypes)]
+    outs = []
+    for dev, fn in ((cuda, eu.fused_elastic_update),
+                    (cuda, eu.fused_elastic_update_ref),
+                    ("cpu", eu.fused_elastic_update_ref)):
+        xs = [t.clone().to(dev) for t in host]
+        fn(*xs, eta=ETA, rho=RHO, mu=MU, n_workers=p)
+        outs.append([xs[i].cpu() for i in (0, 1, 3)])
+    torch.cuda.synchronize()
+    for got in outs[1:]:
+        for a, b in zip(outs[0], got):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_elastic_update_refuses_a_non_contiguous_row(cuda):
+    w, v = (torch.zeros(2, 64, device=cuda) for _ in range(2))
+    g = torch.zeros(2, 128, device=cuda)[:, ::2]
+    c, m = torch.zeros(64, device=cuda), torch.zeros(64, device=cuda)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="contiguous"):
+        eu.fused_elastic_update(w, v, g, c, m, eta=ETA, rho=RHO, mu=MU,
+                                n_workers=2)
+    with pytest.raises(ValueError):
+        eu.fused_elastic_update(w, v, g.contiguous(), c, m.cpu(), eta=ETA,
+                                rho=RHO, mu=MU, n_workers=2)
+    assert kernels.launch_counts()["fused_elastic_update"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compression", ["none", "bf16"])
+def test_multi_pod_step_on_the_card_matches_the_cpu(cuda, compression):
+    """Reduced gemma3-4b, P = 4, ring, two microbatches, τ = 2: the card's
+    state after 4 steps against the CPU's from the same state (loss 1e-3
+    relative, params by relative norm 2e-2, the limits of the LM's
+    gradient), the same bits with overlap on and off, and one
+    fused_elastic_update per exchange step."""
+    cfg = configs.get("gemma3-4b").reduced
+    rng = np.random.RandomState(0)
+    batches = [{"tokens": rng.randint(0, 512, (4, 2, 24)),
+                "targets": rng.randint(0, 512, (4, 2, 24)),
+                "mask": np.ones((4, 2, 24), np.float32)} for _ in range(4)]
+    runs = {}
+    for dev, overlap in (("cpu", True), (cuda, True), (cuda, False)):
+        ecfg = elastic.ElasticConfig(
+            easgd=EASGDConfig(eta=0.05, rho=0.05, mu=MU, tau=2),
+            schedule="ring", compression=compression, overlap=overlap)
+        build = build_train_step(cfg, ecfg, n_pods=4, per_pod_batch=2,
+                                 seq=24, microbatches=2, device=dev)
+        if dev == "cpu":
+            init = build.init_state()
+        state = init.to(dev)
+        kernels.reset_launch_counts()
+        losses = []
+        for b in batches:
+            state, metrics = build.step(state, b)
+            losses.append(float(metrics["loss"]))
+        counts = kernels.launch_counts()
+        if dev != "cpu":
+            assert counts == _counts(fused_elastic_update=2,
+                                     flash_attention_fwd=6 * 4 * 2 * 4,
+                                     flash_attention_bwd=6 * 4 * 2 * 4,
+                                     fused_ce_fwd=4 * 2 * 4,
+                                     fused_ce_bwd=4 * 2 * 4)
+        runs[(str(dev), overlap)] = (state.to("cpu"), losses)
+    cpu, cpu_losses = runs[("cpu", True)]
+    on, off = runs[(str(cuda), True)], runs[(str(cuda), False)]
+    for name in ("params", "momentum", "center", "ef_error"):
+        a, b = getattr(on[0], name), getattr(off[0], name)
+        assert (a is None and b is None) or torch.equal(a, b)
+    for got, want in zip(on[1], cpu_losses):
+        assert abs(got - want) <= 1e-3 * abs(want)
+    rel = float(torch.linalg.vector_norm(on[0].params - cpu.params)
+                / torch.linalg.vector_norm(cpu.params))
     assert rel <= 2e-2
