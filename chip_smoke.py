@@ -56,7 +56,32 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    overlap on and off give the same bits, the card's state equals a CPU
    run's (loss 1e-3 relative, params by relative norm 2e-2) and the update
    launches once per exchange step; then ``repro_torch.launch.train`` with
-   the same settings on the card, with the same exact counts.
+   the same settings on the card, with the same exact counts;
+12. hold the SSD intra-chunk kernels (forward and backward) against their
+   plain versions on the card, each output by its relative norm (y 1e-5;
+   dx, db, dc, da 1e-4), at mamba2-780m's full width (B 1, S 4096, H 48,
+   P 64, N 128, L 256, f32), at phase 15's reduced shapes (B 2, S 32, H 8,
+   P 16, N 16, L 16) and on a chunk whose cumulative decay falls far below
+   -88; time kernel and plain version at full width beside the bound; then
+   the cross-entropy kernels at mamba2-780m's loss head (T 4096, d 1536,
+   V 50280, bf16) as phase 6 holds them;
+13. mamba2-780m at full width and full depth (48 layers, 780,148,992
+   parameters, f32 params, bf16 compute), B 1, S 4096: ``lm_loss`` and its
+   gradient through the kernels and through the plain versions, with exact
+   launch counts per gradient (SSD 48 each way, CE 1 each way, attention
+   0), time and peak memory; the loss held to 1e-3. At 48 bf16 layers two
+   exact evaluations of the gradient differ by far more than 2e-2 (the
+   plain path against itself with the SSD plain versions run in f64 is
+   printed beside the kernels' reading), so the gradient is held to 2e-2
+   (and the loss to 1e-3) at f32 compute, at the same width and depth;
+14. the fourth main path at full width: the multi-pod step of phase 10 on
+   mamba2-780m at all 48 layers (P = 2, B 1 per pod, S 4096, psum,
+   overlap on, 3 steps), counters 0 before each step and read after (the
+   update once, SSD 48·P and CE P times each way);
+15. the launcher's path at reduced width on mamba2-780m: phase 11 with
+   compression none, then ``launch.train --arch mamba2-780m --reduced``,
+   then ``run_ps`` on ``--model mamba2-780m`` (P = 4, ring, 16 rounds,
+   Sync EASGD), each with exact launch counts.
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, a JSON ``kernels`` line, and the JSON result line
@@ -90,6 +115,7 @@ PEAKS = (("H100 PCIe", 2.0e12, 25.6e12, 756e12, 51.2e12),
 ETA, RHO, MU = 0.05, 0.07, 0.9
 N_ALEXNET = 6_976_842
 N_GEMMA_6L = 1_237_356_032
+N_MAMBA2 = 780_148_992
 CSRC = "src/repro_torch/kernels/csrc/"
 KERNEL_SOURCE = CSRC + "elastic_update.cu"
 # limits on the relative norm ||kernel - plain|| / ||plain|| of one output.
@@ -450,10 +476,12 @@ def phase_attention(torch, F, fa, timing, dev, bw, bf16,
 
 
 def phase_cross_entropy(torch, F, ce, timing, dev, bw, bf16,
-                        cases=CE_CASES) -> dict:
+                        cases=CE_CASES, rows=None, suffix="") -> dict:
     """Cross-entropy kernels against their plain versions; times at full
-    width beside the bound and the two-call library form."""
-    rows = {"fused_ce_fwd": {}, "fused_ce_bwd": {}}
+    width beside the bound and the two-call library form. Given ``rows``
+    (an earlier call's), the readings join them and the timings go under
+    ``<key><suffix>``."""
+    rows = rows or {"fused_ce_fwd": {}, "fused_ce_bwd": {}}
     for i, (T, d, V, dt, timed) in enumerate(cases):
         dtype = getattr(torch, dt)
         gen = torch.Generator(device=dev).manual_seed(200 + i)
@@ -540,41 +568,52 @@ def phase_cross_entropy(torch, F, ce, timing, dev, bw, bf16,
         }
         for name, kind, (b_ms, by) in (("fused_ce_fwd", "fwd", b_fwd),
                                        ("fused_ce_bwd", "bwd", b_bwd)):
-            rows[name].update({"ms": t[kind], "plain_ms": t[kind + "_plain"],
-                               "bound_ms": b_ms, "bound_by": by,
-                               "library_ms": None})
+            rows[name].update({
+                "ms" + suffix: t[kind],
+                "plain_ms" + suffix: t[kind + "_plain"],
+                "bound_ms" + suffix: b_ms, "bound_by" + suffix: by,
+                "library_ms" + suffix: None})
             print(f"{name} {tag}: kernel {t[kind]:.4f} ms, plain "
                   f"{t[kind + '_plain']:.4f} ms, bound {b_ms:.4f} ms ({by})",
                   flush=True)
         print(f"F.cross_entropy(h @ W, y) {tag}: {t['two_calls']:.4f} ms "
               f"(two calls, a matmul and the loss: no single PyTorch call "
               f"computes the fused function)", flush=True)
-        rows["fused_ce_fwd"]["two_call_library_ms"] = t["two_calls"]
+        rows["fused_ce_fwd"]["two_call_library_ms" + suffix] = t["two_calls"]
     rows["fused_ce_fwd"]["replaces"] = "src/repro/kernels/fused_ce.py:67"
     rows["fused_ce_bwd"]["replaces"] = "src/repro/models/transformer.py:302"
     return rows
 
 
 @contextlib.contextmanager
-def plain_versions(fa, ce):
+def plain_versions(*modules):
     """Route the autograd functions through the plain versions on the card
-    (the wrappers themselves never fall back)."""
-    saved = (fa.flash_attention_fwd, fa.flash_attention_bwd,
-             ce.fused_ce_fwd, ce.fused_ce_bwd)
-    fa.flash_attention_fwd = fa.flash_attention_fwd_ref
-    fa.flash_attention_bwd = fa.flash_attention_bwd_ref
-    ce.fused_ce_fwd, ce.fused_ce_bwd = ce.fused_ce_fwd_ref, ce.fused_ce_bwd_ref
+    (the wrappers themselves never fall back): in each kernel module, every
+    wrapper ``f`` with a ``f_ref`` beside it is replaced by ``f_ref``."""
+    saved = [(m, name, getattr(m, name)) for m in modules
+             for name in dir(m) if hasattr(m, name + "_ref")
+             and hasattr(getattr(m, name), "launches")]
+    for m, name, _ in saved:
+        setattr(m, name, getattr(m, name + "_ref"))
     try:
         yield
     finally:
-        (fa.flash_attention_fwd, fa.flash_attention_bwd, ce.fused_ce_fwd,
-         ce.fused_ce_bwd) = saved
+        for m, name, fn in saved:
+            setattr(m, name, fn)
 
 
-def phase_full_width(torch, np, cfg, S, tfm, common, fa, ce, kernels,
-                     timing, dev) -> dict:
-    """gemma3-4b at full width, 6 layers, B 1, S 4096: loss and gradient
-    through the kernels against the plain versions."""
+def phase_full_width(torch, np, cfg, S, tfm, common, kernel_mods, kernels,
+                     timing, dev, held_dtype=None, variant=None) -> dict:
+    """An LM at full width, B 1, S 4096 (gemma3-4b at 6 layers; mamba2-780m
+    at all 48): loss and gradient through the kernels against the plain
+    versions, with exact launch counts per gradient.
+
+    With ``held_dtype``, the config's own (bf16) gradient is timed and its
+    loss held, but its gradient is read, not held: beside it stands the
+    reading of the plain path against itself with ``variant`` (a context
+    that swaps in a second, more exact plain version), which is how far
+    two valid evaluations of that gradient lie apart at this depth. The
+    gradient is then held at ``held_dtype`` compute."""
     n = tfm.n_params(cfg)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -589,9 +628,9 @@ def phase_full_width(torch, np, cfg, S, tfm, common, fa, ce, kernels,
     batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:],
              "mask": torch.ones((1, S), device=dev)}
 
-    def gradient():
+    def gradient(c=cfg):
         w = leaf.detach().requires_grad_(True)
-        loss, metrics = tfm.lm_loss(cfg, tfm.unflatten(w, cfg), batch)
+        loss, metrics = tfm.lm_loss(c, tfm.unflatten(w, c), batch)
         loss.backward()
         return loss.detach(), w.grad, metrics
 
@@ -601,15 +640,13 @@ def phase_full_width(torch, np, cfg, S, tfm, common, fa, ce, kernels,
     loss_k, grad_k, metrics = gradient()
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    want = {"fused_sync_easgd_update": 0, "fused_sync_sgd_update": 0,
-            "flash_attention_fwd": 6, "flash_attention_bwd": 6,
-            "fused_ce_fwd": 1, "fused_ce_bwd": 1, "fused_elastic_update": 0}
+    want = lm_counts(cfg, 1)
     check(counts == want, f"launches per full-width gradient {counts}")
     peak = torch.cuda.max_memory_allocated()
     with timing.Timer("cuda") as tm:
         gradient()
     ms = 1e3 * tm.elapsed
-    with plain_versions(fa, ce):
+    with plain_versions(*kernel_mods):
         loss_p, grad_p, _ = gradient()
         with timing.Timer("cuda") as tm_p:
             gradient()
@@ -620,39 +657,93 @@ def phase_full_width(torch, np, cfg, S, tfm, common, fa, ce, kernels,
           and bool(torch.isfinite(grad_k).all()),
           "full-width loss and gradient finite")
     check(rel_loss <= 1e-3, f"full-width loss kernels vs plain {rel_loss:.3e}")
-    check(rel_grad <= 2e-2, f"full-width gradient kernels vs plain "
-          f"{rel_grad:.3e}")
     out = {"params": n, "loss": loss_k.item(), "loss_plain": loss_p.item(),
            "rel_loss": rel_loss, "rel_grad": rel_grad, "ms": ms,
            "plain_ms": 1e3 * tm_p.elapsed, "peak_bytes": peak,
            "accuracy": metrics["accuracy"].item(), "launches": counts}
-    print(f"full width {cfg.name} {cfg.n_layers} layers n={n} B=1 S={S}: "
-          f"loss kernels "
+    held = "limit 2e-2"
+    if held_dtype is None:
+        check(rel_grad <= 2e-2, f"full-width gradient kernels vs plain "
+              f"{rel_grad:.3e}")
+    else:
+        with plain_versions(*kernel_mods), variant():
+            _, grad_v, _ = gradient()
+        out["rel_grad_variant"] = rel_norm(grad_v, grad_p)
+        held = (f"read, not held; the plain path against its more exact "
+                f"variant reads {out['rel_grad_variant']:.3e}")
+    print(f"full width {cfg.name} {cfg.n_layers} layers n={n} B=1 S={S} "
+          f"{str(cfg.compute_dtype)[6:]} compute: loss kernels "
           f"{out['loss']:.6f} plain {out['loss_plain']:.6f} (rel "
           f"{rel_loss:.3e}, limit 1e-3), gradient rel norm {rel_grad:.3e} "
-          f"(limit 2e-2); {ms:.1f} ms per gradient through the kernels, "
+          f"({held}); {ms:.1f} ms per gradient through the kernels, "
           f"{out['plain_ms']:.1f} ms through the plain versions; peak "
           f"{peak / 2**30:.2f} GiB (max_memory_allocated); launches per "
           f"gradient {counts}", flush=True)
+    if held_dtype is not None:
+        del grad_k, grad_p, grad_v
+        torch.cuda.empty_cache()
+        held_cfg = dataclasses.replace(cfg, compute_dtype=held_dtype)
+        loss_k, grad_k, _ = gradient(held_cfg)
+        with plain_versions(*kernel_mods):
+            loss_p, grad_p, _ = gradient(held_cfg)
+        out["held"] = {
+            "dtype": str(held_dtype),
+            "rel_loss": abs(loss_k.item() - loss_p.item()) / abs(
+                loss_p.item()),
+            "rel_grad": rel_norm(grad_k, grad_p)}
+        check(bool(torch.isfinite(grad_k).all()), "held gradient finite")
+        check(out["held"]["rel_loss"] <= 1e-3, f"full-width loss at "
+              f"{held_dtype} kernels vs plain {out['held']['rel_loss']:.3e}")
+        check(out["held"]["rel_grad"] <= 2e-2, f"full-width gradient at "
+              f"{held_dtype} kernels vs plain {out['held']['rel_grad']:.3e}")
+        print(f"full width {cfg.name} {cfg.n_layers} layers "
+              f"{str(held_dtype)[6:]} compute: loss kernels "
+              f"{loss_k.item():.6f} plain {loss_p.item():.6f} (rel "
+              f"{out['held']['rel_loss']:.3e}, limit 1e-3), gradient rel "
+              f"norm {out['held']['rel_grad']:.3e} (limit 2e-2)", flush=True)
     return out
 
 
+@contextlib.contextmanager
+def f64_plain_ssd(sc):
+    """Inside ``plain_versions``: the SSD plain versions on f64 copies of
+    their inputs, rounded back to f32 (the same function, more exactly)."""
+    saved = sc.ssd_intra_fwd, sc.ssd_intra_bwd
+
+    def fwd(a, x, b, c, chunk):
+        return sc.ssd_intra_fwd_ref(a.double(), x.double(), b.double(),
+                                    c.double(), chunk).float()
+
+    def bwd(a, x, b, c, dy, chunk):
+        return tuple(t.float() for t in sc.ssd_intra_bwd_ref(
+            a.double(), x.double(), b.double(), c.double(), dy.double(),
+            chunk))
+
+    sc.ssd_intra_fwd, sc.ssd_intra_bwd = fwd, bwd
+    try:
+        yield
+    finally:
+        sc.ssd_intra_fwd, sc.ssd_intra_bwd = saved
+
+
 def phase_lm_main_path(torch, runtime, zoo, kernels, comm_rounds,
-                       EASGDConfig, timing, device="cuda") -> dict:
-    """``--model gemma3-4b`` on the PS trainer, P = 4, ring, 64 KiB
-    buckets, 16 rounds; counters 0 before each run and read just after.
-    First the time of one gradient alone, on a private minibatch stream,
-    to set a round's four gradients against the round."""
+                       EASGDConfig, timing, cfg, arch="gemma3-4b",
+                       algos=("sync_easgd", "sync_sgd"),
+                       device="cuda") -> dict:
+    """``--model <arch>`` (the reduced config ``cfg``) on the PS trainer,
+    P = 4, ring, 64 KiB buckets, 16 rounds; counters 0 before each run and
+    read just after. First the time of one gradient alone, on a private
+    minibatch stream, to set a round's four gradients against the round."""
     p, rounds = 4, 16
     easgd = EASGDConfig(eta=0.05, rho=0.05, mu=MU)
-    problem = zoo.resolve("gemma3-4b")
+    problem = zoo.resolve(arch)
     w0, grad_fn, _ = problem.build(device)
     n = w0.numel()
     grad_fn(w0, 0, -9)                                   # warm-up
     with timing.Timer(device) as tm:
         for k in range(10):
             grad_fn(w0, k, -9)
-    print(f"gemma3-4b reduced gradient (n={n}) alone: "
+    print(f"{arch} reduced gradient (n={n}) alone: "
           f"{1e3 * tm.elapsed / 10:.2f} ms per gradient", flush=True)
     bounds = comm_rounds.default_bucket_boundaries(
         grad_fn.layer_sizes, n + (-n) % p, 64 << 10)
@@ -660,22 +751,20 @@ def phase_lm_main_path(torch, runtime, zoo, kernels, comm_rounds,
     # run ends with one eval (a forward without backward)
     grads, evals = 2 * p + rounds * p, 1
     totals = {k.__name__: 0 for k in kernels.KERNELS}
-    for algo, update, n_update in (
-            ("sync_easgd", "fused_sync_easgd_update", p * rounds),
-            ("sync_sgd", "fused_sync_sgd_update", rounds)):
-        cfg = runtime.PSConfig(algorithm=algo, n_workers=p,
-                               total_iters=p * rounds, schedule="ring",
-                               eval_every_iters=10**9, bucket_bytes=64 << 10)
+    updates = {"sync_easgd": ("fused_sync_easgd_update", p * rounds),
+               "sync_sgd": ("fused_sync_sgd_update", rounds)}
+    for algo in algos:
+        update, n_update = updates[algo]
+        ps_cfg = runtime.PSConfig(algorithm=algo, n_workers=p,
+                                  total_iters=p * rounds, schedule="ring",
+                                  eval_every_iters=10**9,
+                                  bucket_bytes=64 << 10)
         kernels.reset_launch_counts()
-        res = runtime.run_ps(problem, easgd, cfg, device=device)
+        res = runtime.run_ps(problem, easgd, ps_cfg, device=device)
         counts = kernels.launch_counts()
-        expected = {"fused_sync_easgd_update": 0, "fused_sync_sgd_update": 0,
-                    "flash_attention_fwd": 6 * (grads + evals),
-                    "flash_attention_bwd": 6 * grads,
-                    "fused_ce_fwd": grads + evals, "fused_ce_bwd": grads,
-                    "fused_elastic_update": 0}
+        expected = lm_counts(cfg, grads, evals)
         expected[update] = n_update
-        check(counts == expected, f"{algo} on gemma3-4b launched {counts}, "
+        check(counts == expected, f"{algo} on {arch} launched {counts}, "
               f"expected {expected}")
         check(res.center.numel() == n and bool(
             torch.isfinite(res.center).all()) and bool(
@@ -684,7 +773,7 @@ def phase_lm_main_path(torch, runtime, zoo, kernels, comm_rounds,
         for k, v in counts.items():
             totals[k] += v
         us = 1e6 * res.total_time_s / res.total_iters
-        print(f"main path {algo} gemma3-4b reduced n={n} P={p} ring "
+        print(f"main path {algo} {arch} reduced n={n} P={p} ring "
               f"bucket=64KiB ({len(bounds) - 1} buckets): {res.total_iters} "
               f"iters in {res.total_time_s:.3f} s = {us:.1f} us/iter, final "
               f"eval loss {res.final_metric:.4f}, counters {res.counters}, "
@@ -790,23 +879,32 @@ def watch_update(elastic, eu, torch, sl):
         elastic.eu = saved
 
 
-def step_counts(p: int, layers: int, micro: int = 1, updates: int = 1
-                ) -> dict:
-    """The launches one multi-pod step implies: per pod and microbatch one
-    attention forward and backward per layer and one cross-entropy forward
-    and backward; the update once per exchange step."""
+def lm_counts(cfg, grads: int, evals: int = 0, updates: int = 0) -> dict:
+    """The launches ``grads`` LM gradients and ``evals`` forward passes
+    imply: per pass one attention (``attn`` / ``local`` layers) or SSD
+    (``ssm`` layers) forward per layer and one cross-entropy forward, and
+    for a gradient the backwards too; the packed update ``updates`` times;
+    the f64 updates none."""
+    kinds = cfg.layer_kinds()
+    attn = sum(k in ("attn", "local") for k in kinds)
+    ssd = sum(k == "ssm" for k in kinds)
+    check(attn + ssd == len(kinds), f"layer kinds {set(kinds)}")
     return {"fused_sync_easgd_update": 0, "fused_sync_sgd_update": 0,
-            "flash_attention_fwd": layers * p * micro,
-            "flash_attention_bwd": layers * p * micro,
-            "fused_ce_fwd": p * micro, "fused_ce_bwd": p * micro,
-            "fused_elastic_update": updates}
+            "flash_attention_fwd": attn * (grads + evals),
+            "flash_attention_bwd": attn * grads,
+            "fused_ce_fwd": grads + evals, "fused_ce_bwd": grads,
+            "fused_elastic_update": updates,
+            "ssd_intra_fwd": ssd * (grads + evals),
+            "ssd_intra_bwd": ssd * grads}
+
 
 
 def phase_multi_pod(torch, np, cfg, S, elastic, EASGDConfig, train,
                     synthetic, eu, kernels, timing, dev, bw, f32) -> tuple:
-    """The third main path at full width: the packed multi-pod Sync EASGD
-    step on gemma3-4b (6 layers), P = 2, B 1 per pod, S 4096, psum, overlap
-    on, 3 steps; counters 0 before each step and read after."""
+    """A main path at full width: the packed multi-pod Sync EASGD step on
+    ``cfg`` (gemma3-4b at 6 layers; mamba2-780m at all 48), P = 2, B 1 per
+    pod, S 4096, psum, overlap on, 3 steps; counters 0 before each step and
+    read after."""
     p, steps = 2, 3
     ecfg = elastic.ElasticConfig(easgd=EASGDConfig(eta=ETA, rho=RHO, mu=MU),
                                  schedule="psum", overlap=True)
@@ -834,7 +932,7 @@ def phase_multi_pod(torch, np, cfg, S, elastic, EASGDConfig, train,
             with timing.Timer("cuda") as tm:
                 state, metrics = build.step(state, batch)
             counts = kernels.launch_counts()
-            want = step_counts(p, cfg.n_layers)
+            want = lm_counts(cfg, p, updates=1)     # one gradient per pod
             check(counts == want, f"multi-pod step {s} launched {counts}, "
                   f"expected {want}")
             for k, v in counts.items():
@@ -890,24 +988,26 @@ def phase_multi_pod(torch, np, cfg, S, elastic, EASGDConfig, train,
 
 
 def phase_launcher_path(torch, np, configs, elastic, EASGDConfig, train,
-                        launcher, kernels, dev) -> dict:
-    """The launcher's path at reduced width: gemma3-4b reduced, P = 4, B 2
-    per pod in 2 microbatches, τ = 2, ring, 4 steps, compression none and
-    bf16; overlap on and off give the same bits on the card, and the card's
-    state equals a CPU run of the same steps from the same state (loss 1e-3
-    relative, params by relative norm 2e-2: the LM gradient's limits).
-    Then ``launch.train --mode sync`` itself on the card."""
-    cfg = configs.get("gemma3-4b").reduced
+                        launcher, kernels, dev, arch="gemma3-4b",
+                        compressions=("none", "bf16")) -> dict:
+    """The launcher's path at reduced width: ``arch`` reduced, P = 4, B 2
+    per pod in 2 microbatches, τ = 2, ring, 4 steps, each compression of
+    ``compressions``; overlap on and off give the same bits on the card,
+    and the card's state equals a CPU run of the same steps from the same
+    state (loss 1e-3 relative, params by relative norm 2e-2: the LM
+    gradient's limits). Then ``launch.train --mode sync`` itself on the
+    card."""
+    cfg = configs.get(arch).reduced
     p, B, micro, tau, steps, S = 4, 2, 2, 2, 4, 24
     rng = np.random.RandomState(0)
     batches = [{"tokens": rng.randint(0, cfg.vocab_size, (p, B, S)),
                 "targets": rng.randint(0, cfg.vocab_size, (p, B, S)),
                 "mask": np.ones((p, B, S), np.float32)} for _ in range(steps)]
     totals = {k.__name__: 0 for k in kernels.KERNELS}
-    want = {k: v * steps for k, v in step_counts(p, cfg.n_layers, micro,
-                                                 0).items()}
+    # one gradient per pod and microbatch each step
+    want = lm_counts(cfg, p * micro * steps)
     want["fused_elastic_update"] = steps // tau
-    for comp in ("none", "bf16"):
+    for comp in compressions:
         runs = []
         for where, overlap in (("cpu", True), (dev, True), (dev, False)):
             ecfg = elastic.ElasticConfig(
@@ -957,7 +1057,7 @@ def phase_launcher_path(torch, np, configs, elastic, EASGDConfig, train,
     # the entry point a user calls, as the docs give it; it sets the counts
     # to 0 before its loop, and they are read just after it returns
     losses = launcher.main([
-        "--arch", "gemma3-4b", "--reduced", "--n-pods", str(p), "--batch",
+        "--arch", arch, "--reduced", "--n-pods", str(p), "--batch",
         str(p * B), "--seq", str(S), "--steps", str(steps), "--tau",
         str(tau), "--microbatches", str(micro), "--schedule", "ring",
         "--log-every", "1", "--device", str(torch.device(dev).type)])
@@ -970,12 +1070,101 @@ def phase_launcher_path(torch, np, configs, elastic, EASGDConfig, train,
     return totals
 
 
+# ---------------------------------------------------------------------------
+# the Mamba-2 slice: the SSD intra-chunk kernels
+# ---------------------------------------------------------------------------
+
+# B, H, S, P, N, L, scale of the log-decay, timed: mamba2-780m's layer at
+# full width; phase 15's reduced shapes (S 24 padded to 32); a chunk whose
+# cumulative decay falls far below -88
+SSD_CASES = ((1, 48, 4096, 64, 128, 256, 1.0, True),
+             (2, 8, 32, 16, 16, 16, 1.0, False),
+             (1, 2, 256, 16, 16, 128, 2.0, False))
+# the cross-entropy at mamba2-780m's loss head: T 4096, d 1536, V 50280
+# (a ragged last vocab tile), bf16
+CE_MAMBA2_CASES = ((4096, 1536, 50280, "bfloat16", True),)
+
+
+def ssd_bound(B, H, S, P, N, L, bw, f32) -> tuple:
+    """Bounds of ``ssd_intra_fwd`` and ``ssd_intra_bwd`` on these shapes:
+    each input read once and each output written once, in f32; over the
+    L (L + 1) / 2 causal pairs of each chunk, 2 operations per product
+    term: G = C·Bᵀ once per (batch row, chunk) and M·X per head forward
+    (N + H·P per pair); G again, dC, dB and, per head, dX and dM backward
+    (3 N + 2 H·P)."""
+    nc, pairs = S // L, L * (L + 1) // 2
+    a, x, bc = 4 * B * H * S, 4 * B * H * S * P, 4 * B * S * N
+    fwd = bound(a + 2 * x + 2 * bc, 2 * B * nc * pairs * (N + H * P), bw,
+                f32)
+    bwd = bound(2 * a + 4 * x + 4 * bc,
+                2 * B * nc * pairs * (3 * N + 2 * H * P), bw, f32)
+    return fwd, bwd
+
+
+def phase_ssd(torch, sc, timing, dev, bw, f32, cases=SSD_CASES) -> dict:
+    """The SSD kernels against their plain versions on the card, each
+    output by its relative norm (y at 1e-5, dx, db, dc and da at 1e-4);
+    at full width both timed beside the bound."""
+    rows = {"ssd_intra_fwd": {}, "ssd_intra_bwd": {}}
+    for i, (B, H, S, P, N, L, scale, timed) in enumerate(cases):
+        gen = torch.Generator(device=dev).manual_seed(300 + i)
+        a = -scale * torch.nn.functional.softplus(
+            torch.randn(B * H, S, generator=gen, device=dev))
+        x, dy = (torch.randn(B * H, S, P, generator=gen, device=dev)
+                 for _ in range(2))
+        b, c = (torch.randn(B, S, N, generator=gen, device=dev)
+                for _ in range(2))
+        deepest = torch.cumsum(a.reshape(B * H, S // L, L), -1).min().item()
+        y = sc.ssd_intra_fwd(a, x, b, c, L)
+        grads = sc.ssd_intra_bwd(a, x, b, c, dy, L)
+        again = sc.ssd_intra_bwd(a, x, b, c, dy, L)
+        torch.cuda.synchronize()
+        tag = (f"B={B} H={H} S={S} P={P} N={N} L={L} (deepest in-chunk "
+               f"cumsum {deepest:.1f})")
+        check(all(bool(torch.isfinite(t).all()) for t in (y, *grads)),
+              f"ssd {tag}: finite outputs")
+        check(all(torch.equal(u, v) for u, v in zip(grads, again)),
+              f"ssd_intra_bwd {tag}: deterministic")
+        hold(rows["ssd_intra_fwd"], f"ssd_intra_fwd {tag}", "fwd",
+             (("y", y, sc.ssd_intra_fwd_ref(a, x, b, c, L)),))
+        hold(rows["ssd_intra_bwd"], f"ssd_intra_bwd {tag}", "bwd",
+             tuple(zip(("dx", "db", "dc", "da"), grads,
+                       sc.ssd_intra_bwd_ref(a, x, b, c, dy, L))))
+        del again
+        if not timed:
+            continue
+        b_fwd, b_bwd = ssd_bound(B, H, S, P, N, L, bw, f32)
+        t = {"fwd": timing.cuda_time_ms(
+                 lambda: sc.ssd_intra_fwd(a, x, b, c, L), reps=20),
+             "fwd_plain": timing.cuda_time_ms(
+                 lambda: sc.ssd_intra_fwd_ref(a, x, b, c, L), reps=5),
+             "bwd": timing.cuda_time_ms(
+                 lambda: sc.ssd_intra_bwd(a, x, b, c, dy, L), reps=20),
+             "bwd_plain": timing.cuda_time_ms(
+                 lambda: sc.ssd_intra_bwd_ref(a, x, b, c, dy, L), reps=5)}
+        for name, kind, (b_ms, by) in (("ssd_intra_fwd", "fwd", b_fwd),
+                                       ("ssd_intra_bwd", "bwd", b_bwd)):
+            rows[name].update({"ms": t[kind], "plain_ms": t[kind + "_plain"],
+                               "bound_ms": b_ms, "bound_by": by,
+                               "library_ms": None,
+                               "shape": f"B={B} H={H} S={S} P={P} N={N} "
+                                        f"L={L} f32"})
+            print(f"{name} {tag}: kernel {t[kind]:.4f} ms, plain "
+                  f"{t[kind + '_plain']:.4f} ms, bound {b_ms:.4f} ms ({by}; "
+                  f"{b_ms / t[kind]:.1%}); no single PyTorch call computes "
+                  f"it", flush=True)
+    for name in rows:
+        rows[name]["replaces"] = "src/repro/kernels/ssd_chunk.py:42"
+    return rows
+
+
 SOURCES = {"fused_sync_easgd_update": "elastic_update.cu",
            "fused_sync_sgd_update": "elastic_update.cu",
            "flash_attention_fwd": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention.cu",
            "fused_ce_fwd": "fused_ce.cu", "fused_ce_bwd": "fused_ce.cu",
-           "fused_elastic_update": "elastic_update.cu"}
+           "fused_elastic_update": "elastic_update.cu",
+           "ssd_intra_fwd": "ssd_chunk.cu", "ssd_intra_bwd": "ssd_chunk.cu"}
 FIRST_KEYS = ("name", "route", "source", "replaces", "launches",
               "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -1022,6 +1211,7 @@ def main() -> int:
     from repro_torch.kernels import elastic_update as eu
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_ce as ce
+    from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.models import common
     from repro_torch.models import transformer as tfm
     from repro_torch.launch import train as launcher
@@ -1065,12 +1255,13 @@ def main() -> int:
     t = time.perf_counter()
     full = dataclasses.replace(configs.get("gemma3-4b").config, n_layers=6)
     check(tfm.n_params(full) == N_GEMMA_6L, "gemma3-4b at 6 layers")
-    phase_full_width(torch, np, full, 4096, tfm, common, fa, ce, kernels,
+    phase_full_width(torch, np, full, 4096, tfm, common, (fa, ce), kernels,
                      timing, dev)
     print(f"phase full width: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     add_counts(launches, phase_lm_main_path(
-        torch, runtime, zoo, kernels, comm_rounds, EASGDConfig, timing))
+        torch, runtime, zoo, kernels, comm_rounds, EASGDConfig, timing,
+        configs.get("gemma3-4b").reduced))
     print(f"phase lm main path: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     rows.update(phase_elastic_kernel(torch, eu, timing, dev, bw, f32))
@@ -1090,6 +1281,41 @@ def main() -> int:
         torch, np, configs, elastic, EASGDConfig, train, launcher, kernels,
         dev))
     print(f"phase launcher path: {time.perf_counter() - t:.1f} s",
+          flush=True)
+
+    # the Mamba-2 slice (phases 12-15)
+    t = time.perf_counter()
+    rows.update(phase_ssd(torch, sc, timing, dev, bw, f32))
+    phase_cross_entropy(torch, F, ce, timing, dev, bw, bf16,
+                        cases=CE_MAMBA2_CASES, rows=rows, suffix="_mamba2")
+    print(f"phase ssd kernels: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    mamba = configs.get("mamba2-780m").config
+    check(tfm.n_params(mamba) == N_MAMBA2, "mamba2-780m at 48 layers")
+    phase_full_width(torch, np, mamba, 4096, tfm, common, (fa, ce, sc),
+                     kernels, timing, dev, held_dtype=torch.float32,
+                     variant=lambda: f64_plain_ssd(sc))
+    print(f"phase mamba2 full width: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    t = time.perf_counter()
+    multi, counts = phase_multi_pod(torch, np, mamba, 4096, elastic,
+                                    EASGDConfig, train, synthetic, eu,
+                                    kernels, timing, dev, bw, f32)
+    add_counts(launches, counts)
+    rows["fused_elastic_update"].update(
+        ms_in_step_mamba2=multi["update_ms"],
+        bound_ms_in_step_mamba2=multi["update_bound_ms"])
+    print(f"phase mamba2 multi-pod: {time.perf_counter() - t:.1f} s",
+          flush=True)
+    t = time.perf_counter()
+    add_counts(launches, phase_launcher_path(
+        torch, np, configs, elastic, EASGDConfig, train, launcher, kernels,
+        dev, arch="mamba2-780m", compressions=("none",)))
+    add_counts(launches, phase_lm_main_path(
+        torch, runtime, zoo, kernels, comm_rounds, EASGDConfig, timing,
+        configs.get("mamba2-780m").reduced, arch="mamba2-780m",
+        algos=("sync_easgd",)))
+    print(f"phase mamba2 launcher path: {time.perf_counter() - t:.1f} s",
           flush=True)
 
     check("jax" not in sys.modules and not any(

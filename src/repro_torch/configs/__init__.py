@@ -1,11 +1,12 @@
 """Architecture registry (the port of ``repro/configs/__init__.py``).
 
-The registry knows every arch id of the reference. Only gemma3-4b is
-ported; ``get`` raises ``NotImplementedError`` for the others.
+The registry knows every arch id of the reference. gemma3-4b and
+mamba2-780m are ported; ``get`` raises ``NotImplementedError`` for the
+others.
 """
 from __future__ import annotations
 
-from repro_torch.configs import gemma3_4b
+from repro_torch.configs import gemma3_4b, mamba2_780m
 from repro_torch.configs.base import (ALL_SHAPES, QUADRATIC_SHAPES, SHAPES,
                                       ArchSpec)
 
@@ -13,7 +14,8 @@ ARCH_IDS = ("gemma3-4b", "qwen1.5-4b", "phi3-mini-3.8b", "gemma3-27b",
             "qwen2-vl-72b", "mamba2-780m", "musicgen-medium",
             "recurrentgemma-2b", "grok-1-314b", "deepseek-v2-236b")
 
-ARCHS = {gemma3_4b.SPEC.arch_id: gemma3_4b.SPEC}
+ARCHS = {spec.arch_id: spec
+         for spec in (gemma3_4b.SPEC, mamba2_780m.SPEC)}
 
 __all__ = ["ALL_SHAPES", "ARCHS", "ARCH_IDS", "ArchSpec", "QUADRATIC_SHAPES",
            "SHAPES", "get"]

@@ -11,15 +11,17 @@ from repro_torch.kernels.elastic_update import (fused_elastic_update,
 from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                  flash_attention_fwd)
 from repro_torch.kernels.fused_ce import fused_ce_bwd, fused_ce_fwd
+from repro_torch.kernels.ssd_chunk import ssd_intra_bwd, ssd_intra_fwd
 
 KERNELS = (fused_sync_easgd_update, fused_sync_sgd_update,
            flash_attention_fwd, flash_attention_bwd, fused_ce_fwd,
-           fused_ce_bwd, fused_elastic_update)
+           fused_ce_bwd, fused_elastic_update, ssd_intra_fwd, ssd_intra_bwd)
 
 __all__ = ["KERNELS", "flash_attention_bwd", "flash_attention_fwd",
            "fused_ce_bwd", "fused_ce_fwd", "fused_elastic_update",
-           "fused_sync_easgd_update",
-           "fused_sync_sgd_update", "launch_counts", "reset_launch_counts"]
+           "fused_sync_easgd_update", "fused_sync_sgd_update",
+           "launch_counts", "reset_launch_counts", "ssd_intra_bwd",
+           "ssd_intra_fwd"]
 
 
 def reset_launch_counts() -> None:

@@ -27,7 +27,8 @@ the thread transport:
 Each algorithm prints the reference's result line without the DES columns
 (the DES cross-check is not ported yet), plus the launch counts of every
 kernel of the port for the run (the update kernels; with ``--model
-gemma3-4b`` also the attention and cross-entropy kernels).
+gemma3-4b`` also the attention and cross-entropy kernels, with ``--model
+mamba2-780m`` the SSD and cross-entropy kernels).
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the kernels'
 plain versions on the CPU.
@@ -188,8 +189,8 @@ def main(argv=None):
                     choices=list(SYNC_FAMILY) + ["all-sync"])
     ap.add_argument("--transport", default="thread", choices=["thread"])
     ap.add_argument("--model", default="tiny-mlp",
-                    help="tiny-mlp (default), mlp, lenet, alexnet or "
-                         "gemma3-4b (the reduced decoder LM)")
+                    help="tiny-mlp (default), mlp, lenet, alexnet, "
+                         "gemma3-4b or mamba2-780m (the reduced LMs)")
     ap.add_argument("--ps-workers", type=int, default=4)
     ap.add_argument("--ps-iters", type=int, default=400)
     ap.add_argument("--ps-eval-every", type=int, default=200)

@@ -19,6 +19,16 @@ import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD."""
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    d_conv: int = 4
+    chunk: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                  # dense | moe | ssm | hybrid | vlm | audio
@@ -30,7 +40,8 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0            # 0 -> d_model // n_heads
     # layer pattern, cycled over n_layers: "attn" (global), "local"
-    # (sliding window); the other kinds of the reference are not ported
+    # (sliding window), "ssm" (Mamba-2); the other kinds of the reference
+    # are not ported
     pattern: tuple = ("attn",)
     window: int = 1024           # sliding window for "local" layers
     rope_theta: float = 10_000.0
@@ -41,10 +52,10 @@ class ModelConfig:
     act: str = "silu"            # silu (swiglu) | gelu (geglu)
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
-    # sub-configs of the unported families (MoE, MLA, SSM, RG-LRU)
+    ssm: Optional[SSMConfig] = None
+    # sub-configs of the unported families (MoE, MLA, RG-LRU)
     moe: Optional[Any] = None
     mla: Optional[Any] = None
-    ssm: Optional[Any] = None
     rglru: Optional[Any] = None
     # precisions
     param_dtype: Any = torch.float32

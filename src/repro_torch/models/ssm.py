@@ -1,0 +1,175 @@
+"""Mamba-2 (SSD, state-space duality, arXiv:2405.21060), the training path
+(the port of ``repro/models/ssm.py``: ``_dims``, ``ssm_defs``,
+``_split_in``, ``_causal_conv``, ``_ssd_chunked`` and the non-cache branch
+of ``ssm_block``).
+
+The SSD layer computes, per head h with scalar decay ``a_t = exp(Δt·A_h)``::
+
+    S_t = a_t · S_{t-1} + Δt·B_t ⊗ x_t          (state: head_dim × d_state)
+    y_t = C_t · S_t + D_h · x_t
+
+in the chunked form: within a chunk, the quadratic attention-like term
+goes through ``kernels.ssd_chunk.SSDIntraChunk`` (the CUDA kernels on the
+card, the plain versions on the CPU); across chunks, the states pass in
+plain torch, vectorised over chunks, with only the short recurrence of the
+``(B, H, P, N)`` states looped over the chunks (the reference's
+``lax.scan``).
+
+The kernels take ``(B·H, S, ·)`` rows, so ``_ssd_chunked`` makes
+contiguous copies of ``a`` and ``Δt·x`` in that layout (and of the output
+back), while B and C stay ``(B, S, N)``, shared by the heads.
+
+Not ported yet (see ROADMAP.md, queue 1 item 10): decode with a cache
+(``ssd_step``, the cache branch of ``ssm_block``). ``sctx.shard`` has no
+counterpart on one device.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_chunk import SSDIntraChunk, chunk_len
+from repro_torch.models.common import ModelConfig, ParamDef, rms_norm
+
+
+def _serving():
+    return NotImplementedError(
+        "Mamba-2 decode with a cache (ssd_step, ssm_block's cache branch) "
+        "is not ported to repro_torch yet; see ROADMAP.md, queue 1 item 10")
+
+
+def _dims(cfg: ModelConfig):
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    n_heads = d_inner // s.head_dim
+    conv_dim = d_inner + 2 * s.d_state
+    return d_inner, n_heads, conv_dim
+
+
+def ssm_defs(cfg: ModelConfig) -> dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    d_inner, n_heads, conv_dim = _dims(cfg)
+    # in_proj emits [z (d_inner) | x (d_inner) | B (N) | C (N) | dt (H)]
+    return {
+        "w_in": ParamDef((d, 2 * d_inner + 2 * s.d_state + n_heads),
+                         ("embed", "inner")),
+        "conv_w": ParamDef((s.d_conv, conv_dim), ("conv", "inner")),
+        "conv_b": ParamDef((conv_dim,), ("inner",), init="zeros"),
+        "A_log": ParamDef((n_heads,), ("state",), init="zeros"),
+        "D": ParamDef((n_heads,), ("state",), init="ones"),
+        "dt_bias": ParamDef((n_heads,), ("state",), init="zeros"),
+        "norm": ParamDef((d_inner,), ("inner",), init="zeros"),
+        "w_out": ParamDef((d_inner, d), ("inner", "embed_out")),
+    }
+
+
+def _split_in(cfg: ModelConfig, h):
+    """-> z, x, B, C, dt. One ``split`` (its backward is one concatenation,
+    where five slices would each write a zero-filled gradient of h)."""
+    s = cfg.ssm
+    d_inner, n_heads, _ = _dims(cfg)
+    return torch.split(h, [d_inner, d_inner, s.d_state, s.d_state,
+                           n_heads], dim=-1)
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv over time. x: (B, S, C); w: (K, C); b: (C,).
+    The reference's Python ``sum`` of the K shifted products, each product
+    and each partial sum rounded to x's dtype."""
+    K, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = 0
+    for i in range(K):
+        out = out + xp[:, i:i + S] * w[i][None, None]
+    return out + b[None, None]
+
+
+def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, state0=None):
+    """Chunked SSD scan. xh: (B, S, H, P) inputs (Δt is applied here); dt:
+    (B, S, H) softplus'ed step sizes; A: (H,) negative decay rates; Bm, Cm:
+    (B, S, N) input / output projections (one group). Returns y
+    (B, S, H, P) f32 and the final state (B, H, P, N)."""
+    Bsz, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    L = min(chunk, S)
+    pad = (-S) % L
+    if pad:
+        # dt = 0 padding: decay 1 and zero input, so the state is unaffected
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+        S = S + pad
+    chunk_len(S, L)
+    nc = S // L
+
+    a = (dt * A[None, None, :]).float()                 # (B,S,H) ≤ 0
+    xbar = (xh * dt[..., None]).float()                 # Δt·x
+    Bf, Cf = Bm.float().contiguous(), Cm.float().contiguous()
+
+    # intra-chunk: the kernel, on (B·H, S, ·) rows
+    a_bh = a.permute(0, 2, 1).reshape(Bsz * H, S).contiguous()
+    x_bh = xbar.permute(0, 2, 1, 3).reshape(Bsz * H, S, P).contiguous()
+    y_intra = SSDIntraChunk.apply(a_bh, x_bh, Bf, Cf, L)
+    y_intra = y_intra.reshape(Bsz, H, nc, L, P).permute(0, 2, 3, 1, 4)
+
+    # inter-chunk, vectorised over chunks: cum (B,nc,L,H) from chunk start
+    cum = torch.cumsum(a.reshape(Bsz, nc, L, H), dim=2)
+    total = cum[:, :, -1]                               # (B,nc,H)
+    x_c = xbar.reshape(Bsz, nc, L, H, P)
+    B_c, C_c = Bf.reshape(Bsz, nc, L, N), Cf.reshape(Bsz, nc, L, N)
+    # each chunk's own input to the state it passes on:
+    # Σ_j exp(total − cum_j) B_j x_jᵀ
+    decay_in = torch.exp(total[:, :, None, :] - cum)    # (B,nc,L,H)
+    s_in = torch.einsum("bcln,bclhp->bchpn", B_c,
+                        x_c * decay_in[..., None])
+    state = (torch.zeros((Bsz, H, P, N), dtype=torch.float32,
+                         device=xh.device) if state0 is None else state0)
+    starts = []
+    for k in range(nc):
+        starts.append(state)
+        state = state * torch.exp(total[:, k])[:, :, None, None] + s_in[:, k]
+    prev = torch.stack(starts, dim=1)                   # (B,nc,H,P,N)
+    # y_prev[i] = exp(cum_i) · C_i · S_prev
+    y_prev = torch.einsum("bcln,bchpn->bclhp", C_c, prev)
+    y = y_prev * torch.exp(cum)[..., None] + y_intra
+    y = y.reshape(Bsz, S, H, P)
+    if pad:
+        y = y[:, :S - pad]
+    return y, state
+
+
+def ssd_step(state, x_t, dt_t, A, B_t, C_t):
+    raise _serving()
+
+
+def ssm_block(cfg: ModelConfig, p, x, positions=None, *, cache=None,
+              cache_pos=None, **_unused):
+    """Mamba-2 block, training / teacher-forced forward only
+    (``cache is None``). Returns ``(y, None)`` like the reference."""
+    if cache is not None:
+        raise _serving()
+    s = cfg.ssm
+    cd = cfg.compute_dtype
+    d_inner, n_heads, _ = _dims(cfg)
+    B_, S, _ = x.shape
+
+    h = torch.einsum("bsd,de->bse", x, p["w_in"].to(cd))
+    z, xi, Bm, Cm, dt = _split_in(cfg, h)
+    xbc = torch.cat([xi, Bm, Cm], dim=-1)
+    conv_out = F.silu(_causal_conv(xbc.to(cd), p["conv_w"].to(cd),
+                                   p["conv_b"].to(cd)))
+    xi, Bm, Cm = torch.split(conv_out, [d_inner, s.d_state, s.d_state],
+                             dim=-1)
+    dt_sp = F.softplus(dt.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    xh = xi.reshape(B_, S, n_heads, s.head_dim)
+    y, _ = _ssd_chunked(xh.float(), dt_sp, A, Bm, Cm, s.chunk)
+    y = y + p["D"].float()[None, None, :, None] * xh
+    y = y.reshape(B_, S, d_inner)
+
+    # gated RMSNorm (Mamba-2) + out proj
+    y = y.to(cd) * F.silu(z)
+    y = rms_norm(y, p["norm"])
+    return torch.einsum("bse,ed->bsd", y, p["w_out"].to(cd)), None

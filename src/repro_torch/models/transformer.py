@@ -1,5 +1,5 @@
-"""Decoder LM: the dense layer kinds of the reference's pattern-cycled
-stack, its forward and its loss (the port of ``repro/models/
+"""Decoder LM: the dense and Mamba-2 layer kinds of the reference's
+pattern-cycled stack, its forward and its loss (the port of ``repro/models/
 transformer.py``: ``model_defs``, ``forward`` without caches,
 ``_unembed_weight``, ``_divisor_chunk`` and ``lm_loss``).
 
@@ -13,11 +13,14 @@ Flat rows: ``ravel_layout`` / ``flatten_params`` / ``unflatten`` follow
 ``jax.flatten_util.ravel_pytree``'s order (dict keys sorted: ``blocks``,
 ``embed``, ``final_norm``, ``rem``; inside a block ``attn`` {k_norm,
 q_norm, wk, wo, wq, wv}, ``ffn`` {w_down, w_gate, w_up}, ``norm1``,
-``norm2``), and ``params_from_jax`` carries the reference's params across.
+``norm2``; an ``ssm`` block is {``norm1``, ``ssm`` {A_log, D, conv_b,
+conv_w, dt_bias, norm, w_in, w_out}}, capitals first, as ``sorted`` and
+``ravel_pytree`` order them), and ``params_from_jax`` carries the
+reference's params across.
 
-Not ported yet (see ROADMAP.md): the ``mla``, ``moe``, ``ssm`` and
-``rglru`` kinds, caches, ``prefill`` / ``decode_step``, and ``cfg.remat``
-(the port keeps every layer's activations for the backward).
+Not ported yet (see ROADMAP.md): the ``mla``, ``moe`` and ``rglru`` kinds,
+caches, ``prefill`` / ``decode_step``, and ``cfg.remat`` (the port keeps
+every layer's activations for the backward).
 """
 from __future__ import annotations
 
@@ -29,17 +32,20 @@ import torch
 from repro_torch.kernels.fused_ce import FusedCrossEntropy
 from repro_torch.models import attention
 from repro_torch.models import ffn as ffn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (ModelConfig, ParamDef, rms_norm,
-                                       tree_leaves_with_path, tree_map)
+                                       tree_leaves_with_path, tree_map,
+                                       tree_unflatten)
 from repro_torch.utils.device import resolve_device
 
 DENSE_KINDS = ("attn", "local")
+PORTED_KINDS = DENSE_KINDS + ("ssm",)
 
 
 def _unported(kind):
     return NotImplementedError(
         f"layer kind '{kind}' is not ported to repro_torch yet (ported: "
-        f"{DENSE_KINDS}); see ROADMAP.md, queue 1")
+        f"{PORTED_KINDS}); see ROADMAP.md, queue 1")
 
 
 # ---------------------------------------------------------------------------
@@ -47,13 +53,16 @@ def _unported(kind):
 # ---------------------------------------------------------------------------
 
 def _block_defs(cfg: ModelConfig, kind: str) -> dict:
-    if kind not in DENSE_KINDS:
-        if kind in ("mla", "ssm", "rglru") or kind.startswith("moe"):
+    if kind not in PORTED_KINDS:
+        if kind in ("mla", "rglru") or kind.startswith("moe"):
             raise _unported(kind)
         raise ValueError(f"unknown layer kind {kind}")
+    d = cfg.d_model
+    if kind == "ssm":                       # mamba: no separate FFN
+        return {"norm1": ParamDef((d,), ("embed",), init="zeros"),
+                "ssm": ssm_lib.ssm_defs(cfg)}
     if cfg.moe is not None:
         raise _unported("moe")
-    d = cfg.d_model
     return {"norm1": ParamDef((d,), ("embed",), init="zeros"),
             "attn": attention.attention_defs(cfg),
             "norm2": ParamDef((d,), ("embed",), init="zeros"),
@@ -155,10 +164,22 @@ def params_from_jax(params_or_flat_row, cfg: ModelConfig, device=None):
 
 def _apply_block(cfg: ModelConfig, kind: str, p, x, positions):
     h = rms_norm(x, p["norm1"])
+    if kind == "ssm":
+        y, _ = ssm_lib.ssm_block(cfg, p["ssm"], h, positions)
+        return x + y
     y, _ = attention.attention_block(cfg, p["attn"], h, positions, kind=kind)
     x = x + y
     h2 = rms_norm(x, p["norm2"])
     return x + ffn_lib.ffn_block(cfg, p["ffn"], h2)
+
+
+def _unstack(tree, n: int) -> list:
+    """The n layers of a stacked param pytree, as n pytrees of views: one
+    ``unbind`` per leaf, whose backward stacks the n layers' gradients in
+    one pass. Indexing ``t[i]`` per layer instead costs a zero-filled
+    full-size gradient per layer and leaf, n² layer-sized writes."""
+    leaves = [t.unbind(0) for _, t in tree_leaves_with_path(tree)]
+    return [tree_unflatten(tree, [ts[i] for ts in leaves]) for i in range(n)]
 
 
 def forward(cfg: ModelConfig, params, tokens, *, positions=None):
@@ -169,10 +190,11 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None):
     h = params["embed"][tokens].to(cd)
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    layers = [_unstack(params["blocks"][s], cfg.n_periods)
+              for s in range(len(cfg.pattern))]
     for i in range(cfg.n_periods):
         for s, kind in enumerate(cfg.pattern):
-            p_s = tree_map(lambda t, i=i: t[i], params["blocks"][s])
-            h = _apply_block(cfg, kind, p_s, h, positions)
+            h = _apply_block(cfg, kind, layers[s][i], h, positions)
     for i, kind in enumerate(cfg.remainder_kinds):
         h = _apply_block(cfg, kind, params["rem"][i], h, positions)
     h = rms_norm(h, params["final_norm"])

@@ -123,7 +123,7 @@ def test_zoo_resolve_names():
     assert lm.factory == "repro_torch.ps.zoo:make_zoo_lm"
     assert ref_lm.factory == "repro.ps.zoo:make_zoo_lm"
     assert lm.kwargs == ref_lm.kwargs == (("arch", "gemma3-4b"),)
-    for name in ("jax-mlp", "mamba2-780m"):
+    for name in ("jax-mlp", "recurrentgemma-2b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             zoo.resolve(name)
     with pytest.raises(ValueError):

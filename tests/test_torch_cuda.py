@@ -1,8 +1,8 @@
 """The port on the card: its CUDA kernels against their plain versions (bit
-for bit for the f64 updates, at the stated tolerances for attention and
-cross-entropy), the runtime's card runs against its CPU runs, and the LM's
-gradient through the kernels. Every test is marked ``cuda`` and skips
-without a GPU.
+for bit for the f64 updates, at the stated tolerances for attention,
+cross-entropy and the SSD block), the runtime's card runs against its CPU
+runs, and the LMs' gradients through the kernels. Every test is marked
+``cuda`` and skips without a GPU.
 
 This file imports only torch, numpy and the port, so it runs on a machine
 without JAX:
@@ -10,8 +10,8 @@ without JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The oracles are the plain versions and the CPU paths, which
-tests/test_torch_{elastic_update,ps,attention,fused_ce,lm}.py hold against
-the reference.
+tests/test_torch_{elastic_update,ps,attention,fused_ce,lm,ssd,ssm}.py hold
+against the reference.
 """
 import numpy as np
 import pytest
@@ -21,7 +21,7 @@ from repro_torch import kernels
 from repro_torch.core.easgd import EASGDConfig
 from repro_torch.kernels import elastic_update as eu
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import fused_ce
+from repro_torch.kernels import fused_ce, ssd_chunk
 from repro_torch import configs
 from repro_torch.core import elastic
 from repro_torch.ps import problems, runtime, zoo
@@ -289,4 +289,68 @@ def test_multi_pod_step_on_the_card_matches_the_cpu(cuda, compression):
         assert abs(got - want) <= 1e-3 * abs(want)
     rel = float(torch.linalg.vector_norm(on[0].params - cpu.params)
                 / torch.linalg.vector_norm(cpu.params))
+    assert rel <= 2e-2
+
+
+def _ssd_inputs(B, H, S, P, N, scale, seed, device):
+    rng = np.random.RandomState(seed)
+    a = -scale * np.log1p(np.exp(rng.randn(B * H, S)))
+    x, dy = (rng.randn(B * H, S, P) for _ in range(2))
+    b, c = (rng.randn(B, S, N) for _ in range(2))
+    return [torch.from_numpy(t.astype(np.float32)).to(device)
+            for t in (a, x, b, c, dy)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,P,N,L,scale", [
+    (1, 3, 512, 64, 128, 256, 1.0),     # full-width chunk, 3 of 48 heads
+    (2, 8, 32, 16, 16, 16, 1.0),        # reduced mamba2 (S 24 padded)
+    (1, 2, 192, 24, 40, 96, 1.0),       # ragged tiles on every side
+    (2, 2, 256, 16, 16, 128, 2.0),      # cumsum far below -88
+])
+def test_ssd_kernels_match_plain_versions(cuda, B, H, S, P, N, L, scale):
+    a, x, b, c, dy = _ssd_inputs(B, H, S, P, N, scale, S + P, cuda)
+    kernels.reset_launch_counts()
+    y = ssd_chunk.ssd_intra_fwd(a, x, b, c, L)
+    grads = ssd_chunk.ssd_intra_bwd(a, x, b, c, dy, L)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == _counts(ssd_intra_fwd=1,
+                                              ssd_intra_bwd=1)
+    _close(y, ssd_chunk.ssd_intra_fwd_ref(a, x, b, c, L), "fwd")
+    for got, want in zip(grads, ssd_chunk.ssd_intra_bwd_ref(a, x, b, c, dy,
+                                                            L)):
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        _close(got, want, "bwd")
+    # deterministic: no atomics, fixed order of every sum
+    again = ssd_chunk.ssd_intra_bwd(a, x, b, c, dy, L)
+    assert all(torch.equal(p, q) for p, q in zip(grads, again))
+
+
+@pytest.mark.cuda
+def test_ssd_kernels_refuse_what_they_do_not_take(cuda):
+    a, x, b, c, dy = _ssd_inputs(1, 2, 32, 16, 16, 1.0, 0, cuda)
+    kernels.reset_launch_counts()
+    with pytest.raises(TypeError, match="float32"):
+        ssd_chunk.ssd_intra_fwd(a, x.double(), b, c, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_chunk.ssd_intra_bwd(a, x, b, c, dy.transpose(1, 2)
+                                .contiguous().transpose(1, 2), 16)
+    assert kernels.launch_counts()["ssd_intra_fwd"] == 0
+    assert kernels.launch_counts()["ssd_intra_bwd"] == 0
+
+
+@pytest.mark.cuda
+def test_mamba2_gradient_on_the_card_matches_the_cpu(cuda):
+    """Reduced mamba2-780m, bf16 compute: the gradient through the kernels
+    against the CPU's plain path, and one SSD forward and backward per
+    layer and one CE each per gradient."""
+    w0, g_cpu, _ = zoo.make_zoo_lm("mamba2-780m", device="cpu")
+    w_gpu, g_gpu, _ = zoo.make_zoo_lm("mamba2-780m", w0=w0, device=cuda)
+    kernels.reset_launch_counts()
+    got = g_gpu(w_gpu, 0, 0).cpu()
+    assert kernels.launch_counts() == _counts(
+        ssd_intra_fwd=4, ssd_intra_bwd=4, fused_ce_fwd=1, fused_ce_bwd=1)
+    want = g_cpu(w0, 0, 0)
+    rel = float(torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want))
     assert rel <= 2e-2

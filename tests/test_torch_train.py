@@ -16,7 +16,8 @@ batches.
 The cases: f32 compute, psum, two microbatches; the config's bf16
 compute, ring, bf16 compression; f32, ring, sign_ef compression, τ = 3
 (the exchange of step 3 follows two momentum-only steps); f32 msgd with two
-microbatches. Four steps each.
+microbatches; reduced mamba2-780m in f32, psum (its intra-chunk term
+through the SSD plain version). Four steps each.
 
 Tolerances, by the scale-free ‖port − ref‖ / ‖ref − init‖ for the state
 (the center's init is the params' init; the momentum's and the error
@@ -76,6 +77,9 @@ CASES = {
                     microbatches=1, tau=3, mode="sync_easgd"),
     "msgd": dict(compute="float32", schedule="psum", compression="none",
                  microbatches=2, tau=1, mode="msgd"),
+    "mamba2": dict(compute="float32", schedule="psum", compression="none",
+                   microbatches=1, tau=1, mode="sync_easgd",
+                   arch="mamba2-780m"),
 }
 
 _REF_SCRIPT = r"""
@@ -93,7 +97,8 @@ batches = np.load(sys.argv[2])
 out = {}
 mesh = auto_mesh((1, 1), ("data", "model"))
 for name, case in spec["cases"].items():
-    cfg = dataclasses.replace(configs.get(spec["arch"]).reduced,
+    cfg = dataclasses.replace(configs.get(case.get("arch",
+                                                   spec["arch"])).reduced,
                               compute_dtype=getattr(jnp, case["compute"]))
     ecfg = ElasticConfig(easgd=EASGDConfig(**spec["easgd"], tau=case["tau"]),
                          schedule=case["schedule"], mode=case["mode"],
@@ -151,7 +156,7 @@ def reference(tmp_path_factory):
 
 def _port_build(case, **kw):
     c = CASES[case]
-    cfg = dataclasses.replace(configs.get(ARCH).reduced,
+    cfg = dataclasses.replace(configs.get(c.get("arch", ARCH)).reduced,
                               compute_dtype=getattr(torch, c["compute"]))
     ecfg = elastic.ElasticConfig(easgd=EASGDConfig(**EASGD, tau=c["tau"]),
                                  schedule=c["schedule"], mode=c["mode"],
