@@ -25,9 +25,13 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    norm (the cross-entropy gradients also by their softmax part alone), at
    gemma3-4b's full width (attention B 1, S 4096, H 8, KVH 4, D 256, bf16,
    window 1024 and 0; cross-entropy T 4096, d 2560, V 262144, bf16), at the
-   reduced shapes of phase 8, and at small ragged f32 shapes; and time
+   reduced shapes of phase 8, at bf16 head dims 32 and 128 and a ragged
+   unmasked bf16 shape, and at small ragged f32 shapes; require two
+   full-width attention backward calls to give the same bits; and time
    kernel, plain version and the library call with CUDA events beside the
-   bound;
+   bound. The build's ptxas output gives one line per attention kernel
+   instantiation: its instructions (wgmma, mma.sync or CUDA-core FMA),
+   registers and spill bytes;
 7. gemma3-4b at full width, depth cut to 6 layers (1,237,356,032
    parameters, f32 params, bf16 compute), B 1, S 4096: ``lm_loss`` and its
    gradient through the kernels and through the plain versions, held to a
@@ -94,6 +98,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -377,6 +382,9 @@ ATTN_CASES = ((1, 4096, 8, 4, 256, True, 1024, "bfloat16", True),
               (1, 4096, 8, 4, 256, True, 0, "bfloat16", True),
               (2, 24, 4, 2, 16, True, 8, "bfloat16", False),
               (2, 24, 4, 2, 16, True, 0, "bfloat16", False),
+              (1, 100, 4, 2, 32, True, 0, "bfloat16", False),
+              (2, 150, 4, 2, 128, True, 48, "bfloat16", False),
+              (1, 77, 4, 4, 64, False, 0, "bfloat16", False),
               (1, 100, 4, 2, 16, True, 9, "float32", False),
               (1, 100, 4, 2, 16, False, 0, "float32", False))
 # T, d, V, dtype, timed: gemma3-4b's loss head at full width and at phase
@@ -388,6 +396,52 @@ CE_CASES = ((4096, 2560, 262144, "bfloat16", True),
 # scale (about 1) the softmax part of a bf16 gradient at V 262144 is below
 # bf16's rounding of the one-hot part, and no reading could see it
 CE_LOGIT_STD = 3.0
+
+
+# the attention kernels' instructions by namespace and kernel: the bf16
+# route's forward and dQ pass on wgmma, its dK/dV pass on mma.sync; the
+# f32 route and the delta kernel on the CUDA cores
+ATTN_ROUTES = {("tc", "attn_fwd_kernel"): "wgmma",
+               ("tc", "attn_bwd_dkdv_kernel"): "mma.sync",
+               ("tc", "attn_bwd_dq_kernel"): "wgmma"}
+_PTXAS_FN = re.compile(r"Compiling entry function '\S*?(tc|simt)\d+"
+                       r"(attn_\w+?_kernel)I(f|13__nv_bfloat16)?(?:Li(\d+)E)?")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_table(log: str) -> list:
+    """``(namespace, kernel, dtype, D, registers, spill stores, spill
+    loads)`` of every attention instantiation in an nvcc -Xptxas -v log."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = _PTXAS_FN.search(line)
+        if m:
+            ns, name, t, d = m.groups()
+            dtype = "bf16" if ns == "tc" or (t and "bfloat" in t) else "f32"
+            cur = [ns, name, dtype, int(d) if d else None, None, 0, 0]
+            continue
+        if cur is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            cur[5:7] = int(m.group(1)), int(m.group(2))
+        m = _PTXAS_REGS.search(line)
+        if m:
+            cur[4] = int(m.group(1))
+            rows.append(tuple(cur))
+            cur = None
+    return rows
+
+
+def print_attention_build(log: str) -> None:
+    """One line per attention instantiation: its instruction route,
+    registers and spill bytes, from the build's ptxas output."""
+    for ns, name, dtype, D, regs, st, ld in ptxas_table(log):
+        route = ATTN_ROUTES.get((ns, name), "CUDA-core FMA")
+        print(f"attention build {name} {dtype} D={D}: {route}, {regs} "
+              f"registers, spill stores {st} B, spill loads {ld} B",
+              flush=True)
 
 
 def phase_attention(torch, F, fa, timing, dev, bw, bf16,
@@ -415,6 +469,12 @@ def phase_attention(torch, F, fa, timing, dev, bw, bf16,
              tuple(zip(("dq", "dk", "dv"), grads, p_grads)))
         if not timed:
             continue
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+              f"flash_attention_bwd {tag}: two calls, the same bits")
+        print(f"flash_attention_bwd {tag}: two calls give the same bits",
+              flush=True)
         es = q.element_size()
         pairs = B * H * attn_pairs(S, causal, window)
         qo = B * S * H * D * es
@@ -468,10 +528,12 @@ def phase_attention(torch, F, fa, timing, dev, bw, bf16,
                   f"{t[kind + '_plain']:.4f} ms, scaled_dot_product_attention "
                   f"{t[kind + '_lib']:.4f} ms, bound {b_ms:.4f} ms ({by})",
                   flush=True)
-    rows["flash_attention_fwd"]["replaces"] = \
-        "src/repro/kernels/flash_attention.py:75"
-    rows["flash_attention_bwd"]["replaces"] = \
-        "src/repro/models/attention.py:222"
+    rows["flash_attention_fwd"].update(
+        replaces="src/repro/kernels/flash_attention.py:75",
+        products="bf16: wgmma; f32: CUDA-core FMA")
+    rows["flash_attention_bwd"].update(
+        replaces="src/repro/models/attention.py:222",
+        products="bf16: dK/dV mma.sync, dQ wgmma; f32: CUDA-core FMA")
     return rows
 
 
@@ -1235,6 +1297,8 @@ def main() -> int:
     for src, log in built.items():
         for line in log.splitlines():
             print(f"  nvcc[{src}] {line}")
+    if "flash_attention" in built:
+        print_attention_build(built["flash_attention"])
 
     t = time.perf_counter()
     rows = phase_kernels(torch, eu, timing, dev, bw, f64)

@@ -4,7 +4,8 @@ and keep the wrappers' launch counts.
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/repro_torch_kernels/lib<name>-<hash>.so`` at the root of the
 checkout, for ``sm_90a`` (Hopper). The file name carries a hash of the
-source, so an edited source is rebuilt and a stale library is never loaded.
+source and of the ``csrc/`` headers it includes, so an edited source or
+header is rebuilt and a stale library is never loaded.
 Only the sources in the checkout are built; nothing is fetched.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,6 +28,7 @@ BUILD_DIR = REPO / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_INCLUDE = re.compile(r'^#include "([^"]+)"', re.M)
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -43,10 +46,24 @@ def _nvcc() -> str:
     return found
 
 
+def inputs(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes
+    (``#include "..."``, followed through the headers)."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        todo += [CSRC / h for h in _INCLUDE.findall(path.read_text())]
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in inputs(name):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

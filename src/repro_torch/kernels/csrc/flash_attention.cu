@@ -1,5 +1,6 @@
-// Flash attention forward and backward for Hopper (sm_90a), f32 or bf16
-// storage with f32 scores, statistics and accumulators.
+// Flash attention forward and backward for Hopper (sm_90a): bf16 storage
+// on the tensor cores, f32 storage on the CUDA cores. Scores, softmax
+// statistics and accumulators are f32 on both routes.
 //
 // Replaces:
 //   repro_flash_fwd  <- src/repro/kernels/flash_attention.py
@@ -18,52 +19,77 @@
 //
 // The arithmetic follows the reference's training path: s = (q.k) * scale
 // in f32; online softmax per kv tile; p rounded to v's dtype before p.V;
-// l sums the unrounded p. Backward: p = exp(s - lse), dv += round(p)^T.dO,
-// dp = dO.V^T, ds = p (dp - delta) scale, dq += round(ds).K,
-// dk += round(ds)^T.Q, delta = sum(dO * O).
+// l sums the unrounded p; out = acc / max(l, 1e-30), lse = m + log(max(l,
+// 1e-30)). Backward: p = exp(s - lse), dv += round(p)^T.dO, dp = dO.V^T,
+// ds = p (dp - delta) scale, dq += round(ds).K, dk += round(ds)^T.Q,
+// delta = sum(dO * O). On the bf16 route the rounding points are the
+// tensor cores' bf16 A operands.
 //
-// Bound on the card. The training shapes (S 4096, D 256, H 8, KVH 4) do
-// about 2 S^2 D H flops per product over the unmasked part (half of it
-// causal, a quarter of it or less under the 1024 window): the work is bound
-// by operations, not bytes. These kernels are the simple version: f32
-// FMA on CUDA cores from shared-memory tiles (no tensor cores, no TMA), so
-// they run far from the bf16 tensor-core bound. What the design does keep:
-// the S x S scores never leave shared memory; kv tiles that the causal and
-// window masks hide entirely are skipped; dk and dv are summed over the G
-// query heads of a KV head inside one block, in a fixed order, so the
-// backward is deterministic without atomics.
+// Bound. At the training shapes (S 4096, D 256, H 8, KVH 4) each product
+// does 2 D flops per unmasked (query, key) pair: about 2 S^2 D H under
+// the causal mask, a quarter of that under the 1024 window. The forward
+// has two products, the backward's bound five (s, dp, dv, dq, dk), against
+// a few bytes per pair: the work is bound by operations, bf16 989 TFLOP/s
+// on the H100's tensor cores.
 //
-// Blocks: forward (q tile of 64 rows, head, batch), kv tiles of 64; the
-// backward's dk/dv pass (kv tile of 32, kv head, batch) loops over the G
-// heads and the q tiles; its dq pass (q tile of 32, head, batch) loops over
-// kv tiles. Tiles are staged in shared memory as f32 with a padded row
-// stride (D + 1) so that column walks do not conflict on banks. Ragged
-// tails are zero-filled and masked. The launchers allocate nothing, do not
-// synchronise, and return cudaGetLastError().
+// bf16 route (namespace tc):
+//   forward  - one block per (128 query rows, head, batch): two consumer
+//              warpgroups of 64 rows and one producer warpgroup. One
+//              producer thread issues TMA copies (tensor maps whose 128-,
+//              64- or 32-byte swizzle is the tiles' layout): Q once, then K
+//              and V tiles of 64 keys into a ring of 2 stages, each
+//              completing on its stage's `full` mbarrier; the consumers
+//              arrive on its `empty` one when their products have read it.
+//              Products: S = Q.K^T is wgmma m64n64k16 with both operands
+//              K-major in shared memory; P.V is wgmma m64nDk16 with P
+//              rounded to bf16 in registers as the A operand and V read
+//              MN-major from shared memory. The mask (only on tiles that
+//              cross the diagonal, the window edge or S) and the online
+//              softmax (exp2, scale * log2 e folded into the scores) run in
+//              registers; O stays in registers. Tiles wholly masked for a
+//              warpgroup's rows are skipped; blocks run heaviest q tile
+//              first. The 384 threads start at 168 registers (three warps
+//              on each SM quarter); at D 256 setmaxnreg moves the producers
+//              to 40 and the consumers to 232, since O alone takes 128.
+//              Shared memory at D 256: Q 64 KB + 2 x (K 32 KB + V 32 KB).
+//   backward - the delta kernel, then two passes with no atomics (two
+//              calls give the same bits).
+//              dK/dV: one block per (64 keys, KV head, batch) looping over
+//              the G query heads and the q tiles in a fixed order (S, dP,
+//              dV, dK). Every product is mma.sync m16n8k16 (bf16 in, f32
+//              accumulate) with operands from swizzled shared memory by
+//              ldmatrix (.trans for the transposed ones); Q and dO tiles
+//              come through a 2-stage cp.async ring. mma.sync, not wgmma:
+//              at D 256 the pass holds two 64 x 256 f32 accumulators (128
+//              registers a thread over 8 warps, 256 over one warpgroup as
+//              wgmma lays them out) beside S and dP, the layout
+//              FlashAttention-2's hdim-256 backward fits on sm_90 (ptxas:
+//              about 250 registers, no spills).
+//              dQ: the forward's block (128 query rows, head, batch; a TMA
+//              producer warpgroup, setmaxnreg at D 256) looping over K / V
+//              tiles of 32 keys: S and dP are wgmma m64n32k16 from shared
+//              memory, dQ += dS.K is wgmma m64nDk16 with dS rounded to
+//              bf16 in registers and K read MN-major.
+//              Seven products against the bound's five cap this design at
+//              about 71 % of the bound.
+// Tiles live in shared memory in wgmma's swizzled layout (sm90.cuh).
+//
+// f32 route (namespace simt): the first version, f32 FMA on the CUDA cores
+// from f32 shared-memory tiles (row stride D + 1), the same blocks and
+// passes with 64 x 64 forward and 32 x 32 backward tiles.
+//
+// The launchers allocate nothing, do not synchronise, and return
+// cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-    return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);   // round to nearest even, as astype
-}
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-    return to_f(from_f<T>(x));
-}
 
 __device__ __forceinline__ bool allowed(int qpos, int kpos, int S, int causal,
                                         int window) {
@@ -94,6 +120,22 @@ __device__ __forceinline__ void q_range(int k0, int k1, int S, int bq,
     if (window) last = min(last, k1 - 1 + window - 1);
     *lo = first / bq;
     *hi = first > last ? *lo : last / bq + 1;
+}
+
+namespace simt {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+    return x;
+}
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+    return to_f(from_f<T>(x));
 }
 
 // rows [r0, r0 + n) of one head of a (B, S, heads, D) tensor -> f32 tile
@@ -433,6 +475,756 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using namespace sm90;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// forward: 128 query rows of one head a block (two consumer warpgroups of
+// 64), kv tiles of 64 keys in a ring of 2 stages, one producer warpgroup
+constexpr int kFwdRows = 64, kFwdBK = 64, kStages = 2;
+constexpr int kConsumers = 256, kProducers = 128;
+constexpr int kFwdThreads = kConsumers + kProducers;
+// 384 threads start with 168 registers each (each SM quarter holds three
+// warps); at D 256 the producers give 128 of theirs to the consumers,
+// whose O alone takes 128 (168 would spill it)
+constexpr int kFwdRegs = 168, kProducerRegs = 40, kConsumerRegs = 232;
+template <int D> constexpr bool kMoveRegs = D == 256;
+
+template <int D> struct FwdSmem {
+    static constexpr int kQ = kFwdRows * D * 2;        // a warpgroup's Q
+    static constexpr int kKV = kFwdBK * D * 2;         // one K or V tile
+    static constexpr int kBarriers = 2 * kQ + 2 * kStages * kKV;
+    // + the mbarriers, + slack to align the base to 1024 bytes
+    static constexpr size_t kAlloc = kBarriers + 8 * (2 * kStages + 1) + 1024;
+};
+
+// shared base rounded up to 1024 bytes (the swizzle repeats every 1024)
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+    const uint32_t a = smem_u32(raw);
+    return raw + (((a + 1023u) & ~1023u) - a);
+}
+
+// s = A . B^T for one warpgroup: A a 64-row tile (Q or dO), B a BK-row
+// tile (K or V), D / 16 wgmma k-steps, both K-major in shared memory
+template <int D, int BK>
+__device__ __forceinline__ void issue_scores(float* s, uint32_t qa,
+                                             uint32_t ks) {
+    using Sw = Swz<D>;
+    constexpr int RB = Sw::kRowBytes, KPR = RB / 32;   // k-steps a row
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t at = (kk / KPR) * kFwdRows * RB + (kk % KPR) * 32;
+        const uint32_t bt = (kk / KPR) * BK * RB + (kk % KPR) * 32;
+        WgmmaSS<BK>::run(s, wgmma_desc(qa + at, 16, 8 * RB, Sw::kLayout),
+                         wgmma_desc(ks + bt, 16, 8 * RB, Sw::kLayout), 1);
+    }
+}
+
+// o += P . V: P (64 x BK) as BK / 16 bf16 A fragments, V (or K) a BK-row
+// tile read MN-major from shared memory (D-wide slabs BK * RB apart)
+template <int D, int BK>
+__device__ __forceinline__ void issue_pv(float* o, const uint32_t (*pa)[4],
+                                         uint32_t vs) {
+    using Sw = Swz<D>;
+    constexpr int RB = Sw::kRowBytes;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+        WgmmaRS<D>::run(o, pa[kk],
+                        wgmma_desc(vs + kk * 16 * RB, BK * RB, 8 * RB,
+                                   Sw::kLayout),
+                        1);
+}
+
+// the online softmax of one tile on this thread's scores (rows r0, r1;
+// keys k0 + 8 n + 2 t + {0, 1}): s becomes the unrounded p, m the new
+// running max (log2 domain), c the correction of the old state, ps this
+// tile's partial row sums. kMask (a tile that crosses the diagonal, the
+// window edge or S): x = s scale log2 e, -1e30 where masked, p = exp2(x -
+// m), so x - m stays finite when a whole row is masked. Otherwise every
+// score is finite and p = exp2(s scale log2 e - m) in one FMA.
+template <bool kMask>
+__device__ __forceinline__ void tile_softmax(float* s, int k0, int r0,
+                                             int r1, int t, int S,
+                                             int causal, int window,
+                                             float scale_log2, float* m,
+                                             float* c, float* ps) {
+    float mx[2] = {kNegInf, kNegInf};
+    if (kMask) {
+        // keys [lo, hi) of each row, relative to this thread's first key
+        int lo[2], hi[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int r = i ? r1 : r0, k = k0 + 2 * t;
+            lo[i] = (window ? r - window + 1 : 0) - k;
+            hi[i] = min(S, causal ? r + 1 : S) - k;
+        }
+#pragma unroll
+        for (int n = 0; n < kFwdBK / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int key = 8 * n + (e & 1), i = e / 2;
+                const float x = key >= lo[i] && key < hi[i]
+                                    ? s[4 * n + e] * scale_log2
+                                    : kNegInf;
+                s[4 * n + e] = x;
+                mx[i] = fmaxf(mx[i], x);
+            }
+    } else {
+#pragma unroll
+        for (int n = 0; n < kFwdBK / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                mx[e / 2] = fmaxf(mx[e / 2], s[4 * n + e]);
+    }
+    float mm[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float mn = fmaxf(m[i], kMask ? mx[i] : mx[i] * scale_log2);
+        c[i] = exp2f(m[i] - mn);
+        m[i] = mn;
+        mm[i] = -mn;
+        ps[i] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < kFwdBK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float x = s[4 * n + e];
+            s[4 * n + e] = kMask ? exp2f(x + mm[e / 2])
+                                 : exp2f(fmaf(x, scale_log2, mm[e / 2]));
+            ps[e / 2] += s[4 * n + e];
+        }
+}
+
+// p (this thread's scores of a 64 x BK tile) rounded to bf16 as the A
+// fragments of BK / 16 k16 steps: n8 block n holds keys 8 n + 2 t
+template <int BK = kFwdBK>
+__device__ __forceinline__ void pack_p(const float* s, uint32_t (*pa)[4]) {
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+        pa[n / 2][(n % 2) * 2] = pack_bf16(s[4 * n], s[4 * n + 1]);
+        pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(s[4 * n + 2], s[4 * n + 3]);
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                bf16* __restrict__ out, float* __restrict__ lse, int S, int H,
+                int KVH, int causal, int window, float scale_log2) {
+    using L = FwdSmem<D>;
+    constexpr int BK = kFwdBK;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* sm = aligned_smem(smem_raw);
+    const uint32_t q_s = smem_u32(sm);        // warpgroup u: q_s + u kQ
+    const uint32_t kv_s = q_s + 2 * L::kQ;    // stage st: K, then V
+    uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBarriers);
+    uint64_t* empty = full + kStages;
+    uint64_t* q_full = empty + kStages;
+
+    const int tid = threadIdx.x;
+    // blocks in launch order: q tiles from the last (the heaviest under
+    // the causal mask), all heads of one q tile together
+    const int q0 = (gridDim.x / H - 1 - blockIdx.x / H) * 2 * kFwdRows;
+    const int h = blockIdx.x % H, b = blockIdx.y, kvh = h / (H / KVH);
+    const long qrs = (long)H * D;
+    int lo, hi;
+    kv_range(q0, min(q0 + 2 * kFwdRows, S), S, BK, causal, window, &lo, &hi);
+
+    if (tid == 0) {
+        for (int s = 0; s < kStages; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], kConsumers);
+        }
+        mbar_init(q_full, 1);
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (tid >= kConsumers) {
+        // producer warpgroup: one thread issues the TMA copies, Q once and
+        // then the K / V ring, each slab of 64 columns one box of 64 rows
+        // (rows past S come back zero)
+        if constexpr (kMoveRegs<D>)
+            asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                         :: "n"(kProducerRegs));
+        if (tid != kConsumers) return;
+        constexpr int kSlabs = D / Swz<D>::kSlabCols;
+        constexpr int kSlab = kFwdRows * Swz<D>::kRowBytes;   // bytes
+        mbar_expect_tx(q_full, 2 * L::kQ);
+        for (int u = 0; u < 2; ++u)
+            for (int c = 0; c < kSlabs; ++c)
+                tma_load_4d(q_s + u * L::kQ + c * kSlab, &tm_q,
+                            c * Swz<D>::kSlabCols, h, q0 + u * kFwdRows, b,
+                            q_full);
+        for (int j = lo; j < hi; ++j) {
+            const int it = j - lo, st = it % kStages;
+            if (it >= kStages) mbar_wait(&empty[st], (it / kStages - 1) & 1);
+            const uint32_t ks = kv_s + st * 2 * L::kKV;
+            mbar_expect_tx(&full[st], 2 * L::kKV);
+            for (int c = 0; c < kSlabs; ++c) {
+                tma_load_4d(ks + c * kSlab, &tm_k, c * Swz<D>::kSlabCols, kvh,
+                            j * BK, b, &full[st]);
+                tma_load_4d(ks + L::kKV + c * kSlab, &tm_v,
+                            c * Swz<D>::kSlabCols, kvh, j * BK, b, &full[st]);
+            }
+        }
+        return;
+    }
+
+    // consumer warpgroup wg; this thread's rows r0, r1
+    if constexpr (kMoveRegs<D>)
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                     :: "n"(kConsumerRegs));
+    const int wg = tid / 128, w = (tid % 128) / 32, lane = tid % 32;
+    const int t = lane % 4;
+    const int qw = q0 + wg * kFwdRows;
+    const int r0 = qw + w * 16 + lane / 4, r1 = r0 + 8;
+    const uint32_t qa = q_s + wg * L::kQ;
+    auto stage = [&](int j) { return kv_s + (j - lo) % kStages * 2 * L::kKV; };
+    auto edge = [&](int k0) {   // does the tile cross a mask edge here?
+        return k0 + BK > S || (causal && k0 + BK - 1 > qw) ||
+               (window && qw + 63 - k0 >= window);
+    };
+    float o[D / 2], s[BK / 2];
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, c[2], ps[2];
+    mbar_wait(q_full, 0);
+
+    for (int j = lo; j < hi; ++j) {
+        const int it = j - lo, k0 = j * BK;
+        mbar_wait(&full[it % kStages], (it / kStages) & 1);
+        // tiles wholly masked for this warpgroup's rows are skipped
+        const bool skip = qw >= S || (causal && k0 > qw + 63) ||
+                          (window && qw - (k0 + BK - 1) >= window);
+        if (!skip) {
+#pragma unroll
+            for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+            fence_regs<BK / 2>(s);
+            wgmma_fence();
+            issue_scores<D, BK>(s, qa, stage(j));
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs<BK / 2>(s);
+            if (edge(k0))
+                tile_softmax<true>(s, k0, r0, r1, t, S, causal, window,
+                                   scale_log2, m, c, ps);
+            else
+                tile_softmax<false>(s, k0, r0, r1, t, S, causal, window,
+                                    scale_log2, m, c, ps);
+            // o * 1 is o: skip the rescale when no row of the warp moved
+            if (__any_sync(0xffffffffu, c[0] != 1.f || c[1] != 1.f)) {
+#pragma unroll
+                for (int n = 0; n < D / 8; ++n) {
+                    o[4 * n] *= c[0];
+                    o[4 * n + 1] *= c[0];
+                    o[4 * n + 2] *= c[1];
+                    o[4 * n + 3] *= c[1];
+                }
+            }
+            l[0] = l[0] * c[0] + ps[0];
+            l[1] = l[1] * c[1] + ps[1];
+            pack_p(s, pa);
+            fence_regs<D / 2>(o);
+            wgmma_fence();
+            issue_pv<D, BK>(o, pa, stage(j) + L::kKV);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs<D / 2>(o);
+        }
+        mbar_arrive(&empty[it % kStages]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        l[i] = fmaxf(l[i], 1e-30f);
+    }
+    bf16* ob = out + (long)b * S * qrs + (long)h * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+        const int col = 8 * n + 2 * t;
+        if (r0 < S)
+            *reinterpret_cast<uint32_t*>(ob + (long)r0 * qrs + col) =
+                pack_bf16(o[4 * n] / l[0], o[4 * n + 1] / l[0]);
+        if (r1 < S)
+            *reinterpret_cast<uint32_t*>(ob + (long)r1 * qrs + col) =
+                pack_bf16(o[4 * n + 2] / l[1], o[4 * n + 3] / l[1]);
+    }
+    if (t == 0) {
+        if (r0 < S)
+            lse[((long)b * S + r0) * H + h] = m[0] * kLn2 + logf(l[0]);
+        if (r1 < S)
+            lse[((long)b * S + r1) * H + h] = m[1] * kLn2 + logf(l[1]);
+    }
+}
+
+// backward: 64 x 64 tiles, 8 warps
+constexpr int kBwdB = 64, kBwdThreads = 256;
+
+template <int D> struct BwdSmem {
+    static constexpr int kTile = kBwdB * D * 2;          // 64 rows of D
+    static constexpr int kScore = kBwdB * kBwdB * 2;     // a 64 x 64 bf16 tile
+    // two resident tiles, a ring of 2 stages x 2 tiles, P and dS
+    static constexpr size_t kAlloc = 6 * kTile + 2 * kScore + 1024;
+};
+
+// S = Q.K^T and dP = dO.V^T for this warp's 16 query rows [16 wr, + 16)
+// and 32 keys [32 wc, + 32) of a 64 x 64 tile pair; sa, da: 4 n8 blocks
+template <int D>
+__device__ __forceinline__ void scores(uint32_t q_s, uint32_t o_s,
+                                       uint32_t k_s, uint32_t v_s, int wr,
+                                       int wc, int lane, float (*sa)[4],
+                                       float (*da)[4]) {
+    using Sw = Swz<D>;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sa[n][e] = da[n][e] = 0.f;
+    const int ar = 16 * wr + lane % 16, ac = lane / 16;
+    const int br = 32 * wc + lane % 8 + (lane / 16) * 8, bc = (lane / 8) % 2;
+#pragma unroll 4
+    for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t aq[4], ao[4];
+        ldsm_x4(aq, q_s + Sw::template off<kBwdB>(ar, 2 * kk + ac));
+        ldsm_x4(ao, o_s + Sw::template off<kBwdB>(ar, 2 * kk + ac));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            uint32_t bk[4], bv[4];
+            ldsm_x4(bk, k_s + Sw::template off<kBwdB>(br + 16 * h,
+                                                      2 * kk + bc));
+            ldsm_x4(bv, v_s + Sw::template off<kBwdB>(br + 16 * h,
+                                                      2 * kk + bc));
+            mma_bf16(sa[2 * h], aq, bk[0], bk[1]);
+            mma_bf16(sa[2 * h + 1], aq, bk[2], bk[3]);
+            mma_bf16(da[2 * h], ao, bv[0], bv[1]);
+            mma_bf16(da[2 * h + 1], ao, bv[2], bv[3]);
+        }
+    }
+}
+
+// The accumulating products (dV, dK: 64 rows x D, k = 64): warp w
+// owns kMB m16 blocks from row m0 and kNB n8 blocks from column n0. Wider
+// warp tiles at D >= 64 (32 rows x D / 4) read a third less shared memory
+// than 16 x D / 2; the small head dims keep n8 blocks whole.
+template <int D> struct AccTile {
+    static constexpr int kMB = D >= 64 ? 2 : 1;
+    static constexpr int kRowWarps = 4 / kMB;
+    static constexpr int kNB = D / 16 / kMB;
+    static __device__ __forceinline__ int m0(int w) {
+        return 16 * kMB * (w % kRowWarps);
+    }
+    static __device__ __forceinline__ int n0(int w) {
+        return (w / kRowWarps) * 8 * kNB;
+    }
+};
+
+// acc (this warp's AccTile block) += A^T (64 x 64) . B (64 x D): A a 64 x
+// 64 score tile stored [k][m] (P or dS by query row), B a D-wide tile
+// stored [k][n].
+template <int D>
+__device__ __forceinline__ void acc_product(float (*acc)[4], uint32_t a_s,
+                                            uint32_t b_s, int m0, int n0,
+                                            int lane) {
+    using Sa = Swz<kBwdB>;
+    using Sb = Swz<D>;
+    constexpr int MB = AccTile<D>::kMB, NB = AccTile<D>::kNB;
+#pragma unroll
+    for (int kk = 0; kk < kBwdB / 16; ++kk) {
+        uint32_t a[MB][4];
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb)
+            ldsm_x4_t(a[mb], a_s + Sa::template off<kBwdB>(
+                                 16 * kk + lane % 8 + (lane / 16) * 8,
+                                 (m0 + 16 * mb) / 8 + (lane / 8) % 2));
+        const int br = 16 * kk + lane % 8 + ((lane / 8) % 2) * 8;
+#pragma unroll
+        for (int nb = 0; nb < NB; nb += 2) {
+            uint32_t b[4];
+            // for NB == 1 the upper two matrices repeat the lower two
+            const int c = n0 / 8 + nb + (NB > 1 ? lane / 16 : 0);
+            ldsm_x4_t(b, b_s + Sb::template off<kBwdB>(br, c));
+#pragma unroll
+            for (int mb = 0; mb < MB; ++mb) {
+                mma_bf16(acc[mb * NB + nb], a[mb], b[0], b[1]);
+                if (nb + 1 < NB)
+                    mma_bf16(acc[mb * NB + nb + 1], a[mb], b[2], b[3]);
+            }
+        }
+    }
+}
+
+// round(x) of this warp's S-layout fragment into a 64 x 64 bf16 tile
+__device__ __forceinline__ void store_scores(uint32_t tile, int row, int col,
+                                             float lo, float hi) {
+    const uint32_t a = tile + Swz<kBwdB>::template off<kBwdB>(row, col / 8) +
+                       (col % 8) * 2;
+    asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(a),
+                 "r"(pack_bf16(lo, hi)) : "memory");
+}
+
+// acc (this warp's AccTile block) -> rows [row0, + 64) of a (B, S,
+// heads, D) tensor, rows at or past S dropped
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* base, long stride, int row0,
+                                          int w, int S, int lane,
+                                          const float (*acc)[4]) {
+    using A = AccTile<D>;
+    const int g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int mb = 0; mb < A::kMB; ++mb)
+#pragma unroll
+        for (int nb = 0; nb < A::kNB; ++nb) {
+            const float* x = acc[mb * A::kNB + nb];
+            const int r = row0 + A::m0(w) + 16 * mb + g;
+            const int c = A::n0(w) + 8 * nb + 2 * t;
+            if (r < S)
+                *reinterpret_cast<uint32_t*>(base + (long)r * stride + c) =
+                    pack_bf16(x[0], x[1]);
+            if (r + 8 < S)
+                *reinterpret_cast<uint32_t*>(base + (long)(r + 8) * stride +
+                                             c) = pack_bf16(x[2], x[3]);
+        }
+}
+
+// lse log2 e and delta of this thread's two score rows, q0 + 16 wr + g
+// (+ 8)
+__device__ __forceinline__ void row_stats(const float* lse_b,
+                                          const float* delta_b, int q0,
+                                          int wr, int lane, int S, int H,
+                                          float* ls, float* dl) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int r = q0 + 16 * wr + lane / 4 + 8 * i;
+        ls[i] = r < S ? lse_b[(long)r * H] * kLog2e : 0.f;
+        dl[i] = r < S ? delta_b[(long)r * H] : 0.f;
+    }
+}
+
+// p = exp(s scale - lse) and ds = p (dp - delta) scale on this warp's
+// scores, zero where masked or past S (kMask: a tile that crosses an
+// edge); round(p) and round(ds) into their tiles. ls holds lse log2 e: p =
+// exp2(s scale log2 e - ls).
+template <bool kMask>
+__device__ __forceinline__ void softmax_grad(
+    float (*sa)[4], float (*da)[4], uint32_t p_s, uint32_t ds_s, int q0,
+    int k0, int wr, int wc, int lane, const float* ls, const float* dl,
+    int S, int causal, int window, float scale) {
+    const int g = lane / 4, t = lane % 4;
+    const float scale_log2 = scale * kLog2e;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+        const int col = 32 * wc + 8 * n + 2 * t;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int row = 16 * wr + g + 8 * i;
+            float p[2], ds[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                p[e] = exp2f(fmaf(sa[n][2 * i + e], scale_log2, -ls[i]));
+                if (kMask && !(q0 + row < S && allowed(q0 + row, k0 + col + e,
+                                                       S, causal, window)))
+                    p[e] = 0.f;
+                ds[e] = p[e] * (da[n][2 * i + e] - dl[i]) * scale;
+            }
+            store_scores(p_s, row, col, p[0], p[1]);
+            store_scores(ds_s, row, col, ds[0], ds[1]);
+        }
+    }
+}
+
+// does the 64 x 64 tile at (q0, k0) cross the diagonal, the window edge
+// or S?
+__device__ __forceinline__ bool tile_edge(int q0, int k0, int S, int causal,
+                                          int window) {
+    return q0 + kBwdB > S || k0 + kBwdB > S ||
+           (causal && k0 + kBwdB - 1 > q0) ||
+           (window && q0 + kBwdB - 1 - k0 >= window);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int S, int H, int KVH, int causal,
+                     int window, float scale) {
+    using L = BwdSmem<D>;
+    constexpr int BQ = kBwdB, BK = kBwdB;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t k_s = smem_u32(aligned_smem(smem_raw));
+    const uint32_t v_s = k_s + L::kTile;
+    const uint32_t ring = v_s + L::kTile;         // stage st: Q, then dO
+    const uint32_t p_s = ring + 4 * L::kTile, ds_s = p_s + L::kScore;
+
+    const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+    const int wr = w % 4, wc = w / 4;
+    // kv tiles from the first (the heaviest under the causal mask)
+    const int k0 = blockIdx.x / KVH * BK, kvh = blockIdx.x % KVH;
+    const int b = blockIdx.y;
+    const int G = H / KVH;
+    const long qrs = (long)H * D, kvrs = (long)KVH * D;
+    const bf16* kb = k + (long)b * S * kvrs + (long)kvh * D;
+    const bf16* vb = v + (long)b * S * kvrs + (long)kvh * D;
+    copy_tile<BK, D, kBwdThreads>(k_s, kb, kvrs, k0, S, tid);
+    copy_tile<BK, D, kBwdThreads>(v_s, vb, kvrs, k0, S, tid);
+
+    int lo, hi;
+    q_range(k0, min(k0 + BK, S), S, BQ, causal, window, &lo, &hi);
+    const int nqt = hi - lo, n = G * nqt;
+    // tile x of the fixed order: head kvh G + x / nqt, q tile lo + x % nqt
+    auto issue = [&](int x) {
+        const int h = kvh * G + x / nqt, q0 = (lo + x % nqt) * BQ;
+        const uint32_t st = ring + (x % 2) * 2 * L::kTile;
+        const long at = (long)b * S * qrs + (long)h * D;
+        copy_tile<BQ, D, kBwdThreads>(st, q + at, qrs, q0, S, tid);
+        copy_tile<BQ, D, kBwdThreads>(st + L::kTile, dout + at, qrs, q0, S,
+                                      tid);
+    };
+    if (n > 0) issue(0);
+    cp_async_commit();
+
+    float dka[D / 16][4], dva[D / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 16; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+    const int m0 = AccTile<D>::m0(w), n0 = AccTile<D>::n0(w);
+
+    for (int x = 0; x < n; ++x) {
+        if (x + 1 < n) issue(x + 1);
+        cp_async_commit();
+        const int h = kvh * G + x / nqt, q0 = (lo + x % nqt) * BQ;
+        float ls[2], dl[2];
+        row_stats(lse + (long)b * S * H + h, delta + (long)b * S * H + h, q0,
+                  wr, lane, S, H, ls, dl);
+        cp_async_wait<1>();
+        __syncthreads();
+        const uint32_t qs = ring + (x % 2) * 2 * L::kTile, os = qs + L::kTile;
+        float sa[4][4], da[4][4];
+        scores<D>(qs, os, k_s, v_s, wr, wc, lane, sa, da);
+        if (tile_edge(q0, k0, S, causal, window))
+            softmax_grad<true>(sa, da, p_s, ds_s, q0, k0, wr, wc, lane, ls,
+                               dl, S, causal, window, scale);
+        else
+            softmax_grad<false>(sa, da, p_s, ds_s, q0, k0, wr, wc, lane, ls,
+                                dl, S, causal, window, scale);
+        __syncthreads();
+        acc_product<D>(dva, p_s, os, m0, n0, lane);
+        acc_product<D>(dka, ds_s, qs, m0, n0, lane);
+        __syncthreads();
+    }
+    store_acc<D>(dk + (long)b * S * kvrs + (long)kvh * D, kvrs, k0, w, S,
+                 lane, dka);
+    store_acc<D>(dv + (long)b * S * kvrs + (long)kvh * D, kvrs, k0, w, S,
+                 lane, dva);
+}
+
+// dQ pass: the forward's block (two consumer warpgroups of 64 query rows,
+// a producer warpgroup of TMA copies); Q and dO stay in shared memory, K
+// and V tiles of 32 keys stream through a ring of 2 stages (D 256: Q and
+// dO 128 KB, the ring 64 KB). S = Q.K^T and dP = dO.V^T are wgmma
+// m64n32k16 from shared memory; dS, rounded to bf16 in registers, is the A
+// operand of dQ += dS.K, wgmma m64nDk16 with K read MN-major.
+constexpr int kDqBK = 32;
+
+template <int D> struct DqSmem {
+    static constexpr int kQ = kFwdRows * D * 2;        // a warpgroup's Q
+    static constexpr int kKV = kDqBK * D * 2;          // one K or V tile
+    static constexpr int kBarriers = 4 * kQ + 2 * kStages * kKV;
+    static constexpr size_t kAlloc = kBarriers + 8 * (2 * kStages + 1) + 1024;
+};
+
+// p = exp(s scale - lse), ds = p (dp - delta) scale on this thread's 64 x
+// kDqBK scores (ls = lse log2 e), zero where masked (kMask: the tile
+// crosses an edge), rounded to bf16 as the A fragments of dS.K
+template <bool kMask>
+__device__ __forceinline__ void ds_frags(const float* s, const float* dp,
+                                         int k0, int r0, int r1, int t,
+                                         int S, int causal, int window,
+                                         float scale, const float* ls,
+                                         const float* dl,
+                                         uint32_t (*da)[4]) {
+    const float scale_log2 = scale * kLog2e;
+    float ds[kDqBK / 2];
+#pragma unroll
+    for (int n = 0; n < kDqBK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int i = e / 2, x = 4 * n + e;
+            float p = exp2f(fmaf(s[x], scale_log2, -ls[i]));
+            if (kMask && !allowed(i ? r1 : r0, k0 + 8 * n + 2 * t + (e & 1),
+                                  S, causal, window))
+                p = 0.f;
+            ds[x] = p * (dp[x] - dl[i]) * scale;
+        }
+    pack_p<kDqBK>(ds, da);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_o,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   int S, int H, int KVH, int causal, int window,
+                   float scale) {
+    using L = DqSmem<D>;
+    constexpr int BK = kDqBK;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* sm = aligned_smem(smem_raw);
+    const uint32_t q_s = smem_u32(sm);        // warpgroup u: q_s + u kQ
+    const uint32_t o_s = q_s + 2 * L::kQ;     // dO, the same way
+    const uint32_t kv_s = o_s + 2 * L::kQ;    // stage st: K, then V
+    uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBarriers);
+    uint64_t* empty = full + kStages;
+    uint64_t* q_full = empty + kStages;
+
+    const int tid = threadIdx.x;
+    // q tiles from the last (the heaviest under the causal mask)
+    const int q0 = (gridDim.x / H - 1 - blockIdx.x / H) * 2 * kFwdRows;
+    const int h = blockIdx.x % H, b = blockIdx.y, kvh = h / (H / KVH);
+    int lo, hi;
+    kv_range(q0, min(q0 + 2 * kFwdRows, S), S, BK, causal, window, &lo, &hi);
+
+    if (tid == 0) {
+        for (int s = 0; s < kStages; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], kConsumers);
+        }
+        mbar_init(q_full, 1);
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (tid >= kConsumers) {
+        if constexpr (kMoveRegs<D>)
+            asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                         :: "n"(kProducerRegs));
+        if (tid != kConsumers) return;
+        constexpr int kSlabs = D / Swz<D>::kSlabCols;
+        constexpr int kQSlab = kFwdRows * Swz<D>::kRowBytes;
+        constexpr int kKSlab = BK * Swz<D>::kRowBytes;
+        mbar_expect_tx(q_full, 4 * L::kQ);
+        for (int u = 0; u < 2; ++u)
+            for (int c = 0; c < kSlabs; ++c) {
+                const int col = c * Swz<D>::kSlabCols, row = q0 + u * kFwdRows;
+                tma_load_4d(q_s + u * L::kQ + c * kQSlab, &tm_q, col, h, row, b,
+                            q_full);
+                tma_load_4d(o_s + u * L::kQ + c * kQSlab, &tm_o, col, h, row, b,
+                            q_full);
+            }
+        for (int j = lo; j < hi; ++j) {
+            const int it = j - lo, st = it % kStages;
+            if (it >= kStages) mbar_wait(&empty[st], (it / kStages - 1) & 1);
+            const uint32_t ks = kv_s + st * 2 * L::kKV;
+            mbar_expect_tx(&full[st], 2 * L::kKV);
+            for (int c = 0; c < kSlabs; ++c) {
+                const int col = c * Swz<D>::kSlabCols;
+                tma_load_4d(ks + c * kKSlab, &tm_k, col, kvh, j * BK, b,
+                            &full[st]);
+                tma_load_4d(ks + L::kKV + c * kKSlab, &tm_v, col, kvh, j * BK,
+                            b, &full[st]);
+            }
+        }
+        return;
+    }
+
+    if constexpr (kMoveRegs<D>)
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                     :: "n"(kConsumerRegs));
+    const int wg = tid / 128, w = (tid % 128) / 32, lane = tid % 32;
+    const int t = lane % 4;
+    const int qw = q0 + wg * kFwdRows;
+    const int r0 = qw + w * 16 + lane / 4, r1 = r0 + 8;
+    const uint32_t qa = q_s + wg * L::kQ, oa = o_s + wg * L::kQ;
+    float ls[2], dl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int r = i ? r1 : r0;
+        const long at = ((long)b * S + r) * H + h;
+        ls[i] = r < S ? lse[at] * kLog2e : 0.f;
+        dl[i] = r < S ? delta[at] : 0.f;
+    }
+    float acc[D / 2], s[BK / 2], dp[BK / 2];
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(q_full, 0);
+
+    for (int j = lo; j < hi; ++j) {
+        const int it = j - lo, k0 = j * BK;
+        const uint32_t ks = kv_s + it % kStages * 2 * L::kKV;
+        mbar_wait(&full[it % kStages], (it / kStages) & 1);
+        // tiles wholly masked for this warpgroup's rows are skipped
+        const bool skip = qw >= S || (causal && k0 > qw + 63) ||
+                          (window && qw - (k0 + BK - 1) >= window);
+        if (!skip) {
+#pragma unroll
+            for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
+            fence_regs<BK / 2>(s);
+            fence_regs<BK / 2>(dp);
+            wgmma_fence();
+            issue_scores<D, BK>(s, qa, ks);
+            issue_scores<D, BK>(dp, oa, ks + L::kKV);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs<BK / 2>(s);
+            fence_regs<BK / 2>(dp);
+            const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > qw) ||
+                              (window && qw + 63 - k0 >= window);
+            if (edge)
+                ds_frags<true>(s, dp, k0, r0, r1, t, S, causal, window,
+                               scale, ls, dl, da);
+            else
+                ds_frags<false>(s, dp, k0, r0, r1, t, S, causal, window,
+                                scale, ls, dl, da);
+            fence_regs<D / 2>(acc);
+            wgmma_fence();
+            issue_pv<D, BK>(acc, da, ks);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs<D / 2>(acc);
+        }
+        mbar_arrive(&empty[it % kStages]);
+    }
+
+    const long qrs = (long)H * D;
+    bf16* qb = dq + (long)b * S * qrs + (long)h * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+        const int col = 8 * n + 2 * t;
+        if (r0 < S)
+            *reinterpret_cast<uint32_t*>(qb + (long)r0 * qrs + col) =
+                pack_bf16(acc[4 * n], acc[4 * n + 1]);
+        if (r1 < S)
+            *reinterpret_cast<uint32_t*>(qb + (long)r1 * qrs + col) =
+                pack_bf16(acc[4 * n + 2], acc[4 * n + 3]);
+    }
+}
+
+}  // namespace tc
+
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -443,77 +1235,193 @@ int set_smem(K kernel, size_t bytes) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int D>
-int fwd(const void* q, const void* k, const void* v, void* out, float* lse,
-        int B, int S, int H, int KVH, int causal, int window, float scale,
-        cudaStream_t st) {
+// delta = sum over D of dout * out
+template <typename T>
+int delta(const void* out, const void* dout, float* dl, long rows, int D,
+          cudaStream_t st) {
+    simt::attn_delta_kernel<T>
+        <<<(unsigned)((rows * 32 + simt::kThreads - 1) / simt::kThreads),
+           simt::kThreads, 0, st>>>((const T*)out, (const T*)dout, dl, rows,
+                                    D);
+    return (int)cudaGetLastError();
+}
+
+template <int D>
+int fwd_f32(const void* q, const void* k, const void* v, void* out,
+            float* lse, int B, int S, int H, int KVH, int causal, int window,
+            float scale, cudaStream_t st) {
     constexpr int BQ = 64, BK = 64;
     const size_t bytes =
         sizeof(float) * ((BQ + BK) * (D + 1) + BK * D + BQ * (BK + 1) + 3 * BQ);
-    auto kern = attn_fwd_kernel<T, D>;
+    auto kern = simt::attn_fwd_kernel<float, D>;
     if (int rc = set_smem(kern, bytes)) return rc;
     const dim3 grid((S + BQ - 1) / BQ, H, B);
-    kern<<<grid, kThreads, bytes, st>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, S, H, KVH,
-        causal, window, scale);
+    kern<<<grid, simt::kThreads, bytes, st>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)out, lse,
+        S, H, KVH, causal, window, scale);
     return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int bwd(const void* q, const void* k, const void* v, const void* out,
-        const void* dout, const float* lse, float* delta, void* dq, void* dk,
-        void* dv, int B, int S, int H, int KVH, int causal, int window,
-        float scale, cudaStream_t st) {
+template <int D>
+int bwd_f32(const void* q, const void* k, const void* v, const void* out,
+            const void* dout, const float* lse, float* dl, void* dq, void* dk,
+            void* dv, int B, int S, int H, int KVH, int causal, int window,
+            float scale, cudaStream_t st) {
     constexpr int BQ = 32, BK = 32;
-    const long rows = (long)B * S * H;
-    attn_delta_kernel<T><<<(unsigned)((rows * 32 + kThreads - 1) / kThreads),
-                           kThreads, 0, st>>>((const T*)out, (const T*)dout,
-                                              delta, rows, D);
-    if (int rc = (int)cudaGetLastError()) return rc;
-
+    if (int rc = delta<float>(out, dout, dl, (long)B * S * H, D, st))
+        return rc;
     const size_t b_kv = sizeof(float) *
                         (4 * 32 * (D + 1) + 2 * BQ * (BK + 1) + 2 * BQ);
-    auto kkv = attn_bwd_dkdv_kernel<T, D>;
+    auto kkv = simt::attn_bwd_dkdv_kernel<float, D>;
     if (int rc = set_smem(kkv, b_kv)) return rc;
-    kkv<<<dim3((S + BK - 1) / BK, KVH, B), kThreads, b_kv, st>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-        (T*)dk, (T*)dv, S, H, KVH, causal, window, scale);
+    kkv<<<dim3((S + BK - 1) / BK, KVH, B), simt::kThreads, b_kv, st>>>(
+        (const float*)q, (const float*)k, (const float*)v,
+        (const float*)dout, lse, dl, (float*)dk, (float*)dv, S, H, KVH,
+        causal, window, scale);
     if (int rc = (int)cudaGetLastError()) return rc;
-
     const size_t b_q = sizeof(float) *
                        (4 * 32 * (D + 1) + BQ * (BK + 1) + 2 * BQ);
-    auto kq = attn_bwd_dq_kernel<T, D>;
+    auto kq = simt::attn_bwd_dq_kernel<float, D>;
     if (int rc = set_smem(kq, b_q)) return rc;
-    kq<<<dim3((S + BQ - 1) / BQ, H, B), kThreads, b_q, st>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-        (T*)dq, S, H, KVH, causal, window, scale);
+    kq<<<dim3((S + BQ - 1) / BQ, H, B), simt::kThreads, b_q, st>>>(
+        (const float*)q, (const float*)k, (const float*)v,
+        (const float*)dout, lse, dl, (float*)dq, S, H, KVH, causal, window,
+        scale);
     return (int)cudaGetLastError();
 }
 
-#define REPRO_BY_HEAD_DIM(FN, T, ...)                        \
+// the driver's cuTensorMapEncodeTiled, through the runtime (the library
+// links no libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// a TMA map of one (B, S, heads, D) bf16 tensor whose box is one slab of
+// kRows rows of one head, swizzled as sm90.cuh lays tiles out
+template <int D, int kRows>
+int row_map(CUtensorMap* map, const void* base, int B, int S, int heads) {
+    static EncodeTiled encode = nullptr;
+    if (encode == nullptr) {
+        void* fn = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        if (int rc = (int)cudaGetDriverEntryPoint(
+                "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found))
+            return rc;
+        if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+            return (int)cudaErrorNotSupported;
+        encode = (EncodeTiled)fn;
+    }
+    using Sw = sm90::Swz<D>;
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                                (cuuint64_t)S, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                   (cuuint64_t)heads * D * 2,
+                                   (cuuint64_t)S * heads * D * 2};
+    const cuuint32_t box[4] = {(cuuint32_t)Sw::kSlabCols, 1,
+                               (cuuint32_t)kRows, 1};
+    const cuuint32_t step[4] = {1, 1, 1, 1};
+    const CUtensorMapSwizzle swizzle =
+        Sw::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+        : Sw::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                              : CU_TENSOR_MAP_SWIZZLE_32B;
+    const CUresult rc = encode(
+        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+        dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// setmaxnreg moves registers within the block's allocation: a build of a
+// producer / consumer kernel with fewer than kFwdRegs would leave its
+// consumers waiting, so it is refused
+template <int D, typename K>
+int regs_moved(K kernel) {
+    if (!tc::kMoveRegs<D>) return 0;
+    cudaFuncAttributes attr;
+    if (int rc = (int)cudaFuncGetAttributes(&attr, kernel)) return rc;
+    return attr.numRegs == tc::kFwdRegs ? 0
+                                        : (int)cudaErrorLaunchOutOfResources;
+}
+
+template <int D>
+int fwd_bf16(const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int S, int H, int KVH, int causal,
+             int window, float scale, cudaStream_t st) {
+    using bf16 = __nv_bfloat16;
+    const size_t bytes = tc::FwdSmem<D>::kAlloc;
+    auto kern = tc::attn_fwd_kernel<D>;
+    if (int rc = set_smem(kern, bytes)) return rc;
+    if (int rc = regs_moved<D>(kern)) return rc;
+    CUtensorMap tq, tk, tv;
+    if (int rc = row_map<D, tc::kFwdRows>(&tq, q, B, S, H)) return rc;
+    if (int rc = row_map<D, tc::kFwdBK>(&tk, k, B, S, KVH)) return rc;
+    if (int rc = row_map<D, tc::kFwdBK>(&tv, v, B, S, KVH)) return rc;
+    const dim3 grid((S + 2 * tc::kFwdRows - 1) / (2 * tc::kFwdRows) * H, B);
+    kern<<<grid, tc::kFwdThreads, bytes, st>>>(
+        tq, tk, tv, (bf16*)out, lse, S, H, KVH, causal, window,
+        scale * tc::kLog2e);
+    return (int)cudaGetLastError();
+}
+
+template <int D>
+int bwd_bf16(const void* q, const void* k, const void* v, const void* out,
+             const void* dout, const float* lse, float* dl, void* dq,
+             void* dk, void* dv, int B, int S, int H, int KVH, int causal,
+             int window, float scale, cudaStream_t st) {
+    using bf16 = __nv_bfloat16;
+    constexpr int BT = tc::kBwdB;
+    if (int rc = delta<bf16>(out, dout, dl, (long)B * S * H, D, st))
+        return rc;
+    const size_t bytes = tc::BwdSmem<D>::kAlloc;
+    auto kkv = tc::attn_bwd_dkdv_kernel<D>;
+    if (int rc = set_smem(kkv, bytes)) return rc;
+    kkv<<<dim3((S + BT - 1) / BT * KVH, B), tc::kBwdThreads, bytes, st>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+        lse, dl, (bf16*)dk, (bf16*)dv, S, H, KVH, causal, window, scale);
+    if (int rc = (int)cudaGetLastError()) return rc;
+    auto kq = tc::attn_bwd_dq_kernel<D>;
+    const size_t q_bytes = tc::DqSmem<D>::kAlloc;
+    if (int rc = set_smem(kq, q_bytes)) return rc;
+    if (int rc = regs_moved<D>(kq)) return rc;
+    CUtensorMap tq, to, tk, tv;
+    if (int rc = row_map<D, tc::kFwdRows>(&tq, q, B, S, H)) return rc;
+    if (int rc = row_map<D, tc::kFwdRows>(&to, dout, B, S, H)) return rc;
+    if (int rc = row_map<D, tc::kDqBK>(&tk, k, B, S, KVH)) return rc;
+    if (int rc = row_map<D, tc::kDqBK>(&tv, v, B, S, KVH)) return rc;
+    kq<<<dim3((S + 2 * tc::kFwdRows - 1) / (2 * tc::kFwdRows) * H, B),
+         tc::kFwdThreads, q_bytes, st>>>(tq, to, tk, tv, lse, dl, (bf16*)dq,
+                                         S, H, KVH, causal, window, scale);
+    return (int)cudaGetLastError();
+}
+
+#define REPRO_BY_HEAD_DIM(FN, ...)                           \
     switch (D) {                                             \
-        case 16: return FN<T, 16>(__VA_ARGS__);              \
-        case 32: return FN<T, 32>(__VA_ARGS__);              \
-        case 64: return FN<T, 64>(__VA_ARGS__);              \
-        case 128: return FN<T, 128>(__VA_ARGS__);            \
-        case 256: return FN<T, 256>(__VA_ARGS__);            \
+        case 16: return FN<16>(__VA_ARGS__);                 \
+        case 32: return FN<32>(__VA_ARGS__);                 \
+        case 64: return FN<64>(__VA_ARGS__);                 \
+        case 128: return FN<128>(__VA_ARGS__);               \
+        case 256: return FN<256>(__VA_ARGS__);               \
         default: return (int)cudaErrorInvalidValue;          \
     }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. D in {16, 32, 64, 128, 256}.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
+// D in {16, 32, 64, 128, 256}.
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* out, float* lse, int B, int S, int H,
                                int KVH, int D, int causal, int window,
                                float scale, int dtype, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (dtype == 0) {
-        REPRO_BY_HEAD_DIM(fwd, float, q, k, v, out, lse, B, S, H, KVH,
-                          causal, window, scale, st)
+        REPRO_BY_HEAD_DIM(fwd_f32, q, k, v, out, lse, B, S, H, KVH, causal,
+                          window, scale, st)
     }
-    REPRO_BY_HEAD_DIM(fwd, __nv_bfloat16, q, k, v, out, lse, B, S, H, KVH,
-                      causal, window, scale, st)
+    REPRO_BY_HEAD_DIM(fwd_bf16, q, k, v, out, lse, B, S, H, KVH, causal,
+                      window, scale, st)
 }
 
 // delta is a (B, S, H) f32 scratch buffer the caller allocates.
@@ -525,9 +1433,9 @@ extern "C" int repro_flash_bwd(const void* q, const void* k, const void* v,
                                float scale, int dtype, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (dtype == 0) {
-        REPRO_BY_HEAD_DIM(bwd, float, q, k, v, out, dout, lse, delta, dq, dk,
+        REPRO_BY_HEAD_DIM(bwd_f32, q, k, v, out, dout, lse, delta, dq, dk,
                           dv, B, S, H, KVH, causal, window, scale, st)
     }
-    REPRO_BY_HEAD_DIM(bwd, __nv_bfloat16, q, k, v, out, dout, lse, delta, dq,
-                      dk, dv, B, S, H, KVH, causal, window, scale, st)
+    REPRO_BY_HEAD_DIM(bwd_bf16, q, k, v, out, dout, lse, delta, dq, dk, dv,
+                      B, S, H, KVH, causal, window, scale, st)
 }

@@ -1,0 +1,418 @@
+// Hopper (sm_90a) building blocks for hand-written tensor-core kernels:
+// swizzled shared-memory tiles, cp.async and TMA copies, mbarriers,
+// mma.sync and ldmatrix (warp-level bf16 products), wgmma (warpgroup-level
+// products, operands read from shared memory through descriptors).
+//
+// Tiles. A tile of R rows x C bf16 columns is stored in slabs of
+// kRowBytes = min(2C, 128) bytes per row: slab s holds columns
+// [s * kRowBytes / 2, (s + 1) * kRowBytes / 2) of every row, rows kRowBytes
+// apart. Each 16-byte chunk is placed at its offset XOR ((offset >> 7) &
+// mask) << 4, the 128-, 64- or 32-byte swizzle that wgmma's descriptors
+// and TMA's tensor maps name (CUTLASS's Swizzle<3|2|1, 4, 3>), so tile
+// bases are 1024-byte aligned. The same placement makes every ldmatrix of
+// eight rows at one logical chunk free of bank conflicts.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cstdint>
+
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// bytes of one swizzled row of a tile with C bf16 columns, and the mask
+// of the row bits that pick the swizzle
+template <int C> struct Swz {
+    static constexpr int kRowBytes = 2 * C < 128 ? 2 * C : 128;
+    static constexpr int kSlabCols = kRowBytes / 2;
+    static constexpr int kMask = kRowBytes / 16 - 1;
+    // wgmma descriptor layout type: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte
+    static constexpr int kLayout = kRowBytes == 128 ? 1
+                                   : kRowBytes == 64 ? 2 : 3;
+    // byte offset of the 16-byte chunk holding columns [8c, 8c + 8) of row
+    // r in a tile of R rows (R a multiple of 8, so slabs start on 1024
+    // bytes and the XOR term depends on r alone)
+    template <int R>
+    static __device__ __forceinline__ uint32_t off(int r, int c) {
+        constexpr int kChunks = kRowBytes / 16;
+        static_assert(R * kRowBytes % 1024 == 0 || C * 2 <= kRowBytes,
+                      "slabs must start on the swizzle period");
+        return (uint32_t)((c / kChunks) * R * kRowBytes + r * kRowBytes +
+                          ((c % kChunks) ^ ((r * kRowBytes >> 7) & kMask)) *
+                              16);
+    }
+};
+
+// ---------------------------------------------------------------------------
+// copies and barriers
+// ---------------------------------------------------------------------------
+
+// 16 bytes global -> shared; zero-fills when !valid (src is not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// rows [r0, r0 + R) of one head (row stride `stride` elements, D columns)
+// into a swizzled tile; rows at or past S are zero. Threads [0, NT) share
+// the copy, 16 bytes each at a time.
+template <int R, int D, int NT>
+__device__ __forceinline__ void copy_tile(uint32_t tile,
+                                          const __nv_bfloat16* base,
+                                          long stride, int r0, int S,
+                                          int tid) {
+    constexpr int kChunks = D / 8, kTotal = R * kChunks;
+#pragma unroll
+    for (int k = 0; k < (kTotal + NT - 1) / NT; ++k) {
+        const int i = tid + k * NT;
+        if (kTotal % NT == 0 || i < kTotal) {
+            const int r = i / kChunks, c = i % kChunks;
+            const bool ok = r0 + r < S;
+            const __nv_bfloat16* src =
+                base + (long)(ok ? r0 + r : 0) * stride + c * 8;
+            cp_async16(tile + Swz<D>::template off<R>(r, c), src, ok);
+        }
+    }
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(smem_u32(bar)) : "memory");
+}
+// wait until the phase with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+    const uint32_t a = smem_u32(bar);
+    uint32_t done = 0;
+    while (!done) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    }
+}
+
+// arrive once on the barrier and add `bytes` to the bytes it waits for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// TMA: the box of a 4-d tensor map at (c0, c1, c2, c3) into shared memory,
+// completing `bytes` on the barrier
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+        ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+           "r"(c2), "r"(c3), "r"(smem_u32(bar))
+        : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// warp-level products: mma.sync m16n8k16, bf16 in, f32 accumulate
+// ---------------------------------------------------------------------------
+// Fragments (g = lane / 4, t = lane % 4): A (16 x 16) a0 = rows g, cols
+// 2t, 2t + 1; a1 = row g + 8; a2 = row g, cols + 8; a3 = row g + 8, cols
+// + 8. B (16 x 8) b0 = rows 2t, 2t + 1 of col g; b1 = rows + 8. C (16 x 8)
+// c0, c1 = row g, cols 2t, 2t + 1; c2, c3 = row g + 8.
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices; lanes 8i .. 8i + 7 give the row addresses of
+// matrix i, and register i receives it (transposed with .trans)
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+        "{%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// two floats -> bf16x2 (lo in the low half), each rounded to nearest even
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// warpgroup-level products: wgmma.mma_async m64nNk16, bf16 in, f32
+// accumulate. Accumulator layout: warp w of the group holds rows 16w + g
+// and 16w + g + 8; d[4j], d[4j + 1] = row 16w + g, cols 8j + 2t, 8j + 2t +
+// 1; d[4j + 2], d[4j + 3] = row 16w + g + 8. A in registers takes the
+// mma.sync A fragment of the warp's 16 rows.
+// ---------------------------------------------------------------------------
+
+// shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (all >> 4), swizzle layout type in bits 62-63
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo, int layout) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) |
+           ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+           ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) |
+           ((uint64_t)layout << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keep the compiler from moving accesses of accumulator registers across
+// the asynchronous product that owns them
+template <int N> __device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (64 x 64 f32, 32 a thread) += A (64 x 16, descriptor) * B (16 x 64,
+// descriptor), both K-major; acc = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a,
+                                              uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x 32 f32, 16 a thread) += A (64 x 16, descriptor) * B (16 x 32,
+// descriptor), both K-major; acc = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a,
+                                              uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x 16 f32, 8 a thread) += A (64 x 16 bf16, four registers a
+// thread) * B (16 x 16, descriptor, MN-major); acc = 0 overwrites d
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
+                                              uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(acc));
+}
+
+// d (64 x 32 f32, 16 a thread) += A (64 x 16 bf16, four registers a
+// thread) * B (16 x 32, descriptor, MN-major); acc = 0 overwrites d
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                              uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(acc));
+}
+
+// d (64 x 64 f32, 32 a thread) += A (64 x 16 bf16, four registers a
+// thread) * B (16 x 64, descriptor, MN-major); acc = 0 overwrites d
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                              uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(acc));
+}
+
+// d (64 x 128 f32, 64 a thread) += A (64 x 16 bf16, four registers a
+// thread) * B (16 x 128, descriptor, MN-major); acc = 0 overwrites d
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"
+        "%58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(acc));
+}
+
+// d (64 x 256 f32, 128 a thread) += A (64 x 16 bf16, four registers a
+// thread) * B (16 x 256, descriptor, MN-major); acc = 0 overwrites d
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
+                                              uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"
+        "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+        "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99,"
+        "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110,"
+        "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121,"
+        "%122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(acc));
+}
+
+template <int N> struct WgmmaSS;
+template <> struct WgmmaSS<32> {
+    static __device__ __forceinline__ void run(float* d, uint64_t a,
+                                               uint64_t b, int acc) {
+        wgmma_ss_n32(d, a, b, acc);
+    }
+};
+template <> struct WgmmaSS<64> {
+    static __device__ __forceinline__ void run(float* d, uint64_t a,
+                                               uint64_t b, int acc) {
+        wgmma_ss_n64(d, a, b, acc);
+    }
+};
+
+template <int N> struct WgmmaRS;
+template <> struct WgmmaRS<16> {
+    static __device__ __forceinline__ void run(float* d, const uint32_t* a,
+                                               uint64_t b, int acc) {
+        wgmma_rs_n16(d, a, b, acc);
+    }
+};
+template <> struct WgmmaRS<32> {
+    static __device__ __forceinline__ void run(float* d, const uint32_t* a,
+                                               uint64_t b, int acc) {
+        wgmma_rs_n32(d, a, b, acc);
+    }
+};
+template <> struct WgmmaRS<64> {
+    static __device__ __forceinline__ void run(float* d, const uint32_t* a,
+                                               uint64_t b, int acc) {
+        wgmma_rs_n64(d, a, b, acc);
+    }
+};
+template <> struct WgmmaRS<128> {
+    static __device__ __forceinline__ void run(float* d, const uint32_t* a,
+                                               uint64_t b, int acc) {
+        wgmma_rs_n128(d, a, b, acc);
+    }
+};
+template <> struct WgmmaRS<256> {
+    static __device__ __forceinline__ void run(float* d, const uint32_t* a,
+                                               uint64_t b, int acc) {
+        wgmma_rs_n256(d, a, b, acc);
+    }
+};
+
+}  // namespace sm90

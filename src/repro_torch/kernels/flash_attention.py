@@ -16,8 +16,12 @@ v's dtype before ``p·V`` and ``ds`` to k's / q's dtype before ``ds·K`` /
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernels of ``csrc/flash_attention.cu`` on the
-current stream or raises: there is no fallback. Each wrapper call that
-launches adds one to the wrapper's ``launches``.
+current stream or raises: there is no fallback. The route follows the
+dtype alone, never a failure: bf16 runs on the tensor cores (``wgmma`` for
+the forward and the backward's dQ pass, fed by TMA rings of K / V tiles;
+``mma.sync`` for the dK/dV pass, fed by a ``cp.async`` ring), which need
+every bf16 base address 16-byte aligned; f32 runs on the CUDA cores.
+Each wrapper call that launches adds one to the wrapper's ``launches``.
 
 The plain versions are eager ports of the reference's tiled loops (q tiles
 of ``q_block``, kv tiles of ``kv_block``, padded to tile multiples), so on
@@ -81,7 +85,9 @@ def _check(q, k, v, *more) -> None:
 
 def _check_cuda(q, k, *tensors) -> int:
     """What the kernels take: S of q equal to S of k, D in HEAD_DIMS, one
-    dtype (f32 or bf16) for q/k/v/out/dout, contiguous. Returns the code."""
+    dtype (f32 or bf16) for q/k/v/out/dout, contiguous, and for bf16 (the
+    tensor cores' 16-byte copies and ``ldmatrix``) 16-byte-aligned base
+    addresses. Returns the code."""
     B, S, H, D = q.shape
     if k.shape[1] != S:
         raise ValueError(f"the kernels need Sq == Skv, got {S} and "
@@ -95,6 +101,9 @@ def _check_cuda(q, k, *tensors) -> int:
             raise TypeError(f"mixed dtypes {q.dtype} and {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the kernels need contiguous tensors")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError("the tensor cores need 16-byte-aligned bf16 "
+                             "tensors")
     return _DTYPES[q.dtype]
 
 

@@ -215,3 +215,22 @@ def test_wrapper_checks():
         fa.flash_attention_fwd(q, torch.zeros(1, 8, 2, 16,
                                               device="meta"),
                                torch.zeros(1, 8, 2, 16, device="meta"))
+
+
+def test_kernel_checks_route_by_dtype_and_refuse_unaligned_bf16():
+    """What ``_check_cuda`` takes (it reads no device): bf16 goes to the
+    tensor cores only from 16-byte-aligned addresses; f32 needs no more
+    than its own alignment."""
+    k = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)
+    assert fa._check_cuda(k, k) == 1
+    off = torch.zeros(8 * 2 * 16 + 8, dtype=torch.bfloat16)
+    off = off[1 + (-off.data_ptr() // 2) % 8:][:8 * 2 * 16].view(1, 8, 2, 16)
+    assert off.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="tensor cores"):
+        fa._check_cuda(off, k)
+    with pytest.raises(ValueError, match="tensor cores"):
+        fa._check_cuda(k, k, k, off)
+    f = torch.zeros(8 * 2 * 16 + 4)
+    f = f[1 + (-f.data_ptr() // 4) % 4:][:8 * 2 * 16].view(1, 8, 2, 16)
+    assert f.data_ptr() % 16 == 4
+    assert fa._check_cuda(f, f) == 0

@@ -112,6 +112,9 @@ def _close(got, want, kind):
     (1, 200, 8, 4, 256, True, 64, torch.bfloat16),
     (1, 96, 4, 1, 128, True, 0, torch.float32),
     (2, 24, 4, 2, 16, True, 8, torch.bfloat16),     # reduced gemma3-4b
+    (1, 100, 4, 2, 32, True, 0, torch.bfloat16),
+    (2, 150, 4, 2, 128, True, 48, torch.bfloat16),
+    (1, 77, 4, 4, 64, False, 0, torch.bfloat16),    # ragged, no mask
 ])
 def test_attention_kernels_match_plain_versions(cuda, B, S, H, KVH, D,
                                                 causal, window, dtype):
@@ -132,6 +135,35 @@ def test_attention_kernels_match_plain_versions(cuda, B, S, H, KVH, D,
     for g, w in zip(grads, p_grads):
         assert g.dtype == dtype
         _close(g, w, "bwd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 256])
+def test_attention_backward_gives_the_same_bits_twice(cuda, window):
+    """The bf16 backward sums dk / dv over the G heads and the q tiles in
+    a fixed order, without atomics."""
+    rng = np.random.RandomState(7 + window)
+    q, k, v, do = (torch.from_numpy(rng.randn(1, 1024, h, 256).astype(
+        np.float32)).to(cuda, torch.bfloat16) for h in (8, 4, 4, 8))
+    out, lse = fa.flash_attention_fwd(q, k, v, True, window)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, do, True, window)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, True, window)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_attention_refuses_unaligned_bf16(cuda):
+    B, S, H, D = 1, 32, 2, 64
+    q = torch.zeros(B * S * H * D + 1, dtype=torch.bfloat16, device=cuda)
+    q = q[1:].view(B, S, H, D)                      # 2 bytes off
+    k = torch.zeros(B, S, H, D, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="tensor cores"):
+        fa.flash_attention_fwd(q, k, k)
+    lse = torch.zeros(B, S, H, device=cuda)
+    with pytest.raises(ValueError, match="tensor cores"):
+        fa.flash_attention_bwd(k, k, k, k, lse, q)
 
 
 @pytest.mark.cuda
