@@ -27,11 +27,14 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    window 1024 and 0; cross-entropy T 4096, d 2560, V 262144, bf16), at the
    reduced shapes of phase 8, at bf16 head dims 32 and 128 and a ragged
    unmasked bf16 shape, and at small ragged f32 shapes; require two
-   full-width attention backward calls to give the same bits; and time
-   kernel, plain version and the library call with CUDA events beside the
-   bound. The build's ptxas output gives one line per attention kernel
-   instantiation: its instructions (wgmma, mma.sync or CUDA-core FMA),
-   registers and spill bytes;
+   full-width attention backward calls, and two cross-entropy backward
+   calls, to give the same bits; and time kernel, plain version and the
+   library call with CUDA events beside the bound (for cross-entropy the
+   two-call ``F.cross_entropy(h @ W, y)`` and its autograd backward). The
+   build's ptxas output gives one line per attention and cross-entropy
+   kernel instantiation: its instructions (wgmma, mma.sync or CUDA-core
+   FMA), registers and spill bytes; a bf16 cross-entropy kernel that
+   spills, or whose SASS (cuobjdump) holds no wgmma, fails the build;
 7. gemma3-4b at full width, depth cut to 6 layers (1,237,356,032
    parameters, f32 params, bf16 compute), B 1, S 4096: ``lm_loss`` and its
    gradient through the kernels and through the plain versions, held to a
@@ -99,6 +102,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -404,31 +408,38 @@ CE_LOGIT_STD = 3.0
 ATTN_ROUTES = {("tc", "attn_fwd_kernel"): "wgmma",
                ("tc", "attn_bwd_dkdv_kernel"): "mma.sync",
                ("tc", "attn_bwd_dq_kernel"): "wgmma"}
-_PTXAS_FN = re.compile(r"Compiling entry function '\S*?(tc|simt)\d+"
-                       r"(attn_\w+?_kernel)I(f|13__nv_bfloat16)?(?:Li(\d+)E)?")
+_ATTN_FN = re.compile(r"Compiling entry function '(\S*?(tc|simt)\d+"
+                      r"(attn_\w+?_kernel)I(f|13__nv_bfloat16)?(?:Li(\d+)E)?\S*)'")
+# the cross-entropy kernels: the bf16 route (namespace tc) on wgmma, the
+# f32 route (simt) on the CUDA cores, the split merge without products;
+# the boolean template argument names the variant
+CE_VARIANTS = {"ce_logits_kernel": ("fwd", "bwd"),
+               "ce_grad_kernel": ("dh", "de"),
+               "ce_bwd_kernel": ("dw", "dh")}
+_CE_FN = re.compile(r"Compiling entry function '(\S*?(tc|simt)?\d+"
+                    r"(ce_\w+?_kernel)(?:ILb([01])EE)?\S*)'")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 
 
-def ptxas_table(log: str) -> list:
-    """``(namespace, kernel, dtype, D, registers, spill stores, spill
-    loads)`` of every attention instantiation in an nvcc -Xptxas -v log."""
+def ptxas_table(log: str, fn=_ATTN_FN) -> list:
+    """``(groups of fn, registers, spill stores, spill loads)`` of every
+    kernel instantiation whose entry matches ``fn`` in an nvcc -Xptxas -v
+    log; the first group is the mangled name."""
     rows, cur = [], None
     for line in log.splitlines():
-        m = _PTXAS_FN.search(line)
+        m = fn.search(line)
         if m:
-            ns, name, t, d = m.groups()
-            dtype = "bf16" if ns == "tc" or (t and "bfloat" in t) else "f32"
-            cur = [ns, name, dtype, int(d) if d else None, None, 0, 0]
+            cur = [m.groups(), None, 0, 0]
             continue
         if cur is None:
             continue
         m = _PTXAS_SPILL.search(line)
         if m:
-            cur[5:7] = int(m.group(1)), int(m.group(2))
+            cur[2:4] = int(m.group(1)), int(m.group(2))
         m = _PTXAS_REGS.search(line)
         if m:
-            cur[4] = int(m.group(1))
+            cur[1] = int(m.group(1))
             rows.append(tuple(cur))
             cur = None
     return rows
@@ -437,11 +448,49 @@ def ptxas_table(log: str) -> list:
 def print_attention_build(log: str) -> None:
     """One line per attention instantiation: its instruction route,
     registers and spill bytes, from the build's ptxas output."""
-    for ns, name, dtype, D, regs, st, ld in ptxas_table(log):
+    for (_, ns, name, t, d), regs, st, ld in ptxas_table(log):
+        dtype = "bf16" if ns == "tc" or (t and "bfloat" in t) else "f32"
         route = ATTN_ROUTES.get((ns, name), "CUDA-core FMA")
-        print(f"attention build {name} {dtype} D={D}: {route}, {regs} "
+        print(f"attention build {name} {dtype} D={d}: {route}, {regs} "
               f"registers, spill stores {st} B, spill loads {ld} B",
               flush=True)
+
+
+def sass_of(lib: Path) -> dict:
+    """``{mangled kernel name: its SASS}`` of a built library, by the
+    toolkit's cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    funcs = {}
+    for part in out.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        funcs[name.strip()] = body
+    return funcs
+
+
+def print_ce_build(log: str, lib: Path) -> None:
+    """One line per cross-entropy instantiation: its route, registers and
+    spill bytes (ptxas), and for the bf16 route the wgmma instructions
+    (HGMMA) its SASS holds. A bf16 kernel that spills or holds none fails
+    the build."""
+    sass = sass_of(lib)
+    rows = ptxas_table(log, _CE_FN)
+    check(any(ns == "tc" for (_, ns, *_), *_ in rows),
+          "the build log names the bf16 cross-entropy kernels")
+    for (mangled, ns, name, b), regs, st, ld in rows:
+        variant = CE_VARIANTS[name][int(b)] if b else ""
+        hgmma = sass.get(mangled, "").count("HGMMA")
+        route = ("wgmma" if ns == "tc" else "none (merge)"
+                 if name == "ce_merge_kernel" else "CUDA-core FMA")
+        dtype = "bf16" if ns == "tc" else "f32" if ns else "both"
+        what = " ".join(x for x in (name, variant, dtype) if x)
+        print(f"cross-entropy build {what}: {route} ({hgmma} HGMMA in "
+              f"SASS), {regs} registers, spill stores {st} B, spill loads "
+              f"{ld} B", flush=True)
+        if ns == "tc":
+            check(st == ld == 0, f"{what} spills")
+            check(hgmma > 0, f"{what}: no wgmma in its SASS")
 
 
 def phase_attention(torch, F, fa, timing, dev, bw, bf16,
@@ -537,6 +586,38 @@ def phase_attention(torch, F, fa, timing, dev, bw, bf16,
     return rows
 
 
+_KERNEL_NAME = re.compile(r"(\w+_kernel(?:<[^>]*>)?)")
+
+
+def kernel_times(torch, fn, ms: float) -> str:
+    """Device time of one ``fn()`` by kernel (torch.profiler's CUDA
+    trace of the second of two calls), as ``name ms (launches)`` pairs,
+    longest first, and their sum beside ``ms``, the call's CUDA-event
+    time: the trace can miss kernels."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    traced = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: traced.extend(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    parts = []
+    for ev in traced:
+        us = getattr(ev, "device_time_total", 0) or 0
+        if us > 0:
+            m = _KERNEL_NAME.search(ev.key)
+            parts.append((us, m.group(1) if m else ev.key[:40], ev.count))
+    if not parts:
+        return "not measured (no device events)"
+    return (", ".join(f"{n} {us / 1e3:.4f} ms ({c})"
+                      for us, n, c in sorted(parts, reverse=True))
+            + f"; traced {sum(p[0] for p in parts) / 1e3:.4f} of the "
+            f"{ms:.4f} ms CUDA events time")
+
+
 def phase_cross_entropy(torch, F, ce, timing, dev, bw, bf16,
                         cases=CE_CASES, rows=None, suffix="") -> dict:
     """Cross-entropy kernels against their plain versions; times at full
@@ -586,6 +667,16 @@ def phase_cross_entropy(torch, F, ce, timing, dev, bw, bf16,
               ("dw's softmax part", dw, p_dw, soft_dw)))
         if not timed:
             continue
+        again = ce.fused_ce_bwd(h, w, y, lse, g)
+        torch.cuda.synchronize()
+        check(torch.equal(dh, again[0]) and torch.equal(dw, again[1]),
+              f"fused_ce_bwd {tag}: two calls, the same bits")
+        del again
+        print(f"fused_ce_bwd {tag}: two calls give the same bits", flush=True)
+        if dtype == torch.bfloat16:
+            print(f"fused_ce_bwd {tag}: vocab chunk {ce.vocab_chunk(T, V)}, "
+                  f"buffers {ce.bwd_scratch_bytes(T, V, d) / 2**20:.1f} MiB "
+                  f"for the call", flush=True)
         # what the limits reject: the gradients of a kernel that dropped
         # the softmax work, and of one whose lse is off by log 0.8 (a fifth
         # of the vocabulary lost), which also moves lse itself
@@ -625,23 +716,39 @@ def phase_cross_entropy(torch, F, ce, timing, dev, bw, bf16,
             "bwd_plain": timing.cuda_time_ms(
                 lambda: ce.fused_ce_bwd_ref(h, w, y, lse, g), reps=3,
                 warmup=1),
-            "two_calls": timing.cuda_time_ms(
+            "fwd_lib": timing.cuda_time_ms(
                 lambda: F.cross_entropy(h @ w, y), reps=5, warmup=1),
         }
+        # the library's yardstick: no single PyTorch call computes the
+        # fused function, so the two-call form F.cross_entropy(h @ W, y)
+        # and its autograd backward, on a graph built once
+        hl, wl = (x.detach().requires_grad_(True) for x in (h, w))
+        lib_loss = F.cross_entropy(hl @ wl, y, reduction="none")
+        t["bwd_lib"] = timing.cuda_time_ms(
+            lambda: torch.autograd.grad(lib_loss, (hl, wl),
+                                        g.to(lib_loss.dtype),
+                                        retain_graph=True), reps=3, warmup=1)
+        del lib_loss, hl, wl
+        for name, kind, fn in (
+                ("fused_ce_fwd", "fwd", lambda: ce.fused_ce_fwd(h, w, y)),
+                ("fused_ce_bwd", "bwd",
+                 lambda: ce.fused_ce_bwd(h, w, y, lse, g))):
+            print(f"{name} {tag}: by kernel "
+                  f"{kernel_times(torch, fn, t[kind])}", flush=True)
         for name, kind, (b_ms, by) in (("fused_ce_fwd", "fwd", b_fwd),
                                        ("fused_ce_bwd", "bwd", b_bwd)):
             rows[name].update({
                 "ms" + suffix: t[kind],
                 "plain_ms" + suffix: t[kind + "_plain"],
                 "bound_ms" + suffix: b_ms, "bound_by" + suffix: by,
-                "library_ms" + suffix: None})
+                "library_ms" + suffix: t[kind + "_lib"]})
+            lib = "F.cross_entropy(h @ W, y)" + (
+                " backward" if kind == "bwd" else "")
             print(f"{name} {tag}: kernel {t[kind]:.4f} ms, plain "
-                  f"{t[kind + '_plain']:.4f} ms, bound {b_ms:.4f} ms ({by})",
+                  f"{t[kind + '_plain']:.4f} ms, two calls {lib} "
+                  f"{t[kind + '_lib']:.4f} ms ({t[kind + '_lib'] / t[kind]:.2f}"
+                  f"x the kernel's time), bound {b_ms:.4f} ms ({by})",
                   flush=True)
-        print(f"F.cross_entropy(h @ W, y) {tag}: {t['two_calls']:.4f} ms "
-              f"(two calls, a matmul and the loss: no single PyTorch call "
-              f"computes the fused function)", flush=True)
-        rows["fused_ce_fwd"]["two_call_library_ms" + suffix] = t["two_calls"]
     rows["fused_ce_fwd"]["replaces"] = "src/repro/kernels/fused_ce.py:67"
     rows["fused_ce_bwd"]["replaces"] = "src/repro/models/transformer.py:302"
     return rows
@@ -1299,6 +1406,8 @@ def main() -> int:
             print(f"  nvcc[{src}] {line}")
     if "flash_attention" in built:
         print_attention_build(built["flash_attention"])
+    if "fused_ce" in built:
+        print_ce_build(built["fused_ce"], _build.library_path("fused_ce"))
 
     t = time.perf_counter()
     rows = phase_kernels(torch, eu, timing, dev, bw, f64)

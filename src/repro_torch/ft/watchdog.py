@@ -4,9 +4,15 @@ copy of ``repro/ft/watchdog.py``).
 On SIGTERM/SIGINT (cluster preemption) the watchdog sets a stop flag; the
 train loop checks it each step, writes a final checkpoint and exits cleanly.
 A heartbeat file lets an external supervisor detect hung processes (the
-'node failure' detection path at 1000+ nodes; here single-process)."""
+'node failure' detection path at 1000+ nodes; here single-process).
+
+Unlike the reference, each beat writes the time to a temporary file beside
+the heartbeat and renames it over the heartbeat (``os.replace``), so a
+reader sees the previous beat or the new one, never a file that is empty
+or half written."""
 from __future__ import annotations
 
+import os
 import signal
 import threading
 import time
@@ -36,11 +42,15 @@ class Watchdog:
         if self.heartbeat_path is None or self._hb_thread is not None:
             return self
 
+        tmp = (f"{self.heartbeat_path}.{os.getpid()}."
+               f"{threading.get_ident()}.tmp")
+
         def beat():
             while not self.should_stop.is_set():
                 try:
-                    with open(self.heartbeat_path, "w") as f:
+                    with open(tmp, "w") as f:
                         f.write(str(time.time()))
+                    os.replace(tmp, self.heartbeat_path)
                 except OSError:
                     pass
                 self.should_stop.wait(self.interval_s)

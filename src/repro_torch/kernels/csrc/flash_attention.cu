@@ -508,12 +508,6 @@ template <int D> struct FwdSmem {
     static constexpr size_t kAlloc = kBarriers + 8 * (2 * kStages + 1) + 1024;
 };
 
-// shared base rounded up to 1024 bytes (the swizzle repeats every 1024)
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
-    const uint32_t a = smem_u32(raw);
-    return raw + (((a + 1023u) & ~1023u) - a);
-}
-
 // s = A . B^T for one warpgroup: A a 64-row tile (Q or dO), B a BK-row
 // tile (K or V), D / 16 wgmma k-steps, both K-major in shared memory
 template <int D, int BK>
@@ -1290,30 +1284,13 @@ int bwd_f32(const void* q, const void* k, const void* v, const void* out,
     return (int)cudaGetLastError();
 }
 
-// the driver's cuTensorMapEncodeTiled, through the runtime (the library
-// links no libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
 // a TMA map of one (B, S, heads, D) bf16 tensor whose box is one slab of
 // kRows rows of one head, swizzled as sm90.cuh lays tiles out
 template <int D, int kRows>
 int row_map(CUtensorMap* map, const void* base, int B, int S, int heads) {
-    static EncodeTiled encode = nullptr;
-    if (encode == nullptr) {
-        void* fn = nullptr;
-        cudaDriverEntryPointQueryResult found;
-        if (int rc = (int)cudaGetDriverEntryPoint(
-                "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found))
-            return rc;
-        if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-            return (int)cudaErrorNotSupported;
-        encode = (EncodeTiled)fn;
-    }
+    int rc = 0;
+    const sm90::EncodeTiled encode = sm90::tensor_map_encoder(&rc);
+    if (encode == nullptr) return rc;
     using Sw = sm90::Swz<D>;
     const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
                                 (cuuint64_t)S, (cuuint64_t)B};
@@ -1327,11 +1304,11 @@ int row_map(CUtensorMap* map, const void* base, int B, int S, int heads) {
         Sw::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
         : Sw::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                               : CU_TENSOR_MAP_SWIZZLE_32B;
-    const CUresult rc = encode(
+    const CUresult res = encode(
         map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
         dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+    return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // setmaxnreg moves registers within the block's allocation: a build of a

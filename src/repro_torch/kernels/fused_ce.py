@@ -14,16 +14,23 @@ tile and returns ``dh = dlogits·wᵀ`` and ``dw = hᵀ·dlogits`` in h's and
 w's dtypes. Logits are f32 products of the inputs, as the reference's
 ``preferred_element_type=f32`` einsum computes them.
 
-The kernels never hold the (T, V) logits in device memory: the forward
-keeps an online max, sum, target logit and argmax per token over vocab
-tiles; the backward recomputes each logits tile inside the kernel that
-consumes it. They read w as its transpose ``(V, d)``, which is how the
-tied embedding already lies in memory (``w = embed.T``).
+The forward never holds the (T, V) logits in device memory: it keeps an
+online max, sum, target logit and argmax per token over vocab tiles, in
+vocab splits that a second launch merges in order (``vocab_splits``). The
+bf16 backward takes the vocab in chunks of ``vocab_chunk`` columns: per
+chunk it recomputes the logits, writes ``dlogits`` as bf16 hi + lo into two
+(T, Vc) buffers and forms ``dh`` (summed over the chunks in an f32 buffer)
+and the chunk's rows of ``dw``; the wrapper allocates the buffers and they
+are freed when the call returns. The f32 backward recomputes each logits
+tile inside the kernel that consumes it. The kernels read w as its
+transpose ``(V, d)``, which is how the tied embedding already lies in
+memory (``w = embed.T``).
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernels of ``csrc/fused_ce.cu`` or raises. bf16
 rows run on the tensor cores, which need d a multiple of 16 and h at a
-32-byte-aligned address; anything else raises. A nonzero
+32-byte-aligned address; anything else raises. One wrapper call counts
+one launch, however many kernels it enqueues. A nonzero
 ``logit_softcap`` raises ``NotImplementedError``: no config sets it.
 """
 from __future__ import annotations
@@ -36,11 +43,15 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _c_ptr, _c_int = ctypes.c_void_p, ctypes.c_int
-# shared memory of the backward: a 16-row f32 accumulator of width d, plus
-# 44,800 bytes of tiles (csrc/fused_ce.cu), within the 232,448 of an H100
+# shared memory of the f32 backward: a 16-row f32 accumulator of width d,
+# plus 44,800 bytes of tiles (csrc/fused_ce.cu), within the 232,448 of an
+# H100
 MAX_D = (232_448 - 44_800) // (16 * 4)
-_TOKEN_TILE, _VOCAB_TILE = 64, 64      # the forward kernel's tiles
-_TARGET_BLOCKS = 4 * 132               # four blocks per H100 SM
+# the forward's (token tile, vocab tile, blocks to aim for): f32 64 x 64,
+# four blocks an H100 SM; bf16 128 x 256, one block an SM, sixteen waves
+_FWD_PLAN = {torch.float32: (64, 64, 4 * 132),
+             torch.bfloat16: (128, 256, 16 * 132)}
+_CHUNK_BYTES = 1 << 29    # the bf16 backward's hi + lo dlogits buffers
 
 
 def _lib() -> ctypes.CDLL:
@@ -48,7 +59,7 @@ def _lib() -> ctypes.CDLL:
     if lib.repro_ce_fwd.argtypes is None:
         lib.repro_ce_fwd.argtypes = [_c_ptr] * 8 + [_c_int] * 5 + [_c_ptr]
         lib.repro_ce_fwd.restype = ctypes.c_int
-        lib.repro_ce_bwd.argtypes = [_c_ptr] * 7 + [_c_int] * 4 + [_c_ptr]
+        lib.repro_ce_bwd.argtypes = [_c_ptr] * 10 + [_c_int] * 5 + [_c_ptr]
         lib.repro_ce_bwd.restype = ctypes.c_int
     return lib
 
@@ -80,14 +91,43 @@ def _cuda_args(h, w, targets):
     if not h.is_contiguous():
         raise ValueError("h must be contiguous")
     d = h.shape[1]
-    if d % 2 or d > MAX_D:
-        raise ValueError(f"d = {d}: the kernels take an even d <= {MAX_D}")
+    if d % 2 or (h.dtype == torch.float32 and d > MAX_D):
+        raise ValueError(f"d = {d}: the kernels take an even d, at most "
+                         f"{MAX_D} in f32")
     wt = w.t().contiguous()
     if h.dtype == torch.bfloat16 and (
             d % 16 or h.data_ptr() % 32 or wt.data_ptr() % 32):
         raise ValueError(f"bf16 rows on the tensor cores need d % 16 == 0 "
                          f"(d = {d}) and 32-byte-aligned h and w")
     return _DTYPES[h.dtype], wt
+
+
+def vocab_splits(T: int, V: int, dtype) -> tuple:
+    """The forward's vocab splits -> ``(columns a split, splits)``: whole
+    vocab tiles each, enough of them that the token tiles times the splits
+    fill the card, covering V exactly (the last split may be ragged)."""
+    rows, tile, target = _FWD_PLAN[dtype]
+    n_vt = -(-V // tile)
+    n_split = max(1, min(n_vt, -(-target // -(-T // rows))))
+    per = -(-n_vt // n_split) * tile
+    return per, -(-V // per)
+
+
+def vocab_chunk(T: int, V: int) -> int:
+    """The bf16 backward's vocab chunk Vc: a power of two, at least one
+    vocab tile and no more than V needs, whose dlogits buffers (bf16 hi and
+    lo of (T, Vc)) fit in 512 MiB; 32768 at T 4096."""
+    vc = _FWD_PLAN[torch.bfloat16][1]
+    while vc < V and 2 * T * (2 * vc) * 2 <= _CHUNK_BYTES:
+        vc *= 2
+    return vc
+
+
+def bwd_scratch_bytes(T: int, V: int, d: int) -> int:
+    """Device bytes the bf16 backward allocates for one call: the two
+    dlogits buffers and, with more than one chunk, the f32 dh sum."""
+    vc = vocab_chunk(T, V)
+    return 2 * T * vc * 2 + (T * d * 4 if V > vc else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -123,12 +163,8 @@ def fused_ce_fwd(h, w, targets, logit_softcap: float = 0.0):
         return loss, lse, pred
     if V == 0:
         raise ValueError("empty vocabulary")
-    # split the vocab across blocks so that T/64 token tiles fill the card;
     # a second launch inside the C function merges the splits in order
-    n_vtiles = -(-V // _VOCAB_TILE)
-    n_split = max(1, min(n_vtiles, -(-_TARGET_BLOCKS // -(-T // _TOKEN_TILE))))
-    v_per_split = -(-n_vtiles // n_split) * _VOCAB_TILE
-    n_split = -(-V // v_per_split)
+    v_per_split, n_split = vocab_splits(T, V, h.dtype)
     part_f = torch.empty((n_split, T, 4), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_split, T), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -170,14 +206,23 @@ def fused_ce_bwd(h, w, targets, lse, g, logit_softcap: float = 0.0):
                 or not t.is_contiguous() or t.device != h.device:
             raise ValueError(f"{name} must be contiguous f32 ({T},) on "
                              f"{h.device}")
+    V = wt.shape[0]
     dh = torch.empty_like(h)
     dwt = torch.empty_like(wt)
-    if T and wt.shape[0]:
+    if T and V:
+        vc, scratch = 0, [None] * 3
+        if h.dtype == torch.bfloat16:
+            # dlogits hi and lo of one chunk, and dh's f32 sum over chunks
+            vc = vocab_chunk(T, V)
+            dl = torch.empty((2, T, vc), dtype=h.dtype, device=h.device)
+            acc = torch.empty((T, d) if V > vc else (1,),
+                              dtype=torch.float32, device=h.device)
+            scratch = [dl[0].data_ptr(), dl[1].data_ptr(), acc.data_ptr()]
         with torch.cuda.device(h.device):
             rc = _lib().repro_ce_bwd(
                 h.data_ptr(), wt.data_ptr(), targets.data_ptr(),
                 lse.data_ptr(), g.data_ptr(), dh.data_ptr(), dwt.data_ptr(),
-                T, wt.shape[0], d, dt, _build.stream_of(h))
+                *scratch, T, V, d, vc, dt, _build.stream_of(h))
         _build.check_rc(rc, "fused_ce_bwd")
         _build.count_launch(fused_ce_bwd)
     else:

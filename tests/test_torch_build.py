@@ -39,6 +39,12 @@ def test_port_sources_hash_their_headers():
     assert names == ["flash_attention.cu", "sm90.cuh"]
 
 
+def test_cross_entropy_source_hashes_the_hopper_header():
+    """fused_ce.cu's bf16 route is built from sm90.cuh's helpers too."""
+    names = [p.name for p in _build.inputs("fused_ce")]
+    assert names == ["fused_ce.cu", "sm90.cuh"]
+
+
 def test_launch_counts_add_reset_and_read():
     def wrapper():
         pass

@@ -173,8 +173,16 @@ def test_attention_refuses_unaligned_bf16(cuda):
     (64, 64, 1000, torch.bfloat16),     # tensor cores; ragged vocab tile
     (256, 48, 520, torch.bfloat16),     # whole token tiles on both sides
     (48, 64, 512, torch.bfloat16),      # reduced gemma3-4b's loss head
+    (200, 64, 50280, torch.bfloat16),   # mamba2's vocab, a ragged token tile
+    (130, 32, 100, torch.bfloat16),     # a vocabulary below one tile
 ])
-def test_cross_entropy_kernels_match_plain_versions(cuda, T, d, V, dtype):
+@pytest.mark.parametrize("chunk", ["one", "many"])
+def test_cross_entropy_kernels_match_plain_versions(cuda, monkeypatch, T,
+                                                    d, V, dtype, chunk):
+    """``many``: the bf16 backward's vocab chunk cut to one 256-column tile,
+    so that dh joins its f32 sum over several chunks, the last ragged."""
+    if chunk == "many":
+        monkeypatch.setattr(fused_ce, "_CHUNK_BYTES", 1)
     rng = np.random.RandomState(T + V)
     h = torch.from_numpy(rng.randn(T, d).astype(np.float32)).to(cuda, dtype)
     w = torch.from_numpy((rng.randn(d, V) * 0.1).astype(np.float32)).to(
@@ -195,6 +203,29 @@ def test_cross_entropy_kernels_match_plain_versions(cuda, T, d, V, dtype):
     assert dh.dtype == dw.dtype == dtype
     _close(dh, p_dh, "bwd")
     _close(dw, p_dw, "bwd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_bytes", [1, 1 << 29])
+def test_cross_entropy_backward_gives_the_same_bits_twice(cuda, monkeypatch,
+                                                          chunk_bytes):
+    """No atomics: every output element of the bf16 backward has one owner,
+    and dh sums its chunks in a fixed order."""
+    monkeypatch.setattr(fused_ce, "_CHUNK_BYTES", chunk_bytes)
+    rng = np.random.RandomState(3)
+    T, d, V = 300, 256, 3000
+    h = torch.from_numpy(rng.randn(T, d).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    w = torch.from_numpy((rng.randn(d, V) * 0.2).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    t = torch.from_numpy(rng.randint(0, V, size=T)).to(cuda)
+    g = torch.from_numpy(rng.rand(T).astype(np.float32)).to(cuda)
+    _, lse, _ = fused_ce.fused_ce_fwd(h, w, t)
+    first = fused_ce.fused_ce_bwd(h, w, t, lse, g)
+    again = fused_ce.fused_ce_bwd(h, w, t, lse, g)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -114,6 +114,45 @@ def test_bf16_gradients_come_back_in_bf16():
     assert dh.shape == hb.shape and dw.shape == wb.shape
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,V", [(4096, 262144), (4096, 50280), (48, 512),
+                                 (100, 300), (130, 100), (1, 1),
+                                 (200, 50280), (256, 520)])
+def test_vocab_splits_cover_the_vocabulary_once(dtype, T, V):
+    """Whole vocab tiles a split, every column in exactly one split, the
+    last split ragged only at V; enough blocks to fill 132 SMs when the
+    vocabulary allows."""
+    rows, tile, target = fused_ce._FWD_PLAN[dtype]
+    per, n = fused_ce.vocab_splits(T, V, dtype)
+    assert per % tile == 0 and per > 0
+    starts = [s * per for s in range(n)]
+    ends = [min(V, s + per) for s in starts]
+    assert starts[0] == 0 and ends[-1] == V
+    assert all(a < b for a, b in zip(starts, ends))
+    assert all(e == s for e, s in zip(ends, starts[1:]))
+    n_blocks = -(-T // rows) * n
+    assert n_blocks >= min(target, -(-T // rows) * -(-V // tile)) * 0.5
+
+
+@pytest.mark.parametrize("T,V", [(4096, 262144), (4096, 50280), (48, 512),
+                                 (100, 300), (1, 1), (65536, 262144),
+                                 (4096, 256), (4096, 257)])
+def test_vocab_chunks_cover_the_vocabulary(T, V):
+    """The bf16 backward's chunk: a power of two of whole vocab tiles,
+    buffers within 512 MiB unless one tile exceeds it, and chunks [c·Vc,
+    min(V, (c+1)·Vc)) covering V with a ragged last chunk."""
+    vc = fused_ce.vocab_chunk(T, V)
+    assert vc >= 256 and vc & (vc - 1) == 0
+    assert vc == 256 or 2 * T * vc * 2 <= 1 << 29
+    assert vc < 2 * V or vc == 256           # never more than V needs
+    n = -(-V // vc)
+    covered = sum(min(vc, V - c * vc) for c in range(n))
+    assert covered == V and 0 < V - (n - 1) * vc <= vc
+    assert fused_ce.vocab_chunk(4096, 262144) == 32768
+    extra = T * 8 * 4 if V > vc else 0          # the f32 dh sum
+    assert fused_ce.bwd_scratch_bytes(T, V, 8) == 2 * T * vc * 2 + extra
+
+
 def test_wrapper_checks():
     h, w, t = torch.zeros(4, 8), torch.zeros(8, 10), torch.zeros(4).long()
     with pytest.raises(NotImplementedError, match="softcap"):

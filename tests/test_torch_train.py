@@ -373,6 +373,32 @@ def test_launcher_resume_reproduces_the_uninterrupted_run(capsys, tmp_path):
         np.testing.assert_array_equal(a[k], b[k])
 
 
+def test_heartbeat_is_never_read_half_written(tmp_path):
+    """P2: a reader polling a heartbeat that beats every millisecond never
+    sees a live process as dead: each beat replaces the file whole."""
+    import os
+    import time
+
+    from repro_torch.ft import Watchdog
+    hb = str(tmp_path / "hb")
+    wd = Watchdog(heartbeat_path=hb, interval_s=0.001,
+                  install_signals=False).start_heartbeat()
+    try:
+        deadline = time.time() + 10
+        while not os.path.exists(hb) and time.time() < deadline:
+            time.sleep(0.001)
+        reads = dead = 0
+        end = time.time() + 1.0
+        while time.time() < end:
+            reads += 1
+            dead += not Watchdog.is_alive(hb)
+        assert reads > 100 and dead == 0, f"{dead} of {reads} reads dead"
+    finally:
+        wd.close()
+        wd._hb_thread.join(timeout=10)
+    assert [p.name for p in tmp_path.iterdir()] == ["hb"]
+
+
 def test_watchdog_flags_a_signal_and_beats(tmp_path):
     """The port's watchdog behaves as the reference's: a heartbeat file a
     supervisor can read, the stop flag on SIGTERM, the previous handlers
@@ -387,10 +413,15 @@ def test_watchdog_flags_a_signal_and_beats(tmp_path):
         before = signal.getsignal(signal.SIGTERM)
         wd = cls(heartbeat_path=str(hb), interval_s=0.05).start_heartbeat()
         deadline = time.time() + 10
-        # the beat thread opens the file before it writes the time
-        while not cls.is_alive(str(hb)) and time.time() < deadline:
-            time.sleep(0.01)
-        assert cls.is_alive(str(hb)) and not wd.should_stop.is_set()
+        # the loop's own reading is the one held: the reference's beat
+        # truncates the file before it writes the time (R4), so a second
+        # read could land in that gap
+        alive = False
+        while not alive and time.time() < deadline:
+            alive = cls.is_alive(str(hb))
+            if not alive:
+                time.sleep(0.01)
+        assert alive and not wd.should_stop.is_set()
         wd._on_signal(signal.SIGTERM, None)
         assert wd.should_stop.is_set()
         wd.close()
