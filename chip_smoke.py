@@ -39,7 +39,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    parameters, f32 params, bf16 compute), B 1, S 4096: ``lm_loss`` and its
    gradient through the kernels and through the plain versions, held to a
    relative 1e-3 (loss) and 2e-2 (gradient norm), with exact launch counts
-   per gradient;
+   per gradient, each path's time the median of three gradients;
 8. the second main path: ``run_ps`` on ``--model gemma3-4b`` (the reduced
    decoder, as the reference's PS trainer runs it), P = 4, ring, 64 KiB
    buckets, 16 rounds, Sync EASGD and then Sync SGD, counters 0 before each
@@ -69,9 +69,14 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    dx, db, dc, da 1e-4), at mamba2-780m's full width (B 1, S 4096, H 48,
    P 64, N 128, L 256, f32), at phase 15's reduced shapes (B 2, S 32, H 8,
    P 16, N 16, L 16) and on a chunk whose cumulative decay falls far below
-   -88; time kernel and plain version at full width beside the bound; then
-   the cross-entropy kernels at mamba2-780m's loss head (T 4096, d 1536,
-   V 50280, bf16) as phase 6 holds them;
+   -88, two backward calls giving the same bits; time kernel and plain
+   version at full width beside the bound (the bytes, or 3x the products
+   at the dense TF32 rate: the kernels' 3xTF32 route) and the CUDA-core
+   f32 bound, and by kernel (torch.profiler). The build's ptxas output and
+   SASS give one line per SSD kernel: registers, spill bytes and its
+   tensor-core products (HMMA); a kernel without any fails the build.
+   Then the cross-entropy kernels at mamba2-780m's loss head (T 4096, d
+   1536, V 50280, bf16) as phase 6 holds them;
 13. mamba2-780m at full width and full depth (48 layers, 780,148,992
    parameters, f32 params, bf16 compute), B 1, S 4096: ``lm_loss`` and its
    gradient through the kernels and through the plain versions, with exact
@@ -114,12 +119,13 @@ SRC = Path(__file__).resolve().parent / "src"
 
 # data-sheet peaks per card (memory bytes/s, f64 operations/s outside the
 # tensor cores, dense bf16 tensor-core operations/s, f32 operations/s
-# outside the tensor cores), matched on the name nvidia-smi reports; first
-# match wins
-PEAKS = (("H100 PCIe", 2.0e12, 25.6e12, 756e12, 51.2e12),
-         ("H100 NVL", 3.9e12, 30e12, 835e12, 60e12),
-         ("H200", 4.8e12, 34e12, 989e12, 67e12),
-         ("H100", 3.35e12, 34e12, 989e12, 67e12))
+# outside the tensor cores, dense TF32 tensor-core operations/s: half the
+# bf16 rate on Hopper), matched on the name nvidia-smi reports; first match
+# wins
+PEAKS = (("H100 PCIe", 2.0e12, 25.6e12, 756e12, 51.2e12, 378e12),
+         ("H100 NVL", 3.9e12, 30e12, 835e12, 60e12, 417.5e12),
+         ("H200", 4.8e12, 34e12, 989e12, 67e12, 494.5e12),
+         ("H100", 3.35e12, 34e12, 989e12, 67e12, 494.5e12))
 
 ETA, RHO, MU = 0.05, 0.07, 0.9
 N_ALEXNET = 6_976_842
@@ -418,6 +424,9 @@ CE_VARIANTS = {"ce_logits_kernel": ("fwd", "bwd"),
                "ce_bwd_kernel": ("dw", "dh")}
 _CE_FN = re.compile(r"Compiling entry function '(\S*?(tc|simt)?\d+"
                     r"(ce_\w+?_kernel)(?:ILb([01])EE)?\S*)'")
+# the SSD kernels, every product on the TF32 tensor cores (3xTF32)
+_SSD_FN = re.compile(r"Compiling entry function '(\S*?(ssd_(?:fwd|bwd|dbc)"
+                     r"_kernel)\S*)'")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 
@@ -491,6 +500,24 @@ def print_ce_build(log: str, lib: Path) -> None:
         if ns == "tc":
             check(st == ld == 0, f"{what} spills")
             check(hgmma > 0, f"{what}: no wgmma in its SASS")
+
+
+def print_ssd_build(log: str, lib: Path) -> None:
+    """One line per SSD kernel: registers and spill bytes (ptxas) and the
+    tensor-core products its SASS holds (HGMMA: wgmma, HMMA: mma.sync); a
+    kernel without any fails the build."""
+    sass = sass_of(lib)
+    rows = ptxas_table(log, _SSD_FN)
+    check(len(rows) == 3, f"the build log names the three SSD kernels "
+          f"({len(rows)})")
+    for (mangled, name), regs, st, ld in rows:
+        code = sass.get(mangled, "")
+        hgmma, hmma = code.count("HGMMA"), code.count("HMMA")
+        print(f"ssd build {name}: 3xTF32 ({hgmma} HGMMA, {hmma} HMMA in "
+              f"SASS), {regs} registers, spill stores {st} B, spill loads "
+              f"{ld} B", flush=True)
+        check(hgmma + hmma > 0, f"{name}: no tensor-core product in its "
+              f"SASS")
 
 
 def phase_attention(torch, F, fa, timing, dev, bw, bf16,
@@ -812,13 +839,22 @@ def phase_full_width(torch, np, cfg, S, tfm, common, kernel_mods, kernels,
     want = lm_counts(cfg, 1)
     check(counts == want, f"launches per full-width gradient {counts}")
     peak = torch.cuda.max_memory_allocated()
-    with timing.Timer("cuda") as tm:
-        gradient()
-    ms = 1e3 * tm.elapsed
+
+    def timed_ms(reps=3):
+        """Median host time of ``reps`` synchronised gradients: on this
+        eager path one gradient alone drifts from run to run by more than
+        a kernel's share of it (PERF.md §7)."""
+        times = []
+        for _ in range(reps):
+            with timing.Timer("cuda") as tm:
+                gradient()
+            times.append(1e3 * tm.elapsed)
+        return statistics.median(times), times
+
+    ms, ms_all = timed_ms()
     with plain_versions(*kernel_mods):
         loss_p, grad_p, _ = gradient()
-        with timing.Timer("cuda") as tm_p:
-            gradient()
+        plain_ms, plain_all = timed_ms()
     rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     rel_grad = (torch.linalg.vector_norm(grad_k - grad_p)
                 / torch.linalg.vector_norm(grad_p)).item()
@@ -828,7 +864,8 @@ def phase_full_width(torch, np, cfg, S, tfm, common, kernel_mods, kernels,
     check(rel_loss <= 1e-3, f"full-width loss kernels vs plain {rel_loss:.3e}")
     out = {"params": n, "loss": loss_k.item(), "loss_plain": loss_p.item(),
            "rel_loss": rel_loss, "rel_grad": rel_grad, "ms": ms,
-           "plain_ms": 1e3 * tm_p.elapsed, "peak_bytes": peak,
+           "ms_all": ms_all, "plain_ms": plain_ms, "plain_ms_all": plain_all,
+           "peak_bytes": peak,
            "accuracy": metrics["accuracy"].item(), "launches": counts}
     held = "limit 2e-2"
     if held_dtype is None:
@@ -844,8 +881,10 @@ def phase_full_width(torch, np, cfg, S, tfm, common, kernel_mods, kernels,
           f"{str(cfg.compute_dtype)[6:]} compute: loss kernels "
           f"{out['loss']:.6f} plain {out['loss_plain']:.6f} (rel "
           f"{rel_loss:.3e}, limit 1e-3), gradient rel norm {rel_grad:.3e} "
-          f"({held}); {ms:.1f} ms per gradient through the kernels, "
-          f"{out['plain_ms']:.1f} ms through the plain versions; peak "
+          f"({held}); {ms:.1f} ms per gradient through the kernels "
+          f"(median of {[round(v, 1) for v in ms_all]}), {plain_ms:.1f} ms "
+          f"through the plain versions (median of "
+          f"{[round(v, 1) for v in plain_all]}); peak "
           f"{peak / 2**30:.2f} GiB (max_memory_allocated); launches per "
           f"gradient {counts}", flush=True)
     if held_dtype is not None:
@@ -1254,26 +1293,31 @@ SSD_CASES = ((1, 48, 4096, 64, 128, 256, 1.0, True),
 CE_MAMBA2_CASES = ((4096, 1536, 50280, "bfloat16", True),)
 
 
-def ssd_bound(B, H, S, P, N, L, bw, f32) -> tuple:
+def ssd_bound(B, H, S, P, N, L, bw, rate, products=1) -> tuple:
     """Bounds of ``ssd_intra_fwd`` and ``ssd_intra_bwd`` on these shapes:
     each input read once and each output written once, in f32; over the
     L (L + 1) / 2 causal pairs of each chunk, 2 operations per product
     term: G = C·Bᵀ once per (batch row, chunk) and M·X per head forward
     (N + H·P per pair); G again, dC, dB and, per head, dX and dM backward
-    (3 N + 2 H·P)."""
+    (3 N + 2 H·P); each product ``products`` times at ``rate`` (3 at the
+    TF32 rate for the kernels' 3xTF32 route, 1 at the CUDA cores' f32
+    rate)."""
     nc, pairs = S // L, L * (L + 1) // 2
     a, x, bc = 4 * B * H * S, 4 * B * H * S * P, 4 * B * S * N
-    fwd = bound(a + 2 * x + 2 * bc, 2 * B * nc * pairs * (N + H * P), bw,
-                f32)
-    bwd = bound(2 * a + 4 * x + 4 * bc,
-                2 * B * nc * pairs * (3 * N + 2 * H * P), bw, f32)
+    fwd = bound(a + 2 * x + 2 * bc,
+                products * 2 * B * nc * pairs * (N + H * P), bw, rate)
+    bwd = bound(2 * a + 3 * x + 4 * bc,
+                products * 2 * B * nc * pairs * (3 * N + 2 * H * P), bw,
+                rate)
     return fwd, bwd
 
 
-def phase_ssd(torch, sc, timing, dev, bw, f32, cases=SSD_CASES) -> dict:
+def phase_ssd(torch, sc, timing, dev, bw, f32, tf32,
+              cases=SSD_CASES) -> dict:
     """The SSD kernels against their plain versions on the card, each
     output by its relative norm (y at 1e-5, dx, db, dc and da at 1e-4);
-    at full width both timed beside the bound."""
+    at full width both timed beside the bound (3xTF32) and the CUDA-core
+    f32 bound, and by kernel."""
     rows = {"ssd_intra_fwd": {}, "ssd_intra_bwd": {}}
     for i, (B, H, S, P, N, L, scale, timed) in enumerate(cases):
         gen = torch.Generator(device=dev).manual_seed(300 + i)
@@ -1302,7 +1346,9 @@ def phase_ssd(torch, sc, timing, dev, bw, f32, cases=SSD_CASES) -> dict:
         del again
         if not timed:
             continue
-        b_fwd, b_bwd = ssd_bound(B, H, S, P, N, L, bw, f32)
+        b_fwd, b_bwd = ssd_bound(B, H, S, P, N, L, bw, tf32, products=3)
+        simt = dict(zip(("fwd", "bwd"), ssd_bound(B, H, S, P, N, L, bw,
+                                                  f32)))
         t = {"fwd": timing.cuda_time_ms(
                  lambda: sc.ssd_intra_fwd(a, x, b, c, L), reps=20),
              "fwd_plain": timing.cuda_time_ms(
@@ -1311,6 +1357,13 @@ def phase_ssd(torch, sc, timing, dev, bw, f32, cases=SSD_CASES) -> dict:
                  lambda: sc.ssd_intra_bwd(a, x, b, c, dy, L), reps=20),
              "bwd_plain": timing.cuda_time_ms(
                  lambda: sc.ssd_intra_bwd_ref(a, x, b, c, dy, L), reps=5)}
+        for name, kind, fn in (
+                ("ssd_intra_fwd", "fwd",
+                 lambda: sc.ssd_intra_fwd(a, x, b, c, L)),
+                ("ssd_intra_bwd", "bwd",
+                 lambda: sc.ssd_intra_bwd(a, x, b, c, dy, L))):
+            print(f"{name} {tag}: by kernel "
+                  f"{kernel_times(torch, fn, t[kind])}", flush=True)
         for name, kind, (b_ms, by) in (("ssd_intra_fwd", "fwd", b_fwd),
                                        ("ssd_intra_bwd", "bwd", b_bwd)):
             rows[name].update({"ms": t[kind], "plain_ms": t[kind + "_plain"],
@@ -1318,10 +1371,12 @@ def phase_ssd(torch, sc, timing, dev, bw, f32, cases=SSD_CASES) -> dict:
                                "library_ms": None,
                                "shape": f"B={B} H={H} S={S} P={P} N={N} "
                                         f"L={L} f32"})
+            rows[name]["bound_ms_f32_cuda_cores"] = simt[kind][0]
             print(f"{name} {tag}: kernel {t[kind]:.4f} ms, plain "
-                  f"{t[kind + '_plain']:.4f} ms, bound {b_ms:.4f} ms ({by}; "
-                  f"{b_ms / t[kind]:.1%}); no single PyTorch call computes "
-                  f"it", flush=True)
+                  f"{t[kind + '_plain']:.4f} ms, bound {b_ms:.4f} ms ({by}, "
+                  f"3xTF32; {b_ms / t[kind]:.1%}), CUDA-core f32 bound "
+                  f"{simt[kind][0]:.4f} ms ({simt[kind][1]}); no single "
+                  f"PyTorch call computes it", flush=True)
     for name in rows:
         rows[name]["replaces"] = "src/repro/kernels/ssd_chunk.py:42"
     return rows
@@ -1390,11 +1445,11 @@ def main() -> int:
 
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    bw, f64, bf16, f32 = peaks_for(card)
+    bw, f64, bf16, f32, tf32 = peaks_for(card)
     print(f"card: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | peaks {bw / 1e12:g} TB/s, f64 "
           f"{f64 / 1e12:g} TFLOP/s, bf16 {bf16 / 1e12:g} TFLOP/s, f32 "
-          f"{f32 / 1e12:g} TFLOP/s", flush=True)
+          f"{f32 / 1e12:g} TFLOP/s, TF32 {tf32 / 1e12:g} TFLOP/s", flush=True)
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
@@ -1408,6 +1463,8 @@ def main() -> int:
         print_attention_build(built["flash_attention"])
     if "fused_ce" in built:
         print_ce_build(built["fused_ce"], _build.library_path("fused_ce"))
+    if "ssd_chunk" in built:
+        print_ssd_build(built["ssd_chunk"], _build.library_path("ssd_chunk"))
 
     t = time.perf_counter()
     rows = phase_kernels(torch, eu, timing, dev, bw, f64)
@@ -1458,7 +1515,7 @@ def main() -> int:
 
     # the Mamba-2 slice (phases 12-15)
     t = time.perf_counter()
-    rows.update(phase_ssd(torch, sc, timing, dev, bw, f32))
+    rows.update(phase_ssd(torch, sc, timing, dev, bw, f32, tf32))
     phase_cross_entropy(torch, F, ce, timing, dev, bw, bf16,
                         cases=CE_MAMBA2_CASES, rows=rows, suffix="_mamba2")
     print(f"phase ssd kernels: {time.perf_counter() - t:.1f} s", flush=True)

@@ -20,8 +20,10 @@ versions compute f64 inputs in f64); the outputs come back in the inputs'
 dtypes. ``db`` and ``dc`` sum over the heads.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernels of ``csrc/ssd_chunk.cu`` (f32, contiguous)
-or raises. Each wrapper call that launches adds one to its ``launches``.
+tensors it launches the kernels of ``csrc/ssd_chunk.cu`` (f32, contiguous,
+chunks up to 256 and head dims up to 64) or raises. Each wrapper call that
+launches adds one to its ``launches``. The kernels run every product on the
+tensor cores as three TF32 products (``csrc/ssd_chunk.cu`` says how).
 """
 from __future__ import annotations
 
@@ -32,17 +34,40 @@ import torch
 from repro_torch.kernels import _build
 
 TILE = 64                       # the kernels' tile edge (csrc/ssd_chunk.cu)
+MAX_CHUNK, MAX_HEAD_DIM, MAX_HEADS_A_BLOCK = 4 * TILE, TILE, 32
 _c_ptr, _c_int = ctypes.c_void_p, ctypes.c_int
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd_chunk")
     if lib.repro_ssd_fwd.argtypes is None:
-        lib.repro_ssd_fwd.argtypes = [_c_ptr] * 7 + [_c_int] * 6 + [_c_ptr]
+        lib.repro_ssd_fwd.argtypes = [_c_ptr] * 5 + [_c_int] * 7 + [_c_ptr]
         lib.repro_ssd_fwd.restype = ctypes.c_int
-        lib.repro_ssd_bwd.argtypes = [_c_ptr] * 14 + [_c_int] * 6 + [_c_ptr]
+        lib.repro_ssd_bwd.argtypes = [_c_ptr] * 12 + [_c_int] * 7 + [_c_ptr]
         lib.repro_ssd_bwd.restype = ctypes.c_int
+        lib.repro_ssd_smem.argtypes = [_c_int] * 3
+        lib.repro_ssd_smem.restype = ctypes.c_long
     return lib
+
+
+def head_group(H: int, base: int, slots: int) -> int:
+    """Heads per block: ``base`` blocks each get ``H`` split into as many
+    groups as fill ``slots`` (one wave of resident blocks), at least one
+    head a group and at most ``MAX_HEADS_A_BLOCK``."""
+    groups = max(1, min(H, slots // max(base, 1)))
+    return min(-(-H // groups), MAX_HEADS_A_BLOCK)
+
+
+def _heads_a_block(backward: bool, B, H, S, L, dev) -> int:
+    """``head_group`` for this card, one block on an SM; fewer heads where
+    the cumsum rows would not fit its shared memory (``repro_ssd_smem``
+    gives 0)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    base = B * (S // L) * ((-(-L // TILE) + 1) // 2)
+    hg = head_group(H, base, sms)
+    while hg > 1 and not _lib().repro_ssd_smem(int(backward), L, hg):
+        hg -= 1
+    return hg
 
 
 def chunk_len(S: int, chunk: int) -> int:
@@ -73,7 +98,11 @@ def _dims(a, x, b, c, chunk):
     return Bsz, BH // Bsz, S, chunk_len(S, chunk), x.shape[2], N
 
 
-def _check_cuda(*tensors) -> None:
+def _check_cuda(L, P, *tensors) -> None:
+    if L > MAX_CHUNK or P > MAX_HEAD_DIM:
+        raise ValueError(f"the SSD kernels take chunks up to {MAX_CHUNK} "
+                         f"and head dims up to {MAX_HEAD_DIM}; got L {L}, "
+                         f"P {P}")
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"the SSD kernels take float32, got {t.dtype}")
@@ -153,18 +182,16 @@ def ssd_intra_fwd(a, x, b, c, chunk: int):
     B, H, S, L, P, N = _dims(a, x, b, c, chunk)
     if a.device.type == "cpu":
         return ssd_intra_fwd_ref(a, x, b, c, chunk)
-    _check_cuda(a, x, b, c)
+    _check_cuda(L, P, a, x, b, c)
     y = torch.empty_like(x)
     if y.numel() == 0 or N == 0:
         return y.zero_()
     dev = a.device
-    cum = torch.empty_like(a)
-    g = torch.empty((B, S // L, L, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        hg = _heads_a_block(False, B, H, S, L, dev)
         rc = _lib().repro_ssd_fwd(
             a.data_ptr(), x.data_ptr(), b.data_ptr(), c.data_ptr(),
-            y.data_ptr(), cum.data_ptr(), g.data_ptr(), B, H, S, L, P, N,
-            _build.stream_of(a))
+            y.data_ptr(), B, H, S, L, P, N, hg, _build.stream_of(a))
     _build.check_rc(rc, "ssd_intra_fwd")
     _build.count_launch(ssd_intra_fwd)
     return y
@@ -182,24 +209,25 @@ def ssd_intra_bwd(a, x, b, c, dy, chunk: int):
                          f"{tuple(x.shape)}")
     if a.device.type == "cpu":
         return ssd_intra_bwd_ref(a, x, b, c, dy, chunk)
-    _check_cuda(a, x, b, c, dy)
+    _check_cuda(L, P, a, x, b, c, dy)
     dx, db, dc, da = (torch.empty_like(t) for t in (x, b, c, a))
     if x.numel() == 0 or N == 0:
         return dx.zero_(), db.zero_(), dc.zero_(), da.zero_()
     dev = a.device
     nc, nt = S // L, -(-L // TILE)
-    cum = torch.empty_like(a)
-    g, dgs = (torch.empty((B, nc, L, L), dtype=torch.float32, device=dev)
-              for _ in range(2))
-    rpart, cpart = (torch.empty((B * H, nc, nt, L), dtype=torch.float32,
-                                device=dev) for _ in range(2))
     with torch.cuda.device(dev):
+        hg = _heads_a_block(True, B, H, S, L, dev)
+        f32 = {"dtype": torch.float32, "device": dev}
+        # scratch: each head group's dG sum, the row sums of Q per column
+        # tile and its column sums
+        dgp = torch.empty((B, nc, -(-H // hg), nt * TILE, nt * TILE), **f32)
+        rpart = torch.empty((B * H, nc, nt, L), **f32)
+        cpart = torch.empty((B * H, nc, L), **f32)
         rc = _lib().repro_ssd_bwd(
             a.data_ptr(), x.data_ptr(), b.data_ptr(), c.data_ptr(),
             dy.data_ptr(), dx.data_ptr(), db.data_ptr(), dc.data_ptr(),
-            da.data_ptr(), cum.data_ptr(), g.data_ptr(), dgs.data_ptr(),
-            rpart.data_ptr(), cpart.data_ptr(), B, H, S, L, P, N,
-            _build.stream_of(a))
+            da.data_ptr(), dgp.data_ptr(), rpart.data_ptr(),
+            cpart.data_ptr(), B, H, S, L, P, N, hg, _build.stream_of(a))
     _build.check_rc(rc, "ssd_intra_bwd")
     _build.count_launch(ssd_intra_bwd)
     return dx, db, dc, da

@@ -45,6 +45,12 @@ def test_cross_entropy_source_hashes_the_hopper_header():
     assert names == ["fused_ce.cu", "sm90.cuh"]
 
 
+def test_ssd_source_hashes_the_hopper_header():
+    """ssd_chunk.cu takes its cp.async helpers from sm90.cuh."""
+    names = [p.name for p in _build.inputs("ssd_chunk")]
+    assert names == ["ssd_chunk.cu", "sm90.cuh"]
+
+
 def test_launch_counts_add_reset_and_read():
     def wrapper():
         pass

@@ -370,6 +370,8 @@ def _ssd_inputs(B, H, S, P, N, scale, seed, device):
     (2, 8, 32, 16, 16, 16, 1.0),        # reduced mamba2 (S 24 padded)
     (1, 2, 192, 24, 40, 96, 1.0),       # ragged tiles on every side
     (2, 2, 256, 16, 16, 128, 2.0),      # cumsum far below -88
+    (1, 5, 512, 64, 128, 256, 1.0),     # 5 heads: groups of 2, 2 and 1
+    (1, 48, 512, 64, 128, 256, 1.0),    # full width, all 48 heads
 ])
 def test_ssd_kernels_match_plain_versions(cuda, B, H, S, P, N, L, scale):
     a, x, b, c, dy = _ssd_inputs(B, H, S, P, N, scale, S + P, cuda)
@@ -398,6 +400,21 @@ def test_ssd_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ssd_chunk.ssd_intra_bwd(a, x, b, c, dy.transpose(1, 2)
                                 .contiguous().transpose(1, 2), 16)
+    assert kernels.launch_counts()["ssd_intra_fwd"] == 0
+    assert kernels.launch_counts()["ssd_intra_bwd"] == 0
+
+
+@pytest.mark.cuda
+def test_ssd_kernels_refuse_long_chunks_and_wide_heads(cuda):
+    """The kernels hold a chunk's G band on chip: L up to 256, P up to
+    64."""
+    a, x, b, c, dy = _ssd_inputs(1, 2, 512, 16, 16, 1.0, 0, cuda)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="chunks up to 256"):
+        ssd_chunk.ssd_intra_fwd(a, x, b, c, 512)
+    wide = torch.zeros((2, 512, 128), device=cuda)
+    with pytest.raises(ValueError, match="head dims up to 64"):
+        ssd_chunk.ssd_intra_bwd(a, wide, b, c, wide, 256)
     assert kernels.launch_counts()["ssd_intra_fwd"] == 0
     assert kernels.launch_counts()["ssd_intra_bwd"] == 0
 

@@ -15,6 +15,10 @@ against the reference, on inputs made with numpy from a seed.
    diagonal is inf before the mask, and inf·0 is NaN).
 4. The wrappers' CPU dispatch and checks. The CUDA kernels are held
    against these plain versions on the card by tests/test_torch_cuda.py.
+5. The kernels' precision route, emulated in torch: every product as
+   three TF32 products (big·big + big·small + small·big, each operand
+   split by round-to-nearest), held against the f64 plain version within
+   the f32 limits, where one TF32 product misses them.
 
 Tolerances, by the relative norm ‖port − ref‖ / ‖ref‖: 1e-5 forward and
 1e-4 backward, the f32 limits of tests/test_kernels.py. Both sides are f32
@@ -180,3 +184,86 @@ def test_wrappers_check_shapes_and_count_no_cpu_launch():
     with pytest.raises(ValueError):
         ssd_chunk.ssd_intra_bwd(a, x, b, c, dy[:, :16], 16)
     assert ssd_chunk.chunk_len(24, 256) == 24
+
+
+def test_head_group_fills_one_wave_of_blocks():
+    """mamba2-780m's full width: 32 blocks without groups, 132 SMs."""
+    assert ssd_chunk.head_group(48, 32, 132) == 12
+    assert ssd_chunk.head_group(5, 32, 132) == 2      # groups of 2, 2, 1
+    assert ssd_chunk.head_group(8, 4, 132) == 1
+    assert ssd_chunk.head_group(48, 200, 132) == 32   # at most 32 a block
+
+
+# ---------------------------------------------------------------------------
+# the kernels' precision route, emulated
+# ---------------------------------------------------------------------------
+
+def _tf32(t):
+    """Round f32 to TF32 (10 stored mantissa bits), to nearest with ties
+    away from zero, by integer ops on the int32 view: what the kernels'
+    split does before the tensor core reads an operand."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm(p, q, route):
+    """p @ q in f32 by ``route``: "f32"; "tf32", one product of the rounded
+    operands; "3xtf32", the kernels' big·small + small·big + big·big. The
+    products of two TF32 values are exact in f32, as in the tensor core."""
+    if route == "f32":
+        return p @ q
+    pb, qb = _tf32(p), _tf32(q)
+    if route == "tf32":
+        return pb @ qb
+    ps, qs = _tf32(p - pb), _tf32(q - qb)
+    return (ps @ qb + pb @ qs) + pb @ qb
+
+
+def _emulated(a, x, b, c, dy, L, route):
+    """y, dx, db, dc and da of the SSD block in f32, every product by
+    ``route``, in the kernels' order of operations."""
+    Bsz, S, N = b.shape
+    H, P, nc = x.shape[0] // Bsz, x.shape[2], S // L
+    a_ = a.reshape(Bsz, H, nc, L)
+    x_, dy_ = (t.reshape(Bsz, H, nc, L, P) for t in (x, dy))
+    b_, c_ = (t.reshape(Bsz, 1, nc, L, N) for t in (b, c))
+    cum = torch.cumsum(a_, dim=-1)
+    mask = torch.ones((L, L), dtype=torch.bool).tril()
+    dec = torch.exp((cum[..., :, None] - cum[..., None, :])
+                    .masked_fill(~mask, -torch.inf))
+    g = _mm(c_, b_.transpose(-1, -2), route)
+    m = g * dec
+    y = _mm(m, x_, route)
+    dx = _mm(m.transpose(-1, -2), dy_, route)
+    dgh = _mm(dy_, x_.transpose(-1, -2), route) * dec
+    dg = dgh.sum(dim=1, keepdim=True)
+    dc = _mm(dg, b_, route)
+    db = _mm(dg.transpose(-1, -2), c_, route)
+    q = dgh * g
+    dcum = q.sum(dim=-1) - q.sum(dim=-2)
+    da = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), dim=-1), (-1,))
+    return (y.reshape(x.shape), dx.reshape(x.shape), db.reshape(b.shape),
+            dc.reshape(c.shape), da.reshape(a.shape))
+
+
+@pytest.mark.parametrize("B,H,S,P,N,L,scale", [
+    (1, 3, 512, 64, 128, 256, 1.0),     # mamba2-780m's full-width chunk
+    (1, 2, 256, 16, 16, 128, 2.0),      # the cumsum far below -88
+])
+def test_three_tf32_products_keep_the_f32_limits(B, H, S, P, N, L, scale):
+    """Against the f64 plain version: 3xTF32 within y 1e-5 and dx, db, dc,
+    da 1e-4, as plain f32 is; one TF32 product outside every limit."""
+    ins = [torch.from_numpy(t) for t in
+           _inputs(B, H, S, P, N, seed=L + P, scale=scale)]
+    want = (ssd_chunk.ssd_intra_fwd_ref(*(t.double() for t in ins[:4]), L),
+            *ssd_chunk.ssd_intra_bwd_ref(*(t.double() for t in ins), L))
+    limits = (TOL_FWD,) + (TOL_BWD,) * 4
+    for route in ("f32", "3xtf32", "tf32"):
+        got = _emulated(*ins, L, route)
+        for name, gv, wv, lim in zip(("y", "dx", "db", "dc", "da"), got,
+                                     want, limits):
+            rel = _rel(gv.numpy(), wv.numpy())
+            if route == "tf32":
+                assert rel > lim, (route, name, rel)
+            else:
+                assert rel <= lim, (route, name, rel)
