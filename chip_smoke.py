@@ -93,7 +93,24 @@ Phases, each of which fails the script (non-zero exit) if it fails:
 15. the launcher's path at reduced width on mamba2-780m: phase 11 with
    compression none, then ``launch.train --arch mamba2-780m --reduced``,
    then ``run_ps`` on ``--model mamba2-780m`` (P = 4, ring, 16 rounds,
-   Sync EASGD), each with exact launch counts.
+   Sync EASGD), each with exact launch counts;
+16. the asynchronous slice on the PS trainer: (a) on the numpy MLP under
+   deterministic admission, async_sgd / async_easgd / async_msgd /
+   async_measgd / hogwild_easgd / original_easgd at P ∈ {3, 4}, the card's
+   center, workers and counters equal the CPU's bit for bit, and the DES
+   on the card (round_robin, no jitter) equals the card's real run;
+   (b) full-width AlexNet, P = 4, 64 iterations, the seven non-sync
+   disciplines in their real FCFS / lock-free / turnstile forms, each
+   finite with its iteration count, 2 messages an exchange and the bytes
+   to match, and its µs/iter; ``run_vs_des`` for async_easgd and
+   hogwild_easgd (``measured_over_des``); (c) ``--model gemma3-4b`` with
+   original_easgd and hogwild_easgd and ``--model mamba2-780m`` with
+   deterministic async_measgd, exact launch counts; (d) the process
+   transport (spawned workers, CUDA IPC): deterministic async_easgd and
+   sync_easgd at P = 2 equal their thread runs bit for bit, with the update
+   kernel's launches counted across processes, and one FCFS async_easgd
+   run on AlexNet; (e) ``launch.train --mode ps --algorithm all`` on
+   tiny-mlp: nine lines with finite errors and the DES columns.
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, a JSON ``kernels`` line, and the JSON result line
@@ -104,6 +121,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import re
@@ -1382,6 +1400,262 @@ def phase_ssd(torch, sc, timing, dev, bw, f32, tf32,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the asynchronous slice: Original, Async, Async-momentum and Hogwild on the
+# PS trainer, the DES, the process transport (phase 16)
+# ---------------------------------------------------------------------------
+
+# the disciplines phase 16 holds card against CPU (hogwild_easgd under
+# deterministic admission runs the turnstile too)
+ASYNC_ALGOS = ("async_sgd", "async_easgd", "async_msgd", "async_measgd",
+               "hogwild_easgd", "original_easgd")
+NON_SYNC = ("original_easgd", "async_sgd", "async_easgd", "async_msgd",
+            "async_measgd", "hogwild_sgd", "hogwild_easgd")
+# phase 16's η on AlexNet: async_msgd's master momentum diverges at 0.005
+# and 0.002 within 64 iterations in a CPU run of these settings (PERF.md)
+ETA_ASYNC_ALEXNET = 0.001
+
+
+def no_launches(counts: dict) -> dict:
+    return {k: 0 for k in counts}
+
+
+def phase_async_card_vs_cpu(torch, runtime, problems, async_engine, kernels,
+                            EASGDConfig, device="cuda") -> dict:
+    """(a) The numpy MLP under deterministic admission: each discipline's
+    card run equals its CPU run bit for bit (center, workers, counters),
+    and the DES on the card equals the card's real run."""
+    easgd = EASGDConfig(eta=ETA, rho=RHO, mu=MU)
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+
+    def cfg(algo, p, **kw):
+        return runtime.PSConfig(algorithm=algo, n_workers=p, total_iters=48,
+                                schedule="round_robin", deterministic=True,
+                                eval_every_iters=10**9, **kw)
+
+    for algo in ASYNC_ALGOS:
+        for p in (3, 4):
+            kernels.reset_launch_counts()
+            gpu = runtime.run_ps(problems.NUMPY_MLP, easgd, cfg(algo, p),
+                                 device=device)
+            counts = kernels.launch_counts()
+            cpu = runtime.run_ps(problems.NUMPY_MLP, easgd, cfg(algo, p),
+                                 device="cpu")
+            check(torch.equal(gpu.center.cpu(), cpu.center)
+                  and torch.equal(gpu.workers.cpu(), cpu.workers)
+                  and gpu.counters == cpu.counters
+                  and gpu.total_iters == cpu.total_iters == 48,
+                  f"{algo} P={p} numpy MLP: card == CPU")
+            check(counts == no_launches(counts), f"{algo} launched {counts}")
+        print(f"{algo} numpy MLP deterministic P=3, 4: card == CPU, bitwise "
+              f"(center, workers, counters {cpu.counters})", flush=True)
+    for algo, p in (("async_easgd", 4), ("async_measgd", 3),
+                    ("original_easgd", 3), ("sync_easgd", 4)):
+        w0, grad_fn, eval_fn = problems.NUMPY_MLP.build(device)
+        des = async_engine.PSEngine(
+            grad_fn, eval_fn, w0, easgd,
+            async_engine.SimConfig(n_workers=p, compute_jitter=0.0, seed=0,
+                                   schedule="round_robin")
+        ).run(algo, total_iters=48)
+        kernels.reset_launch_counts()
+        real = runtime.run_ps(problems.NUMPY_MLP, easgd, cfg(algo, p),
+                              device=device)
+        counts = kernels.launch_counts()
+        want = no_launches(counts)
+        if algo == "sync_easgd":           # every worker, every round
+            want["fused_sync_easgd_update"] = 48
+        check(counts == want, f"{algo} launched {counts}, expected {want}")
+        add_counts(totals, counts)
+        check(des.center.device == real.center.device
+              and torch.equal(des.center, real.center)
+              and torch.equal(des.workers, real.workers)
+              and des.total_iters == real.total_iters,
+              f"{algo} P={p}: DES == real run on the card")
+        print(f"{algo} P={p} round_robin: DES on the card == the card's real "
+              f"run, bitwise (DES clock {des.total_time_s:.6f} s, real "
+              f"{real.total_time_s:.6f} s)", flush=True)
+    return totals
+
+
+def phase_async_alexnet(torch, runtime, zoo, kernels, EASGDConfig,
+                        device="cuda") -> None:
+    """(b) Full-width AlexNet, P = 4, thread transport, 64 iterations, each
+    non-sync discipline for real (FCFS, lock-free, turnstile); then
+    ``run_vs_des`` for async_easgd and hogwild_easgd."""
+    p, iters = 4, 64
+    easgd = EASGDConfig(eta=ETA_ASYNC_ALEXNET, rho=0.01, mu=MU)
+    problem = zoo.resolve("alexnet")
+    for algo in NON_SYNC:
+        cfg = runtime.PSConfig(algorithm=algo, n_workers=p, total_iters=iters,
+                               eval_every_iters=10**9)
+        kernels.reset_launch_counts()
+        res = runtime.run_ps(problem, easgd, cfg, device=device)
+        counts = kernels.launch_counts()
+        n = res.center.numel()
+        check(n == N_ALEXNET and bool(torch.isfinite(res.center).all())
+              and bool(torch.isfinite(res.workers).all())
+              and math.isfinite(res.final_metric), f"{algo} finite result")
+        # one exchange per iteration at τ = 1: two messages of the row
+        check(res.total_iters == iters
+              and res.counters == {"sync_rounds": 0, "messages": 2 * iters,
+                                   "wire_bytes": 2 * iters * n * 8},
+              f"{algo} counted {res.total_iters} iters, {res.counters}")
+        # the CNN and the absorb launch no kernel of the port
+        check(counts == no_launches(counts), f"{algo} launched {counts}")
+        us = 1e6 * res.total_time_s / res.total_iters
+        print(f"main path {algo} alexnet n={n} P={p} eta="
+              f"{ETA_ASYNC_ALEXNET}: {res.total_iters} iters in "
+              f"{res.total_time_s:.3f} s = {us:.1f} us/iter, final err "
+              f"{res.final_metric:.4f}, counters {res.counters}", flush=True)
+    base = runtime.PSConfig(algorithm="async_easgd", n_workers=p,
+                            total_iters=iters, eval_every_iters=10**9)
+    cal = runtime.calibrate(problem, base, device=device)
+    print(f"calibration alexnet P={p}: gradient alone "
+          f"{1e3 * cal.t_grad_serial:.3f} ms, with {p} threads "
+          f"{1e3 * cal.t_grad_concurrent:.3f} ms per gradient; axpy "
+          f"{1e3 * cal.t_axpy:.4f} ms, alpha {1e6 * cal.alpha:.2f} us",
+          flush=True)
+    for algo in ("async_easgd", "hogwild_easgd"):
+        res, des, rec = runtime.run_vs_des(
+            problem, easgd, dataclasses.replace(base, algorithm=algo),
+            cal=cal, device=device)
+        check(math.isfinite(rec["measured_over_des"])
+              and des.total_iters == res.total_iters == iters,
+              f"{algo} run_vs_des")
+        print(f"run_vs_des {algo} alexnet P={p}: measured "
+              f"{rec['measured_us_per_iter']:.1f} us/iter, DES "
+              f"{rec['des_us_per_iter']:.1f} us/iter, measured_over_des "
+              f"{rec['measured_over_des']:.3f}", flush=True)
+
+
+def phase_async_lm(torch, runtime, zoo, kernels, configs, EASGDConfig,
+                   device="cuda") -> dict:
+    """(c) The reduced LMs on the new disciplines, counters 0 before each
+    run and read after: every worker warms up on 2 gradients; Original
+    EASGD and Hogwild then compute exactly the quota, the async family
+    under the turnstile one gradient more per worker (computed ahead of a
+    turn that never comes); one final eval."""
+    p, iters = 4, 32
+    easgd = EASGDConfig(eta=0.05, rho=0.05, mu=MU)
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+    for arch, algo, det in (("gemma3-4b", "original_easgd", False),
+                            ("gemma3-4b", "hogwild_easgd", False),
+                            ("mamba2-780m", "async_measgd", True)):
+        cfg = configs.get(arch).reduced
+        ps_cfg = runtime.PSConfig(algorithm=algo, n_workers=p,
+                                  total_iters=iters, deterministic=det,
+                                  eval_every_iters=10**9)
+        kernels.reset_launch_counts()
+        res = runtime.run_ps(zoo.resolve(arch), easgd, ps_cfg, device=device)
+        counts = kernels.launch_counts()
+        ahead = p if det and algo != "original_easgd" else 0
+        want = lm_counts(cfg, 2 * p + iters + ahead, evals=1)
+        check(counts == want, f"{algo} on {arch} launched {counts}, "
+              f"expected {want}")
+        check(bool(torch.isfinite(res.center).all())
+              and math.isfinite(res.final_metric)
+              and res.total_iters == iters
+              and res.counters["messages"] == 2 * iters,
+              f"{algo} on {arch}: finite and counted")
+        add_counts(totals, counts)
+        us = 1e6 * res.total_time_s / res.total_iters
+        print(f"main path {algo} {arch} reduced n={res.center.numel()} P={p}"
+              f"{' deterministic' if det else ''}: {res.total_iters} iters "
+              f"in {res.total_time_s:.3f} s = {us:.1f} us/iter, final eval "
+              f"loss {res.final_metric:.4f}, counters {res.counters}, "
+              f"launches {counts}", flush=True)
+    return totals
+
+
+def phase_process(torch, runtime, problems, zoo, kernels, EASGDConfig,
+                  device="cuda") -> dict:
+    """(d) The process transport on the card: spawned workers, the tensors
+    shared by CUDA IPC, each worker's launch counts folded into the
+    launcher's. Deterministic async_easgd and sync_easgd equal their thread
+    runs bit for bit; one FCFS run on AlexNet."""
+    easgd = EASGDConfig(eta=ETA, rho=RHO, mu=MU)
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+    for algo, det in (("async_easgd", True), ("sync_easgd", False)):
+        runs = []
+        for tr in ("process", "thread"):
+            cfg = runtime.PSConfig(algorithm=algo, n_workers=2,
+                                   total_iters=48, transport=tr,
+                                   schedule="ring", deterministic=det,
+                                   eval_every_iters=10**9)
+            kernels.reset_launch_counts()
+            t = time.perf_counter()
+            res = runtime.run_ps(problems.NUMPY_MLP, easgd, cfg,
+                                 device=device)
+            runs.append((res, kernels.launch_counts(),
+                         time.perf_counter() - t))
+        (proc, c_proc, wall), (thr, c_thr, _) = runs
+        want = no_launches(c_proc)
+        if algo == "sync_easgd":           # 2 workers × 24 rounds
+            want["fused_sync_easgd_update"] = 48
+        check(c_proc == c_thr == want, f"{algo} launched {c_proc} in "
+              f"processes, {c_thr} in threads, expected {want}")
+        check(torch.equal(proc.center, thr.center)
+              and torch.equal(proc.workers, thr.workers)
+              and proc.counters == thr.counters
+              and proc.total_iters == thr.total_iters == 48,
+              f"{algo}: process == thread")
+        add_counts(totals, c_proc)
+        print(f"process transport {algo} numpy MLP P=2: == thread run, "
+              f"bitwise (center, workers, counters {proc.counters}); "
+              f"launches across processes {c_proc}; {wall:.1f} s with "
+              f"spawn", flush=True)
+    cfg = runtime.PSConfig(algorithm="async_easgd", n_workers=2,
+                           total_iters=32, transport="process",
+                           eval_every_iters=10**9)
+    kernels.reset_launch_counts()
+    res = runtime.run_ps(zoo.resolve("alexnet"),
+                         EASGDConfig(eta=ETA_ASYNC_ALEXNET, rho=0.01, mu=MU),
+                         cfg, device=device)
+    counts = kernels.launch_counts()
+    n = res.center.numel()
+    check(bool(torch.isfinite(res.center).all())
+          and bool(torch.isfinite(res.workers).all())
+          and res.total_iters == 32
+          and res.counters == {"sync_rounds": 0, "messages": 64,
+                               "wire_bytes": 64 * n * 8}
+          and counts == no_launches(counts),
+          f"process FCFS alexnet: {res.counters}, launches {counts}")
+    print(f"process transport async_easgd alexnet n={n} P=2 FCFS: "
+          f"{res.total_iters} iters in {res.total_time_s:.3f} s = "
+          f"{1e6 * res.total_time_s / res.total_iters:.1f} us/iter, final "
+          f"err {res.final_metric:.4f}, counters {res.counters}", flush=True)
+    return totals
+
+
+def phase_ps_launcher(launcher, kernels, device="cuda") -> dict:
+    """(e) ``launch.train --mode ps --algorithm all`` on tiny-mlp on the
+    card: nine result lines with finite errors and the DES columns. The
+    launcher sets the counts to 0 before each algorithm; after it returns
+    they hold the last one's, sync_easgd: its update once per worker and
+    round (the DES launches nothing)."""
+    p, iters = 2, 80
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        results = launcher.main(["--mode", "ps", "--algorithm", "all",
+                                 "--ps-workers", str(p), "--ps-iters",
+                                 str(iters), "--device", device])
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    lines = [ln for ln in text.splitlines() if "ratio=" in ln]
+    check(len(results) == 9 and len(lines) == 9, "nine launcher lines")
+    for line in lines:
+        err = float(line.split(" err=")[1].split()[0])
+        ratio = float(line.split(" ratio=")[1].split()[0])
+        check("des=" in line and f"@{device}" in line and math.isfinite(err)
+              and math.isfinite(ratio) and ratio > 0, f"line {line!r}")
+    counts = kernels.launch_counts()
+    want = no_launches(counts)
+    want["fused_sync_easgd_update"] = iters
+    check(results[-1].algorithm == "sync_easgd" and counts == want,
+          f"launcher's sync_easgd launched {counts}, expected {want}")
+    return counts
+
+
 SOURCES = {"fused_sync_easgd_update": "elastic_update.cu",
            "fused_sync_sgd_update": "elastic_update.cu",
            "flash_attention_fwd": "flash_attention.cu",
@@ -1428,7 +1702,7 @@ def main() -> int:
 
     from repro_torch import configs, kernels
     from repro_torch.comm import rounds as comm_rounds
-    from repro_torch.core import elastic
+    from repro_torch.core import async_engine, elastic
     from repro_torch.core.easgd import EASGDConfig
     from repro_torch.data import synthetic
     from repro_torch.kernels import _build
@@ -1547,6 +1821,18 @@ def main() -> int:
         algos=("sync_easgd",)))
     print(f"phase mamba2 launcher path: {time.perf_counter() - t:.1f} s",
           flush=True)
+
+    # the asynchronous slice (phase 16)
+    t = time.perf_counter()
+    add_counts(launches, phase_async_card_vs_cpu(
+        torch, runtime, problems, async_engine, kernels, EASGDConfig))
+    phase_async_alexnet(torch, runtime, zoo, kernels, EASGDConfig)
+    add_counts(launches, phase_async_lm(torch, runtime, zoo, kernels, configs,
+                                        EASGDConfig))
+    add_counts(launches, phase_process(torch, runtime, problems, zoo, kernels,
+                                       EASGDConfig))
+    add_counts(launches, phase_ps_launcher(launcher, kernels))
+    print(f"phase async: {time.perf_counter() - t:.1f} s", flush=True)
 
     check("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),

@@ -19,6 +19,8 @@ from repro_torch.core.easgd import EASGDConfig
 EASGD_WORKER_RULE = ("original_easgd", "async_easgd", "hogwild_easgd",
                      "sync_easgd")
 SYNC_FAMILY = ("sync_sgd", "sync_easgd")
+ASYNC_FAMILY = ("async_sgd", "async_easgd", "async_msgd", "async_measgd")
+HOGWILD_FAMILY = ("hogwild_sgd", "hogwild_easgd")
 
 
 def uses_velocity(algorithm: str) -> bool:
@@ -58,6 +60,41 @@ def local_step(algorithm: str, w: torch.Tensor, v: torch.Tensor,
         w.add_(v)
     else:
         w.sub_(cfg.eta * grad)
+
+
+def master_absorb(algorithm: str, center: torch.Tensor,
+                  master_vel: torch.Tensor, w_i: torch.Tensor,
+                  v_i: torch.Tensor, grad: torch.Tensor,
+                  cfg: EASGDConfig) -> None:
+    """Process ONE worker arrival at the master (async / Hogwild families),
+    in place on (center, master_vel, w_i, v_i).
+
+    SGD:    W̄ ← W̄ − ηΔW;                     worker re-reads W̄
+    MSGD:   V̄ ← μV̄ − ηΔW;  W̄ ← W̄ + V̄;      worker re-reads W̄
+    elastic: worker rule (eq 1 / 5–6), then W̄ ← W̄ + ηρ(W⁽ⁱ⁾ − W̄)
+
+    Under the FCFS lock this whole block is atomic; lock-free (Hogwild) the
+    calls of different workers interleave between their ops.
+    """
+    if algorithm in ("async_sgd", "hogwild_sgd"):
+        center.sub_(cfg.eta * grad)
+        w_i.copy_(center)
+    elif algorithm == "async_msgd":
+        master_vel.copy_(cfg.mu * master_vel - cfg.eta * grad)
+        center.add_(master_vel)
+        w_i.copy_(center)
+    else:  # async_easgd / async_measgd / hogwild_easgd
+        worker_step(algorithm, w_i, v_i, grad, center, cfg)
+        center.add_(cfg.alpha * (w_i - center))
+
+
+def master_absorb_round_robin(center: torch.Tensor, w_j: torch.Tensor,
+                              v_j: torch.Tensor, grad: torch.Tensor,
+                              cfg: EASGDConfig) -> None:
+    """Original EASGD's serialized turn: worker rule + single-worker center
+    pull, executed while worker j holds its round-robin turn."""
+    worker_step("original_easgd", w_j, v_j, grad, center, cfg)
+    center.add_(cfg.alpha * (w_j - center))
 
 
 def sync_master_easgd(center: torch.Tensor, mean_w: torch.Tensor, p: int,

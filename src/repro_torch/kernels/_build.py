@@ -142,6 +142,14 @@ def reset_counts(wrappers) -> None:
             w.launches = 0
 
 
+def add_counts(wrappers, launched: dict) -> None:
+    """Add launches counted in other processes (the PS runtime's process
+    workers) to the wrappers' counts."""
+    with _COUNT_LOCK:
+        for w in wrappers:
+            w.launches += launched.get(w.__name__, 0)
+
+
 def counts(wrappers) -> dict:
     return {w.__name__: w.launches for w in wrappers}
 

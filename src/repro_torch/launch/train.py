@@ -14,20 +14,27 @@ final line only after more than 10 steps, comparing the means of the
 first and last 5 losses; the port prints it from 2 steps on, over the
 first and last ``min(5, steps // 2)`` (the same line past 10 steps).
 
-``--mode ps`` runs the Sync EASGD / Sync SGD parameter-server runtime on
-the thread transport:
+``--mode ps`` runs the parameter-server runtime: any of the paper's nine
+algorithms (``--algorithm all``, the default, runs them all; ``all-sync``
+the sync pair) on the thread or process transport, each measured and
+held against the DES calibrated once on the same device:
 
     PYTHONPATH=src python -m repro_torch.launch.train --mode ps \\
-        --algorithm sync_easgd --transport thread --model alexnet \\
-        --ps-workers 4 --ps-iters 64 --bucket-bytes 4194304 --device cuda
+        --algorithm all --ps-workers 2 --ps-iters 80 --device cuda
 
     PYTHONPATH=src python -m repro_torch.launch.train --mode ps \\
-        --model gemma3-4b --ps-workers 2 --ps-iters 8 --device cpu
+        --algorithm async_easgd --transport process --ps-workers 2 \\
+        --ps-iters 80 --device cpu
 
-Each algorithm prints the reference's result line without the DES columns
-(the DES cross-check is not ported yet), plus the launch counts of every
-kernel of the port for the run (the update kernels; with ``--model
-gemma3-4b`` also the attention and cross-entropy kernels, with ``--model
+    PYTHONPATH=src python -m repro_torch.launch.train --mode ps \\
+        --algorithm sync_easgd --model alexnet --ps-workers 4 \\
+        --ps-iters 64 --bucket-bytes 4194304 --eta 0.005 --device cuda
+
+Each algorithm prints the reference's result line (``measured=…us/iter
+des=…us/iter ratio=…``) with the run's device after the schedule and the
+launch counts of every kernel of the port over the DES run and the
+measured run together (the update kernels; with ``--model gemma3-4b``
+also the attention and cross-entropy kernels, with ``--model
 mamba2-780m`` the SSD and cross-entropy kernels).
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the kernels'
@@ -36,6 +43,7 @@ plain versions on the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 from pathlib import Path
@@ -49,6 +57,7 @@ from repro_torch import configs, kernels  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.comm import schedules as comm_schedules  # noqa: E402
 from repro_torch.core import compression, costmodel  # noqa: E402
+from repro_torch.core.async_engine import ALGORITHMS  # noqa: E402
 from repro_torch.core.easgd import EASGDConfig  # noqa: E402
 from repro_torch.core.easgd_flat import SYNC_FAMILY  # noqa: E402
 from repro_torch.core.elastic import ElasticConfig  # noqa: E402
@@ -60,25 +69,33 @@ from repro_torch.runtime.train import build_train_step  # noqa: E402
 
 
 def run_ps_mode(args) -> list:
-    algos = (list(SYNC_FAMILY) if args.algorithm == "all-sync"
-             else [args.algorithm])
+    """--mode ps: run algorithms on the PS runtime and hold the measured
+    clock against the DES calibrated once on the same device."""
+    algos = {"all": list(ALGORITHMS),
+             "all-sync": list(SYNC_FAMILY)}.get(args.algorithm,
+                                                [args.algorithm])
     easgd = EASGDConfig(eta=args.eta, rho=args.rho, mu=0.9, tau=args.tau)
     problem = zoo.resolve(args.model)
+    base = runtime.PSConfig(
+        algorithm=algos[0], n_workers=args.ps_workers,
+        transport=args.transport, schedule=args.schedule or "ring",
+        total_iters=args.ps_iters, eval_every_iters=args.ps_eval_every,
+        emulate_net=(costmodel.PS_WIRE if args.emulate == "wire"
+                     else None),
+        bucket_bytes=args.bucket_bytes)
+    cal = runtime.calibrate(problem, base, device=args.device)
     out = []
     for algo in algos:
-        cfg = runtime.PSConfig(
-            algorithm=algo, n_workers=args.ps_workers,
-            transport=args.transport, schedule=args.schedule or "ring",
-            total_iters=args.ps_iters, eval_every_iters=args.ps_eval_every,
-            emulate_net=(costmodel.PS_WIRE if args.emulate == "wire"
-                         else None),
-            bucket_bytes=args.bucket_bytes)
+        cfg = dataclasses.replace(base, algorithm=algo)
         kernels.reset_launch_counts()
-        res = runtime.run_ps(problem, easgd, cfg, device=args.device)
-        us = 1e6 * res.total_time_s / max(res.total_iters, 1)
+        res, _, rec = runtime.run_vs_des(problem, easgd, cfg, cal=cal,
+                                         device=args.device)
         print(f"{algo:16s} [{res.transport}/{res.schedule}@{res.device}] "
               f"iters={res.total_iters} err={res.final_metric:.3f} "
-              f"measured={us:.1f}us/iter counters={res.counters} "
+              f"measured={rec['measured_us_per_iter']:.1f}us/iter "
+              f"des={rec['des_us_per_iter']:.1f}us/iter "
+              f"ratio={rec['measured_over_des']:.2f} "
+              f"counters={res.counters} "
               f"launches={kernels.launch_counts()}", flush=True)
         out.append(res)
     return out
@@ -185,9 +202,12 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--log-every", type=int, default=5)
     # --mode ps options
-    ap.add_argument("--algorithm", default="all-sync",
-                    choices=list(SYNC_FAMILY) + ["all-sync"])
-    ap.add_argument("--transport", default="thread", choices=["thread"])
+    ap.add_argument("--algorithm", default="all",
+                    choices=list(ALGORITHMS) + ["all", "all-sync"])
+    ap.add_argument("--transport", default="thread",
+                    choices=["thread", "process"],
+                    help="process workers need a numpy or zoo --model "
+                         "(they rebuild it from its ProblemSpec)")
     ap.add_argument("--model", default="tiny-mlp",
                     help="tiny-mlp (default), mlp, lenet, alexnet, "
                          "gemma3-4b or mamba2-780m (the reduced LMs)")
@@ -198,8 +218,9 @@ def main(argv=None):
                     help="bucket the exchange into ~this many payload bytes "
                          "per bucket, cut at layer edges (0 = monolithic)")
     ap.add_argument("--emulate", default="wire", choices=["wire", "none"],
-                    help="'wire' sleeps each exchange round's α+nβ under "
-                         "costmodel.PS_WIRE; 'none' uses raw device memory")
+                    help="'wire' sleeps each master message / exchange "
+                         "round's α+nβ under costmodel.PS_WIRE; 'none' uses "
+                         "raw device memory")
     args = ap.parse_args(argv)
     if args.mode == "ps":
         return run_ps_mode(args)

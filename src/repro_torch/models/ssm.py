@@ -19,9 +19,9 @@ The kernels take ``(B·H, S, ·)`` rows, so ``_ssd_chunked`` makes
 contiguous copies of ``a`` and ``Δt·x`` in that layout (and of the output
 back), while B and C stay ``(B, S, N)``, shared by the heads.
 
-Not ported yet (see ROADMAP.md, queue 1 item 10): decode with a cache
-(``ssd_step``, the cache branch of ``ssm_block``). ``sctx.shard`` has no
-counterpart on one device.
+Not ported yet (see ROADMAP.md, queue 1 item 4, serving): decode with a
+cache (``ssd_step``, the cache branch of ``ssm_block``). ``sctx.shard``
+has no counterpart on one device.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ from repro_torch.models.common import ModelConfig, ParamDef, rms_norm
 def _serving():
     return NotImplementedError(
         "Mamba-2 decode with a cache (ssd_step, ssm_block's cache branch) "
-        "is not ported to repro_torch yet; see ROADMAP.md, queue 1 item 10")
+        "is not ported to repro_torch yet; see ROADMAP.md, queue 1 item 4")
 
 
 def _dims(cfg: ModelConfig):

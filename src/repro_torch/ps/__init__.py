@@ -1,2 +1,16 @@
-"""The parameter-server runtime: Sync EASGD / Sync SGD on the thread
-transport (the port of ``repro.ps``)."""
+"""The parameter-server runtime: the paper's nine algorithms on the thread
+and process transports, and the DES cross-check (the port of
+``repro.ps``)."""
+from repro_torch.core.async_engine import ALGORITHMS
+from repro_torch.ps.problems import (NUMPY_MLP, NUMPY_MLP_LARGE,
+                                     NUMPY_MLP_MED, ProblemSpec,
+                                     make_numpy_mlp, spec)
+from repro_torch.ps.runtime import (Calibration, PSConfig, PSResult,
+                                    calibrate, calibrate_sim, run_ps,
+                                    run_vs_des)
+from repro_torch.ps.transport import TRANSPORTS, get_transport
+
+__all__ = ["ALGORITHMS", "Calibration", "NUMPY_MLP", "NUMPY_MLP_LARGE",
+           "NUMPY_MLP_MED", "PSConfig", "PSResult", "ProblemSpec",
+           "TRANSPORTS", "calibrate", "calibrate_sim", "get_transport",
+           "make_numpy_mlp", "run_ps", "run_vs_des", "spec"]

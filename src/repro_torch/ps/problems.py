@@ -1,5 +1,5 @@
 """Training problems for the PS runtime (the port of ``repro/ps/problems.py``:
-``ProblemSpec``, ``spec`` and the numpy MLP).
+``ProblemSpec``, ``spec`` and the numpy MLPs).
 
 Contract, on the run's device:
 
@@ -119,3 +119,9 @@ NUMPY_MLP = spec("repro_torch.ps.problems:make_numpy_mlp")
 NUMPY_MLP_MED = spec("repro_torch.ps.problems:make_numpy_mlp",
                      d_in=64, d_hidden=128, batch=32, n_train=4096,
                      n_test=1024, n_classes=4)
+
+# a bandwidth-heavy variant (~68k params, ~0.5 MB packed): the exchange
+# costs real memory bandwidth
+NUMPY_MLP_LARGE = spec("repro_torch.ps.problems:make_numpy_mlp",
+                       d_in=128, d_hidden=512, batch=32, n_train=4096,
+                       n_test=1024, n_classes=4)

@@ -1,33 +1,41 @@
-"""The PS runtime's synchronous family, executed for real on the thread
-transport (the port of the sync half of ``repro/ps/runtime.py``).
+"""The PS runtime: the paper's nine algorithms executed for real on the
+thread and process transports, and the DES cross-check (the port of
+``repro/ps/runtime.py``).
 
-``sync_easgd`` and ``sync_sgd`` run barriered rounds. The weight (EASGD) or
-gradient (SGD) all-reduce executes the registered schedule's message rounds
-over the mailbox tensor in a comm-executor thread, between barriers A and B
-of every round. Sync EASGD posts start-of-step weights BEFORE computing its
-gradient, so the exchange overlaps compute (paper §6.1.3); Sync SGD needs
-its gradient first, so it cannot (§5.1).
+Concurrency disciplines (paper §4–5):
 
-After barrier B every update goes through the fused kernels of
-``kernels.elastic_update`` (their plain versions on the CPU): rank 0's
-Sync EASGD launch also writes the new center, and Sync SGD's master update
-is one launch by rank 0. The update runs over the whole row — it is
-elementwise, so per-bucket launches would give the same bits.
+* ``original_easgd`` — round-robin TURNSTILE: the master serves workers in
+  rank order, each computing its gradient inside its turn (Θ(P) serialized).
+* ``async_*`` — FCFS on the master lock; with ``deterministic=True`` the
+  turnstile replaces the lock, which is the DES's zero-jitter event order
+  (the bitwise DES↔real cross-check runs in this mode).
+* ``hogwild_*`` — the same absorb with no lock. On the card the calls of
+  different workers interleave between kernels (one stream: each
+  elementwise op is atomic against the others), on the CPU also within an
+  op; held, as in the reference, only by finiteness, the iteration quota
+  and the message counts.
+* ``sync_*`` — barriered rounds. The weight (EASGD) or gradient (SGD)
+  all-reduce executes the registered schedule's message rounds over the
+  mailbox tensor in a comm-executor thread, between barriers A and B of
+  every round. Sync EASGD posts start-of-step weights before computing its
+  gradient, so the exchange overlaps compute (§6.1.3); Sync SGD cannot.
+  After barrier B the updates go through the fused kernels of
+  ``kernels.elastic_update`` (their plain versions on the CPU): rank 0's
+  Sync EASGD launch also writes the new center, Sync SGD's master update is
+  one launch by rank 0.
 
-Exactness kept from the reference:
+τ (``EASGDConfig.tau``) is honoured by every loop: τ−1 local-only steps
+between exchanges.
 
-* snapshot before apply — a round reads every payload (``clone``, not a
-  view) before any receiver adds, so a ring round never reads values it
-  already updated;
-* the version-flipped center — round k reads ``center[k % 2]`` while rank
-  0 writes the other buffer, so the center update needs no post-update
-  barrier; after an odd round count the launcher copies ``center_alt``
-  back;
-* the padded mailbox — rows are ``n + (-n) % P`` long so chunked schedules
-  divide them; workers write ``[:n]`` and updates read ``row[:n]``;
-* one stream — every thread launches on PyTorch's current stream, so the
-  host barriers order the device work exactly as they order the
-  reference's numpy work; the clock is read only after a synchronise.
+Exactness kept from the reference: the same operation order in every
+update (``core.easgd_flat``); snapshot-before-apply in every exchange
+round; the version-flipped center of Sync EASGD (copied back by the
+launcher after an odd round count); the padded mailbox (rows of
+``n + (-n) % P``). On the thread transport every thread launches on
+PyTorch's current stream, so the host primitives order the device work;
+on the process transport ``ctx.fence()`` (a device synchronise) completes
+a worker's writes before any primitive hands them on. The clock is read
+only after a synchronise.
 """
 from __future__ import annotations
 
@@ -38,14 +46,16 @@ from typing import Optional
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.comm import rounds as comm_rounds
 from repro_torch.comm.rounds import execute_rounds
 from repro_torch.comm import schedules as comm_schedules
 from repro_torch.core import costmodel, easgd_flat
+from repro_torch.core.async_engine import ALGORITHMS, PSEngine, SimConfig
 from repro_torch.core.easgd import EASGDConfig
 from repro_torch.kernels.elastic_update import (fused_sync_easgd_update,
                                                 fused_sync_sgd_update)
-from repro_torch.ps.transport import PSContext, ThreadTransport
+from repro_torch.ps.transport import PSContext, get_transport
 from repro_torch.utils import timing
 from repro_torch.utils.device import resolve_device
 
@@ -60,19 +70,23 @@ _DEFAULT_NET = costmodel.PCIE3_X16
 class PSConfig:
     algorithm: str
     n_workers: int = 4
-    transport: str = "thread"
+    transport: str = "thread"        # "thread" | "process"
     schedule: str = "ring"           # sync-family exchange ("auto" allowed)
     total_iters: int = 1000
+    deterministic: bool = False      # cyclic admission == DES zero-jitter
     eval_every_iters: int = 200
     net: costmodel.Network = _DEFAULT_NET
-    # netem-style wire emulation: every exchange round ADDITIONALLY sleeps
-    # its α + max_frac·n·β under this network (None: shared memory is the
-    # wire), restoring the interconnect-bound regime the paper ran in
+    # netem-style wire emulation: every master message / exchange round
+    # additionally sleeps its α + nβ under this network (None: device
+    # memory is the wire), restoring the interconnect-bound regime the
+    # paper ran in. Charge the same network to the DES
+    # (Calibration.sim_config(net=...)) for a fair cross-check
     emulate_net: Optional[costmodel.Network] = None
+    seed: int = 0
     bucket_bytes: int = 0            # >0: execute the exchange bucket by
     #                                  bucket, cut at layer edges — a
     #                                  bitwise-identical view of the rounds
-    # -- reference features this slice does not implement: setting one
+    # -- reference features this port does not implement yet: setting one
     #    raises NotImplementedError instead of being ignored ----------------
     trace: bool = False
     telemetry: bool = False
@@ -81,14 +95,15 @@ class PSConfig:
     chaos: Optional[dict] = None
 
     def __post_init__(self):
-        if self.algorithm not in SYNC:
+        if self.algorithm not in ALGORITHMS:
+            raise ValueError(f"unknown algorithm '{self.algorithm}', have "
+                             f"{ALGORITHMS}")
+        if self.transport == "tcp":
             raise NotImplementedError(
-                f"algorithm '{self.algorithm}' is not ported yet (this slice "
-                f"runs {SYNC}); see ROADMAP.md, queue 1")
-        if self.transport != "thread":
-            raise NotImplementedError(
-                f"transport '{self.transport}' is not ported yet (this slice "
-                f"runs 'thread'); see ROADMAP.md, queue 1")
+                "transport 'tcp' is not ported yet (this port runs 'thread' "
+                "and 'process'); see ROADMAP.md, queue 1")
+        if self.transport not in ("thread", "process"):
+            raise ValueError(f"unknown transport '{self.transport}'")
         unported = [f for f in ("trace", "telemetry", "elastic")
                     if getattr(self, f)]
         unported += [f for f in ("topology", "chaos")
@@ -122,7 +137,7 @@ class PSConfig:
 class PSResult:
     algorithm: str
     transport: str
-    schedule: str
+    schedule: str                    # the sync exchange, "master" otherwise
     device: str                      # the device the run was on
     history: list                    # [(wall_s, total_iters, metric)]
     total_time_s: float
@@ -134,7 +149,7 @@ class PSResult:
 
 
 # ---------------------------------------------------------------------------
-# the exchange: execute the registry's message rounds
+# the sync-family exchange: execute the registry's message rounds
 # ---------------------------------------------------------------------------
 
 def _sleep_until(deadline: float) -> None:
@@ -167,6 +182,7 @@ def _comm_executor(ctx: PSContext) -> None:
                            boundaries=ctx.boundaries)
             if t_wire:
                 _sleep_until(deadline)
+            ctx.fence()
             ctx.barrier.wait()       # B: exchange complete
             if third:
                 ctx.barrier.wait()   # C: master update complete
@@ -177,19 +193,156 @@ def _comm_executor(ctx: PSContext) -> None:
 
 
 # ---------------------------------------------------------------------------
-# worker loop
+# worker loops
 # ---------------------------------------------------------------------------
 
 def worker_main(ctx: PSContext, wid: int) -> None:
-    w0, grad_fn, _ = ctx.problem
+    w0, grad_fn, _ = ctx.built_problem()
     # warm caches before the start gate so the measured clock sees steady
     # state; ids ≤ −2 are private minibatch streams (the workers' own
-    # streams, and therefore parity with the reference, are untouched)
-    wu = w0.clone()
+    # streams, and therefore the DES↔real iterate equality, are untouched)
+    wu = w0.to(ctx.device, torch.float64).clone()
     for k in range(2):
         grad_fn(wu, k, -(wid + 2))
     ctx.start_barrier.wait()
-    _sync_worker(ctx, wid, grad_fn)
+    algo = ctx.cfg.algorithm
+    if algo in SYNC:
+        _sync_worker(ctx, wid, grad_fn)
+    elif algo == "original_easgd" or ctx.cfg.deterministic:
+        _turnstile_worker(ctx, wid, grad_fn)
+    elif algo.startswith("hogwild"):
+        _hogwild_worker(ctx, wid, grad_fn)
+    else:
+        _fcfs_worker(ctx, wid, grad_fn)
+
+
+def _count_exchange(ctx, iters: int) -> None:
+    """One worker↔master exchange: both messages of the full row."""
+    ctx.iters.value += iters
+    ctx.messages.value += 2
+    ctx.wire_bytes.value += 2 * ctx.n * 8
+
+
+def _turnstile_worker(ctx, wid, grad_fn):
+    """Strict cyclic admission: worker ``turn % P`` owns the master next.
+    This is Original EASGD's round-robin wire and, for the async family
+    under ``deterministic=True``, exactly the DES zero-jitter event order.
+
+    original_easgd computes its gradient inside the turn (the whole
+    pipeline serializes, the Θ(P) behaviour the paper attacks). The async
+    family computes ahead of the turn (w⁽ⁱ⁾ changes only in its own turn
+    and the gradient never reads W̄, so the iterates are the same), and so
+    computes one gradient more than it uses after its last turn."""
+    v, e = ctx.views(), ctx.easgd
+    algo, P, total = ctx.cfg.algorithm, ctx.cfg.n_workers, ctx.cfg.total_iters
+    w, vel = v.workers_w[wid], v.workers_v[wid]
+    serial_compute = algo == "original_easgd"
+    t_msg = ctx.cfg.t_msg_emulated(ctx.n * 8)
+    tau = max(e.tau, 1)
+    total_turns = -(-total // tau)      # one turn = one exchange = τ steps
+    local_step = 0
+
+    def _tau_block():
+        """τ−1 local-only steps + the exchange gradient."""
+        nonlocal local_step
+        for _ in range(tau - 1):
+            g = grad_fn(w, local_step, wid)
+            easgd_flat.local_step(algo, w, vel, g, e)
+            local_step += 1
+        g = grad_fn(w, local_step, wid)
+        local_step += 1
+        return g
+
+    while True:
+        grad = None if serial_compute else _tau_block()
+        with ctx.turn_cond:
+            while ctx.turn.value < total_turns and ctx.turn.value % P != wid:
+                ctx.turn_cond.wait(0.05)
+            if ctx.turn.value >= total_turns:
+                ctx.turn_cond.notify_all()
+                return
+            if t_msg:                        # master → worker (W̄ down)
+                _sleep_until(time.monotonic() + t_msg)
+            if serial_compute:
+                grad = _tau_block()
+                easgd_flat.master_absorb_round_robin(
+                    v.center, w, vel, grad, e)
+            else:
+                easgd_flat.master_absorb(
+                    algo, v.center, v.master_vel, w, vel, grad, e)
+            if t_msg:                        # worker → master (W⁽ⁱ⁾ up)
+                _sleep_until(time.monotonic() + t_msg)
+            ctx.fence()
+            ctx.turn.value += 1
+            _count_exchange(ctx, tau)
+            ctx.turn_cond.notify_all()
+
+
+def _fcfs_worker(ctx, wid, grad_fn):
+    """Async family: first come, first served on the master lock. A worker
+    that finds the quota met under the lock returns with its gradient
+    unused, so a run computes up to P − 1 gradients more than it uses."""
+    v, e = ctx.views(), ctx.easgd
+    algo, total = ctx.cfg.algorithm, ctx.cfg.total_iters
+    w, vel = v.workers_w[wid], v.workers_v[wid]
+    t_msg = ctx.cfg.t_msg_emulated(ctx.n * 8)
+    tau = max(e.tau, 1)
+    local_step = 0
+    while ctx.iters.value < total:
+        for _ in range(tau - 1):             # τ−1 local-only steps
+            g = grad_fn(w, local_step, wid)
+            easgd_flat.local_step(algo, w, vel, g, e)
+            local_step += 1
+        grad = grad_fn(w, local_step, wid)
+        local_step += 1
+        deadline = None
+        with ctx.master_lock:
+            if ctx.iters.value >= total:
+                return
+            if t_msg:
+                # the ONE master link serializes both messages of every
+                # exchange: reserve wire time as an absolute deadline (the
+                # sleep happens outside the lock — the wire is busy, the
+                # master is not)
+                start = max(time.monotonic(), ctx.wire_free_at.value)
+                deadline = start + 2 * t_msg
+                ctx.wire_free_at.value = deadline
+            easgd_flat.master_absorb(
+                algo, v.center, v.master_vel, w, vel, grad, e)
+            ctx.fence()
+            _count_exchange(ctx, tau)
+        if deadline is not None:
+            _sleep_until(deadline)
+
+
+def _hogwild_worker(ctx, wid, grad_fn):
+    """The same absorb as FCFS with no lock: concurrent in-place updates of
+    the shared center interleave for real. Termination is by per-worker
+    quota. The counters, racy in the reference, are bumped under their own
+    lock (across processes ``+=`` on a shared slot loses updates); the
+    absorb takes none."""
+    v, e = ctx.views(), ctx.easgd
+    algo, P, total = ctx.cfg.algorithm, ctx.cfg.n_workers, ctx.cfg.total_iters
+    w, vel = v.workers_w[wid], v.workers_v[wid]
+    t_msg = ctx.cfg.t_msg_emulated(ctx.n * 8)
+    tau = max(e.tau, 1)
+    quota = total // P + (1 if wid < total % P else 0)
+    for local_step in range(quota):
+        grad = grad_fn(w, local_step, wid)
+        if (local_step + 1) % tau and local_step != quota - 1:
+            easgd_flat.local_step(algo, w, vel, grad, e)   # τ local-only
+            ctx.fence()
+            with ctx.count_lock:
+                ctx.iters.value += 1
+            continue
+        deadline = (time.monotonic() + 2 * t_msg) if t_msg else None
+        easgd_flat.master_absorb(
+            algo, v.center, v.master_vel, w, vel, grad, e)
+        if deadline is not None:
+            _sleep_until(deadline)           # lock-free: wire times OVERLAP
+        ctx.fence()
+        with ctx.count_lock:
+            _count_exchange(ctx, 1)
 
 
 def _sync_worker(ctx, wid, grad_fn):
@@ -223,6 +376,7 @@ def _sync_worker(ctx, wid, grad_fn):
             _local_block()
             c_read, c_write = versions[step % 2], versions[(step + 1) % 2]
             v.mailbox[wid, :n].copy_(w)      # start-of-exchange weights
+            ctx.fence()
             ctx.barrier.wait()               # A — exchange begins
             grad = grad_fn(w, it, wid)       # …and overlaps this compute
             it += 1
@@ -230,6 +384,7 @@ def _sync_worker(ctx, wid, grad_fn):
             fused_sync_easgd_update(w, grad, c_read, row, P, e.eta, e.rho,
                                     center_out=c_write if wid == 0 else None)
             if wid == 0:
+                ctx.fence()
                 ctx.iters.value += P * tau
         return
     for step in range(n_rounds):             # sync_sgd
@@ -237,10 +392,12 @@ def _sync_worker(ctx, wid, grad_fn):
         grad = grad_fn(w, it, wid)
         it += 1
         v.mailbox[wid, :n].copy_(grad)
+        ctx.fence()
         ctx.barrier.wait()                   # A — gradient all-reduce
         ctx.barrier.wait()                   # B — workers idle through both
         if wid == 0:
             fused_sync_sgd_update(v.center, v.master_vel, row, P, e.eta, e.mu)
+            ctx.fence()
             ctx.iters.value += P * tau
         ctx.barrier.wait()                   # C — W̄ updated
         w.copy_(v.center)
@@ -252,17 +409,19 @@ def _sync_worker(ctx, wid, grad_fn):
 
 def run_ps(problem, easgd: EASGDConfig, cfg: PSConfig, device=None,
            join_timeout_s: float = 600.0) -> PSResult:
-    """Run one sync-family algorithm for real on ``device`` (default: the
-    card). ``problem`` is a ``ProblemSpec`` (built on ``device``) or a
+    """Run one algorithm for real on ``device`` (default: the card).
+    ``problem`` is a ``ProblemSpec`` or, on the thread transport only, a
     prebuilt ``(w0, grad_fn, eval_fn)`` triple whose rows live there."""
     dev = resolve_device(device)
-    tr = ThreadTransport(dev)
+    tr = get_transport(cfg.transport, dev)
     built = problem.build(dev) if hasattr(problem, "build") else problem
     w0, grad_fn, eval_fn = built
     w0 = w0.to(dev, torch.float64)
     n, P = w0.numel(), cfg.n_workers
+    sync = cfg.algorithm in SYNC
     sched_name = cfg.resolved_schedule(n * 8)
-    rounds = comm_schedules.get(sched_name).rounds(P, n * 8, cfg.net)
+    rounds = (comm_schedules.get(sched_name).rounds(P, n * 8, cfg.net)
+              if sync else [])
     padded = n + (-n) % P
 
     shapes = {"center": (n,), "center_alt": (n,), "master_vel": (n,),
@@ -270,47 +429,80 @@ def run_ps(problem, easgd: EASGDConfig, cfg: PSConfig, device=None,
               "mailbox": (P + 1, padded)}
     buffers = {k: tr.array(*shape) for k, shape in shapes.items()}
     prims = {
+        "master_lock": tr.lock(),
         "barrier": tr.barrier(P + 1),            # workers + comm executor
         "start_barrier": tr.barrier(P + 1),      # workers + launcher
-        "iters": tr.int_slot(), "sync_rounds": tr.int_slot(),
-        "messages": tr.int_slot(), "wire_bytes": tr.int_slot(),
+        "turn_cond": tr.condition(),
+        "wire_free_at": tr.float_slot(),
+        "turn": tr.int_slot(), "iters": tr.int_slot(),
+        "sync_rounds": tr.int_slot(), "messages": tr.int_slot(),
+        "wire_bytes": tr.int_slot(), "err": tr.int_slot(),
+        "count_lock": tr.lock(),                 # Hogwild's counters
     }
+    launch_slots = None
+    if tr.name == "process":
+        launch_slots = {k.__name__: tr.int_slot() for k in kernels.KERNELS}
     bounds = None
-    if cfg.bucket_bytes > 0:
+    if cfg.bucket_bytes > 0 and sync:
         # layer edges come from the problem when it declares them; uniform
         # slabs otherwise — either way the exchange math is bitwise the same
         bounds = comm_rounds.default_bucket_boundaries(
             getattr(grad_fn, "layer_sizes", None), padded, cfg.bucket_bytes)
-    ctx = PSContext(cfg, easgd, n, buffers, (w0, grad_fn, eval_fn), rounds,
-                    prims, boundaries=bounds)
+    worker_problem = built if tr.name == "thread" else problem
+    ctx = PSContext(cfg, easgd, n, buffers, worker_problem, rounds, prims,
+                    dev, boundaries=bounds, launch_slots=launch_slots)
     v = ctx.views()
     v.center.copy_(w0)
     v.center_alt.copy_(w0)
     v.workers_w.copy_(w0[None])
+    timing.synchronize(dev)          # written before another process reads
 
     handles = tr.launch(ctx)
-    comm_thread = threading.Thread(target=_comm_executor, args=(ctx,),
-                                   daemon=True)
-    comm_thread.start()
+    comm_thread = None
+    if sync:
+        comm_thread = threading.Thread(target=_comm_executor, args=(ctx,),
+                                       daemon=True)
+        comm_thread.start()
+
+    # watchdog: a process worker dying outside its own handler (a failed
+    # spawn import, a crash) must break the barriers instead of hanging
+    stop_watch = threading.Event()
+
+    def _watchdog():
+        while not stop_watch.is_set():
+            if any(getattr(h, "exitcode", None) not in (None, 0)
+                   for h in handles):
+                ctx.err.value = 1
+                ctx.barrier.abort()
+                ctx.start_barrier.abort()
+                return
+            time.sleep(0.05)
+
+    watchdog = threading.Thread(target=_watchdog, daemon=True)
+    watchdog.start()
 
     def _fail(msg):
+        stop_watch.set()
         ctx.barrier.abort()
         ctx.start_barrier.abort()
-        tr.join(handles, timeout=5.0)
-        comm_thread.join(timeout=5.0)
+        ok = tr.join(handles, timeout=5.0)
+        if comm_thread is not None:
+            comm_thread.join(timeout=5.0)
+        codes = [getattr(h, "exitcode", None) for h in handles]
         cause = ctx.errors[0] if ctx.errors else None
-        raise RuntimeError(f"{msg} (algorithm={cfg.algorithm}, "
-                           f"device={dev})") from cause
+        raise RuntimeError(f"{msg} (algorithm={cfg.algorithm}, transport="
+                           f"{cfg.transport}, device={dev}, joined={ok}, "
+                           f"exit codes={codes})") from cause
 
     try:
-        ctx.start_barrier.wait(join_timeout_s)   # workers warmed up
+        ctx.start_barrier.wait(join_timeout_s)   # workers built and warm
     except threading.BrokenBarrierError:
         _fail("ps workers failed to start")
     t0 = time.perf_counter()
     history, last_eval = [], 0
     deadline = t0 + join_timeout_s
     while any(h.is_alive() for h in handles):
-        if ctx.errors:
+        if ctx.err.value:
             break
         it = ctx.iters.value
         if it - last_eval >= cfg.eval_every_iters:
@@ -322,22 +514,214 @@ def run_ps(problem, easgd: EASGDConfig, cfg: PSConfig, device=None,
         time.sleep(1e-3)
     timing.synchronize(dev)                  # the clock covers device work
     total_time = time.perf_counter() - t0
+    stop_watch.set()
     ok = tr.join(handles, timeout=5.0)
-    comm_thread.join(timeout=5.0)
-    if ctx.errors or not ok or comm_thread.is_alive():
+    if comm_thread is not None:
+        comm_thread.join(timeout=5.0)
+    if ctx.err.value or not ok or (comm_thread is not None
+                                   and comm_thread.is_alive()):
         _fail("ps run failed")
+    if launch_slots is not None:
+        kernels.add_launch_counts(
+            {k: s.value for k, s in launch_slots.items()})
+        if dev.type == "cuda":
+            torch.cuda.ipc_collect()     # blocks the workers have released
 
     n_sync_rounds = -(-cfg.total_iters // (P * max(easgd.tau, 1)))
     if cfg.algorithm == "sync_easgd" and n_sync_rounds % 2 == 1:
         v.center.copy_(v.center_alt)         # final version of the flip
+    total_iters = (cfg.total_iters if cfg.algorithm.startswith("hogwild")
+                   else ctx.iters.value)
     final = float(eval_fn(v.center.clone()))
-    history.append((total_time, ctx.iters.value, final))
+    history.append((total_time, total_iters, final))
     counters = {"sync_rounds": ctx.sync_rounds.value,
                 "messages": ctx.messages.value,
                 "wire_bytes": ctx.wire_bytes.value}
     return PSResult(
         algorithm=cfg.algorithm, transport=cfg.transport,
-        schedule=sched_name, device=str(dev), history=history,
-        total_time_s=total_time, total_iters=ctx.iters.value,
+        schedule=sched_name if sync else "master", device=str(dev),
+        history=history, total_time_s=total_time, total_iters=total_iters,
         counters=counters, final_metric=final, center=v.center.clone(),
         workers=v.workers_w.clone())
+
+
+# ---------------------------------------------------------------------------
+# DES calibration — so simulated and measured clocks are comparable
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Calibration:
+    """Machine constants measured on the run's device, for the DES↔real
+    comparison.
+
+    ``t_grad_serial`` — one gradient alone; ``t_grad_concurrent`` — a
+    worker's per-gradient wall period when all P workers run at once on
+    this transport (on one card the P workers' gradients share it);
+    ``t_axpy`` / ``alpha`` — the device-memory 'wire': one ``w += 0.5·src``
+    over the row, and a 64-element copy plus a wake-up allowance.
+    """
+
+    n: int
+    n_workers: int
+    transport: str
+    t_grad_serial: float
+    t_grad_concurrent: float
+    t_axpy: float
+    alpha: float
+
+    def sim_config(self, algorithm: str, schedule: str,
+                   eval_every_iters: int = 200, seed: int = 0,
+                   net: Optional[costmodel.Network] = None) -> SimConfig:
+        """The DES's per-worker compute time depends on the discipline:
+        original_easgd serializes the whole pipeline (one worker computes
+        at a time, alone); everyone else runs P workers concurrently, each
+        delivering a gradient every ``t_grad_concurrent``. Pass ``net`` =
+        the run's ``PSConfig.emulate_net`` so both clocks charge the same
+        wire; default: the measured device-memory 'network'."""
+        if algorithm == "original_easgd":
+            t_compute = self.t_grad_serial
+        else:
+            t_compute = self.t_grad_concurrent
+        if net is None:
+            net = costmodel.Network("shm", self.alpha,
+                                    self.t_axpy / (self.n * 8))
+        return SimConfig(
+            n_workers=self.n_workers,
+            net=net,
+            schedule=schedule,
+            t_compute=t_compute,
+            compute_jitter=0.0,
+            t_update_per_byte=self.t_axpy / (self.n * 8),
+            eval_every_iters=eval_every_iters,
+            seed=seed)
+
+
+def _process_burner(problem, samples, wid, gate, device):
+    """Module-level so spawn can pickle it (process calibration)."""
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    w0, grad_fn, _ = problem.build(device)
+    w = w0.to(device, torch.float64).clone()
+    for k in range(5):                       # warm-up: imports, caches
+        grad_fn(w, k, -(wid + 2))
+    timing.synchronize(device)
+    gate.wait()
+    for k in range(samples):
+        grad_fn(w, k, -(wid + 2))
+    timing.synchronize(device)
+
+
+def calibrate(problem, cfg: PSConfig, samples: int = 10,
+              device=None) -> Calibration:
+    """Measure the run's device. Calibration gradients use worker ids ≤ −1
+    (private minibatch streams), so a later run's streams are untouched;
+    every clock read follows a device synchronise."""
+    dev = resolve_device(device)
+    built = problem.build(dev) if hasattr(problem, "build") else problem
+    w0, grad_fn, _ = built
+    w = w0.to(dev, torch.float64).clone()
+    n, P = w.numel(), cfg.n_workers
+    grad_fn(w, 0, -1)                        # warm-up
+    with timing.Timer(dev) as tm:
+        for k in range(samples):
+            grad_fn(w, k, -1)
+    t_serial = tm.elapsed / samples
+
+    if cfg.transport == "thread":
+        def _burn(wid):
+            wl = w.clone()
+            for k in range(samples):
+                grad_fn(wl, k, -(wid + 2))
+        ths = [threading.Thread(target=_burn, args=(i,)) for i in range(P)]
+        with timing.Timer(dev) as tm:
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join()
+        t_concurrent = tm.elapsed / samples
+    else:
+        # real processes from a gate: spawn and imports off the clock
+        mp = torch.multiprocessing.get_context("spawn")
+        gate = mp.Barrier(P + 1)
+        procs = [mp.Process(target=_process_burner,
+                            args=(problem, samples, i, gate, dev),
+                            daemon=True)
+                 for i in range(P)]
+        for pr in procs:
+            pr.start()
+        gate.wait()
+        t = time.perf_counter()
+        for pr in procs:
+            pr.join()
+        t_concurrent = (time.perf_counter() - t) / samples
+        if any(pr.exitcode != 0 for pr in procs):
+            raise RuntimeError(f"calibration burners failed: exit codes "
+                               f"{[pr.exitcode for pr in procs]}")
+
+    big = torch.zeros(n, dtype=torch.float64, device=dev)
+    src = torch.ones(n, dtype=torch.float64, device=dev)
+    with timing.Timer(dev) as tm:
+        for _ in range(10):
+            big += 0.5 * src
+    t_axpy = tm.elapsed / 10
+    tiny_dst = torch.zeros(64, dtype=torch.float64, device=dev)
+    tiny_src = torch.ones(64, dtype=torch.float64, device=dev)
+    with timing.Timer(dev) as tm:
+        for _ in range(100):
+            tiny_dst.copy_(tiny_src)
+    alpha = tm.elapsed / 100 + 15e-6         # + wake-up allowance
+    return Calibration(n=n, n_workers=P, transport=cfg.transport,
+                       t_grad_serial=t_serial, t_grad_concurrent=t_concurrent,
+                       t_axpy=t_axpy, alpha=alpha)
+
+
+def calibrate_sim(problem, cfg: PSConfig, samples: int = 10,
+                  eval_every_iters: Optional[int] = None,
+                  device=None) -> SimConfig:
+    """``calibrate`` + ``sim_config`` for cfg's own algorithm and
+    schedule."""
+    cal = calibrate(problem, cfg, samples=samples, device=device)
+    return cal.sim_config(
+        cfg.algorithm, cfg.resolved_schedule(cal.n * 8),
+        eval_every_iters=eval_every_iters or cfg.eval_every_iters,
+        seed=cfg.seed)
+
+
+def run_vs_des(problem, easgd: EASGDConfig, cfg: PSConfig,
+               cal: Optional[Calibration] = None, device=None) -> tuple:
+    """The measured-vs-simulated comparison: run ``cfg`` for real and
+    through the DES calibrated on the same device, charging the DES the
+    run's own emulated wire. Returns ``(PSResult, RunResult, record)``;
+    ``record`` is the flat JSON-ready comparison."""
+    dev = resolve_device(device)
+    if cal is None:
+        cal = calibrate(problem, cfg, device=dev)
+    built = problem.build(dev) if hasattr(problem, "build") else problem
+    w0, grad_fn, eval_fn = built
+    sched_name = cfg.resolved_schedule(cal.n * 8)
+    sim = cal.sim_config(
+        cfg.algorithm, sched_name,
+        eval_every_iters=cfg.eval_every_iters, seed=cfg.seed,
+        net=cfg.emulate_net)
+    des = PSEngine(grad_fn, eval_fn, w0, easgd, sim).run(
+        cfg.algorithm, total_iters=cfg.total_iters)
+    res = run_ps(problem, easgd, cfg, device=dev)
+    meas = res.total_time_s / max(res.total_iters, 1)
+    pred = des.total_time_s / max(des.total_iters, 1)
+    record = {
+        "algorithm": cfg.algorithm,
+        "transport": cfg.transport,
+        "schedule": res.schedule,
+        "device": res.device,
+        "iters": res.total_iters,
+        "measured_us_per_iter": 1e6 * meas,
+        "des_us_per_iter": 1e6 * pred,
+        "measured_over_des": meas / pred,
+        "iters_per_sec": 1.0 / meas,
+        "final_err": res.final_metric,
+        "counters": res.counters,
+        "curve_real": [(round(t, 4), it, e) for t, it, e in res.history],
+        "curve_des": [(round(t, 4), it, e) for t, it, e in des.history],
+    }
+    return res, des, record
+

@@ -19,8 +19,8 @@ from repro_torch.data.synthetic import make_classification_dataset
 from repro_torch.models import cnn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import init_params
-from repro_torch.ps.problems import (NUMPY_MLP, NUMPY_MLP_MED, ProblemSpec,
-                                     spec)
+from repro_torch.ps.problems import (NUMPY_MLP, NUMPY_MLP_LARGE,
+                                     NUMPY_MLP_MED, ProblemSpec, spec)
 from repro_torch.utils.device import fp32_products, resolve_device
 
 _CNNS = {"lenet": ((28, 28, 1), cnn.lenet_init, cnn.lenet_apply),
@@ -143,9 +143,10 @@ def make_zoo_cnn(model: str = "lenet", seed: int = 0, n_train: int = 512,
 
 def resolve(name: str) -> ProblemSpec:
     """``--model`` name -> ProblemSpec. Ported arch ids map to
-    ``make_zoo_lm``; the reference's other entries (jax-mlp, mlp-large and
-    the unported arch ids) raise ``NotImplementedError``."""
-    fixed = {"tiny-mlp": NUMPY_MLP_MED, "mlp": NUMPY_MLP}
+    ``make_zoo_lm``; the reference's other entries (jax-mlp and the
+    unported arch ids) raise ``NotImplementedError``."""
+    fixed = {"tiny-mlp": NUMPY_MLP_MED, "mlp": NUMPY_MLP,
+             "mlp-large": NUMPY_MLP_LARGE}
     if name in fixed:
         return fixed[name]
     if name in _CNNS:

@@ -18,7 +18,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
 assert not bad, bad
-assert len(names) >= 47, names
+assert len(names) >= 52, names
 print("IMPORTS-OK", len(names))
 """
 
