@@ -110,7 +110,24 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    sync_easgd at P = 2 equal their thread runs bit for bit, with the update
    kernel's launches counted across processes, and one FCFS async_easgd
    run on AlexNet; (e) ``launch.train --mode ps --algorithm all`` on
-   tiny-mlp: nine lines with finite errors and the DES columns.
+   tiny-mlp: nine lines with finite errors and the DES columns;
+17. the tcp slice (worker processes on the card behind real sockets):
+   (a) on the numpy MLP under deterministic admission, sync_easgd at
+   P ∈ {2, 3}, sync_sgd at 4 and async_easgd at 2, the card's tcp run ==
+   the card's thread run == the CPU's thread run bit for bit, and the
+   thread ↔ tcp master ↔ tcp p2p triangle (sync_easgd tree 2 and ring 3,
+   sync_sgd butterfly 4) on the card, with the update kernels' launches
+   counted exactly in the master or in the workers (BYE); (b) full-width
+   AlexNet, P = 4, ring, 4 MiB buckets, 16 rounds, Sync EASGD on the
+   thread plane, the tcp master plane and the tcp p2p plane with overlap
+   on, off and with sign_ef: µs/iter untraced and traced, the Table-3
+   shares, master / peer / wire bytes, exact update launches, the loopback
+   α–β, and whether each tcp run equals the thread run bit for bit
+   (reported); (c) tracing's cost on the thread plane (AlexNet, traced
+   and untraced in turns); (d) ``launch.train --transport tcp
+   --sync-plane p2p --trace`` and ``launch.cluster`` as subprocesses;
+   (e) reduced gemma3-4b over tcp p2p, P = 2, 16 rounds, attention and
+   cross-entropy launched in the workers and counted exactly.
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, a JSON ``kernels`` line, and the JSON result line
@@ -124,6 +141,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -1656,6 +1674,272 @@ def phase_ps_launcher(launcher, kernels, device="cuda") -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the tcp slice (phase 17): the wire, the p2p plane and span tracing
+# ---------------------------------------------------------------------------
+
+def only(counts: dict, **want) -> dict:
+    """``counts`` with every kernel 0 but ``want``."""
+    out = no_launches(counts)
+    out.update(want)
+    return out
+
+
+def phase_tcp_bitwise(torch, runtime, problems, kernels, EASGDConfig,
+                      device="cuda") -> dict:
+    """(17a) The numpy MLP under deterministic admission: the card's tcp
+    run equals the card's thread run and the CPU's thread run bit for bit
+    (72 iterations, round_robin); then the thread ↔ master ↔ p2p triangle
+    on the card. The fused updates launch in the master (master plane) or
+    in the worker processes (p2p), counted exactly either way."""
+    easgd = EASGDConfig(eta=ETA, rho=RHO, mu=MU)
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+
+    def run(algo, p, iters, schedule, dev, **kw):
+        cfg = runtime.PSConfig(algorithm=algo, n_workers=p,
+                               total_iters=iters, schedule=schedule,
+                               deterministic=True, eval_every_iters=10**9,
+                               **kw)
+        kernels.reset_launch_counts()
+        res = runtime.run_ps(problems.NUMPY_MLP, easgd, cfg, device=dev)
+        return res, kernels.launch_counts()
+
+    def same(a, b):
+        return (torch.equal(a.center.cpu(), b.center.cpu())
+                and torch.equal(a.workers.cpu(), b.workers.cpu())
+                and a.total_iters == b.total_iters)
+
+    for algo, p in (("sync_easgd", 2), ("sync_easgd", 3), ("sync_sgd", 4),
+                    ("async_easgd", 2)):
+        tcp, c_tcp = run(algo, p, 72, "round_robin", device,
+                         transport="tcp")
+        thr, c_thr = run(algo, p, 72, "round_robin", device)
+        cpu, _ = run(algo, p, 72, "round_robin", "cpu")
+        want = {"sync_easgd": only(c_tcp, fused_sync_easgd_update=72),
+                "sync_sgd": only(c_tcp, fused_sync_sgd_update=72 // p),
+                "async_easgd": only(c_tcp)}[algo]
+        check(c_tcp == c_thr == want, f"{algo} P={p} launched {c_tcp} over "
+              f"tcp, {c_thr} in threads, expected {want}")
+        check(same(tcp, thr) and same(thr, cpu) and tcp.total_iters == 72,
+              f"{algo} P={p}: card tcp == card thread == CPU thread")
+        add_counts(totals, c_tcp)
+        print(f"tcp {algo} numpy MLP P={p} deterministic: card tcp == card "
+              f"thread == CPU thread, bitwise; launches {want}; worker "
+              f"spawn to READY {tcp.counters['worker_ready_s']} s, start-up "
+              f"{tcp.counters['worker_startup_s']}", flush=True)
+    for algo, p, schedule in (("sync_easgd", 2, "tree"),
+                              ("sync_easgd", 3, "ring"),
+                              ("sync_sgd", 4, "butterfly")):
+        thr, c_thr = run(algo, p, 48, schedule, device)
+        mst, c_mst = run(algo, p, 48, schedule, device, transport="tcp")
+        p2p, c_p2p = run(algo, p, 48, schedule, device, transport="tcp",
+                         sync_plane="p2p")
+        upd = {"sync_easgd": "fused_sync_easgd_update",
+               "sync_sgd": "fused_sync_sgd_update"}[algo]
+        central = 48 if algo == "sync_easgd" else 48 // p
+        check(c_thr == c_mst == only(c_thr, **{upd: central})
+              and c_p2p == only(c_p2p, **{upd: 48}),
+              f"{algo} {schedule}: launches thread {c_thr}, master {c_mst}, "
+              f"p2p {c_p2p}")
+        check(same(thr, mst) and same(thr, p2p)
+              and p2p.schedule == f"{schedule}+p2p",
+              f"{algo} P={p} {schedule}: thread == master == p2p")
+        add_counts(totals, c_mst)
+        add_counts(totals, c_p2p)
+        print(f"triangle {algo} P={p} {schedule}: thread == tcp master == "
+              f"tcp p2p on the card, bitwise; {upd} launches master "
+              f"{c_mst[upd]} (in the master), p2p {c_p2p[upd]} (in the "
+              f"{p} workers); master_link_bytes master "
+              f"{mst.counters['master_link_bytes']} vs p2p "
+              f"{p2p.counters['master_link_bytes']}", flush=True)
+    return totals
+
+
+def shares(res) -> str:
+    rep = res.trace["report"]
+    return (f"compute {rep['mean_compute_share']:.4f} exposed comm "
+            f"{rep['mean_comm_share']:.4f} update "
+            f"{rep['mean_update_share']:.4f}")
+
+
+def phase_tcp_alexnet(torch, runtime, zoo, kernels, comm_rounds, wire,
+                      EASGDConfig, device="cuda") -> dict:
+    """(17b) Full-width AlexNet, P = 4, ring, 4 MiB buckets, 16 rounds,
+    Sync EASGD five ways: thread, tcp master plane, tcp p2p with overlap on
+    and off, tcp p2p with sign_ef. Each untraced (µs/iter) and traced
+    (the Table-3 shares); the bytes on the master's links, on each peer
+    link and in all; kernel 1's launches, exact; the loopback α–β."""
+    p, rounds = 4, 16
+    easgd = EASGDConfig(eta=0.005, rho=0.01, mu=MU)
+    problem = zoo.resolve("alexnet")
+    alpha, beta = wire.measure_link()
+    print(f"loopback link (wire.measure_link): alpha {1e6 * alpha:.2f} us, "
+          f"beta {1e9 * beta:.4f} ns/B = {1e-9 / beta:.3f} GB/s", flush=True)
+    _, grad_fn, _ = problem.build(device)
+    n_pad = N_ALEXNET + (-N_ALEXNET) % p
+    cuts = comm_rounds.default_bucket_boundaries(grad_fn.layer_sizes, n_pad,
+                                                 4 << 20)
+    live = sum(a < N_ALEXNET for a in cuts[:-1])   # buckets holding weights
+    ways = (("thread", {}),
+            ("tcp master", {"transport": "tcp"}),
+            ("tcp p2p overlap", {"transport": "tcp", "sync_plane": "p2p"}),
+            ("tcp p2p no overlap", {"transport": "tcp", "sync_plane": "p2p",
+                                    "overlap": False}),
+            ("tcp p2p sign_ef", {"transport": "tcp", "sync_plane": "p2p",
+                                 "wire_compression": "sign_ef"}))
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+    results = {}
+    for name, kw in ways:
+        p2p = kw.get("sync_plane") == "p2p"
+        want = p * rounds * (live if p2p else 1)
+        det = kw.get("wire_compression", "none") == "none"
+        for trace in (False, True):
+            cfg = runtime.PSConfig(algorithm="sync_easgd", n_workers=p,
+                                   total_iters=p * rounds, schedule="ring",
+                                   eval_every_iters=10**9,
+                                   bucket_bytes=4 << 20, deterministic=det,
+                                   trace=trace, **kw)
+            kernels.reset_launch_counts()
+            res = runtime.run_ps(problem, easgd, cfg, device=device)
+            counts = kernels.launch_counts()
+            check(counts == only(counts, fused_sync_easgd_update=want),
+                  f"{name} alexnet launched {counts}, expected {want}")
+            check(res.center.numel() == N_ALEXNET
+                  and bool(torch.isfinite(res.center).all())
+                  and bool(torch.isfinite(res.workers).all())
+                  and math.isfinite(res.final_metric)
+                  and res.total_iters == p * rounds, f"{name} finite")
+            add_counts(totals, counts)
+            results[name, trace] = res
+        plain, traced = results[name, False], results[name, True]
+        c = plain.counters
+        us = [1e6 * r.total_time_s / (p * rounds) for r in (plain, traced)]
+        print(f"tcp-slice alexnet sync_easgd {name} P={p} ring 4MiB "
+              f"buckets, {rounds} rounds: {us[0]:.1f} us/iter untraced, "
+              f"{us[1]:.1f} us/iter traced; Table-3 shares (traced) "
+              f"{shares(traced)}; master_link_bytes "
+              f"{c.get('master_link_bytes', 0)}, peer_link_bytes "
+              f"{c.get('peer_link_bytes', {})}, peer_wire_bytes "
+              f"{c.get('peer_wire_bytes', 0)}, wire_bytes {c['wire_bytes']}; "
+              f"comm_s {c.get('comm_s', 0):.4f} exposed_s "
+              f"{c.get('exposed_s', 0):.4f}; fused_sync_easgd_update "
+              f"launches {want}"
+              + (f" ({live} live buckets x {p} workers x {rounds} rounds)"
+                 if p2p else "")
+              + (f"; worker spawn to READY {c['worker_ready_s']} s"
+                 if "worker_ready_s" in c else ""), flush=True)
+    ref = results["thread", False]
+    for name in ("tcp master", "tcp p2p overlap", "tcp p2p no overlap"):
+        res = results[name, False]
+        same = (torch.equal(res.center, ref.center)
+                and torch.equal(res.workers, ref.workers))
+        print(f"tcp-slice alexnet {name} == thread run bit for bit: {same}",
+              flush=True)
+    none = results["tcp p2p overlap", False].counters["peer_wire_bytes"]
+    sign = results["tcp p2p sign_ef", False].counters["peer_wire_bytes"]
+    print(f"tcp-slice alexnet sign_ef cuts peer_wire_bytes {none / sign:.2f}x",
+          flush=True)
+    return totals
+
+
+def phase_trace_cost(torch, runtime, zoo, kernels, EASGDConfig,
+                     device="cuda") -> dict:
+    """(17c) What tracing costs: AlexNet Sync EASGD on the thread plane
+    (phase 5's setting), untraced and traced in turns, µs/iter of each
+    and the traced run's shares."""
+    p, rounds = 4, 16
+    easgd = EASGDConfig(eta=0.005, rho=0.01, mu=MU)
+    problem = zoo.resolve("alexnet")
+    us = {False: [], True: []}
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+    last = None
+    for trace in (False, True, True, False):
+        cfg = runtime.PSConfig(algorithm="sync_easgd", n_workers=p,
+                               total_iters=p * rounds, schedule="ring",
+                               eval_every_iters=10**9, bucket_bytes=4 << 20,
+                               trace=trace)
+        kernels.reset_launch_counts()
+        res = runtime.run_ps(problem, easgd, cfg, device=device)
+        counts = kernels.launch_counts()
+        check(counts == only(counts, fused_sync_easgd_update=p * rounds)
+              and (res.trace is not None) == trace,
+              f"trace={trace} launched {counts}")
+        add_counts(totals, counts)
+        us[trace].append(round(1e6 * res.total_time_s / res.total_iters, 1))
+        if trace:
+            last = res
+    print(f"trace cost alexnet sync_easgd thread P={p}: untraced "
+          f"{us[False]} us/iter, traced {us[True]} us/iter (runs in the "
+          f"order off, on, on, off); traced shares {shares(last)}; "
+          f"per worker {last.trace['report']['workers']}", flush=True)
+    return totals
+
+
+def phase_tcp_entry_points(device="cuda") -> None:
+    """(17d) The entry points as subprocesses on the card: ``launch.train
+    --transport tcp --sync-plane p2p --trace`` and ``launch.cluster``."""
+    out_dir = Path(__file__).resolve().parent / "build" / "tcp_trace"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC)
+    cmds = (["-m", "repro_torch.launch.train", "--mode", "ps",
+             "--algorithm", "sync_easgd", "--transport", "tcp",
+             "--sync-plane", "p2p", "--trace", "--trace-dir", str(out_dir),
+             "--ps-workers", "2", "--ps-iters", "40", "--emulate", "none",
+             "--device", device],
+            ["-m", "repro_torch.launch.cluster", "--workers", "2",
+             "--algorithm", "sync_easgd", "--iters", "40", "--device",
+             device])
+    for args in cmds:
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, *args], env=env,
+                              capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines() if " err=" in ln]
+        check(proc.returncode == 0 and bool(lines), f"{args[1]} exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        for line in lines:
+            err = float(line.split(" err=")[1].split()[0])
+            check(math.isfinite(err) and "[tcp/ring" in line
+                  and f"@{device}" in line, f"line {line!r}")
+            print(f"{args[1]}: {line[:400]}", flush=True)
+        for line in proc.stdout.splitlines():
+            if " trace: " in line:
+                print(f"{args[1]}: {line}", flush=True)
+        print(f"{args[1]} as a subprocess on the card: exit 0 in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+
+
+def phase_tcp_lm(torch, runtime, zoo, kernels, configs, EASGDConfig,
+                 device="cuda") -> dict:
+    """(17e) Reduced gemma3-4b over tcp p2p, P = 2, 16 rounds: attention
+    and cross-entropy launch inside the worker processes (2 warm-up
+    gradients each, then one a round) and in the master (the final eval);
+    the update once per worker and round."""
+    p, rounds = 2, 16
+    cfg = configs.get("gemma3-4b").reduced
+    ps_cfg = runtime.PSConfig(algorithm="sync_easgd", n_workers=p,
+                              total_iters=p * rounds, schedule="ring",
+                              transport="tcp", sync_plane="p2p",
+                              eval_every_iters=10**9)
+    kernels.reset_launch_counts()
+    res = runtime.run_ps(zoo.resolve("gemma3-4b"),
+                         EASGDConfig(eta=0.05, rho=0.05, mu=MU), ps_cfg,
+                         device=device)
+    counts = kernels.launch_counts()
+    want = lm_counts(cfg, 2 * p + p * rounds, evals=1)
+    want["fused_sync_easgd_update"] = p * rounds
+    check(counts == want, f"gemma3-4b tcp p2p launched {counts}, expected "
+          f"{want}")
+    check(bool(torch.isfinite(res.center).all())
+          and math.isfinite(res.final_metric)
+          and res.total_iters == p * rounds, "gemma3-4b tcp p2p finite")
+    print(f"tcp p2p gemma3-4b reduced n={res.center.numel()} P={p} ring "
+          f"{rounds} rounds: {1e6 * res.total_time_s / res.total_iters:.1f} "
+          f"us/iter, final eval loss {res.final_metric:.4f}, launches "
+          f"{counts} (the workers' counts from BYE), worker start-up "
+          f"{res.counters['worker_startup_s']}", flush=True)
+    return counts
+
+
 SOURCES = {"fused_sync_easgd_update": "elastic_update.cu",
            "fused_sync_sgd_update": "elastic_update.cu",
            "flash_attention_fwd": "flash_attention.cu",
@@ -1713,6 +1997,7 @@ def main() -> int:
     from repro_torch.models import common
     from repro_torch.models import transformer as tfm
     from repro_torch.launch import train as launcher
+    from repro_torch.net import wire
     from repro_torch.ps import problems, runtime, zoo
     from repro_torch.runtime import train
     from repro_torch.utils import timing
@@ -1833,6 +2118,28 @@ def main() -> int:
                                        EASGDConfig))
     add_counts(launches, phase_ps_launcher(launcher, kernels))
     print(f"phase async: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # the tcp slice (phase 17)
+    t = time.perf_counter()
+    add_counts(launches, phase_tcp_bitwise(torch, runtime, problems, kernels,
+                                           EASGDConfig))
+    print(f"phase 17a: {time.perf_counter() - t:.1f} s", flush=True)
+    t17 = time.perf_counter()
+    add_counts(launches, phase_tcp_alexnet(torch, runtime, zoo, kernels,
+                                           comm_rounds, wire, EASGDConfig))
+    print(f"phase 17b: {time.perf_counter() - t17:.1f} s", flush=True)
+    t17 = time.perf_counter()
+    add_counts(launches, phase_trace_cost(torch, runtime, zoo, kernels,
+                                          EASGDConfig))
+    print(f"phase 17c: {time.perf_counter() - t17:.1f} s", flush=True)
+    t17 = time.perf_counter()
+    phase_tcp_entry_points()
+    print(f"phase 17d: {time.perf_counter() - t17:.1f} s", flush=True)
+    t17 = time.perf_counter()
+    add_counts(launches, phase_tcp_lm(torch, runtime, zoo, kernels, configs,
+                                      EASGDConfig))
+    print(f"phase 17e: {time.perf_counter() - t17:.1f} s", flush=True)
+    print(f"phase tcp (17): {time.perf_counter() - t:.1f} s", flush=True)
 
     check("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),

@@ -16,6 +16,7 @@ import dataclasses
 
 from repro_torch.core import costmodel
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as _trace
 
 MASTER = -1   # the parameter server's own endpoint (round_robin uses it)
 
@@ -280,22 +281,81 @@ def _apply_round(mailbox, rnd_spans) -> None:
 
 
 def execute_rounds(mailbox, n: int, rounds, counters=None,
-                   boundaries=None) -> None:
+                   boundaries=None, tracer=None) -> None:
     """Apply one all-reduce — the schedule's message rounds — over the
     mailbox (rows 0..P-1 = workers, row P = the master endpoint used by
     round_robin). With ``boundaries`` the same rounds execute bucket-major
     with every span clipped per bucket: each element sees the same ops in
     the same order, so the result is bitwise the monolithic one. The
-    counters are schedule-level either way."""
+    counters are schedule-level either way. ``tracer`` (``obs.trace``)
+    records one ROUND span per round, or one BUCKET span per bucket."""
     mailbox[-1].zero_()             # master endpoint accumulates from zero
     row_len = mailbox.shape[-1]
-    if boundaries is not None and len(boundaries) > 2:
+    bucketed = boundaries is not None and len(boundaries) > 2
+    if bucketed:
         plans = bucket_rounds(rounds, row_len, boundaries)
     else:
         plans = [[[(m, m.span(row_len)) for m in rnd] for rnd in rounds]]
-    for plan in plans:
-        for rnd_spans in plan:
+    for bidx, plan in enumerate(plans):
+        t0 = tracer.now() if tracer is not None and bucketed else 0.0
+        for r, rnd_spans in enumerate(plan):
+            if tracer is not None and not bucketed:
+                t0 = tracer.now()
             _apply_round(mailbox, rnd_spans)
+            if tracer is not None and not bucketed:
+                tracer.record(_trace.ROUND, t0, tracer.now(), r)
+        if tracer is not None and bucketed:
+            tracer.record(_trace.BUCKET, t0, tracer.now(), bidx)
     if counters is not None:
         for rnd in rounds:
             obs_metrics.count_round(counters, rnd, n)
+
+
+# ---------------------------------------------------------------------------
+# the p2p data plane's view of the rounds
+# ---------------------------------------------------------------------------
+
+def t_rounds_buckets(rounds, n_elements: int, boundaries,
+                     net) -> list[float]:
+    """Per-bucket α–β time of the bucketed view of ``rounds``: bucket b
+    pays, for every round it appears in, the max over its clipped messages
+    of ``α + (b − a)·8·β`` — exactly the SEGMENT frames it moves."""
+    out = []
+    for plan in bucket_rounds(rounds, n_elements, boundaries):
+        t = 0.0
+        for rnd in plan:
+            if rnd:
+                t += max(net.alpha + (b - a) * 8 * net.beta
+                         for _, (a, b) in rnd)
+        out.append(t)
+    return out
+
+
+def peer_pairs(rounds) -> list[tuple[int, int]]:
+    """The worker↔worker links a round structure needs: unordered (i, j)
+    pairs with i < j in first-use order, master-endpoint messages left
+    out."""
+    pairs: list[tuple[int, int]] = []
+    seen = set()
+    for rnd in rounds:
+        for m in rnd:
+            if m.src == MASTER or m.dst == MASTER:
+                continue
+            pair = (min(m.src, m.dst), max(m.src, m.dst))
+            if pair not in seen:
+                seen.add(pair)
+                pairs.append(pair)
+    return pairs
+
+
+def rounds_to_wire(rounds) -> list:
+    """JSON form of a round structure (the master ships it in WELCOME)."""
+    return [[[m.src, m.dst, m.frac, m.chunk, m.chunks, m.op] for m in rnd]
+            for rnd in rounds]
+
+
+def rounds_from_wire(obj) -> list:
+    """Inverse of ``rounds_to_wire``."""
+    return [[Message(src, dst, frac, chunk, chunks, op)
+             for src, dst, frac, chunk, chunks, op in rnd]
+            for rnd in obj]

@@ -16,7 +16,7 @@ first and last ``min(5, steps // 2)`` (the same line past 10 steps).
 
 ``--mode ps`` runs the parameter-server runtime: any of the paper's nine
 algorithms (``--algorithm all``, the default, runs them all; ``all-sync``
-the sync pair) on the thread or process transport, each measured and
+the sync pair) on the thread, process or tcp transport, each measured and
 held against the DES calibrated once on the same device:
 
     PYTHONPATH=src python -m repro_torch.launch.train --mode ps \\
@@ -30,12 +30,20 @@ held against the DES calibrated once on the same device:
         --algorithm sync_easgd --model alexnet --ps-workers 4 \\
         --ps-iters 64 --bucket-bytes 4194304 --eta 0.005 --device cuda
 
+    PYTHONPATH=src python -m repro_torch.launch.train --mode ps \\
+        --algorithm sync_easgd --transport tcp --sync-plane p2p \\
+        --schedule ring --ps-workers 4 --ps-iters 80 --trace --device cpu
+
 Each algorithm prints the reference's result line (``measured=…us/iter
 des=…us/iter ratio=…``) with the run's device after the schedule and the
 launch counts of every kernel of the port over the DES run and the
 measured run together (the update kernels; with ``--model gemma3-4b``
 also the attention and cross-entropy kernels, with ``--model
 mamba2-780m`` the SSD and cross-entropy kernels).
+
+With ``--trace`` it also writes the merged Chrome trace and prints the
+Table-3 shares (``trace: comm=… compute=… update=…``). On tcp,
+``--compression`` is the wire codec.
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the kernels'
 plain versions on the CPU.
@@ -64,6 +72,7 @@ from repro_torch.core.elastic import ElasticConfig  # noqa: E402
 from repro_torch.data.pipeline import ShardedPipeline  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLMStream  # noqa: E402
 from repro_torch.ft.watchdog import Watchdog  # noqa: E402
+from repro_torch.obs import report as obs_report  # noqa: E402
 from repro_torch.ps import runtime, zoo  # noqa: E402
 from repro_torch.runtime.train import build_train_step  # noqa: E402
 
@@ -75,6 +84,13 @@ def run_ps_mode(args) -> list:
              "all-sync": list(SYNC_FAMILY)}.get(args.algorithm,
                                                 [args.algorithm])
     easgd = EASGDConfig(eta=args.eta, rho=args.rho, mu=0.9, tau=args.tau)
+    wire_codec = args.compression if args.transport == "tcp" else "none"
+    if wire_codec not in ("none", "sign_ef"):
+        raise SystemExit(f"--mode ps --transport tcp supports wire "
+                         f"compression none|sign_ef, got '{wire_codec}'")
+    if args.sync_plane == "p2p" and args.transport != "tcp":
+        raise SystemExit("--sync-plane p2p needs --transport tcp (the p2p "
+                         "data plane is worker↔worker sockets)")
     problem = zoo.resolve(args.model)
     base = runtime.PSConfig(
         algorithm=algos[0], n_workers=args.ps_workers,
@@ -82,11 +98,16 @@ def run_ps_mode(args) -> list:
         total_iters=args.ps_iters, eval_every_iters=args.ps_eval_every,
         emulate_net=(costmodel.PS_WIRE if args.emulate == "wire"
                      else None),
-        bucket_bytes=args.bucket_bytes)
+        wire_compression=wire_codec, bucket_bytes=args.bucket_bytes,
+        overlap=not args.no_overlap,
+        trace=args.trace or bool(args.trace_dir), trace_dir=args.trace_dir)
     cal = runtime.calibrate(problem, base, device=args.device)
     out = []
     for algo in algos:
-        cfg = dataclasses.replace(base, algorithm=algo)
+        # the p2p plane exists for the sync family only: `--algorithm all
+        # --sync-plane p2p` runs the others through the master
+        plane = args.sync_plane if algo in SYNC_FAMILY else "master"
+        cfg = dataclasses.replace(base, algorithm=algo, sync_plane=plane)
         kernels.reset_launch_counts()
         res, _, rec = runtime.run_vs_des(problem, easgd, cfg, cal=cal,
                                          device=args.device)
@@ -97,8 +118,23 @@ def run_ps_mode(args) -> list:
               f"ratio={rec['measured_over_des']:.2f} "
               f"counters={res.counters} "
               f"launches={kernels.launch_counts()}", flush=True)
+        if res.trace is not None:
+            report_trace(res, algo, args.trace_dir)
         out.append(res)
     return out
+
+
+def report_trace(res, algo: str, trace_dir) -> str:
+    """Write the merged Chrome trace beside the run (open it at
+    https://ui.perfetto.dev) and print the measured Table-3 shares."""
+    rep = res.trace.get("report", {})
+    path = str(Path(trace_dir or ".") / f"trace-{algo}-{res.transport}.json")
+    obs_report.write_chrome_trace(path, res.trace)
+    print(f"{algo:16s} trace: comm={rep.get('mean_comm_share', 0):.1%} "
+          f"compute={rep.get('mean_compute_share', 0):.1%} "
+          f"update={rep.get('mean_update_share', 0):.1%} -> {path}",
+          flush=True)
+    return path
 
 
 def run_sync_mode(args) -> list:
@@ -194,10 +230,13 @@ def main(argv=None):
     ap.add_argument("--n-pods", type=int, default=1)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--compression", default="none",
-                    choices=sorted(compression.SCHEMES))
+                    choices=sorted(compression.SCHEMES),
+                    help="exchange compression; with --mode ps --transport "
+                         "tcp the wire codec (none or sign_ef)")
     ap.add_argument("--no-overlap", action="store_true",
                     help="run the exchange after the gradients (Sync "
-                         "EASGD1/2 baseline, paper §6.1.3)")
+                         "EASGD1/2 baseline, paper §6.1.3); in ps mode the "
+                         "p2p plane's no-overlap baseline")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--log-every", type=int, default=5)
@@ -205,9 +244,23 @@ def main(argv=None):
     ap.add_argument("--algorithm", default="all",
                     choices=list(ALGORITHMS) + ["all", "all-sync"])
     ap.add_argument("--transport", default="thread",
-                    choices=["thread", "process"],
-                    help="process workers need a numpy or zoo --model "
-                         "(they rebuild it from its ProblemSpec)")
+                    choices=["thread", "process", "tcp"],
+                    help="process and tcp workers need a numpy or zoo "
+                         "--model (they rebuild it from its ProblemSpec); "
+                         "tcp workers are localhost processes on "
+                         "--device behind real sockets")
+    ap.add_argument("--sync-plane", default="master",
+                    choices=["master", "p2p"],
+                    help="tcp sync family: 'p2p' executes the schedule's "
+                         "rounds over worker↔worker links (the master only "
+                         "coordinates)")
+    ap.add_argument("--trace", action="store_true",
+                    help="record spans on every worker (and the master), "
+                         "write trace-<algo>-<transport>.json (Perfetto) "
+                         "and print the measured Table-3 shares")
+    ap.add_argument("--trace-dir", default=None,
+                    help="directory for worker trace spills and the merged "
+                         "trace (implies --trace)")
     ap.add_argument("--model", default="tiny-mlp",
                     help="tiny-mlp (default), mlp, lenet, alexnet, "
                          "gemma3-4b or mamba2-780m (the reduced LMs)")

@@ -1,6 +1,8 @@
 """The PS runtime: the paper's nine algorithms executed for real on the
-thread and process transports, and the DES cross-check (the port of
-``repro/ps/runtime.py``).
+thread, process and tcp transports, and the DES cross-check (the port of
+``repro/ps/runtime.py``). ``transport="tcp"`` hands the whole run to the
+master server of ``net.server`` (workers are processes at the other end of
+real sockets); the PSResult comes back in the same shape.
 
 Concurrency disciplines (paper §4–5):
 
@@ -36,10 +38,20 @@ PyTorch's current stream, so the host primitives order the device work;
 on the process transport ``ctx.fence()`` (a device synchronise) completes
 a worker's writes before any primitive hands them on. The clock is read
 only after a synchronise.
+
+Tracing (``PSConfig.trace``): each worker loop, the comm executor and
+``execute_rounds`` record spans (``obs.trace``) exactly where the
+reference does; on the card every span is closed after a synchronise of
+the thread's current stream, so device time lands in the span that queued
+it. The thread transport's threads share one stream, so there a span also
+waits for the other threads' queued work. The merged timeline and its
+Table-3 breakdown come back on ``PSResult.trace``.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import statistics
 import threading
 import time
 from typing import Optional
@@ -55,6 +67,8 @@ from repro_torch.core.async_engine import ALGORITHMS, PSEngine, SimConfig
 from repro_torch.core.easgd import EASGDConfig
 from repro_torch.kernels.elastic_update import (fused_sync_easgd_update,
                                                 fused_sync_sgd_update)
+from repro_torch.obs import report as obs_report
+from repro_torch.obs import trace as obs_trace
 from repro_torch.ps.transport import PSContext, get_transport
 from repro_torch.utils import timing
 from repro_torch.utils.device import resolve_device
@@ -70,7 +84,7 @@ _DEFAULT_NET = costmodel.PCIE3_X16
 class PSConfig:
     algorithm: str
     n_workers: int = 4
-    transport: str = "thread"        # "thread" | "process"
+    transport: str = "thread"        # "thread" | "process" | "tcp"
     schedule: str = "ring"           # sync-family exchange ("auto" allowed)
     total_iters: int = 1000
     deterministic: bool = False      # cyclic admission == DES zero-jitter
@@ -78,17 +92,41 @@ class PSConfig:
     net: costmodel.Network = _DEFAULT_NET
     # netem-style wire emulation: every master message / exchange round
     # additionally sleeps its α + nβ under this network (None: device
-    # memory is the wire), restoring the interconnect-bound regime the
-    # paper ran in. Charge the same network to the DES
-    # (Calibration.sim_config(net=...)) for a fair cross-check
+    # memory, or the real socket, is the wire), restoring the
+    # interconnect-bound regime the paper ran in. Charge the same network
+    # to the DES (Calibration.sim_config(net=...)) for a fair cross-check
     emulate_net: Optional[costmodel.Network] = None
     seed: int = 0
+    # -- tcp transport only (net) -------------------------------------------
+    wire_compression: str = "none"   # "none" | "sign_ef": per-link payload
+    #                                  codec with error-feedback state
+    sync_plane: str = "master"       # "master": the master executes the
+    #                                  sync family's rounds on its mailbox
+    #                                  (Θ(P·N) through its links a round);
+    #                                  "p2p": the workers execute them over
+    #                                  worker↔worker links (net.peer)
+    tcp_host: str = "127.0.0.1"
+    tcp_port: int = 0                # 0: ephemeral
+    spawn_workers: bool = True       # False: external workers join
+    hb_interval_s: float = 2.0       # worker heartbeat period
+    hb_timeout_s: float = 60.0       # the master declares a silent link dead
     bucket_bytes: int = 0            # >0: execute the exchange bucket by
     #                                  bucket, cut at layer edges — a
     #                                  bitwise-identical view of the rounds
+    overlap: bool = True             # p2p: stream buckets while the gradient
+    #                                  and the per-bucket updates compute;
+    #                                  False runs the exchange first (the
+    #                                  paper's no-overlap baseline)
+    # -- observability (obs) ------------------------------------------------
+    trace: bool = False              # record per-thread spans and return
+    #                                  the merged timeline with its Table-3
+    #                                  breakdown on PSResult.trace; off: no
+    #                                  tracer, no timestamp, no synchronise
+    trace_dir: Optional[str] = None  # spill worker trace buffers here
+    #                                  (process workers always spill; a
+    #                                  temporary directory when unset)
     # -- reference features this port does not implement yet: setting one
     #    raises NotImplementedError instead of being ignored ----------------
-    trace: bool = False
     telemetry: bool = False
     topology: Optional[costmodel.Topology] = None
     elastic: bool = False
@@ -98,14 +136,9 @@ class PSConfig:
         if self.algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm '{self.algorithm}', have "
                              f"{ALGORITHMS}")
-        if self.transport == "tcp":
-            raise NotImplementedError(
-                "transport 'tcp' is not ported yet (this port runs 'thread' "
-                "and 'process'); see ROADMAP.md, queue 1")
-        if self.transport not in ("thread", "process"):
+        if self.transport not in ("thread", "process", "tcp"):
             raise ValueError(f"unknown transport '{self.transport}'")
-        unported = [f for f in ("trace", "telemetry", "elastic")
-                    if getattr(self, f)]
+        unported = [f for f in ("telemetry", "elastic") if getattr(self, f)]
         unported += [f for f in ("topology", "chaos")
                      if getattr(self, f) is not None]
         if unported:
@@ -116,6 +149,28 @@ class PSConfig:
             raise ValueError(f"n_workers={self.n_workers}")
         if self.bucket_bytes < 0:
             raise ValueError(f"bucket_bytes={self.bucket_bytes}")
+        if self.wire_compression not in ("none", "sign_ef"):
+            raise ValueError(f"wire_compression='{self.wire_compression}'")
+        # the shared-memory transports have no wire to compress: a config
+        # claiming compression there would report raw bytes as compressed
+        if self.wire_compression != "none" and self.transport != "tcp":
+            raise ValueError(
+                f"wire_compression='{self.wire_compression}' is a "
+                f"tcp-transport feature (transport='{self.transport}' moves "
+                f"no frames)")
+        if self.sync_plane not in ("master", "p2p"):
+            raise ValueError(f"sync_plane='{self.sync_plane}'")
+        # the p2p data plane is worker↔worker sockets executing the sync
+        # family's rounds: it has no meaning off tcp or off that family
+        if self.sync_plane == "p2p" and (self.transport != "tcp"
+                                         or self.algorithm not in SYNC):
+            raise ValueError(
+                f"sync_plane='p2p' needs transport='tcp' and a sync-family "
+                f"algorithm (got transport='{self.transport}', "
+                f"algorithm='{self.algorithm}')")
+        if self.hb_interval_s <= 0 or self.hb_timeout_s <= 0:
+            raise ValueError(f"hb_interval_s={self.hb_interval_s}, "
+                             f"hb_timeout_s={self.hb_timeout_s}")
         if self.schedule != "auto":
             comm_schedules.get(self.schedule)        # validates the name
 
@@ -146,6 +201,9 @@ class PSResult:
     final_metric: float
     center: torch.Tensor
     workers: torch.Tensor            # (P, n) final worker weights
+    trace: Optional[dict] = None     # cfg.trace: the merged, clock-aligned
+    #                                  timeline (obs.report.merge_traces)
+    #                                  with a "report" breakdown
 
 
 # ---------------------------------------------------------------------------
@@ -160,6 +218,15 @@ def _sleep_until(deadline: float) -> None:
         time.sleep(dt)
 
 
+def _tracer(ctx: PSContext, name: str, wid: int = -1):
+    """A span recorder for this thread when ``cfg.trace`` is on (its clock
+    synchronises the thread's current stream on the card), else None."""
+    if not ctx.cfg.trace:
+        return None
+    return obs_trace.tracer(name, wid=wid,
+                            sync=timing.stream_sync(ctx.device))
+
+
 def _comm_executor(ctx: PSContext) -> None:
     """The sync family's 'NIC': runs the all-reduce rounds between barriers
     A and B of every training round. sync_sgd's round has a third barrier
@@ -170,20 +237,29 @@ def _comm_executor(ctx: PSContext) -> None:
     tau = max(ctx.easgd.tau, 1)
     n_rounds = -(-ctx.cfg.total_iters // (ctx.cfg.n_workers * tau))
     third = ctx.cfg.algorithm == "sync_sgd"
+    tr = _tracer(ctx, "comm")
     # emulated wire: one exchange costs Σ (α + max_frac·n·β) on top of the
     # real copies, paced as one absolute deadline per exchange
     t_wire = sum(ctx.cfg.t_msg_emulated(max(m.frac for m in rnd) * ctx.n * 8)
                  for rnd in ctx.rounds)
     try:
         for _ in range(n_rounds):
+            if tr is not None:
+                t0 = tr.now()
             ctx.barrier.wait()       # A: mailboxes posted
+            if tr is not None:
+                tr.record(obs_trace.BARRIER, t0, (tx := tr.now()), 0)
             deadline = time.monotonic() + t_wire
             execute_rounds(v.mailbox, ctx.n, ctx.rounds, counters,
-                           boundaries=ctx.boundaries)
+                           boundaries=ctx.boundaries, tracer=tr)
             if t_wire:
                 _sleep_until(deadline)
             ctx.fence()
+            if tr is not None:
+                tr.record(obs_trace.EXCHANGE, tx, (t0 := tr.now()))
             ctx.barrier.wait()       # B: exchange complete
+            if tr is not None:
+                tr.record(obs_trace.BARRIER, t0, tr.now(), 1)
             if third:
                 ctx.barrier.wait()   # C: master update complete
     except threading.BrokenBarrierError:
@@ -205,15 +281,25 @@ def worker_main(ctx: PSContext, wid: int) -> None:
     for k in range(2):
         grad_fn(wu, k, -(wid + 2))
     ctx.start_barrier.wait()
+    tr = _tracer(ctx, "main", wid)
     algo = ctx.cfg.algorithm
     if algo in SYNC:
-        _sync_worker(ctx, wid, grad_fn)
+        _sync_worker(ctx, wid, grad_fn, tr)
     elif algo == "original_easgd" or ctx.cfg.deterministic:
-        _turnstile_worker(ctx, wid, grad_fn)
+        _turnstile_worker(ctx, wid, grad_fn, tr)
     elif algo.startswith("hogwild"):
-        _hogwild_worker(ctx, wid, grad_fn)
+        _hogwild_worker(ctx, wid, grad_fn, tr)
     else:
-        _fcfs_worker(ctx, wid, grad_fn)
+        _fcfs_worker(ctx, wid, grad_fn, tr)
+    if tr is not None and ctx.cfg.trace_dir:
+        # process transport: the registry dies with this process, so the
+        # buffer goes to disk for the launcher to merge (perf_counter is
+        # system-wide on one host: the clock offset is 0)
+        obs_trace.dump_spill(ctx.cfg.trace_dir, wid, {
+            "clock": {"offset_s": 0.0, "rtt_s": 0.0},
+            "threads": {"main": tr.spans()},
+            "dropped": tr.dropped,
+        })
 
 
 def _count_exchange(ctx, iters: int) -> None:
@@ -223,7 +309,7 @@ def _count_exchange(ctx, iters: int) -> None:
     ctx.wire_bytes.value += 2 * ctx.n * 8
 
 
-def _turnstile_worker(ctx, wid, grad_fn):
+def _turnstile_worker(ctx, wid, grad_fn, tr=None):
     """Strict cyclic admission: worker ``turn % P`` owns the master next.
     This is Original EASGD's round-robin wire and, for the async family
     under ``deterministic=True``, exactly the DES zero-jitter event order.
@@ -245,40 +331,58 @@ def _turnstile_worker(ctx, wid, grad_fn):
     def _tau_block():
         """τ−1 local-only steps + the exchange gradient."""
         nonlocal local_step
+        if tr is not None:
+            t0 = tr.now()
         for _ in range(tau - 1):
             g = grad_fn(w, local_step, wid)
             easgd_flat.local_step(algo, w, vel, g, e)
             local_step += 1
+        if tr is not None and tau > 1:
+            tr.record(obs_trace.LOCAL_STEP, t0, (t0 := tr.now()), tau - 1)
         g = grad_fn(w, local_step, wid)
         local_step += 1
+        if tr is not None:
+            tr.record(obs_trace.COMPUTE, t0, tr.now())
         return g
 
     while True:
         grad = None if serial_compute else _tau_block()
+        if tr is not None:
+            t0 = tr.now()
         with ctx.turn_cond:
             while ctx.turn.value < total_turns and ctx.turn.value % P != wid:
                 ctx.turn_cond.wait(0.05)
+            if tr is not None:
+                tr.record(obs_trace.TURN_WAIT, t0, (t0 := tr.now()))
             if ctx.turn.value >= total_turns:
                 ctx.turn_cond.notify_all()
                 return
             if t_msg:                        # master → worker (W̄ down)
                 _sleep_until(time.monotonic() + t_msg)
+                if tr is not None:
+                    tr.record(obs_trace.COMM_WAIT, t0, (t0 := tr.now()), 0)
             if serial_compute:
                 grad = _tau_block()
+                if tr is not None:
+                    t0 = tr.now()
                 easgd_flat.master_absorb_round_robin(
                     v.center, w, vel, grad, e)
             else:
                 easgd_flat.master_absorb(
                     algo, v.center, v.master_vel, w, vel, grad, e)
+            if tr is not None:
+                tr.record(obs_trace.UPDATE, t0, (t0 := tr.now()))
             if t_msg:                        # worker → master (W⁽ⁱ⁾ up)
                 _sleep_until(time.monotonic() + t_msg)
+                if tr is not None:
+                    tr.record(obs_trace.COMM_WAIT, t0, tr.now(), 1)
             ctx.fence()
             ctx.turn.value += 1
             _count_exchange(ctx, tau)
             ctx.turn_cond.notify_all()
 
 
-def _fcfs_worker(ctx, wid, grad_fn):
+def _fcfs_worker(ctx, wid, grad_fn, tr=None):
     """Async family: first come, first served on the master lock. A worker
     that finds the quota met under the lock returns with its gradient
     unused, so a run computes up to P − 1 gradients more than it uses."""
@@ -289,14 +393,22 @@ def _fcfs_worker(ctx, wid, grad_fn):
     tau = max(e.tau, 1)
     local_step = 0
     while ctx.iters.value < total:
+        if tr is not None:
+            t0 = tr.now()
         for _ in range(tau - 1):             # τ−1 local-only steps
             g = grad_fn(w, local_step, wid)
             easgd_flat.local_step(algo, w, vel, g, e)
             local_step += 1
+        if tr is not None and tau > 1:
+            tr.record(obs_trace.LOCAL_STEP, t0, (t0 := tr.now()), tau - 1)
         grad = grad_fn(w, local_step, wid)
         local_step += 1
+        if tr is not None:
+            tr.record(obs_trace.COMPUTE, t0, (t0 := tr.now()))
         deadline = None
         with ctx.master_lock:
+            if tr is not None:
+                tr.record(obs_trace.TURN_WAIT, t0, (t0 := tr.now()))
             if ctx.iters.value >= total:
                 return
             if t_msg:
@@ -311,11 +423,15 @@ def _fcfs_worker(ctx, wid, grad_fn):
                 algo, v.center, v.master_vel, w, vel, grad, e)
             ctx.fence()
             _count_exchange(ctx, tau)
+            if tr is not None:
+                tr.record(obs_trace.UPDATE, t0, (t0 := tr.now()))
         if deadline is not None:
             _sleep_until(deadline)
+            if tr is not None:
+                tr.record(obs_trace.COMM_WAIT, t0, tr.now())
 
 
-def _hogwild_worker(ctx, wid, grad_fn):
+def _hogwild_worker(ctx, wid, grad_fn, tr=None):
     """The same absorb as FCFS with no lock: concurrent in-place updates of
     the shared center interleave for real. Termination is by per-worker
     quota. The counters, racy in the reference, are bumped under their own
@@ -328,24 +444,34 @@ def _hogwild_worker(ctx, wid, grad_fn):
     tau = max(e.tau, 1)
     quota = total // P + (1 if wid < total % P else 0)
     for local_step in range(quota):
+        if tr is not None:
+            t0 = tr.now()
         grad = grad_fn(w, local_step, wid)
         if (local_step + 1) % tau and local_step != quota - 1:
             easgd_flat.local_step(algo, w, vel, grad, e)   # τ local-only
             ctx.fence()
+            if tr is not None:
+                tr.record(obs_trace.LOCAL_STEP, t0, tr.now(), 1)
             with ctx.count_lock:
                 ctx.iters.value += 1
             continue
+        if tr is not None:
+            tr.record(obs_trace.COMPUTE, t0, (t0 := tr.now()))
         deadline = (time.monotonic() + 2 * t_msg) if t_msg else None
         easgd_flat.master_absorb(
             algo, v.center, v.master_vel, w, vel, grad, e)
+        if tr is not None:
+            tr.record(obs_trace.UPDATE, t0, (t0 := tr.now()))
         if deadline is not None:
             _sleep_until(deadline)           # lock-free: wire times OVERLAP
+            if tr is not None:
+                tr.record(obs_trace.COMM_WAIT, t0, tr.now())
         ctx.fence()
         with ctx.count_lock:
             _count_exchange(ctx, 1)
 
 
-def _sync_worker(ctx, wid, grad_fn):
+def _sync_worker(ctx, wid, grad_fn, tr=None):
     """Barriered rounds; the barriers are shared with the comm executor.
 
     sync_easgd: post W_t → [A] → grad ∥ all-reduce → [B] → fused update
@@ -365,10 +491,14 @@ def _sync_worker(ctx, wid, grad_fn):
     def _local_block():
         """τ−1 local-only steps before the barriered exchange step."""
         nonlocal it
+        if tr is not None and tau > 1:
+            t0 = tr.now()
         for _ in range(tau - 1):
             g = grad_fn(w, it, wid)
             easgd_flat.local_step(algo, w, vel, g, e)
             it += 1
+        if tr is not None and tau > 1:
+            tr.record(obs_trace.LOCAL_STEP, t0, tr.now(), tau - 1)
 
     if algo == "sync_easgd":
         versions = (v.center, v.center_alt)
@@ -377,29 +507,49 @@ def _sync_worker(ctx, wid, grad_fn):
             c_read, c_write = versions[step % 2], versions[(step + 1) % 2]
             v.mailbox[wid, :n].copy_(w)      # start-of-exchange weights
             ctx.fence()
+            if tr is not None:
+                t0 = tr.now()
             ctx.barrier.wait()               # A — exchange begins
+            if tr is not None:
+                tr.record(obs_trace.BARRIER, t0, (t0 := tr.now()), 0)
             grad = grad_fn(w, it, wid)       # …and overlaps this compute
             it += 1
+            if tr is not None:
+                tr.record(obs_trace.COMPUTE, t0, (t0 := tr.now()))
             ctx.barrier.wait()               # B — sum of W_t in every row
+            if tr is not None:
+                tr.record(obs_trace.BARRIER, t0, (t0 := tr.now()), 1)
             fused_sync_easgd_update(w, grad, c_read, row, P, e.eta, e.rho,
                                     center_out=c_write if wid == 0 else None)
             if wid == 0:
                 ctx.fence()
                 ctx.iters.value += P * tau
+            if tr is not None:
+                tr.record(obs_trace.UPDATE, t0, tr.now())
         return
     for step in range(n_rounds):             # sync_sgd
         _local_block()
+        if tr is not None:
+            t0 = tr.now()
         grad = grad_fn(w, it, wid)
         it += 1
+        if tr is not None:
+            tr.record(obs_trace.COMPUTE, t0, (t0 := tr.now()))
         v.mailbox[wid, :n].copy_(grad)
         ctx.fence()
         ctx.barrier.wait()                   # A — gradient all-reduce
         ctx.barrier.wait()                   # B — workers idle through both
+        if tr is not None:
+            tr.record(obs_trace.BARRIER, t0, (t0 := tr.now()), 1)
         if wid == 0:
             fused_sync_sgd_update(v.center, v.master_vel, row, P, e.eta, e.mu)
             ctx.fence()
             ctx.iters.value += P * tau
+            if tr is not None:
+                tr.record(obs_trace.UPDATE, t0, (t0 := tr.now()))
         ctx.barrier.wait()                   # C — W̄ updated
+        if tr is not None:
+            tr.record(obs_trace.BARRIER, t0, tr.now(), 2)
         w.copy_(v.center)
 
 
@@ -414,8 +564,20 @@ def run_ps(problem, easgd: EASGDConfig, cfg: PSConfig, device=None,
     prebuilt ``(w0, grad_fn, eval_fn)`` triple whose rows live there."""
     dev = resolve_device(device)
     tr = get_transport(cfg.transport, dev)
+    if hasattr(tr, "run"):
+        # the network transport owns the whole run (no shared buffers to
+        # hand out): net.server's master returns the same PSResult
+        return tr.run(problem, easgd, cfg, join_timeout_s=join_timeout_s)
     built = problem.build(dev) if hasattr(problem, "build") else problem
     w0, grad_fn, eval_fn = built
+    if cfg.trace:
+        obs_trace.drain()                    # a clean registry for this run
+        if tr.name == "process" and not cfg.trace_dir:
+            # worker tracers live in other processes: they spill to disk
+            # and the launcher merges the files
+            import tempfile
+            cfg = dataclasses.replace(
+                cfg, trace_dir=tempfile.mkdtemp(prefix="repro-trace-"))
     w0 = w0.to(dev, torch.float64)
     n, P = w0.numel(), cfg.n_workers
     sync = cfg.algorithm in SYNC
@@ -537,12 +699,40 @@ def run_ps(problem, easgd: EASGDConfig, cfg: PSConfig, device=None,
     counters = {"sync_rounds": ctx.sync_rounds.value,
                 "messages": ctx.messages.value,
                 "wire_bytes": ctx.wire_bytes.value}
+    trace = _collect_local_trace(cfg, tr.name, P) if cfg.trace else None
     return PSResult(
         algorithm=cfg.algorithm, transport=cfg.transport,
         schedule=sched_name if sync else "master", device=str(dev),
         history=history, total_time_s=total_time, total_iters=total_iters,
         counters=counters, final_metric=final, center=v.center.clone(),
-        workers=v.workers_w.clone())
+        workers=v.workers_w.clone(), trace=trace)
+
+
+def _collect_local_trace(cfg: PSConfig, transport: str, P: int) -> dict:
+    """Gather the worker and comm tracers after a thread or process run and
+    merge them (offsets are 0: perf_counter is system-wide on one host).
+    The thread transport reads the registry; the process transport reads
+    the spill files its workers wrote. The comm executor's tracer
+    (wid −1) rides as the 'master' plane, where the exchange runs on
+    tcp."""
+    workers: dict = {}
+    master_threads: dict = {}
+    for t in obs_trace.drain():
+        if t.wid >= 0:
+            workers.setdefault(t.wid, {"threads": {}, "dropped": 0})
+            workers[t.wid]["threads"][t.name] = t.spans()
+            workers[t.wid]["dropped"] += t.dropped
+        else:
+            master_threads[t.name] = t.spans()
+    if transport == "process":
+        for wid in range(P):
+            path = obs_trace.spill_path(cfg.trace_dir, wid)
+            if os.path.exists(path):
+                workers[wid] = obs_trace.load_spill(path)
+    merged = obs_report.merge_traces(
+        workers, {"threads": master_threads} if master_threads else None)
+    merged["report"] = obs_report.breakdown(merged)
+    return merged
 
 
 # ---------------------------------------------------------------------------
@@ -568,6 +758,8 @@ class Calibration:
     t_grad_concurrent: float
     t_axpy: float
     alpha: float
+    link_alpha: float = 0.0          # tcp: the socket link's measured α–β
+    link_beta: float = 0.0           # (net.wire.measure_link)
 
     def sim_config(self, algorithm: str, schedule: str,
                    eval_every_iters: int = 200, seed: int = 0,
@@ -583,8 +775,11 @@ class Calibration:
         else:
             t_compute = self.t_grad_concurrent
         if net is None:
-            net = costmodel.Network("shm", self.alpha,
-                                    self.t_axpy / (self.n * 8))
+            net = (costmodel.Network("tcp-link", self.link_alpha,
+                                     self.link_beta)
+                   if self.transport == "tcp" and self.link_alpha
+                   else costmodel.Network("shm", self.alpha,
+                                          self.t_axpy / (self.n * 8)))
         return SimConfig(
             n_workers=self.n_workers,
             net=net,
@@ -596,8 +791,10 @@ class Calibration:
             seed=seed)
 
 
-def _process_burner(problem, samples, wid, gate, device):
-    """Module-level so spawn can pickle it (process calibration)."""
+def _process_burner(problem, samples, wid, gate, device, period):
+    """Module-level so spawn can pickle it (process calibration): after
+    the gate, time this process's own gradients into ``period`` (the
+    interpreter's teardown stays off the clock)."""
     if device.type == "cuda":
         torch.cuda.set_device(device)
     w0, grad_fn, _ = problem.build(device)
@@ -606,9 +803,10 @@ def _process_burner(problem, samples, wid, gate, device):
         grad_fn(w, k, -(wid + 2))
     timing.synchronize(device)
     gate.wait()
-    for k in range(samples):
-        grad_fn(w, k, -(wid + 2))
-    timing.synchronize(device)
+    with timing.Timer(device) as tm:
+        for k in range(samples):
+            grad_fn(w, k, -(wid + 2))
+    period.value = tm.elapsed / samples
 
 
 def calibrate(problem, cfg: PSConfig, samples: int = 10,
@@ -640,23 +838,25 @@ def calibrate(problem, cfg: PSConfig, samples: int = 10,
                 th.join()
         t_concurrent = tm.elapsed / samples
     else:
-        # real processes from a gate: spawn and imports off the clock
+        # real processes from a gate (the tcp workers are processes too):
+        # spawn and imports off the clock
         mp = torch.multiprocessing.get_context("spawn")
         gate = mp.Barrier(P + 1)
+        periods = [mp.RawValue("d", 0.0) for _ in range(P)]
         procs = [mp.Process(target=_process_burner,
-                            args=(problem, samples, i, gate, dev),
+                            args=(problem, samples, i, gate, dev,
+                                  periods[i]),
                             daemon=True)
                  for i in range(P)]
         for pr in procs:
             pr.start()
         gate.wait()
-        t = time.perf_counter()
         for pr in procs:
             pr.join()
-        t_concurrent = (time.perf_counter() - t) / samples
         if any(pr.exitcode != 0 for pr in procs):
             raise RuntimeError(f"calibration burners failed: exit codes "
                                f"{[pr.exitcode for pr in procs]}")
+        t_concurrent = statistics.median(p.value for p in periods)
 
     big = torch.zeros(n, dtype=torch.float64, device=dev)
     src = torch.ones(n, dtype=torch.float64, device=dev)
@@ -670,9 +870,16 @@ def calibrate(problem, cfg: PSConfig, samples: int = 10,
         for _ in range(100):
             tiny_dst.copy_(tiny_src)
     alpha = tm.elapsed / 100 + 15e-6         # + wake-up allowance
+    link_alpha = link_beta = 0.0
+    if cfg.transport == "tcp":
+        # the socket link's own α–β, measured through the wire's framing:
+        # what the DES charges when no wire is emulated
+        from repro_torch.net.wire import measure_link
+        link_alpha, link_beta = measure_link(cfg.tcp_host)
     return Calibration(n=n, n_workers=P, transport=cfg.transport,
                        t_grad_serial=t_serial, t_grad_concurrent=t_concurrent,
-                       t_axpy=t_axpy, alpha=alpha)
+                       t_axpy=t_axpy, alpha=alpha, link_alpha=link_alpha,
+                       link_beta=link_beta)
 
 
 def calibrate_sim(problem, cfg: PSConfig, samples: int = 10,

@@ -22,6 +22,9 @@ workers execute (the port of ``repro/ps/transport.py``).
   device. Kernel launch counts live in each process; a worker adds its own
   to one shared slot per kernel as it exits, and ``run_ps`` folds them
   into ``kernels.launch_counts()``.
+* ``tcp`` — workers are processes at the other end of real sockets
+  (``net.worker``, spawned on localhost or joining from other hosts); the
+  master server of ``net.server`` owns the whole run (``TcpTransport.run``).
 """
 from __future__ import annotations
 
@@ -231,15 +234,27 @@ class ProcessTransport:
         return not alive
 
 
-TRANSPORTS = {"thread": ThreadTransport, "process": ProcessTransport}
+class TcpTransport:
+    """Workers are processes at the other end of TCP links; the master
+    server (``net.server``) owns the whole run."""
+
+    name = "tcp"
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+
+    def run(self, problem, easgd, cfg, join_timeout_s: float = 600.0):
+        from repro_torch.net.server import run_ps_tcp
+        return run_ps_tcp(problem, easgd, cfg, device=self.device,
+                          join_timeout_s=join_timeout_s)
+
+
+TRANSPORTS = {"thread": ThreadTransport, "process": ProcessTransport,
+              "tcp": TcpTransport}
 
 
 def get_transport(name: str, device=None):
     """A transport by name, on ``device`` (default: the card)."""
-    if name == "tcp":
-        raise NotImplementedError(
-            "transport 'tcp' is not ported yet (this port runs 'thread' and "
-            "'process'); see ROADMAP.md, queue 1")
     try:
         cls = TRANSPORTS[name]
     except KeyError:

@@ -18,6 +18,16 @@ def synchronize(device=None) -> None:
         torch.cuda.synchronize(device)
 
 
+def stream_sync(device):
+    """A span clock's synchronise on the card: waits for the calling
+    thread's current stream on ``device`` (None on the CPU, where work is
+    done when the call returns)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    return lambda: torch.cuda.current_stream(dev).synchronize()
+
+
 class Timer:
     """Context manager measuring wall time; synchronises ``device`` on
     exit so the interval covers the device work enqueued inside it."""

@@ -27,7 +27,7 @@ from repro_torch.core import async_engine, costmodel, des, easgd_flat
 from repro_torch.core.easgd import EASGDConfig
 from repro_torch.kernels import _build
 from repro_torch.launch import train
-from repro_torch.ps import problems, runtime, transport
+from repro_torch.ps import problems, runtime
 
 ETA, RHO, MU = 0.05, 0.07, 0.9
 CFG = EASGDConfig(eta=ETA, rho=RHO, mu=MU)
@@ -452,17 +452,10 @@ def test_launcher_runs_all_nine_with_des_columns():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("transport", "tcp"), ("trace", True), ("telemetry", True),
-    ("elastic", True), ("chaos", {"wid": 1}),
+    ("telemetry", True), ("elastic", True), ("chaos", {"wid": 1}),
     ("topology", costmodel.Topology(2, 2))])
 def test_unported_stay_raising(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         runtime.PSConfig(**{"algorithm": "async_easgd", field: value})
-    if field == "transport":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transport.get_transport("tcp", "cpu")
-        with pytest.raises(ValueError):
-            transport.get_transport("udp", "cpu")
-        assert sorted(transport.TRANSPORTS) == ["process", "thread"]
     with pytest.raises(ValueError):
         runtime.PSConfig(algorithm="nope")

@@ -1,5 +1,6 @@
 """The port stands alone: importing every ``repro_torch`` module, and
-``chip_smoke.py``, loads neither ``jax`` nor any module of ``repro``."""
+``chip_smoke.py``, loads neither ``jax`` nor any module of ``repro``; nor
+does the tcp worker's own import footprint."""
 import os
 import subprocess
 import sys
@@ -18,15 +19,39 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
 assert not bad, bad
-assert len(names) >= 52, names
+assert len(names) >= 61, names
 print("IMPORTS-OK", len(names))
 """
 
 
-def test_port_imports_no_jax_and_no_reference():
+_WORKER = r"""
+import sys
+import repro_torch.net.worker
+import repro_torch.net.peer
+import repro_torch.obs
+from repro_torch.obs import clock, metrics, report, trace
+import repro_torch.ps.problems
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+assert not bad, bad
+print("WORKER-OK")
+"""
+
+
+def _run(script: str, marker: str) -> None:
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([os.path.join(REPO, "src"), REPO])
-    proc = subprocess.run([sys.executable, "-c", _SCRIPT], env=env,
+    proc = subprocess.run([sys.executable, "-c", script], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "IMPORTS-OK" in proc.stdout
+    assert marker in proc.stdout
+
+
+def test_port_imports_no_jax_and_no_reference():
+    _run(_SCRIPT, "IMPORTS-OK")
+
+
+def test_tcp_worker_imports_no_jax_and_no_reference():
+    """What a tcp worker interpreter loads: torch and the port only."""
+    _run(_WORKER, "WORKER-OK")

@@ -112,7 +112,6 @@ def test_alexnet_short_run_matches_reference():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("transport", "tcp"), ("trace", True),
     ("telemetry", True), ("elastic", True), ("chaos", {"wid": 1}),
     ("topology", costmodel.Topology(2, 2))])
 def test_unported_config_raises(field, value):
