@@ -127,7 +127,25 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    and untraced in turns); (d) ``launch.train --transport tcp
    --sync-plane p2p --trace`` and ``launch.cluster`` as subprocesses;
    (e) reduced gemma3-4b over tcp p2p, P = 2, 16 rounds, attention and
-   cross-entropy launched in the workers and counted exactly.
+   cross-entropy launched in the workers and counted exactly;
+18. the live telemetry plane and elastic membership over tcp: (a) on the
+   numpy MLP under deterministic admission, a chaos dial-refuse window
+   (sync_easgd, P = 2) and one link paced 3x slower (``link_slow``,
+   async_easgd, P = 3): the card's tcp run == the card's thread run == the
+   CPU's thread run bit for bit; (b) full-width AlexNet, P = 4, ring, p2p,
+   4 MiB buckets, 16 rounds, Sync EASGD with telemetry off and on (µs/iter
+   of each beside phase 17b's), and a P = 3 hogwild_easgd run with wid 2's
+   link paced 8x slower, whose straggler the detector must name while
+   ``launch.monitor --connect --follow`` reads STATS snapshots mid-run;
+   (c) the same AlexNet cell with ``elastic=True``, wid 2 SIGKILLed at
+   iteration 8 and respawned on the reconfigure event: epoch 2 with all
+   four members, the time to recover, the rejoin time with the
+   rejoiner's import and card time, µs/iter per epoch, the update's
+   launches exact against the workers' epoch logs (P = 4, 3, 4), one
+   post-shrink bucket update at P = 3 bitwise its plain version; then on
+   the numpy MLP a SIGTERM departure, a p2p sync_sgd kill and respawn,
+   master-plane sync_easgd and sync_sgd kills (the plan rebuilt for
+   P′ = 2) and a kill with elastic off, which must fail.
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, a JSON ``kernels`` line, and the JSON result line
@@ -147,6 +165,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import types
 from pathlib import Path
@@ -1763,7 +1782,7 @@ def shares(res) -> str:
 
 
 def phase_tcp_alexnet(torch, runtime, zoo, kernels, comm_rounds, wire,
-                      EASGDConfig, device="cuda") -> dict:
+                      EASGDConfig, device="cuda", notes=None) -> dict:
     """(17b) Full-width AlexNet, P = 4, ring, 4 MiB buckets, 16 rounds,
     Sync EASGD five ways: thread, tcp master plane, tcp p2p with overlap on
     and off, tcp p2p with sign_ef. Each untraced (µs/iter) and traced
@@ -1814,6 +1833,8 @@ def phase_tcp_alexnet(torch, runtime, zoo, kernels, comm_rounds, wire,
         plain, traced = results[name, False], results[name, True]
         c = plain.counters
         us = [1e6 * r.total_time_s / (p * rounds) for r in (plain, traced)]
+        if notes is not None:
+            notes[name] = us[0]
         print(f"tcp-slice alexnet sync_easgd {name} P={p} ring 4MiB "
               f"buckets, {rounds} rounds: {us[0]:.1f} us/iter untraced, "
               f"{us[1]:.1f} us/iter traced; Table-3 shares (traced) "
@@ -1940,6 +1961,505 @@ def phase_tcp_lm(torch, runtime, zoo, kernels, configs, EASGDConfig,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the live telemetry plane and elastic membership over tcp
+# ---------------------------------------------------------------------------
+
+PHASE18_DIR = Path(__file__).resolve().parent / "build" / "phase18"
+
+
+def release_card(torch, what: str) -> None:
+    """Hand this process's cached device blocks back to the card before a
+    phase whose worker processes allocate on it (the full-width LM phases
+    leave tens of GiB reserved in this process's caching allocator), and
+    print the room the workers get."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"{what}: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free on "
+          f"the card, {torch.cuda.memory_reserved() / 2**30:.2f} GiB still "
+          f"reserved by this process", flush=True)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def same_run(torch, a, b) -> bool:
+    return (torch.equal(a.center.cpu(), b.center.cpu())
+            and torch.equal(a.workers.cpu(), b.workers.cpu())
+            and a.total_iters == b.total_iters)
+
+
+def phase_elastic_bitwise(torch, runtime, problems, kernels, costmodel,
+                          EASGDConfig, device="cuda") -> dict:
+    """(18a) The numpy MLP under deterministic admission: a chaos
+    dial-refuse window (sync_easgd, P = 2, 40 iterations) and one link
+    paced 3x slower (``link_slow``, async_easgd, P = 3, 36 iterations) over
+    tcp on the card equal the card's thread run and the CPU's thread run
+    bit for bit, with the update's launches exact."""
+    easgd = EASGDConfig(eta=ETA, rho=RHO, mu=MU)
+    net = costmodel.Network("tiny-emu", 5e-3, 1e-9)
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+
+    def run(algo, p, iters, dev, **kw):
+        cfg = runtime.PSConfig(algorithm=algo, n_workers=p,
+                               total_iters=iters, schedule="round_robin",
+                               deterministic=True, eval_every_iters=10**9,
+                               **kw)
+        kernels.reset_launch_counts()
+        res = runtime.run_ps(problems.NUMPY_MLP, easgd, cfg, device=dev)
+        return res, kernels.launch_counts()
+
+    cases = (("sync_easgd", 2, 40, "dial refused 0.4 s on wid 1",
+              {"chaos": {"wid": 1, "dial_refuse_s": 0.4}}),
+             ("async_easgd", 3, 36, "link_slow (1, 1, 3)",
+              {"emulate_net": net, "link_slow": (1.0, 1.0, 3.0)}))
+    for algo, p, iters, what, kw in cases:
+        tcp, c_tcp = run(algo, p, iters, device, transport="tcp", **kw)
+        thr, c_thr = run(algo, p, iters, device)
+        cpu, _ = run(algo, p, iters, "cpu")
+        want = (only(c_tcp, fused_sync_easgd_update=iters)
+                if algo == "sync_easgd" else only(c_tcp))
+        check(c_tcp == c_thr == want, f"{algo} {what}: launched {c_tcp} "
+              f"over tcp, {c_thr} in threads, expected {want}")
+        check(same_run(torch, tcp, thr) and same_run(torch, thr, cpu),
+              f"{algo} P={p} {what}: card tcp == card thread == CPU thread")
+        add_counts(totals, c_tcp)
+        print(f"elastic-slice {algo} numpy MLP P={p} {what}: card tcp == "
+              f"card thread == CPU thread, bitwise; {1e6 * tcp.total_time_s
+              / tcp.total_iters:.1f} us/iter over tcp; launches {want}",
+              flush=True)
+    return totals
+
+
+def phase_live(torch, runtime, zoo, problems, kernels, costmodel,
+               EASGDConfig, notes: dict, device="cuda",
+               model="alexnet") -> dict:
+    """(18b) The live plane. Full-width AlexNet, P = 4, ring, p2p, 4 MiB
+    buckets, 16 rounds, Sync EASGD with telemetry off and on (JSONL
+    stream, 0.5 s heartbeats in both, a 0.1 s sampler): µs/iter of each beside phase 17b's
+    untraced p2p reading, the health summary, exact launches. Then the
+    numpy MLP with hogwild_easgd at P = 3 and wid 2's link paced 8x
+    slower: the detector must name wid 2 alone, and ``python -m
+    repro_torch.launch.monitor --connect --follow`` (a subprocess started
+    with the run) must fetch STATS snapshots mid-run, one with samples in
+    it, and exit 0 when the run ends."""
+    PHASE18_DIR.mkdir(parents=True, exist_ok=True)
+    p, rounds = 4, 16
+    easgd = EASGDConfig(eta=0.005, rho=0.01, mu=MU)
+    problem = zoo.resolve(model)
+    w0, grad_fn, _ = problem.build(device)
+    from repro_torch.comm import rounds as comm_rounds
+    n = w0.numel()
+    n_pad = n + (-n) % p
+    cuts = comm_rounds.default_bucket_boundaries(grad_fn.layer_sizes, n_pad,
+                                                 4 << 20)
+    live_buckets = sum(a < n for a in cuts[:-1])
+    want = p * rounds * live_buckets
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+    us = {}
+    jsonl = str(PHASE18_DIR / "alexnet_telemetry.jsonl")
+    for on in (False, True):
+        cfg = runtime.PSConfig(
+            algorithm="sync_easgd", n_workers=p, total_iters=p * rounds,
+            schedule="ring", transport="tcp", sync_plane="p2p",
+            bucket_bytes=4 << 20, eval_every_iters=10**9, hb_interval_s=0.5,
+            telemetry_jsonl=jsonl if on else None, telemetry_interval_s=0.1)
+        kernels.reset_launch_counts()
+        res = runtime.run_ps(problem, easgd, cfg, device=device)
+        counts = kernels.launch_counts()
+        check(counts == only(counts, fused_sync_easgd_update=want),
+              f"alexnet p2p telemetry={on} launched {counts}, expected "
+              f"{want}")
+        check(bool(torch.isfinite(res.center).all())
+              and res.total_iters == p * rounds
+              and (res.health is not None) == on, f"telemetry={on} run")
+        add_counts(totals, counts)
+        us[on] = 1e6 * res.total_time_s / res.total_iters
+        if on:
+            lines = [json.loads(x) for x in open(jsonl)]
+            check(lines[0]["meta"]["algorithm"] == "sync_easgd"
+                  and res.health["n_samples"] >= 1, "telemetry JSONL")
+            print(f"live alexnet p2p telemetry on: {res.health['n_samples']}"
+                  f" samples, {len(lines)} JSONL lines, events "
+                  f"{res.health['events']}, last per-worker telemetry "
+                  f"{res.health['workers']}", flush=True)
+    ref = notes.get("tcp p2p overlap")
+    print(f"live alexnet sync_easgd tcp p2p P={p} ring 4MiB buckets, "
+          f"{rounds} rounds: {us[False]:.1f} us/iter telemetry off, "
+          f"{us[True]:.1f} us/iter telemetry on ({us[True] / us[False]:.3f}x)"
+          + (f"; phase 17b untraced {ref:.1f} us/iter" if ref else "")
+          + f"; fused_sync_easgd_update launches {want} each", flush=True)
+
+    port = free_port()
+    net = costmodel.Network("tiny-emu", 5e-3, 1e-9)
+    cfg = runtime.PSConfig(algorithm="hogwild_easgd", n_workers=3,
+                           total_iters=480, transport="tcp", schedule="ring",
+                           eval_every_iters=10**9, emulate_net=net,
+                           link_slow=(1.0, 1.0, 8.0), hb_interval_s=0.2,
+                           telemetry=True, tcp_port=port)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC)
+    mon = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.monitor", "--connect",
+         f"127.0.0.1:{port}", "--k", "8", "--retry-for", "120", "--follow",
+         "--interval", "0.5"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        kernels.reset_launch_counts()
+        res = runtime.run_ps(problems.NUMPY_MLP,
+                             EASGDConfig(eta=ETA, rho=RHO, mu=MU), cfg,
+                             device=device)
+        counts = kernels.launch_counts()
+        out, err = mon.communicate(timeout=120)
+    finally:
+        if mon.poll() is None:
+            mon.kill()
+            mon.wait()
+    check(counts == no_launches(counts), f"hogwild launched {counts}")
+    flags = [e for e in res.health["events"] if e["kind"] == "straggler"]
+    check(bool(flags) and all(e["wid"] == 2 for e in flags),
+          f"straggler named: {res.health['events']}")
+    tables = out.split("run: ")[1:]
+    samples = [int(t.split("samples=")[1].split()[0]) for t in tables]
+    check(mon.returncode == 0 and "rate history" in out
+          and max(samples, default=0) > 0,
+          f"launch.monitor --connect exited {mon.returncode}, samples "
+          f"{samples}: {err[-2000:]}")
+    print(f"live straggler hogwild_easgd numpy MLP P=3 link_slow (1, 1, 8) "
+          f"on the card: first flag {flags[0]}; health_events "
+          f"{res.counters['health_events']}; "
+          f"{1e6 * res.total_time_s / res.total_iters:.1f} us/iter",
+          flush=True)
+    best = max(range(len(tables)), key=samples.__getitem__)
+    print(f"live launch.monitor --connect --follow: {len(tables)} STATS "
+          f"snapshots mid-run, exit 0; the one with most samples:")
+    for line in ("run: " + tables[best]).splitlines()[:8]:
+        print(f"  | {line}")
+    return totals
+
+
+def resume_rounds(res) -> dict:
+    """{epoch: the master's agreed resume round} from the p2p reconfigure
+    events."""
+    out = {}
+    for e in res.health["events"]:
+        if e["kind"] == "reconfigure" and "resume_round=" in e["detail"]:
+            epoch = int(e["detail"].split(":")[0].split()[1])
+            out[epoch] = int(e["detail"].split("resume_round=")[1])
+    return out
+
+
+def epoch_report(res, counts, n_rounds: int, upd: str,
+                 killed: int = 1) -> tuple:
+    """Check the elastic run's update launches and rounds against the
+    workers' epoch logs (BYE) and the master's resume rounds, and return
+    (per-epoch lines, µs/iter per epoch). Each final member's epochs must
+    chain: every epoch after the first starts at the master's resume
+    round, and the rounds kept (up to the next resume round) add up to the
+    run's ``n_rounds``; ``killed`` workers of epoch 0 send no log. Each round run made one launch a live bucket; only the
+    round a fault interrupted may add fewer than a round's launches, and
+    the launch counter must equal the logged launches."""
+    logs = res.counters["worker_epochs"]
+    total = sum(e["updates"] for log in logs.values() for e in log)
+    check(counts[upd] == total, f"{upd} launches {counts[upd]} == the "
+          f"workers' logged updates {total}")
+    resumes = resume_rounds(res)
+    by_epoch: dict = {}
+    for wid, log in logs.items():
+        kept_all = 0
+        for i, e in enumerate(log):
+            lb = e["live_buckets"]
+            last = i == len(log) - 1
+            check(e["epoch"] == 0 or e["start"] == resumes.get(e["epoch"]),
+                  f"wid {wid} epoch {e['epoch']} starts at {e['start']}, "
+                  f"the master's resume round {resumes.get(e['epoch'])}")
+            check(e["rounds"] == e["end"] - e["start"],
+                  f"wid {wid} epoch {e['epoch']} rounds")
+            extra = e["updates"] - e["rounds"] * lb
+            check(extra == 0 if last else 0 <= extra < lb,
+                  f"wid {wid} epoch {e['epoch']}: {e['updates']} updates "
+                  f"for {e['rounds']} rounds x {lb} buckets")
+            kept = (e["end"] if last else e["resume_next"]) - e["start"]
+            check(0 <= e["rounds"] - kept <= 1, f"wid {wid} rollback")
+            kept_all += kept
+            d = by_epoch.setdefault(e["epoch"], {
+                "p": e["p"], "kept": kept, "lb": lb, "workers": 0,
+                "launches": 0, "us": None})
+            check((d["p"], d["kept"], d["lb"]) == (e["p"], kept, lb),
+                  f"epoch {e['epoch']} agrees across workers")
+            d["workers"] += 1
+            d["launches"] += e["updates"]
+            if wid == min(logs) and e["rounds"]:
+                d["us"] = 1e6 * (e["t1"] - e["t0"]) / (e["rounds"] * e["p"])
+        if log[-1]["epoch"] == res.health["epoch"]:
+            check(log[0]["start"] + kept_all == n_rounds,
+                  f"wid {wid}: rounds kept {kept_all} from round "
+                  f"{log[0]['start']} reach {n_rounds}")
+    lines, us = [], {}
+    for ep, d in sorted(by_epoch.items()):
+        want = d["p"] - (killed if ep == 0 else 0)
+        check(d["workers"] == want, f"epoch {ep}: {d['workers']} logs for "
+              f"p={d['p']}, expected {want}")
+        kept_launches = d["workers"] * d["kept"] * d["lb"]
+        us[ep] = d["us"]
+        lines.append(f"epoch {ep} p={d['p']}: {d['kept']} rounds kept x "
+                     f"{d['workers']} workers x {d['lb']} live buckets = "
+                     f"{kept_launches} update launches kept, "
+                     f"{d['launches'] - kept_launches} rolled back or cut "
+                     f"short; {d['us']:.1f} us/iter" if d["us"] is not None
+                     else f"epoch {ep} p={d['p']}: no rounds")
+    return lines, us
+
+
+def run_with_respawn(runtime, server, kernels, problem, easgd, cfg, jsonl,
+                     device):
+    """Run ``cfg`` (elastic; chaos kills wid 2) while ``server.Respawner``
+    respawns wid 2 — ``python -m repro_torch.net.worker --rejoin`` from its
+    ``REPRO_CLUSTER_SPEC`` — the moment the reconfigure event reaches the
+    ``jsonl`` stream. Returns (PSResult, the run's launch counts, the
+    respawn's monotonic start); the rejoiner must exit 0."""
+    if jsonl.exists():
+        jsonl.unlink()
+    with server.Respawner(jsonl, 2, device,
+                          n_workers=cfg.n_workers) as spare:
+        kernels.reset_launch_counts()
+        res = runtime.run_ps(problem, easgd, cfg, device=device)
+        counts = kernels.launch_counts()
+    code, out = spare.finish(timeout_s=60.0)
+    check(bool(spare.spawned), "the reconfigure event reached the JSONL "
+          "stream")
+    check(code == 0, f"rejoiner exited {code}: {out[-2000:]}")
+    kinds = [e["kind"] for e in res.health["events"]]
+    check(res.health["epoch"] == 2 and kinds.count("reconfigure") == 2
+          and res.health["membership"]["members"]
+          == {0: "active", 1: "active", 2: "active", 3: "active"},
+          f"epoch 2 with every member active: {res.health}")
+    return res, counts, spare.spawned[0][0]
+
+
+def phase_elastic(torch, runtime, zoo, problems, kernels, comm_rounds, eu,
+                  server, costmodel, EASGDConfig, device="cuda",
+                  model="alexnet", rounds=200) -> dict:
+    """(18c) Elastic membership at full width: AlexNet, P = 4, ring, p2p,
+    4 MiB buckets, Sync EASGD, ``elastic=True``, wid 2 SIGKILLed by chaos;
+    a respawn started when the reconfigure event reaches the JSONL stream
+    rejoins, and the run must reach epoch 2 with all four members active.
+    It prints the time to recover (death seen by the master → the first
+    post-reconfigure round done by every survivor), the rejoin time
+    (respawn → worker_rejoined, with the rejoiner's import and card time),
+    µs/iter per epoch, and the update's launches against the workers'
+    epoch logs (P = 4, 3, 4). One post-shrink bucket update at P = 3 is
+    held bit for bit against the plain version. Then on the numpy MLP: a
+    p2p SIGKILL shrink and a SIGTERM departure, each bit for bit the CPU's
+    run with that worker SIGKILLed at the card run's resume round; a p2p sync_sgd kill and respawn on a paced wire (the velocity
+    relayed with the center: every replica ends on the center); master-
+    plane sync_easgd and sync_sgd kills (the plan rebuilt for P′ = 2, the
+    launches as the served rosters give them); and a kill with elastic
+    off, which must fail."""
+    PHASE18_DIR.mkdir(parents=True, exist_ok=True)
+    p, kill_at = 4, 8
+    easgd = EASGDConfig(eta=0.005, rho=0.01, mu=MU)
+    problem = zoo.resolve(model)
+    jsonl = PHASE18_DIR / "elastic.jsonl"
+    cfg = runtime.PSConfig(
+        algorithm="sync_easgd", n_workers=p, total_iters=p * rounds,
+        schedule="ring", transport="tcp", sync_plane="p2p",
+        bucket_bytes=4 << 20, eval_every_iters=10**9, elastic=True,
+        telemetry_jsonl=str(jsonl),
+        chaos={"wid": 2, "kill_at_iter": kill_at, "signal": "kill"})
+    res, counts_alexnet, t_spawn = run_with_respawn(
+        runtime, server, kernels, problem, easgd, cfg, jsonl, device)
+    check(bool(torch.isfinite(res.center).all())
+          and math.isfinite(res.final_metric), "elastic alexnet finite")
+    n_upd = counts_alexnet["fused_sync_easgd_update"]
+    check(counts_alexnet == only(counts_alexnet,
+                                 fused_sync_easgd_update=n_upd),
+          f"elastic alexnet launched {counts_alexnet}")
+    lines, us = epoch_report(res, counts_alexnet, rounds,
+                             "fused_sync_easgd_update")
+    marks = {}
+    for kind, wid, mono in res.counters["membership_marks"]:
+        marks.setdefault(kind, mono)
+    logs = res.counters["worker_epochs"]
+    firsts = [log[1]["t_first"] for w, log in logs.items()
+              if w != 2 and len(log) > 1 and log[1]["epoch"] == 1]
+    recover = max(firsts) - marks["worker_dead"]
+    start = res.counters["worker_startup_s"].get(2, {})
+    rejoin = marks["worker_rejoined"] - t_spawn
+    print(f"elastic alexnet sync_easgd tcp p2p P=4 ring 4MiB buckets, "
+          f"{rounds} rounds, wid 2 killed at iteration {kill_at}: events "
+          f"{[(e['kind'], e['wid'], e.get('detail', '')) for e in res.health['events']]}",
+          flush=True)
+    for line in lines:
+        print(f"elastic alexnet {line}", flush=True)
+    print(f"elastic alexnet time to recover (death seen by the master -> "
+          f"first round of epoch 1 done by all {len(firsts)} survivors): "
+          f"{recover:.3f} s (master's reconfigure after "
+          f"{marks['reconfigure'] - marks['worker_dead']:.3f} s)", flush=True)
+    print(f"elastic alexnet rejoin time (respawn -> worker_rejoined): "
+          f"{rejoin:.3f} s; the rejoiner's import {start.get('import_s')} "
+          f"s, to WELCOME (card init, dial, HELLO) "
+          f"{start.get('to_welcome_s')} s, build {start.get('build_s')} s, "
+          f"warm-up {start.get('warmup_s')} s; final eval "
+          f"{res.final_metric:.4f}, {res.total_iters} iterations",
+          flush=True)
+
+    # one post-shrink bucket update at P = 3, kernel against plain
+    _, grad_fn, _ = problem.build(device)
+    n = res.center.numel()
+    pad3 = n + (-n) % 3
+    cuts = comm_rounds.default_bucket_boundaries(grad_fn.layer_sizes, pad3,
+                                                 4 << 20)
+    a, b = cuts[0], min(cuts[1], n)
+    gen = torch.Generator(device=device).manual_seed(18)
+    w = res.workers[0, a:b].clone()
+    c = res.center[a:b].clone()
+    row = res.workers[[0, 1, 3], a:b].sum(0)
+    g = 1e-2 * torch.randn(b - a, dtype=torch.float64, device=device,
+                           generator=gen)
+    w_k, w_p = w.clone(), w.clone()
+    c_k, c_p = torch.empty_like(c), torch.empty_like(c)
+    eu.fused_sync_easgd_update(w_k, g, c, row, 3, easgd.eta, easgd.rho,
+                               center_out=c_k)
+    eu.fused_sync_easgd_update_ref(w_p, g, c, row, 3, easgd.eta, easgd.rho,
+                                   center_out=c_p)
+    check(torch.equal(w_k, w_p) and torch.equal(c_k, c_p),
+          "post-shrink P=3 bucket update == plain version")
+    print(f"elastic alexnet post-shrink bucket [{a}, {b}) at P=3: "
+          f"fused_sync_easgd_update == plain version, bitwise", flush=True)
+
+    # the numpy MLP: a SIGKILL shrink and a SIGTERM departure on the card,
+    # each against the CPU's run with that worker SIGKILLed at the card
+    # run's resume round (the round may vary by one), bit for bit whenever
+    # each survivor drew as many gradients in epoch 0 in both runs: the
+    # p2p plane is deterministic given those, but a rollback does not
+    # rewind the problem's sampler, and a survivor that sees phase 1
+    # before it starts the abandoned round draws one batch fewer
+    mlp = EASGDConfig(eta=ETA, rho=RHO, mu=MU)
+    shrink = {k.__name__: 0 for k in kernels.KERNELS}
+
+    def elastic_run(chaos, dev):
+        kernels.reset_launch_counts()
+        r = runtime.run_ps(problems.NUMPY_MLP, mlp, runtime.PSConfig(
+            algorithm="sync_easgd", n_workers=4, total_iters=240,
+            transport="tcp", schedule="ring", sync_plane="p2p",
+            eval_every_iters=10**9, elastic=True, chaos=chaos), device=dev)
+        return r, kernels.launch_counts()
+
+    for sig, wid in (("kill", 2), ("term", 1)):
+        res, counts = elastic_run(
+            {"wid": wid, "kill_at_iter": 20, "signal": sig}, device)
+        resume = resume_rounds(res).get(1)
+        check(resume is not None and abs(resume - 20) <= 1,
+              f"elastic {sig}: resume round {resume}")
+        cpu, _ = elastic_run(
+            {"wid": wid, "kill_at_iter": resume, "signal": "kill"}, "cpu")
+        events = [(e["kind"], e["wid"], e.get("detail", ""))
+                  for e in res.health["events"]]
+        draws = [{w: log[0]["grads"] for w, log in r.counters[
+            "worker_epochs"].items() if w != wid} for r in (res, cpu)]
+        check(resume_rounds(cpu) == resume_rounds(res)
+              and res.total_iters == cpu.total_iters,
+              f"elastic {sig} wid {wid}: resume rounds and iterations")
+        same = draws[0] == draws[1]
+        check(same_run(torch, res, cpu) or not same,
+              f"elastic {sig} wid {wid}: card == CPU (killed at round "
+              f"{resume}), bitwise ({events})")
+        check(counts == only(counts, fused_sync_easgd_update=counts[
+            "fused_sync_easgd_update"]), f"elastic {sig} launched {counts}")
+        lines, _ = epoch_report(res, counts, 60, "fused_sync_easgd_update",
+                                killed=1 if sig == "kill" else 0)
+        add_counts(shrink, counts)
+        if sig == "term":
+            evs = {e["kind"]: e for e in res.health["events"]}
+            check("worker_left" in evs
+                  and evs["worker_left"]["detail"] == "preempted"
+                  and res.health["membership"]["members"][1] == "left"
+                  and res.health["epoch"] >= 1,
+                  f"SIGTERM departure {res.health}")
+        print(f"elastic {sig} wid {wid} at iteration 20, numpy MLP p2p P=4 "
+              f"-> 3: " + (f"card == CPU killed at resume round {resume}, "
+                           f"bitwise" if same else
+                           f"epoch-0 draws differ, card {draws[0]} and CPU "
+                           f"{draws[1]}: not compared bitwise")
+              + f" (center, workers, {res.total_iters} iterations; events "
+              f"{events}); final eval "
+              f"{res.final_metric:.4f}; " + "; ".join(lines), flush=True)
+    net = costmodel.Network("tiny-emu", 5e-3, 1e-9)
+    res, sgd, t_spawn = run_with_respawn(
+        runtime, server, kernels, problems.NUMPY_MLP, mlp, runtime.PSConfig(
+            algorithm="sync_sgd", n_workers=4, total_iters=3200,
+            transport="tcp", schedule="ring", sync_plane="p2p",
+            eval_every_iters=10**9, elastic=True, emulate_net=net,
+            telemetry_jsonl=str(PHASE18_DIR / "elastic_sgd.jsonl"),
+            chaos={"wid": 2, "kill_at_iter": 10, "signal": "kill"}),
+        PHASE18_DIR / "elastic_sgd.jsonl", device)
+    logs = res.counters["worker_epochs"]
+    check(sgd == only(sgd, fused_sync_sgd_update=sgd["fused_sync_sgd_update"])
+          and [e["p"] for e in logs[2]] == [4]
+          and [e["p"] for e in logs[0]] == [4, 3, 4]
+          and math.isfinite(res.final_metric)
+          and all(torch.equal(res.workers[i], res.center) for i in range(4)),
+          f"p2p sync_sgd kill and rejoin: {sgd}, {logs}")
+    lines, _ = epoch_report(res, sgd, 800, "fused_sync_sgd_update")
+    rejoined = next(mono for kind, _, mono in res.counters[
+        "membership_marks"] if kind == "worker_rejoined")
+    print(f"elastic sync_sgd numpy MLP p2p P=4 -> 3 -> 4 (paced wire): "
+          f"epoch 2, rejoin in {rejoined - t_spawn:.3f} s with "
+          f"[center|velocity] relayed (every replica ends on the center, "
+          f"bitwise); " + "; ".join(lines), flush=True)
+    master = {k.__name__: 0 for k in kernels.KERNELS}
+    for algo, upd in (("sync_easgd", "fused_sync_easgd_update"),
+                      ("sync_sgd", "fused_sync_sgd_update")):
+        kernels.reset_launch_counts()
+        res = runtime.run_ps(problems.NUMPY_MLP, mlp, runtime.PSConfig(
+            algorithm=algo, n_workers=3, total_iters=120,
+            transport="tcp", schedule="ring", eval_every_iters=10**9,
+            elastic=True,
+            chaos={"wid": 2, "kill_at_iter": 8, "signal": "kill"}),
+            device=device)
+        counts = kernels.launch_counts()
+        recon = [e for e in res.health["events"]
+                 if e["kind"] == "reconfigure"]
+        # the rosters the master served: [P, update launches, rounds]
+        rosters = res.counters["sync_rosters"]
+        want = sum(u * r for _, u, r in rosters)
+        check(len(recon) == 1 and "p=2" in recon[0]["detail"]
+              and res.health["epoch"] == 1 and res.total_iters >= 120
+              and sum(q * r for q, _, r in rosters) == res.total_iters
+              and {q for q, _, _ in rosters} == {2, 3}
+              and counts == only(counts, **{upd: want}),
+              f"master-plane {algo} kill: {res.health['events']}, {counts}, "
+              f"rosters {rosters}")
+        add_counts(master, counts)
+        print(f"elastic master-plane {algo} numpy MLP P=3 -> 2: "
+              f"{recon[0]['detail']}; {res.total_iters} iterations; rosters "
+              f"served [P, launches, rounds] {rosters}; {upd} launches "
+              f"{want} in the master, as the rosters give", flush=True)
+    try:
+        runtime.run_ps(problems.NUMPY_MLP, mlp, runtime.PSConfig(
+            algorithm="sync_easgd", n_workers=2, total_iters=200,
+            transport="tcp", schedule="ring", sync_plane="p2p",
+            eval_every_iters=10**9,
+            chaos={"wid": 1, "kill_at_iter": 10, "signal": "kill"}),
+            device=device)
+    except RuntimeError as exc:
+        check("worker 1" in str(exc), f"elastic off names the worker: {exc}")
+        print(f"elastic off: the kill is fatal, RuntimeError({str(exc)[:120]!r})",
+              flush=True)
+    else:
+        check(False, "a kill with elastic off must fail the run")
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+    for c in (counts_alexnet, shrink, sgd, master):
+        add_counts(totals, c)
+    return totals
+
+
 SOURCES = {"fused_sync_easgd_update": "elastic_update.cu",
            "fused_sync_sgd_update": "elastic_update.cu",
            "flash_attention_fwd": "flash_attention.cu",
@@ -1986,7 +2506,7 @@ def main() -> int:
 
     from repro_torch import configs, kernels
     from repro_torch.comm import rounds as comm_rounds
-    from repro_torch.core import async_engine, elastic
+    from repro_torch.core import async_engine, costmodel, elastic
     from repro_torch.core.easgd import EASGDConfig
     from repro_torch.data import synthetic
     from repro_torch.kernels import _build
@@ -1997,7 +2517,7 @@ def main() -> int:
     from repro_torch.models import common
     from repro_torch.models import transformer as tfm
     from repro_torch.launch import train as launcher
-    from repro_torch.net import wire
+    from repro_torch.net import server, wire
     from repro_torch.ps import problems, runtime, zoo
     from repro_torch.runtime import train
     from repro_torch.utils import timing
@@ -2108,6 +2628,7 @@ def main() -> int:
           flush=True)
 
     # the asynchronous slice (phase 16)
+    release_card(torch, "before phase 16")
     t = time.perf_counter()
     add_counts(launches, phase_async_card_vs_cpu(
         torch, runtime, problems, async_engine, kernels, EASGDConfig))
@@ -2120,13 +2641,16 @@ def main() -> int:
     print(f"phase async: {time.perf_counter() - t:.1f} s", flush=True)
 
     # the tcp slice (phase 17)
+    release_card(torch, "before phase 17")
     t = time.perf_counter()
     add_counts(launches, phase_tcp_bitwise(torch, runtime, problems, kernels,
                                            EASGDConfig))
     print(f"phase 17a: {time.perf_counter() - t:.1f} s", flush=True)
     t17 = time.perf_counter()
+    notes: dict = {}
     add_counts(launches, phase_tcp_alexnet(torch, runtime, zoo, kernels,
-                                           comm_rounds, wire, EASGDConfig))
+                                           comm_rounds, wire, EASGDConfig,
+                                           notes=notes))
     print(f"phase 17b: {time.perf_counter() - t17:.1f} s", flush=True)
     t17 = time.perf_counter()
     add_counts(launches, phase_trace_cost(torch, runtime, zoo, kernels,
@@ -2140,6 +2664,24 @@ def main() -> int:
                                       EASGDConfig))
     print(f"phase 17e: {time.perf_counter() - t17:.1f} s", flush=True)
     print(f"phase tcp (17): {time.perf_counter() - t:.1f} s", flush=True)
+
+    # the live plane and elastic membership (phase 18)
+    release_card(torch, "before phase 18")
+    t = time.perf_counter()
+    add_counts(launches, phase_elastic_bitwise(torch, runtime, problems,
+                                               kernels, costmodel,
+                                               EASGDConfig))
+    print(f"phase 18a: {time.perf_counter() - t:.1f} s", flush=True)
+    t18 = time.perf_counter()
+    add_counts(launches, phase_live(torch, runtime, zoo, problems, kernels,
+                                    costmodel, EASGDConfig, notes))
+    print(f"phase 18b: {time.perf_counter() - t18:.1f} s", flush=True)
+    t18 = time.perf_counter()
+    add_counts(launches, phase_elastic(torch, runtime, zoo, problems,
+                                       kernels, comm_rounds, eu, server,
+                                       costmodel, EASGDConfig))
+    print(f"phase 18c: {time.perf_counter() - t18:.1f} s", flush=True)
+    print(f"phase elastic (18): {time.perf_counter() - t:.1f} s", flush=True)
 
     check("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),

@@ -348,6 +348,21 @@ def peer_pairs(rounds) -> list[tuple[int, int]]:
     return pairs
 
 
+def remap_rounds(rounds, rank_to_wid) -> list:
+    """Relabel a round structure built over dense ranks 0..P′−1 onto real
+    worker ids (``ft.membership.dense_rank_map``): after a membership
+    change the schedules still produce dense indices, but the
+    surviving wids are a sparse subset — {0, 1, 3} after wid 2 dies.
+    MASTER endpoints pass through. Chunk ownership, fractions and op order
+    are untouched, so the remapped structure prices and executes exactly
+    like the dense one."""
+    def _m(i):
+        return MASTER if i == MASTER else rank_to_wid[i]
+
+    return [[dataclasses.replace(m, src=_m(m.src), dst=_m(m.dst))
+             for m in rnd] for rnd in rounds]
+
+
 def rounds_to_wire(rounds) -> list:
     """JSON form of a round structure (the master ships it in WELCOME)."""
     return [[[m.src, m.dst, m.frac, m.chunk, m.chunks, m.op] for m in rnd]

@@ -31,6 +31,14 @@ the p2p mesh is firewall-predictable:
     PYTHONPATH=src python -m repro_torch.launch.cluster --workers 4 \\
         --algorithm sync_easgd --schedule ring --sync-plane p2p \\
         --hosts h1,h2 --port 29500
+
+``--telemetry`` / ``--telemetry-jsonl PATH`` turn the live plane on (the
+run ends with a ``# health: N event(s)`` report; with a pinned --port,
+``python -m repro_torch.launch.monitor --connect`` watches it), and
+``--elastic`` makes a worker's death a RECONFIGURE epoch instead of a dead
+run (with --hosts each worker also gets a respawn one-liner that re-execs
+it from its ``REPRO_CLUSTER_SPEC``). ``--heartbeat-file`` is touched every
+2 s while the master runs.
 """
 from __future__ import annotations
 
@@ -63,7 +71,7 @@ def main(argv=None):
     from repro_torch.core.easgd import EASGDConfig
     from repro_torch.core.easgd_flat import SYNC_FAMILY
     from repro_torch.launch.train import report_trace
-    from repro_torch.net.server import worker_command
+    from repro_torch.net.server import cluster_spec_env, worker_command
     from repro_torch.ps import runtime, zoo
 
     ap = argparse.ArgumentParser(description=__doc__)
@@ -130,6 +138,23 @@ def main(argv=None):
                     help="directory for worker trace spills and the merged "
                          "trace (implies --trace); spills are written on "
                          "the worker's filesystem")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="turn on the live plane (obs.live): per-worker "
+                         "heartbeat time series, the online straggler / "
+                         "health detector, and the STATS frame that "
+                         "`python -m repro_torch.launch.monitor` renders")
+    ap.add_argument("--telemetry-jsonl", default=None, metavar="PATH",
+                    help="stream one JSON line per telemetry sample to "
+                         "PATH (implies --telemetry)")
+    ap.add_argument("--heartbeat-file", default=None, metavar="PATH",
+                    help="touch PATH every ~2 s while the run is alive so "
+                         "an external supervisor can tell a hung master "
+                         "(ft.Watchdog.is_alive PATH)")
+    ap.add_argument("--elastic", action="store_true",
+                    help="elastic membership (ft.membership): a worker "
+                         "death freezes the superstep, the survivors are "
+                         "RECONFIGUREd onto a re-resolved schedule, and a "
+                         "respawned worker rejoins at the next epoch")
     ap.add_argument("--timeout", type=float, default=600.0)
     args = ap.parse_args(argv)
 
@@ -139,6 +164,8 @@ def main(argv=None):
     if args.sync_plane == "p2p" and args.transport != "tcp":
         ap.error("--sync-plane p2p is a tcp feature: the p2p data plane is "
                  "worker↔worker sockets")
+    if args.elastic and args.transport != "tcp":
+        ap.error("--elastic reconfigures real links (tcp only)")
     algos = list(ALGORITHMS) if args.algorithm == "all" else [args.algorithm]
     if args.sync_plane == "p2p":
         bad = [a for a in algos if a not in SYNC_FAMILY]
@@ -160,7 +187,20 @@ def main(argv=None):
         tcp_port=port, spawn_workers=not multi_host,
         sync_plane=args.sync_plane, bucket_bytes=args.bucket_bytes,
         overlap=not args.no_overlap,
-        trace=args.trace or bool(args.trace_dir), trace_dir=args.trace_dir)
+        trace=args.trace or bool(args.trace_dir), trace_dir=args.trace_dir,
+        telemetry=args.telemetry, telemetry_jsonl=args.telemetry_jsonl,
+        elastic=args.elastic)
+    if port and args.transport == "tcp" and (args.telemetry
+                                             or args.telemetry_jsonl):
+        print(f"# telemetry: watch with  PYTHONPATH=src python -m "
+              f"repro_torch.launch.monitor --connect 127.0.0.1:{port} "
+              f"--follow", flush=True)
+    watchdog = None
+    if args.heartbeat_file:
+        from repro_torch.ft.watchdog import Watchdog
+        watchdog = Watchdog(heartbeat_path=args.heartbeat_file,
+                            install_signals=False, interval_s=2.0)
+        watchdog.start_heartbeat()
 
     results = []
     for algo in algos:
@@ -181,6 +221,19 @@ def main(argv=None):
                     peer_port=port + 1 + wid if p2p else None,
                     device=args.device)
                 print(f"#   [{host}] {cmd}")
+                if args.elastic:
+                    # a respawn is a re-exec from the declarative spec,
+                    # not a hand-made command line
+                    mhost, mport = addr.rsplit(":", 1)
+                    spec = cluster_spec_env(
+                        "worker", wid, mhost, int(mport),
+                        sync_plane=args.sync_plane if p2p else None,
+                        peer_port=port + 1 + wid if p2p else None,
+                        device=args.device)
+                    print(f"#   [{host}] respawn: "
+                          f"REPRO_CLUSTER_SPEC={shlex.quote(spec)} "
+                          f"PYTHONPATH=src python -m repro_torch.net.worker "
+                          f"--rejoin")
                 if args.ssh:
                     ssh_procs.append(subprocess.Popen(
                         ["ssh", host, *shlex.split(cmd)]))
@@ -195,9 +248,20 @@ def main(argv=None):
               f"iters={res.total_iters} err={res.final_metric:.3f} "
               f"time={res.total_time_s:.2f}s counters={res.counters} "
               f"launches={kernels.launch_counts()}", flush=True)
+        if res.health is not None:
+            n_ev = len(res.health.get("events", []))
+            flagged = res.health.get("flagged", {})
+            print(f"# health: {n_ev} event(s)"
+                  + (f", flagged={flagged}" if flagged else "")
+                  + (f", jsonl={args.telemetry_jsonl}"
+                     if args.telemetry_jsonl else ""), flush=True)
+            for ev in res.health.get("events", [])[-5:]:
+                print(f"#   {ev}", flush=True)
         if res.trace is not None:
             report_trace(res, algo, args.trace_dir)
         results.append(res)
+    if watchdog is not None:
+        watchdog.close()
     return results
 
 

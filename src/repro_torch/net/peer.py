@@ -35,11 +35,18 @@ buffers are free for the next round and the row is final when
 ``on_bucket`` fires. Receives applied after the sends' snapshot is the
 pre-round-value discipline of ``comm.rounds.execute_rounds``: every
 worker's row ends bitwise equal to the centralized ``mailbox[0]``.
+
+Elastic membership: a dead peer fails the round (``WireError``);
+``reset`` closes every peer link but keeps the listener, so each survivor
+still blocked in the doomed exchange falls out too, and ``connect`` +
+``set_rounds`` rewire the mesh for the next epoch. ``abort`` pulls the
+comm thread out of an exchange from another thread (``MeshAbort``).
 """
 from __future__ import annotations
 
 import select
 import socket
+import threading
 from time import monotonic as _monotonic
 
 import torch
@@ -53,6 +60,12 @@ from repro_torch.obs import trace as _trace
 # the kernel at most this many bytes, so one link cannot monopolize a
 # round's progress loop (a fairness knob; correctness never depends on it)
 SEND_OP_MAX = 256 * 1024
+
+
+class MeshAbort(Exception):
+    """The mesh was asked to abandon the exchange in flight (elastic
+    reconfiguration): not a wire failure — the caller rewires and
+    resumes."""
 
 
 def predicted_link_bytes(rounds, padded_elements: int,
@@ -133,6 +146,9 @@ class PeerMesh:
         self._plans: list = []           # per bucket: [(sends, recvs)]/round
         self._rounds_len = 0
         self._nonblocking = False
+        self._abort = threading.Event()  # elastic: set from another thread
+        #                                  to pull the comm thread out of a
+        #                                  doomed exchange
         self.tracer = None               # obs.trace.Tracer of the comm
         #                                  thread (None = tracing off)
 
@@ -206,7 +222,9 @@ class PeerMesh:
             if int(ack["wid"]) != peer:
                 raise wire.WireError(f"peer {peer} answered as {ack}")
         # counters attach only now: the stats count SEGMENT traffic, not
-        # the handshake (predicted_link_bytes prices the data plane alone)
+        # the handshake (predicted_link_bytes prices the data plane alone).
+        # setdefault: an elastic rewire reuses the cells, so per-peer byte
+        # counts stay cumulative across epochs
         for peer, link in self.links.items():
             link.counters = self.counters.setdefault(
                 peer, {"messages": wire.Slot(), "wire_bytes": wire.Slot()})
@@ -284,6 +302,8 @@ class PeerMesh:
         landed = []                      # (a, b, op, host tensor) post-round
         deadline = _monotonic() + self.timeout_s
         while True:
+            if self._abort.is_set():
+                raise MeshAbort(f"exchange aborted at round {seq}")
             rl = [s for s, io in by_sock.items() if io.recv_q]
             wl = [s for s, io in by_sock.items() if io.send_q]
             if not rl and not wl:
@@ -435,6 +455,28 @@ class PeerMesh:
                                else {})}
                 for peer, c in sorted(self.counters.items())},
         }
+
+    def abort(self) -> None:
+        """Ask the comm thread to abandon the exchange in flight: the next
+        pass of ``_run_round``'s loop (at most 1 s away, the select
+        timeout) raises :class:`MeshAbort`. Idempotent; ``reset`` clears
+        it."""
+        self._abort.set()
+
+    def reset(self) -> None:
+        """Tear down every peer link but keep the listener — the elastic
+        rewire: an abandoned exchange leaves partial frames in flight, so
+        reused sockets would desync the framing; fresh links (and fresh EF
+        state, which lives on the Link) are the only safe restart point.
+        ``connect`` + ``set_rounds`` rebuild the mesh, and its staging
+        buffers, for the new epoch."""
+        for link in self.links.values():
+            link.close()
+        self.links.clear()       # counters stay: cumulative across epochs
+        self._plans = []
+        self._rounds_len = 0
+        self._nonblocking = False
+        self._abort.clear()
 
     def close(self) -> None:
         for link in self.links.values():

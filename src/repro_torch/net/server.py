@@ -30,7 +30,23 @@ device before it sends that worker anything again, so the buffer is never
 overwritten early.
 
 Wire emulation (``PSConfig.emulate_net``) composes with the real socket:
-deadlines are taken before a transfer and slept to after it.
+deadlines are taken before a transfer and slept to after it;
+``PSConfig.link_slow`` stretches one worker's deadlines (a controlled
+straggler on the clock, never on the math).
+
+The live plane (``PSConfig.telemetry``, ``obs.live``): every
+telemetry-bearing HEARTBEAT feeds a ``LiveMonitor`` through
+``Link.hb_hook``, a sampler thread adds per-link heartbeat age and the
+aggregate gauges (wid −1) and runs the health detector, and a control
+acceptor answers STATS requests on the rendezvous listener until shutdown.
+
+Elastic membership (``PSConfig.elastic``, ``ft.membership``): a worker's
+death or clean preemption becomes a ``member_lost`` event instead of a
+RuntimeError. The master plane drops the worker from its roster (the sync
+pair rebuilds its rounds, padding and device mailbox for the new P); the
+p2p plane runs a two-phase RECONFIGURE (``_reconfigure_p2p``) onto the
+survivors, and a respawned worker's HELLO on the listener rejoins it at
+the next epoch (``_admit_rejoin``). Every transition is a health event.
 
 Worker processes run ``python -m repro_torch.net.worker`` on the run's
 device; their kernel launch counts come home in BYE and are added to this
@@ -56,10 +72,13 @@ from repro_torch.comm import schedules as comm_schedules
 from repro_torch.comm.rounds import execute_rounds
 from repro_torch.core import easgd_flat
 from repro_torch.core.compression import sign_ef_wire_nbytes
+from repro_torch.ft import chaos as ft_chaos
+from repro_torch.ft import membership as ft_membership
 from repro_torch.kernels.elastic_update import (fused_sync_easgd_update,
                                                 fused_sync_sgd_update)
 from repro_torch.net import wire
 from repro_torch.net.wire import HostRow, Link, sleep_until
+from repro_torch.obs import live as obs_live
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import report as obs_report
 from repro_torch.obs import trace as obs_trace
@@ -90,12 +109,15 @@ def worker_env() -> dict:
 def cluster_spec_env(role: str, wid: int, host: str, port: int,
                      token: str = DEFAULT_TOKEN,
                      sync_plane: str | None = None,
-                     peer_port: int | None = None) -> str:
+                     peer_port: int | None = None, device=None) -> str:
     """The ``REPRO_CLUSTER_SPEC`` JSON that names one worker's run: the
     worker CLI fills any connection detail its command line leaves out
-    from it."""
+    from it, so a respawn is ``python -m repro_torch.net.worker --rejoin``
+    with this variable set."""
     spec = {"role": role, "wid": wid, "host": host, "port": int(port),
             "token": token}
+    if device is not None:
+        spec["device"] = str(device)
     if sync_plane is not None:
         spec["sync_plane"] = sync_plane
     if peer_port is not None:
@@ -104,26 +126,139 @@ def cluster_spec_env(role: str, wid: int, host: str, port: int,
 
 
 def spawn_local_workers(host: str, port: int, n_workers: int, device,
-                        token: str = DEFAULT_TOKEN) -> list:
+                        token: str = DEFAULT_TOKEN,
+                        env_extra: dict | None = None) -> list:
     """Start ``n_workers`` localhost worker interpreters on ``device``.
     Unless the environment says otherwise, each gets an equal share of the
     host's cores for its CPU thread pools (``OMP_NUM_THREADS``, as
     ``torchrun`` does): P interpreters each spinning a pool the size of the
-    host oversubscribe it many times over."""
+    host oversubscribe it many times over. Each child also gets the
+    ``REPRO_CLUSTER_SPEC`` of its own role, so a respawn is a re-exec;
+    ``env_extra`` carries run-scoped injections (``REPRO_CHAOS``)."""
     base = worker_env()
     base.setdefault("OMP_NUM_THREADS",
                     str(max(1, (os.cpu_count() or 1) // (n_workers + 1))))
+    if env_extra:
+        base.update(env_extra)
     procs = []
     for i in range(n_workers):
         env = dict(base)
         env["REPRO_CLUSTER_SPEC"] = cluster_spec_env("worker", i, host, port,
-                                                     token)
+                                                     token, device=device)
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "repro_torch.net.worker",
              "--connect", f"{host}:{port}", "--wid", str(i),
              "--token", token, "--device", str(device)],
             env=env))
     return procs
+
+
+_STANDBY = ("import os, sys\n"
+            "from repro_torch.net import worker\n"
+            "spec = sys.stdin.readline()\n"
+            "if spec.strip():\n"
+            "    os.environ['REPRO_CLUSTER_SPEC'] = spec\n"
+            "    worker.main(['--rejoin'])\n")
+
+
+class Respawner:
+    """Respawn worker ``wid`` of a running elastic tcp master — ``python -m
+    repro_torch.net.worker --rejoin`` with its ``REPRO_CLUSTER_SPEC`` — when
+    an event of ``kind`` reaches the run's telemetry JSONL stream. The
+    stream's header names the master's listener (``meta["addr"]``), so the
+    master may bind port 0.
+
+    ``standby=True`` starts the interpreter at once and hands it the spec
+    on stdin when the event lands: a hot spare whose imports are done
+    before the fault, so its rejoin does not wait for ``import torch``.
+    Use it as a context manager around the run; ``spawned`` holds
+    (monotonic time the worker was released, Popen), and ``finish``
+    collects the respawn's exit code and output."""
+
+    def __init__(self, jsonl, wid: int, device, kind: str = "reconfigure",
+                 timeout_s: float = 600.0, standby: bool = False,
+                 n_workers: int = 4):
+        self.jsonl, self.wid, self.device = str(jsonl), wid, device
+        self.kind, self.timeout_s = kind, timeout_s
+        self.spawned: list = []
+        self._stop = threading.Event()
+        self._env = worker_env()
+        self._env.setdefault("OMP_NUM_THREADS",
+                             str(max(1, (os.cpu_count() or 1)
+                                     // (n_workers + 1))))
+        self._spare = (subprocess.Popen(
+            [sys.executable, "-c", _STANDBY], env=self._env,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) if standby else None)
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+        if self._spare is not None and not self.spawned:
+            self._spare.kill()           # never released: no rejoin wanted
+            self._spare.communicate()
+        return False
+
+    def _scan(self):
+        """(master address or None, whether the event has landed)."""
+        try:
+            with open(self.jsonl) as f:
+                lines = f.read().splitlines()
+        except OSError:
+            return None, False
+        addr, seen = None, False
+        for line in lines:
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue                 # a line still being written
+            if "meta" in rec:
+                addr = rec["meta"].get("addr")
+            seen |= any(e.get("kind") == self.kind
+                        for e in rec.get("events", ()))
+        return addr, seen
+
+    def _watch(self) -> None:
+        deadline = time.monotonic() + self.timeout_s
+        while not self._stop.is_set() and time.monotonic() < deadline:
+            addr, seen = self._scan()
+            if seen and addr:
+                host, port = addr.rsplit(":", 1)
+                spec = cluster_spec_env("worker", self.wid, host, int(port),
+                                        device=self.device)
+                if self._spare is not None:
+                    self._spare.stdin.write(spec + "\n")
+                    self._spare.stdin.close()
+                    self._spare.stdin = None     # communicate() skips it
+                    proc = self._spare
+                else:
+                    env = dict(self._env, REPRO_CLUSTER_SPEC=spec)
+                    proc = subprocess.Popen(
+                        [sys.executable, "-m", "repro_torch.net.worker",
+                         "--rejoin"], env=env, stdout=subprocess.PIPE,
+                        stderr=subprocess.STDOUT, text=True)
+                self.spawned.append((time.monotonic(), proc))
+                return
+            time.sleep(0.02)
+
+    def finish(self, timeout_s: float = 60.0) -> tuple:
+        """(exit code, output) of the respawn; (None, "") if the event
+        never came. A respawn still running after ``timeout_s`` is
+        killed."""
+        if not self.spawned:
+            return None, ""
+        proc = self.spawned[0][1]
+        try:
+            out, _ = proc.communicate(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        return proc.returncode, out
 
 
 def worker_command(addr: str, wid: int, token: str = DEFAULT_TOKEN,
@@ -188,11 +323,13 @@ class MasterServer:
                 f"endpoint — it is the master plane; pick a peer schedule "
                 f"(ring/tree/butterfly/hierarchical) for sync_plane='p2p'")
         self.padded = padded = n + (-n) % P
+        # layer sizes outlive the build: an elastic reconfiguration
+        # re-derives the bucket boundaries for the new padded size
+        self._layer_sizes = getattr(grad_fn, "layer_sizes", None)
         self.boundaries = None
         if cfg.bucket_bytes > 0 and cfg.algorithm in SYNC:
             self.boundaries = comm_rounds.default_bucket_boundaries(
-                getattr(grad_fn, "layer_sizes", None), padded,
-                cfg.bucket_bytes)
+                self._layer_sizes, padded, cfg.bucket_bytes)
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=torch.float64, device=dev)
@@ -222,7 +359,9 @@ class MasterServer:
         self.peer_addrs: dict[int, list] = {}
         self.bye_stats: dict[int, dict] = {}
         self.events: queue.Queue = queue.Queue()
-        # host staging, one buffer per link and direction
+        # host staging, one buffer per wid and direction: n elements each
+        # (never the padded row), so a reconfiguration that changes P and
+        # the padding leaves them valid — a rejoiner reuses its wid's
         self.up_host = [HostRow(self._up_elems(), dev) for _ in range(P)]
         self.wstate_host = [HostRow(n, dev) for _ in range(P)]
         self.down_host = ([HostRow(self._down_elems(), dev)
@@ -236,7 +375,31 @@ class MasterServer:
         self._procs: list = []
         self._spawned_at = time.monotonic()
         self.ready_s: dict[int, float] = {}  # spawn → READY, per worker
-        self._draining = False           # True once DONE went out
+        self._draining = False           # True once DONE went out: BYE is
+        #                                  then the expected shutdown frame,
+        #                                  not a mid-run departure
+        self.live = None                 # obs.live.LiveMonitor (telemetry)
+        # -- elastic membership (ft.membership) ----------------------------
+        self.elastic = bool(cfg.elastic)
+        self.membership = (ft_membership.MembershipTable(P)
+                           if self.elastic else None)
+        self._serving = False            # losses are absorbed only once the
+        #                                  disciplines run — a rendezvous
+        #                                  death still raises
+        self._elastic_events: list = []  # lifecycle record (telemetry off
+        #                                  too: PSResult.health names them)
+        self._marks: list = []           # [kind, wid, time.monotonic()] of
+        #                                  every lifecycle event: the
+        #                                  recovery and rejoin clocks
+        self._proc_reported: set = set()
+        self._epoch_round_base = 0       # p2p iteration accounting across
+        self._epoch_iters_base = 0       # epochs: iters(k) = base_iters +
+        self._epoch_p = P                # (k − base_round) · P_epoch · τ
+        self._epoch_members: set = set()
+        self._pending_rejoin: list = []
+        self._rosters: dict = {}         # master-plane sync rounds served:
+        #                                  (P, update launches) → rounds
+        self._addr = ""                  # the listener, "host:port"
 
     # -- payload shapes ------------------------------------------------------
 
@@ -272,13 +435,17 @@ class MasterServer:
 
     # -- pacing --------------------------------------------------------------
 
-    def _t_msg_pair(self) -> tuple:
+    def _t_msg_pair(self, wid: int | None = None) -> tuple:
         """(t_down, t_up) emulated per-message times of the post-codec
-        payloads."""
+        payloads. ``wid`` applies that worker's ``PSConfig.link_slow``
+        stretch: a controlled straggler on the pacing plane only
+        (admission order and math are untouched — the detector must find
+        it, not the iterates)."""
         codec = self.cfg.wire_compression
-        return (self.cfg.t_msg_emulated(
+        slow = self.cfg.link_slow_factor(wid) if wid is not None else 1.0
+        return (slow * self.cfg.t_msg_emulated(
                     wire_payload_nbytes(self._down_elems(), codec)),
-                self.cfg.t_msg_emulated(
+                slow * self.cfg.t_msg_emulated(
                     wire_payload_nbytes(self._up_elems(), codec)))
 
     def _n_sync_rounds(self) -> int:
@@ -313,7 +480,11 @@ class MasterServer:
 
     # -- lifecycle -----------------------------------------------------------
 
-    def _welcome_payload(self, wid: int) -> dict:
+    def _welcome_payload(self, wid: int, rejoin: bool = False) -> dict:
+        """One worker's WELCOME: the problem spec and algorithm, plus the
+        p2p geometry on that plane. A rejoin WELCOME names the current
+        epoch's geometry, but the worker joins the mesh only at the
+        RECONFIGURE that folds it in."""
         cfg, e = self.cfg, self.easgd
         welcome = {
             "wid": wid,
@@ -330,20 +501,28 @@ class MasterServer:
             "trace_dir": cfg.trace_dir,
         }
         if self.sync_p2p:
+            # a link_slow worker paces its exchange deadlines slower: the
+            # mesh is lockstep, so its lag shows in every worker's clock,
+            # but its own heartbeat telemetry is what names it
+            slow = cfg.link_slow_factor(wid)
             welcome.update({
                 "sync_plane": "p2p",
-                "p": cfg.n_workers,
+                "p": len(self.links) if rejoin else cfg.n_workers,
                 "padded": self.padded,
                 "rounds": comm_rounds.rounds_to_wire(self.rounds),
                 "n_rounds": self._n_sync_rounds(),
                 "eval_rounds": self._eval_rounds(),
-                "t_wire_s": self._t_sync_wire(),
+                "t_wire_s": slow * self._t_sync_wire(),
                 "peers": {str(w): a for w, a in self.peer_addrs.items()},
                 "bucket_bounds": self.boundaries,
                 "overlap": cfg.overlap,
-                "t_wire_bucket_s": (self._t_sync_wire_buckets()
+                "t_wire_bucket_s": ([slow * t for t in
+                                     self._t_sync_wire_buckets()]
                                     if self.boundaries else []),
+                "elastic": self.elastic,
             })
+        if rejoin:
+            welcome["rejoin"] = True
         return welcome
 
     def rendezvous(self, listener: socket.socket, token: str) -> None:
@@ -411,6 +590,8 @@ class MasterServer:
                     f"worker {wid} failed during rendezvous: {kind} {detail}")
             ready.add(wid)
             self.ready_s[wid] = round(time.monotonic() - self._spawned_at, 3)
+            if self.membership is not None:
+                self.membership.mark_ready(wid)
 
     def _reader(self, wid: int, link: Link) -> None:
         """Per-link reader: frames into the worker's host buffers, then an
@@ -427,11 +608,16 @@ class MasterServer:
                     self.events.put((wid, "wstate", None))
                 elif frame.ftype == wire.CENTER:
                     # the header's wid field carries the report tag (eval
-                    # round ≥ 0, −1 final); a fresh array keeps a slow eval
-                    # from racing the next report
+                    # round ≥ 0, −1 final, −2 a reconfiguration's state
+                    # upload); a fresh array keeps a slow eval from racing
+                    # the next report
                     self.events.put((wid, "center",
                                      (frame.wid,
                                       link.recv_array(frame).copy())))
+                elif frame.ftype == wire.RECONFIGURE:
+                    # a member acking phase 1 with its completed rounds
+                    self.events.put((wid, "reconf_ack",
+                                     link.recv_json(frame)))
                 elif frame.ftype == wire.READY:
                     link.recv_discard(frame)
                     self.events.put((wid, "ready", None))
@@ -459,27 +645,76 @@ class MasterServer:
                 self.events.put((wid, "dead", repr(exc)))
 
     def _check_procs(self) -> None:
-        for proc in self._procs:
+        for i, proc in enumerate(self._procs):
             rc = proc.poll()
-            if rc not in (None, 0):
-                raise RuntimeError(
-                    f"tcp worker process exited with code {rc} "
-                    f"(algorithm={self.cfg.algorithm})")
+            if rc in (None, 0):
+                continue
+            if self.elastic and self._serving:
+                # under elastic membership a nonzero exit is a membership
+                # signal: surfaced once as a dead event (the reader's
+                # socket-drop event usually comes first)
+                if (not self.membership.is_lost(i)
+                        and i not in self._proc_reported):
+                    self._proc_reported.add(i)
+                    self.events.put((i, "dead", f"process exited {rc}"))
+                continue
+            raise RuntimeError(
+                f"tcp worker {i} process exited with code {rc} "
+                f"(algorithm={self.cfg.algorithm})")
+
+    def _mark_event(self, wid: int, kind: str, detail: str = "") -> None:
+        """One lifecycle record: through the LiveMonitor when telemetry is
+        on (events, JSONL, health counters), into the local log always —
+        PSResult.health names every death and recovery on a bare run
+        too."""
+        if self.live is not None:
+            ev = self.live.mark_worker_event(wid, kind, detail)
+        else:
+            ev = {"t": round(time.perf_counter()
+                             - (self._t0 or time.perf_counter()), 3),
+                  "kind": kind, "wid": wid,
+                  **({"detail": detail} if detail else {})}
+        self._elastic_events.append(ev)
+        self._marks.append([kind, wid, time.monotonic()])
+
+    def _member_lost(self, wid: int, kind: str, detail):
+        """Elastic conversion of a failure into a membership transition:
+        close the link, record the change, hand the serve loop a
+        ``member_lost`` event instead of raising."""
+        left = kind == "bye"                       # clean preemption BYE
+        if left:
+            self.membership.mark_left(wid, "clean BYE mid-run")
+        else:
+            self.membership.mark_dead(wid, str(detail))
+        link = self.links.pop(wid, None)
+        if link is not None:
+            link.hb_hook = None
+            link.close()
+        self._mark_event(wid, "worker_left" if left else "worker_dead",
+                         str(detail or ""))
+        return wid, "member_lost", str(detail or "")
 
     def _next_event(self, timeout: float):
         """Pop one event; worker failures and heartbeat silence raise
-        instead of hanging the launcher."""
+        instead of hanging the launcher — unless elastic membership is on
+        and the disciplines run, when a loss becomes a ``member_lost``
+        event the serve loop absorbs."""
         deadline = time.monotonic() + max(timeout, 0.0)
+        absorb = self.elastic and self._serving
         while True:
             self._check_procs()
             if self.links:
                 worst = max(time.monotonic() - l.last_seen
-                            for l in self.links.values())
+                            for l in list(self.links.values()))
                 cell = self.counters.gauge("hb_staleness_max_s")
                 cell.value = max(cell.value, round(worst, 3))
-            stale = [w for w, l in self.links.items()
+            stale = [w for w, l in list(self.links.items())
                      if time.monotonic() - l.last_seen > self.cfg.hb_timeout_s]
             if stale:
+                if absorb:
+                    return self._member_lost(
+                        stale[0], "dead",
+                        f"silent for more than {self.cfg.hb_timeout_s}s")
                 raise RuntimeError(
                     f"worker(s) {stale} silent for more than "
                     f"{self.cfg.hb_timeout_s}s (heartbeats stopped)")
@@ -492,10 +727,25 @@ class MasterServer:
                         f"(algorithm={self.cfg.algorithm})") from None
                 continue
             if kind in ("error", "dead"):
+                if absorb and wid in self.links:
+                    return self._member_lost(wid, kind, detail)
+                if absorb:
+                    continue             # a second signal of a known loss
+                if self.live is not None:
+                    self.live.mark_worker_event(wid, "worker_dead",
+                                                str(detail))
                 raise RuntimeError(f"worker {wid} failed: {detail}")
             if kind == "bye" and not self._draining:
+                # a clean mid-run departure (SIGTERM → BYE, not a dead
+                # socket): its flush already landed in bye_stats
+                if absorb:
+                    return self._member_lost(wid, "bye", "preempted")
+                if self.live is not None:
+                    self.live.mark_worker_event(wid, "worker_left",
+                                                "clean BYE mid-run")
                 raise RuntimeError(
-                    f"worker {wid} left the run (clean BYE mid-run)")
+                    f"worker {wid} left the run (clean BYE mid-run — "
+                    f"preempted?)")
             return wid, kind, detail
 
     def _await(self, kind: str, need: set, ignore: tuple = ()) -> None:
@@ -506,11 +756,130 @@ class MasterServer:
             wid, got, _ = self._next_event(self.timeout)
             if got in ignore:
                 continue
+            if got == "member_lost":     # elastic: the lost worker owes
+                pending.discard(wid)     # nothing any more
+                continue
             if got != kind:
                 raise RuntimeError(
                     f"protocol violation: expected {kind} from {pending}, "
                     f"got {got} from worker {wid}")
             pending.discard(wid)
+
+    # -- live telemetry plane (obs.live) -------------------------------------
+
+    def _start_live(self) -> None:
+        """Telemetry on: build the LiveMonitor, point every link's
+        heartbeat hook at its store and start the sampler thread.
+        Telemetry off (the default) never reaches here: no store, no
+        threads, no timestamps."""
+        cfg = self.cfg
+        self.counters.counter("health_events")
+        self.live = obs_live.LiveMonitor(
+            cfg.n_workers, deadline_factor=cfg.straggler_factor,
+            hb_interval_s=cfg.hb_interval_s,
+            jsonl_path=cfg.telemetry_jsonl,
+            counters=self.counters,
+            meta={"algorithm": cfg.algorithm, "transport": "tcp",
+                  "device": str(self.device), "addr": self._addr,
+                  "schedule": self.sched_name
+                  + ("+p2p" if self.sync_p2p else "")})
+        for wid, link in self.links.items():
+            link.hb_hook = (lambda payload, w=wid:
+                            self.live.ingest_hb(w, payload))
+        th = threading.Thread(target=self._live_sampler, daemon=True)
+        th.start()
+        self._threads.append(th)
+
+    def _live_sampler(self) -> None:
+        """Periodic master-side pass: per-link heartbeat age and ef_ratio
+        into the store, the aggregate gauges under wid −1, one detector
+        pass. Links are read from a snapshot of the dict each pass —
+        membership changes it concurrently. Every value is a plain
+        number: no tensor is read here."""
+        period = self.cfg.telemetry_period_s()
+        while not self._closing.wait(period):
+            now = time.monotonic()
+            links = list(self.links.items())
+            staleness = {w: round(now - link.last_seen, 3)
+                         for w, link in links}
+            for w, link in links:
+                ratio = link.ef_ratio()
+                if ratio is not None:
+                    self.live.ingest_hb(w, {"ef_ratio": round(ratio, 2)})
+            gauges = {k: v for k, v in self.counters.snapshot().items()
+                      if isinstance(v, (int, float))}
+            gauges["iters"] = self.iters
+            self.live.sample(staleness=staleness, gauges=gauges)
+
+    def _start_acceptor(self, listener: socket.socket, token: str) -> None:
+        th = threading.Thread(target=self._control_acceptor,
+                              args=(listener, token), daemon=True)
+        th.start()
+        self._threads.append(th)
+
+    def _control_acceptor(self, listener: socket.socket, token: str) -> None:
+        """Connections on the rendezvous listener after rendezvous: STATS
+        requests from monitors (one request a connection) and, under
+        elastic membership, HELLOs of respawned workers (handed to the
+        serve loop as a ``rejoin_hello`` event: admission happens there,
+        on the thread that owns the run state). It owns the listener from
+        rendezvous to shutdown; ``run`` closes the listener, which ends
+        this loop without a join."""
+        while not self._closing.is_set():
+            try:
+                conn, _ = listener.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return                   # listener closed at shutdown
+            client = None
+            keep = False
+            try:
+                conn.settimeout(10.0)
+                client = Link(conn, codec=self.cfg.wire_compression,
+                              counters=self.link_counters)
+                frame = client.recv_header()
+                if frame.ftype == wire.STATS and self.live is not None:
+                    req = client.recv_json(frame)
+                    if req.get("token") != token:
+                        client.send_json(wire.ERROR, {"msg": "bad token"})
+                        continue
+                    client.send_json(
+                        wire.STATS,
+                        self.live.snapshot(int(req.get("k", 32))))
+                    continue
+                if frame.ftype == wire.HELLO and self.elastic:
+                    hello = client.recv_json(frame)
+                    wid = int(hello.get("wid", -1))
+                    if hello.get("token") != token:
+                        client.send_json(wire.ERROR, {"msg": "bad token"})
+                        continue
+                    if not (0 <= wid < self.cfg.n_workers):
+                        client.send_json(wire.ERROR,
+                                         {"msg": f"bad wid {wid}"})
+                        continue
+                    if wid in self.links or not self.membership.is_lost(wid):
+                        client.send_json(wire.ERROR, {
+                            "msg": f"wid {wid} is not rejoinable "
+                                   f"(state {self.membership.state(wid)})"})
+                        continue
+                    if not self.sync_p2p:
+                        client.send_json(wire.ERROR, {
+                            "msg": "rejoin is a p2p sync-plane feature"})
+                        continue
+                    conn.settimeout(self.timeout)
+                    keep = True
+                    self.events.put((wid, "rejoin_hello",
+                                     {"link": client,
+                                      "peer": hello.get("peer")}))
+            except (socket.timeout, wire.WireError, OSError, ValueError):
+                pass
+            finally:
+                if not keep:
+                    if client is not None:
+                        client.close()
+                    else:
+                        conn.close()
 
     # -- eval ----------------------------------------------------------------
 
@@ -526,18 +895,27 @@ class MasterServer:
     # -- disciplines ---------------------------------------------------------
 
     def _send_weights(self, wid: int) -> int:
+        link = self.links.get(wid)
+        if link is None:                 # elastic: lost since it was chosen
+            return 0
         down = self.down_host[wid]
-        if self._down_stacked:
-            return self.links[wid].send_array(
-                wire.WEIGHTS, down.put(self.workers_w[wid],
-                                       self.workers_v[wid]),
-                wid=wid, segments=2)
-        return self.links[wid].send_array(
-            wire.WEIGHTS, down.put(self.workers_w[wid]), wid=wid)
+        try:
+            if self._down_stacked:
+                return link.send_array(
+                    wire.WEIGHTS, down.put(self.workers_w[wid],
+                                           self.workers_v[wid]),
+                    wid=wid, segments=2)
+            return link.send_array(
+                wire.WEIGHTS, down.put(self.workers_w[wid]), wid=wid)
+        except (wire.WireError, OSError):
+            if self.elastic and self._serving:
+                return 0                 # its reader surfaces the loss
+            raise
 
     def serve(self) -> None:
         algo = self.cfg.algorithm
         self._t0 = time.perf_counter()
+        self._serving = True             # elastic: losses are now absorbed
         if self.sync_p2p:
             self._serve_sync_p2p()
         elif algo in SYNC:
@@ -553,24 +931,33 @@ class MasterServer:
 
     def _serve_original(self) -> None:
         """Round robin with compute in the turn: WEIGHTS go out only when
-        the turn arrives, so the wire serializes the whole pipeline."""
+        the turn arrives, so the wire serializes the whole pipeline.
+        Elastic: the rotation runs over the live roster each turn — a lost
+        worker drops out of the cycle and its turn is served again."""
         e, cfg = self.easgd, self.cfg
-        P = cfg.n_workers
         n_turns = -(-cfg.total_iters // self.tau)
-        t_down, t_up = self._t_msg_pair()
-        for turn in range(n_turns):
-            j = turn % P
+        turn = served = 0
+        while served < n_turns:
+            roster = sorted(self.links)
+            if not roster:
+                raise RuntimeError("elastic: every worker was lost")
+            j = roster[turn % len(roster)]
+            turn += 1
+            t_down, t_up = self._t_msg_pair(j)
             deadline = time.monotonic() + t_down
             self._send_weights(j)
             if t_down:
                 sleep_until(deadline)            # W̄ down
             self._await("grad", {j})
+            if j not in self.links:              # lost while awaited
+                continue
             grad = self._absorb_upload(j)
             deadline = time.monotonic() + t_up
             easgd_flat.master_absorb_round_robin(
                 self.center, self.workers_w[j], self.workers_v[j], grad, e)
             if t_up:
                 sleep_until(deadline)            # W⁽ʲ⁾ up
+            served += 1
             self.iters += self.tau
             self._maybe_eval()
 
@@ -582,10 +969,10 @@ class MasterServer:
         ready = [False] * cfg.n_workers
         for wid in self.links:
             self._send_weights(wid)
-        t_pair = sum(self._t_msg_pair())
         turn = 0
         while self.iters < cfg.total_iters:
             j = turn % cfg.n_workers
+            t_pair = sum(self._t_msg_pair(j))
             while not ready[j]:
                 wid, kind, _ = self._next_event(self.timeout)
                 if kind != "grad":
@@ -607,16 +994,21 @@ class MasterServer:
 
     def _serve_fcfs(self) -> None:
         """Async family: absorb in arrival order; the one master wire
-        serializes both messages of each exchange."""
+        serializes both messages of each exchange. Elastic: a lost
+        worker's quota is absorbed by the others' arrivals."""
         e, cfg = self.easgd, self.cfg
         wire_free_at = 0.0
-        t_pair = sum(self._t_msg_pair())
         for wid in self.links:
             self._send_weights(wid)
         while self.iters < cfg.total_iters:
             j, kind, _ = self._next_event(self.timeout)
+            if kind == "member_lost":
+                if not self.links:
+                    raise RuntimeError("elastic: every worker was lost")
+                continue
             if kind != "grad":
                 raise RuntimeError(f"expected a grad, got {kind}")
+            t_pair = sum(self._t_msg_pair(j))
             deadline = None
             if t_pair:
                 start = max(time.monotonic(), wire_free_at)
@@ -639,7 +1031,7 @@ class MasterServer:
         deadline. Per-worker quotas as on the thread transport."""
         e, cfg = self.easgd, self.cfg
         P, total = cfg.n_workers, cfg.total_iters
-        t_pair = sum(self._t_msg_pair())
+        t_pairs = [sum(self._t_msg_pair(w)) for w in range(P)]
         quota = [(total // P + (1 if w < total % P else 0)) for w in range(P)]
         target = [-(-q // self.tau) for q in quota]   # exchanges per worker
         done = [0] * P
@@ -647,6 +1039,9 @@ class MasterServer:
         stop = threading.Event()
 
         def _delayed_sender():
+            # a deadline heap, not FIFO: with per-link pacing (link_slow) a
+            # slow worker's long reservation must not hold back the fast
+            # workers' short ones
             pend: list = []
             while not stop.is_set():
                 timeout = (max(0.0, min(pend[0][0] - time.monotonic(), 0.2))
@@ -662,15 +1057,25 @@ class MasterServer:
 
         sender = threading.Thread(target=_delayed_sender, daemon=True)
         sender.start()
+        lost_any = False
         try:
             for wid in self.links:
                 self._send_weights(wid)
             while any(d < t for d, t in zip(done, target)):
                 j, kind, _ = self._next_event(self.timeout)
+                if kind == "member_lost":
+                    # elastic: forgive the lost worker's remaining quota —
+                    # hogwild has no barrier to rebalance; the run ends
+                    # those iterations short
+                    target[j] = done[j]
+                    lost_any = True
+                    if not self.links:
+                        raise RuntimeError("elastic: every worker was lost")
+                    continue
                 if kind != "grad":
                     raise RuntimeError(f"expected a grad, got {kind}")
                 grad = self._absorb_upload(j)
-                deadline = time.monotonic() + t_pair
+                deadline = time.monotonic() + t_pairs[j]
                 easgd_flat.master_absorb(
                     cfg.algorithm, self.center, self.master_vel,
                     self.workers_w[j], self.workers_v[j], grad, e)
@@ -678,25 +1083,61 @@ class MasterServer:
                 self.iters += self.tau
                 self._maybe_eval()
                 if done[j] < target[j]:
-                    if t_pair:
+                    if t_pairs[j]:
                         replies.put((deadline, j))
                     else:
                         self._send_weights(j)
         finally:
             stop.set()
             sender.join(timeout=5)
-        self.iters = total                            # quota-exact
+        if not lost_any:
+            self.iters = total                        # quota-exact
+
+    def _rebuild_sync_plan(self, p: int) -> None:
+        """Elastic membership shrank the master plane's sync family to
+        ``p`` workers: re-resolve dense rounds, padding, bucket boundaries
+        and the device mailbox, ``(p + 1, padded)``, for P′ — the
+        participation mask realized as geometry. The workers are
+        request-reply clients here, so nothing ships to them."""
+        self.rounds = comm_schedules.get(self.sched_name).rounds(
+            p, self.n * 8, self.cfg.net)
+        self.padded = self.n + (-self.n) % max(p, 1)
+        if self.cfg.bucket_bytes > 0:
+            self.boundaries = comm_rounds.default_bucket_boundaries(
+                self._layer_sizes, self.padded, self.cfg.bucket_bytes)
+        self.mailbox = torch.zeros((p + 1, self.padded), dtype=torch.float64,
+                                   device=self.device)
+        epoch = self.membership.advance_epoch()
+        self.counters.gauge("epoch").value = epoch
+        if self.live is not None:
+            self.live.set_membership(sorted(self.links))
+        self._mark_event(-1, "reconfigure",
+                         f"epoch {epoch}: p={p} "
+                         f"survivors={sorted(self.links)} (centralized)")
 
     def _serve_sync(self) -> None:
         """Barriered rounds over links. Sync EASGD's all-reduce runs on the
         master's mailbox while the workers compute their gradients (the
-        §6.1.3 overlap); Sync SGD's must wait for the gradients."""
+        §6.1.3 overlap); Sync SGD's must wait for the gradients.
+
+        Elastic: each round runs over the live roster — on a loss the
+        surviving rows are packed densely, the plan rebuilt for P′ and the
+        mean taken over P′. A worker lost after its state entered the
+        mailbox still counts in that one exchange (its own update is
+        skipped); it is out of the roster from the next round on."""
         e, cfg = self.easgd, self.cfg
-        algo, n, P = cfg.algorithm, self.n, cfg.n_workers
-        t_wire = self._t_sync_wire()
+        algo, n = cfg.algorithm, self.n
+        plan_p = cfg.n_workers
+        # the centralized exchange is one barriered pipeline: a slow link
+        # slows the whole round, so link_slow stretches the shared pacing
+        # by the worst factor
+        t_factor = max(cfg.link_slow) if cfg.link_slow else 1.0
+        t_wire = self._t_sync_wire() * t_factor
         tr = self.tracer
-        roster = range(P)
         while self.iters < cfg.total_iters:
+            roster = sorted(self.links)
+            if not roster:
+                raise RuntimeError("elastic: every worker was lost")
             for wid in roster:
                 self._send_weights(wid)
             if algo == "sync_easgd":
@@ -706,9 +1147,13 @@ class MasterServer:
                     # the exchange gradient; a fast worker's GRAD may
                     # arrive before a slow one's WSTATE
                     got_w: set = set()
-                    while len(got_w) < P:
+                    need = set(roster)
+                    while not need <= got_w:
                         wid, kind, _ = self._next_event(self.timeout)
-                        if kind == "wstate":
+                        if kind == "member_lost":
+                            need.discard(wid)
+                            got_grad.discard(wid)
+                        elif kind == "wstate":
                             self.wstate_host[wid].get(self.workers_w[wid])
                             got_w.add(wid)
                         elif kind == "grad":
@@ -716,7 +1161,18 @@ class MasterServer:
                         else:
                             raise RuntimeError(
                                 f"expected a wstate or grad, got {kind}")
-                self.mailbox[:P, :n].copy_(self.workers_w)
+                roster = [w for w in roster if w in self.links]
+                P = len(roster)
+                if P == 0:
+                    continue             # everyone was lost this round
+                if P != plan_p:
+                    self._rebuild_sync_plan(P)
+                    plan_p = P
+                    t_wire = self._t_sync_wire() * t_factor
+                if P == self.workers_w.shape[0]:
+                    self.mailbox[:P, :n].copy_(self.workers_w)
+                else:
+                    self.mailbox[:P, :n].copy_(self.workers_w[roster])
                 deadline = time.monotonic() + t_wire
                 if tr is not None:
                     t0 = tr.now()
@@ -730,12 +1186,18 @@ class MasterServer:
                 if tr is not None:
                     tr.record(obs_trace.RECV_WAIT, t0, (t0 := tr.now()))
                 row = self.mailbox[0, :n]
-                for i in roster:
+                # a late loss skips its own update; the first update still
+                # standing also writes the new center (the flip buffer)
+                live = [i for i in roster if i in self.links]
+                for k, i in enumerate(live):
                     fused_sync_easgd_update(
                         self.workers_w[i], self._absorb_upload(i),
                         self.center, row, P, e.eta, e.rho,
-                        center_out=self.center_alt if i == 0 else None)
-                self.center, self.center_alt = self.center_alt, self.center
+                        center_out=self.center_alt if k == 0 else None)
+                if live:
+                    self.center, self.center_alt = (self.center_alt,
+                                                    self.center)
+                self._served(P, len(live))
                 if tr is not None:
                     tr.record(obs_trace.UPDATE, t0, tr.now())
             else:                                     # sync_sgd
@@ -744,8 +1206,16 @@ class MasterServer:
                 self._await("grad", set(roster))
                 if tr is not None:
                     tr.record(obs_trace.RECV_WAIT, t0, (t0 := tr.now()))
-                for i in roster:
-                    self.up_host[i].get(self.mailbox[i, :n])
+                roster = [w for w in roster if w in self.links]
+                P = len(roster)
+                if P == 0:
+                    continue
+                if P != plan_p:
+                    self._rebuild_sync_plan(P)
+                    plan_p = P
+                    t_wire = self._t_sync_wire() * t_factor
+                for r, i in enumerate(roster):
+                    self.up_host[i].get(self.mailbox[r, :n])
                 deadline = time.monotonic() + t_wire
                 execute_rounds(self.mailbox, n, self.rounds, self.counters,
                                boundaries=self.boundaries, tracer=tr)
@@ -755,37 +1225,280 @@ class MasterServer:
                     tr.record(obs_trace.EXCHANGE, t0, (t0 := tr.now()))
                 fused_sync_sgd_update(self.center, self.master_vel,
                                       self.mailbox[0, :n], P, e.eta, e.mu)
-                self.workers_w.copy_(self.center[None].expand(P, n))
+                self._served(P, 1)
+                self.workers_w.copy_(self.center.expand_as(self.workers_w))
                 if tr is not None:
                     tr.record(obs_trace.UPDATE, t0, tr.now())
             self.iters += P * self.tau
             self._maybe_eval()
 
+    def _served(self, p: int, updates: int) -> None:
+        """Log one master-plane sync round: its roster size and the update
+        launches it made (``counters["sync_rosters"]`` under elastic)."""
+        self._rosters[(p, updates)] = self._rosters.get((p, updates), 0) + 1
+
+    def _p2p_iters_at(self, k: int) -> int:
+        """Total iterations once exchange round ``k`` completes, summed
+        across epochs: rounds before the epoch's base ran at earlier P's."""
+        return (self._epoch_iters_base
+                + (k + 1 - self._epoch_round_base) * self._epoch_p
+                * self.tau)
+
+    def _p2p_center_report(self, tag: int, payload) -> bool:
+        """Take one tagged CENTER report: tag ≥ 0 is an eval report after
+        exchange round ``tag``, −1 the final center. Returns True for the
+        final report."""
+        n = self.n
+        self.center.copy_(torch.from_numpy(payload[:n]))
+        if payload.size >= 2 * n:        # sync_sgd state: [center|vel]
+            self.master_vel.copy_(torch.from_numpy(payload[n:2 * n]))
+        if tag >= 0:
+            self.iters = self._p2p_iters_at(tag)
+            self._maybe_eval(force=True)
+            return False
+        self.iters = self._p2p_iters_at(self._n_sync_rounds() - 1)
+        return True
+
     def _serve_sync_p2p(self) -> None:
         """The p2p control plane: the workers run the rounds among
-        themselves, so this loop only takes worker 0's CENTER reports
-        (tagged with the exchange round) and each worker's final WSTATE."""
-        per = self.cfg.n_workers * self.tau
+        themselves, so this loop only takes the reporter's CENTER reports
+        (tagged with the exchange round: reports and reconfigurations can
+        interleave), each worker's final WSTATE, and the heartbeat / error
+        machinery of ``_next_event``.
+
+        Under ``PSConfig.elastic`` it also drives membership: a
+        ``member_lost`` event runs ``_reconfigure_p2p``; a respawned
+        worker's HELLO (handed over by the control acceptor) is admitted
+        here and folded in by another reconfiguration once its READY
+        lands."""
+        self._epoch_members = set(self.links)
+        self._epoch_p = len(self.links)
         final_center = False
         wstates: set = set()
+        self._pending_rejoin = []
         while not (final_center and wstates >= set(self.links)):
             wid, kind, detail = self._next_event(self.timeout)
             if kind == "center":
-                tag, arr = detail
-                self.center.copy_(torch.from_numpy(arr[:self.n]))
-                if tag >= 0:
-                    self.iters = (tag + 1) * per
-                    self._maybe_eval(force=True)
-                else:
-                    self.iters = self._n_sync_rounds() * per
-                    final_center = True
+                final_center |= self._p2p_center_report(*detail)
             elif kind == "wstate":
                 self.wstate_host[wid].get(self.workers_w[wid])
                 wstates.add(wid)
+            elif kind == "member_lost":
+                if final_center:
+                    continue             # already past the last exchange
+                self._reconfigure_p2p()
+            elif kind == "rejoin_hello":
+                if final_center:
+                    detail["link"].close()
+                else:
+                    self._admit_rejoin(wid, detail["link"], detail["peer"])
+            elif kind == "ready":
+                # a respawned worker finished building: fold it in at the
+                # next epoch (the reconfiguration ships rounds and state)
+                self.membership.mark_rejoined(wid)
+                self._mark_event(wid, "worker_rejoined",
+                                 f"enters at epoch {self.membership.epoch + 1}")
+                self._reconfigure_p2p()
+            elif kind == "reconf_ack":
+                # a restarted reconfiguration makes workers ack one epoch
+                # twice; the leftovers are harmless latecomers
+                continue
             else:
                 raise RuntimeError(
                     f"protocol violation on the p2p control plane: "
                     f"got {kind} from worker {wid} ({detail!r})")
+
+    def _admit_rejoin(self, wid: int, link: Link, peer) -> None:
+        """Wire a respawned worker back in: register its link and reader
+        and send a rejoin WELCOME. It builds its problem while the run goes
+        on; its READY triggers the reconfiguration that folds it in."""
+        if not peer:
+            link.send_json(wire.ERROR,
+                           {"msg": "p2p rejoin needs a peer listener"})
+            link.close()
+            return
+        self.peer_addrs[wid] = list(peer)
+        self.links[wid] = link
+        if self.live is not None:
+            link.hb_hook = (lambda payload, w=wid:
+                            self.live.ingest_hb(w, payload))
+        # the original process of this wid is a corpse that stays in
+        # self._procs: mark it reported for good, so its exit code is never
+        # taken for a death of the respawn (whose loss shows on its socket)
+        self._proc_reported.add(wid)
+        self._mark_event(wid, "worker_rejoining")
+        link.send_json(wire.WELCOME, self._welcome_payload(wid, rejoin=True))
+        th = threading.Thread(target=self._reader, args=(wid, link),
+                              daemon=True)
+        th.start()
+        self._threads.append(th)
+
+    def _reconfigure_p2p(self) -> None:
+        """Freeze → re-resolve → rewire → resume (the master half of the
+        membership protocol).
+
+        Phase 1 ships the next epoch's geometry — roster, the rounds
+        re-resolved for P′ and remapped onto the member wids, new padding
+        and bucket boundaries, the peer directory — to every member.
+        Members stop at an exchange boundary (or fall out of the doomed
+        exchange), tear their mesh links down, and ack with the number of
+        exchange rounds they have completed. Phase 2 broadcasts the agreed
+        resume round — the minimum over the previous epoch's members; every
+        worker ahead of it rolls back to its start-of-round snapshot, so
+        the new epoch's first exchange runs over bitwise-agreeing replicas
+        — and the new eval cadence. With a joiner present, the lowest
+        previous member uploads its rolled-back state and the master
+        relays it, so the joiner enters with the exact center (and
+        velocity) bits. Another loss mid-reconfiguration restarts the
+        procedure with the smaller roster."""
+        cfg = self.cfg
+        while True:
+            prev = sorted(w for w in self._epoch_members if w in self.links)
+            roster = sorted(self.links)
+            if not prev:
+                raise RuntimeError(
+                    "elastic: no previous-epoch survivor holds the state — "
+                    "the run cannot continue")
+            p = len(roster)
+            epoch = self.membership.epoch + 1
+            padded = self.n + (-self.n) % p
+            rounds = comm_schedules.get(self.sched_name).rounds(
+                p, self.n * 8, cfg.net)
+            self.rounds = comm_rounds.remap_rounds(
+                rounds, ft_membership.dense_rank_map(roster))
+            self.padded = padded
+            if cfg.bucket_bytes > 0:
+                self.boundaries = comm_rounds.default_bucket_boundaries(
+                    self._layer_sizes, padded, cfg.bucket_bytes)
+            joiners = [w for w in roster if w not in prev]
+            phase1 = {
+                "phase": 1, "epoch": epoch, "p": p,
+                "survivors": roster,
+                "rounds": comm_rounds.rounds_to_wire(self.rounds),
+                "padded": padded,
+                "peers": {str(w): self.peer_addrs[w] for w in roster},
+                "bucket_bounds": self.boundaries,
+                "n_rounds": self._n_sync_rounds(),
+                "sync_wid": prev[0],
+                "reporter": roster[0],
+            }
+            try:
+                for w in roster:
+                    slow = cfg.link_slow_factor(w)
+                    self.links[w].send_json(wire.RECONFIGURE, {
+                        **phase1,
+                        "t_wire_s": slow * self._t_sync_wire(),
+                        "t_wire_bucket_s": (
+                            [slow * t for t in self._t_sync_wire_buckets()]
+                            if self.boundaries else []),
+                    }, wid=w)
+            except (wire.WireError, OSError) as exc:
+                # a member died under the broadcast: its reader surfaces
+                # the loss; it drains below and the procedure restarts
+                self._mark_event(-1, "reconfigure_retry", repr(exc))
+            # -- collect acks (and absorb whatever else is in flight) -------
+            acks: dict[int, dict] = {}
+            restart = False
+            while set(acks) < set(roster):
+                wid, kind, detail = self._next_event(self.timeout)
+                if kind == "reconf_ack":
+                    if int(detail.get("epoch", -1)) == epoch:
+                        acks[wid] = detail
+                elif kind == "member_lost":
+                    restart = True
+                    break
+                elif kind == "center":
+                    self._p2p_center_report(*detail)   # pre-freeze report
+                elif kind == "wstate":
+                    self.wstate_host[wid].get(self.workers_w[wid])
+                elif kind == "rejoin_hello":
+                    # admitted after this reconfiguration completes (the
+                    # serve loop gets it back); requeueing here would spin
+                    # this very loop
+                    self._pending_rejoin.append((wid, detail))
+                elif kind == "ready":
+                    # an admitted rejoiner finished building while this
+                    # reconfiguration was in flight: it is in the roster,
+                    # its ack follows
+                    self.membership.mark_rejoined(wid)
+                    self._mark_event(wid, "worker_rejoined",
+                                     f"enters at epoch {epoch}")
+                else:
+                    raise RuntimeError(
+                        f"protocol violation during reconfigure: "
+                        f"got {kind} from worker {wid}")
+            if restart:
+                continue
+            resume = min(int(acks[w]["round"]) for w in prev)
+            # -- phase 2: the agreed resume round and the new eval cadence --
+            per = p * self.tau
+            last = self._last_eval
+            base_iters = self._p2p_iters_at(resume - 1)
+            evals = []
+            for k in range(resume, self._n_sync_rounds()):
+                it = base_iters + (k + 1 - resume) * per
+                if it - last >= cfg.eval_every_iters:
+                    evals.append(k)
+                    last = it
+            phase2 = {"phase": 2, "epoch": epoch, "resume_round": resume,
+                      "eval_rounds": evals,
+                      "upload_state": bool(joiners)}
+            try:
+                for w in roster:
+                    self.links[w].send_json(wire.RECONFIGURE, phase2, wid=w)
+                if joiners:
+                    # the sync member uploads its rolled-back state; relay
+                    # it to every joiner so they enter with the exact bits
+                    state = None
+                    while state is None:
+                        wid, kind, detail = self._next_event(self.timeout)
+                        if kind == "center" and detail[0] == -2:
+                            state = detail[1]
+                        elif kind == "center":
+                            self._p2p_center_report(*detail)
+                        elif kind == "member_lost":
+                            restart = True
+                            break
+                        elif kind == "reconf_ack":
+                            continue     # a stale duplicate of a restart
+                        elif kind == "wstate":
+                            self.wstate_host[wid].get(self.workers_w[wid])
+                        elif kind == "rejoin_hello":
+                            self._pending_rejoin.append((wid, detail))
+                        else:
+                            raise RuntimeError(
+                                f"protocol violation waiting for the state "
+                                f"upload: got {kind} from worker {wid}")
+                    if restart:
+                        continue
+                    for w in joiners:
+                        # raw: an exact-state transfer, never through a
+                        # lossy wire codec
+                        self.links[w].send_array(wire.CENTER, state,
+                                                 wid=-2, raw=True)
+            except (wire.WireError, OSError) as exc:
+                self._mark_event(-1, "reconfigure_retry", repr(exc))
+                continue
+            # -- bookkeeping: the epoch turns over --------------------------
+            self._epoch_iters_base = base_iters
+            self._epoch_round_base = resume
+            self._epoch_p = p
+            self._epoch_members = set(roster)
+            new_epoch = self.membership.advance_epoch()
+            if new_epoch != epoch:
+                raise RuntimeError(f"membership epoch {new_epoch} after "
+                                   f"reconfiguring to epoch {epoch}")
+            if self.live is not None:
+                self.live.set_membership(roster)
+            self.counters.gauge("epoch").value = epoch
+            self._mark_event(
+                -1, "reconfigure",
+                f"epoch {epoch}: p={p} survivors={roster} "
+                f"resume_round={resume}")
+            for w, d in self._pending_rejoin:      # stashed mid-freeze
+                self.events.put((w, "rejoin_hello", d))
+            self._pending_rejoin.clear()
+            return
 
     # -- top level -----------------------------------------------------------
 
@@ -794,18 +1507,32 @@ class MasterServer:
         """Rendezvous → serve → clean shutdown. Returns a PSResult."""
         from repro_torch.ps.runtime import PSResult
         self._procs = procs or []
+        host, port = listener.getsockname()[:2]
+        if host in ("0.0.0.0", ""):
+            host = "127.0.0.1"
+        self._addr = f"{host}:{port}"
         try:
             self.rendezvous(listener, token)
+            if self.cfg.telemetry_on:
+                self._start_live()
+            if self.cfg.telemetry_on or self.elastic:
+                # the rendezvous listener stays open: STATS for monitors,
+                # rejoin HELLOs for respawned workers
+                self._start_acceptor(listener, token)
             self.serve()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             total_time = time.perf_counter() - self._t0
             self._maybe_eval(force=True)
             self._draining = True        # BYEs are expected from here on
-            for link in self.links.values():
-                link.send_simple(wire.DONE)
+            for link in list(self.links.values()):
+                try:
+                    link.send_simple(wire.DONE)
+                except (wire.WireError, OSError):
+                    if not self.elastic:
+                        raise            # elastic: its loss drains below
             self._await("bye", set(self.links),
-                        ignore=("grad", "wstate", "center"))
+                        ignore=("grad", "wstate", "center", "reconf_ack"))
         finally:
             self._closing.set()
             for link in self.links.values():
@@ -856,7 +1583,10 @@ class MasterServer:
             counters["peer_link_bytes"] = link_bytes
             counters["peer_wire_bytes"] = sum(link_bytes.values())
             counters["peer_messages"] = msgs
-            rep = self.bye_stats.get(0, {})
+            # representative per-worker stats from the lowest reporting
+            # wid: under elastic membership worker 0 may not have survived
+            rep = (self.bye_stats[min(self.bye_stats)]
+                   if self.bye_stats else {})
             counters["sync_rounds"] = rep.get("sync_rounds", 0)
             # overlap accounting, summed across workers: comm-thread wall
             # seconds vs seconds the update path sat blocked on the wire
@@ -867,8 +1597,30 @@ class MasterServer:
             bucket_bytes = [0] * counters["n_buckets"]
             for st in self.bye_stats.values():
                 for i, v in enumerate(st.get("bucket_send_bytes", [])):
-                    bucket_bytes[i] += int(v)
+                    if i < len(bucket_bytes):  # epochs can differ in buckets
+                        bucket_bytes[i] += int(v)
             counters["bucket_send_bytes"] = bucket_bytes
+        health = None
+        if self.live is not None:
+            health = self.live.health()
+            self.live.close()
+        if self.elastic:
+            # PSResult.health names every death, rejoin and reconfiguration
+            # on a bare (telemetry-off) run too, with the final membership
+            # table and epoch; the workers' per-epoch logs and the
+            # lifecycle stamps time the recovery
+            if health is None:
+                health = {"events": list(self._elastic_events)}
+            health["membership"] = self.membership.snapshot()
+            health["epoch"] = self.membership.epoch
+            counters["membership_marks"] = list(self._marks)
+            if self._rosters:
+                counters["sync_rosters"] = [
+                    [p, u, r] for (p, u), r in sorted(self._rosters.items())]
+            epochs = {w: st["epochs"] for w, st in sorted(
+                self.bye_stats.items()) if "epochs" in st}
+            if epochs:
+                counters["worker_epochs"] = epochs
         trace = self._collect_trace() if self.cfg.trace else None
         sync = self.cfg.algorithm in SYNC
         return PSResult(
@@ -879,7 +1631,7 @@ class MasterServer:
             total_time_s=total_time, total_iters=self.iters,
             counters=counters, final_metric=self.history[-1][2],
             center=self.center.clone(), workers=self.workers_w.clone(),
-            trace=trace)
+            trace=trace, health=health)
 
     def _collect_trace(self):
         """Merge the workers' BYE-delivered (or spilled) trace buffers with
@@ -907,7 +1659,8 @@ def run_ps_tcp(problem, easgd, cfg, device=None,
                join_timeout_s: float = 600.0):
     """The tcp transport's ``run_ps``: bind, spawn localhost workers on the
     run's device (unless ``cfg.spawn_workers`` is off: external workers
-    join), serve, and return the shared-memory transports' PSResult."""
+    join), serve, and return the shared-memory transports' PSResult.
+    ``cfg.chaos`` reaches the spawned workers as ``REPRO_CHAOS``."""
     master = MasterServer(problem, easgd, cfg, device=device,
                           join_timeout_s=join_timeout_s)
     listener = socket.socket()
@@ -915,8 +1668,12 @@ def run_ps_tcp(problem, easgd, cfg, device=None,
     listener.bind((cfg.tcp_host, cfg.tcp_port))
     listener.listen(accept_backlog(cfg.n_workers))
     port = listener.getsockname()[1]
+    env_extra = None
+    spec = ft_chaos.ChaosSpec.from_config(cfg.chaos)
+    if spec is not None:
+        env_extra = {ft_chaos.ENV_VAR: spec.to_env()}
     master._spawned_at = time.monotonic()
     procs = (spawn_local_workers(cfg.tcp_host, port, cfg.n_workers,
-                                 master.device)
+                                 master.device, env_extra=env_extra)
              if cfg.spawn_workers else [])
     return master.run(listener, procs=procs)

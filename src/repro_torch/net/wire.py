@@ -10,7 +10,8 @@ Frame types: HELLO / WELCOME / READY for rendezvous, WEIGHTS (master →
 worker), GRAD (worker → master; with τ > 1 the payload stacks
 [grad|w|v]), WSTATE (sync-family start-of-exchange weights), HEARTBEAT,
 DONE / BYE for shutdown, ERROR, SEGMENT / PEERS for the p2p data plane,
-CENTER for the p2p control plane, CLOCK for trace clock alignment.
+CENTER for the p2p control plane, CLOCK for trace clock alignment, STATS
+for the live telemetry plane and RECONFIGURE for elastic membership.
 
 Array payloads are float64 in two codecs:
 
@@ -78,9 +79,21 @@ CENTER = 13         # p2p control plane: worker 0 → master, the center
 CLOCK = 14          # clock-sync probe (obs.clock): empty worker→master ping,
 #                     master echoes {"t": perf_counter()} — offset = t −
 #                     (t0+t1)/2 at min rtt aligns trace timelines
-STATS = 15          # the live telemetry plane's snapshot request and
-RECONFIGURE = 16    # elastic membership's epoch directive: reserved for
-#                     the reference's frames, not sent by this port yet
+STATS = 15          # live-telemetry snapshot (obs.live): a monitor client
+#                     connects to the master's listener after rendezvous,
+#                     sends {"token", "k"}, receives one JSON
+#                     LiveMonitor.snapshot(k) back (or ERROR on a bad
+#                     token), and the connection closes — read-only, off
+#                     the training links entirely
+RECONFIGURE = 16    # elastic membership (ft.membership): master → worker, a
+#                     JSON epoch directive — phase 1 carries the survivor
+#                     set, re-resolved rounds, peer directory and bucket
+#                     bounds; phase 2 carries {"epoch", "resume_round",
+#                     "eval_rounds", "upload_state"}. Every member acks
+#                     phase 1 with a worker→master RECONFIGURE {"epoch",
+#                     "round", "step"}; with a joiner present the lowest
+#                     previous survivor uploads its state as CENTER(wid=-2),
+#                     which the master relays to the joiners
 
 FRAME_NAMES = {HELLO: "HELLO", WELCOME: "WELCOME", READY: "READY",
                WEIGHTS: "WEIGHTS", GRAD: "GRAD", WSTATE: "WSTATE",
@@ -106,7 +119,7 @@ class DialError(ConnectionError):
 
 
 def dial_with_backoff(host, port, deadline_s=30.0, base_s=0.05, max_s=1.0,
-                      seed=None):
+                      seed=None, refuse_fn=None):
     """Dial ``(host, port)`` with jittered exponential backoff until
     ``deadline_s`` elapses, then raise :class:`DialError` naming the target.
 
@@ -114,6 +127,10 @@ def dial_with_backoff(host, port, deadline_s=30.0, base_s=0.05, max_s=1.0,
     — ``ConnectionRefusedError``/timeouts are retried; anything else (bad
     address family, unreachable network after the deadline) surfaces as
     ``DialError`` with the last underlying error attached.
+
+    ``refuse_fn`` is the fault-injection hook (``ft.chaos``): called before
+    every attempt; returning True simulates a refused dial without touching
+    the socket, so the retry path is testable deterministically.
     """
     deadline = time.monotonic() + deadline_s
     # deterministic per-target jitter stream: retry storms from P dialers
@@ -127,6 +144,9 @@ def dial_with_backoff(host, port, deadline_s=30.0, base_s=0.05, max_s=1.0,
     while True:
         attempt += 1
         try:
+            if refuse_fn is not None and refuse_fn():
+                raise ConnectionRefusedError(
+                    f"chaos: dial to {host}:{port} refused by injection")
             remaining = deadline - time.monotonic()
             if remaining <= 0:
                 break
@@ -206,6 +226,11 @@ class Link:
         self.hb_telemetry: dict = {}        # last HEARTBEAT payload (worker
         #                                     iteration-rate / exposed-comm
         #                                     gauges — see net/worker.py)
+        self.hb_hook = None                 # optional callable(payload):
+        #                                     fires on the receiving thread
+        #                                     for every telemetry-bearing
+        #                                     HEARTBEAT (obs.live feeds its
+        #                                     time-series store push-style)
         self.raw_bytes_out = 0              # pre-codec payload bytes encoded
         self.wire_bytes_out = 0             # post-codec payload bytes encoded
         self._send_lock = threading.Lock()
@@ -339,6 +364,9 @@ class Link:
                             bytes(self.recv_payload(frame)).decode())
                     except ValueError:
                         pass
+                    else:
+                        if self.hb_hook is not None:
+                            self.hb_hook(self.hb_telemetry)
                 continue
             return frame
 

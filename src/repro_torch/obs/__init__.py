@@ -1,12 +1,14 @@
 """Runtime observability (the port of ``repro/obs``): the counter registry
 (``metrics``), the per-thread span recorder (``trace``), the worker↔master
-clock offset (``clock``) and the merged timeline with the Table-3
-breakdown (``report``). Turn tracing on with ``PSConfig(trace=True)``; the
-merged trace comes back on ``PSResult.trace`` with a ``report`` section.
+clock offset (``clock``), the merged timeline with the Table-3 breakdown
+(``report``), the live telemetry plane (``live``) and the BENCH_*.json
+regression gate (``regress``). Turn tracing on with
+``PSConfig(trace=True)``, the live plane with ``PSConfig(telemetry=True)``;
+they come back on ``PSResult.trace`` and ``PSResult.health``.
 """
 import importlib
 
-__all__ = ["clock", "metrics", "report", "trace"]
+__all__ = ["clock", "live", "metrics", "regress", "report", "trace"]
 
 
 def __getattr__(name):

@@ -125,26 +125,48 @@ class PSConfig:
     trace_dir: Optional[str] = None  # spill worker trace buffers here
     #                                  (process workers always spill; a
     #                                  temporary directory when unset)
-    # -- reference features this port does not implement yet: setting one
-    #    raises NotImplementedError instead of being ignored ----------------
-    telemetry: bool = False
+    # -- live telemetry plane (obs.live) ------------------------------------
+    telemetry: bool = False          # stream heartbeat telemetry and master
+    #                                  gauges into a ring-buffer store, run
+    #                                  the online straggler / health
+    #                                  detector, serve STATS frames (tcp)
+    #                                  and attach PSResult.health. Off: no
+    #                                  store, no sampler, no acceptor
+    telemetry_jsonl: Optional[str] = None    # one JSON line per sample to
+    #                                  this path (implies telemetry)
+    telemetry_interval_s: float = 0.0        # sampler / detector period;
+    #                                  0 follows hb_interval_s
+    straggler_factor: float = 2.0    # flag a worker whose per-iteration
+    #                                  delay exceeds this × the median
+    link_slow: Optional[tuple] = None        # per-wid multipliers (≥ 1) of
+    #                                  the emulated wire's pacing: a
+    #                                  controlled straggler on the clock
+    #                                  only (tcp + emulate_net)
+    # -- elastic membership (ft.membership) ---------------------------------
+    elastic: bool = False            # tcp only: a worker death or
+    #                                  preemption becomes a RECONFIGURE
+    #                                  epoch instead of a dead run, and a
+    #                                  respawned worker rejoins mid-run (p2p)
+    chaos: Optional[dict] = None     # deterministic fault injection
+    #                                  (ft.chaos.ChaosSpec fields: wid,
+    #                                  kill_at_iter, signal "kill" | "term",
+    #                                  dial_refuse_s), handed to the spawned
+    #                                  workers in REPRO_CHAOS; tcp only
+    # -- the one reference feature this port does not implement yet:
+    #    setting it raises NotImplementedError instead of being ignored ------
     topology: Optional[costmodel.Topology] = None
-    elastic: bool = False
-    chaos: Optional[dict] = None
 
     def __post_init__(self):
+        if self.topology is not None:
+            raise NotImplementedError(
+                "PSConfig.topology is not ported yet (topology and "
+                "link_profile pacing are the next slice; see ROADMAP.md, "
+                "queue 1)")
         if self.algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm '{self.algorithm}', have "
                              f"{ALGORITHMS}")
         if self.transport not in ("thread", "process", "tcp"):
             raise ValueError(f"unknown transport '{self.transport}'")
-        unported = [f for f in ("telemetry", "elastic") if getattr(self, f)]
-        unported += [f for f in ("topology", "chaos")
-                     if getattr(self, f) is not None]
-        if unported:
-            raise NotImplementedError(
-                f"PSConfig {unported} are not ported yet; see ROADMAP.md, "
-                f"queue 1")
         if self.n_workers < 1:
             raise ValueError(f"n_workers={self.n_workers}")
         if self.bucket_bytes < 0:
@@ -173,6 +195,51 @@ class PSConfig:
                              f"hb_timeout_s={self.hb_timeout_s}")
         if self.schedule != "auto":
             comm_schedules.get(self.schedule)        # validates the name
+        if self.telemetry_interval_s < 0.0:
+            raise ValueError(
+                f"telemetry_interval_s={self.telemetry_interval_s}")
+        if self.straggler_factor <= 1.0:
+            raise ValueError(f"straggler_factor={self.straggler_factor} "
+                             f"(must exceed 1)")
+        if self.link_slow is not None:
+            if self.transport != "tcp":
+                raise ValueError(
+                    f"link_slow stretches per-link wire pacing — only the "
+                    f"tcp transport has per-worker links (transport="
+                    f"'{self.transport}')")
+            if self.emulate_net is None:
+                raise ValueError(
+                    "link_slow multiplies emulated wire time; without "
+                    "emulate_net there is no pacing to stretch")
+            if len(self.link_slow) != self.n_workers:
+                raise ValueError(
+                    f"link_slow needs one factor per worker "
+                    f"({len(self.link_slow)} != {self.n_workers})")
+            if not all(f >= 1.0 for f in self.link_slow):
+                raise ValueError(f"link_slow={self.link_slow} (each ≥ 1)")
+        if self.elastic and self.transport != "tcp":
+            raise ValueError(
+                f"elastic membership reconfigures real links — only the "
+                f"tcp transport has them (transport='{self.transport}')")
+        if self.chaos is not None:
+            if self.transport != "tcp":
+                raise ValueError(
+                    f"chaos injection targets spawned tcp worker processes "
+                    f"(transport='{self.transport}')")
+            from repro_torch.ft.chaos import ChaosSpec
+            ChaosSpec.from_config(self.chaos)    # validates the fields
+
+    @property
+    def telemetry_on(self) -> bool:
+        return self.telemetry or self.telemetry_jsonl is not None
+
+    def telemetry_period_s(self) -> float:
+        return self.telemetry_interval_s or self.hb_interval_s
+
+    def link_slow_factor(self, wid: int) -> float:
+        if self.link_slow is None:
+            return 1.0
+        return float(self.link_slow[wid])
 
     def resolved_schedule(self, n_bytes: float) -> str:
         """Schedule name for an n-byte exchange ("auto": ``comm.choose``
@@ -204,6 +271,11 @@ class PSResult:
     trace: Optional[dict] = None     # cfg.trace: the merged, clock-aligned
     #                                  timeline (obs.report.merge_traces)
     #                                  with a "report" breakdown
+    health: Optional[dict] = None    # cfg.telemetry: the live plane's
+    #                                  summary (obs.live.LiveMonitor.health:
+    #                                  events, flagged workers, the last
+    #                                  telemetry per worker); cfg.elastic
+    #                                  adds the membership table and epoch
 
 
 # ---------------------------------------------------------------------------
@@ -663,6 +735,29 @@ def run_ps(problem, easgd: EASGDConfig, cfg: PSConfig, device=None,
     t0 = time.perf_counter()
     history, last_eval = [], 0
     deadline = t0 + join_timeout_s
+    # live telemetry (obs.live): the shared-memory transports have no
+    # per-worker heartbeats, so the poll loop samples aggregate gauges only
+    # (store wid −1); per-worker series and straggler detection need the
+    # tcp transport's per-worker links
+    live = None
+    if cfg.telemetry_on:
+        from repro_torch.obs import live as obs_live
+        live = obs_live.LiveMonitor(
+            P, deadline_factor=cfg.straggler_factor,
+            hb_interval_s=cfg.hb_interval_s,
+            jsonl_path=cfg.telemetry_jsonl,
+            meta={"algorithm": cfg.algorithm, "transport": cfg.transport})
+        live_period = cfg.telemetry_period_s()
+        next_sample = time.monotonic() + live_period
+
+    def _live_gauges():
+        el = max(time.perf_counter() - t0, 1e-9)
+        return {"iters": ctx.iters.value,
+                "rate_ips": round(ctx.iters.value / el, 2),
+                "wire_bytes": ctx.wire_bytes.value,
+                "messages": ctx.messages.value,
+                "sync_rounds": ctx.sync_rounds.value}
+
     while any(h.is_alive() for h in handles):
         if ctx.err.value:
             break
@@ -671,7 +766,12 @@ def run_ps(problem, easgd: EASGDConfig, cfg: PSConfig, device=None,
             history.append((time.perf_counter() - t0, it,
                             float(eval_fn(v.center.clone()))))
             last_eval = it
+        if live is not None and time.monotonic() >= next_sample:
+            live.sample(gauges=_live_gauges())
+            next_sample += live_period
         if time.perf_counter() > deadline:
+            if live is not None:
+                live.close()
             _fail(f"ps run exceeded {join_timeout_s}s")
         time.sleep(1e-3)
     timing.synchronize(dev)                  # the clock covers device work
@@ -682,6 +782,8 @@ def run_ps(problem, easgd: EASGDConfig, cfg: PSConfig, device=None,
         comm_thread.join(timeout=5.0)
     if ctx.err.value or not ok or (comm_thread is not None
                                    and comm_thread.is_alive()):
+        if live is not None:
+            live.close()
         _fail("ps run failed")
     if launch_slots is not None:
         kernels.add_launch_counts(
@@ -700,12 +802,18 @@ def run_ps(problem, easgd: EASGDConfig, cfg: PSConfig, device=None,
                 "messages": ctx.messages.value,
                 "wire_bytes": ctx.wire_bytes.value}
     trace = _collect_local_trace(cfg, tr.name, P) if cfg.trace else None
+    health = None
+    if live is not None:
+        live.sample(gauges=_live_gauges())   # the final sample, at end state
+        health = live.health()
+        counters["health_events"] = len(health["events"])
+        live.close()
     return PSResult(
         algorithm=cfg.algorithm, transport=cfg.transport,
         schedule=sched_name if sync else "master", device=str(dev),
         history=history, total_time_s=total_time, total_iters=total_iters,
         counters=counters, final_metric=final, center=v.center.clone(),
-        workers=v.workers_w.clone(), trace=trace)
+        workers=v.workers_w.clone(), trace=trace, health=health)
 
 
 def _collect_local_trace(cfg: PSConfig, transport: str, P: int) -> dict:

@@ -455,7 +455,19 @@ def test_launcher_runs_all_nine_with_des_columns():
     ("telemetry", True), ("elastic", True), ("chaos", {"wid": 1}),
     ("topology", costmodel.Topology(2, 2))])
 def test_unported_stay_raising(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runtime.PSConfig(**{"algorithm": "async_easgd", field: value})
+    """Only topology is still unported: it raises NotImplementedError; the
+    ported features are accepted (elastic membership and chaos on tcp
+    alone)."""
+    kw = {"algorithm": "async_easgd", field: value}
+    if field == "topology":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            runtime.PSConfig(**kw)
+    elif field in ("elastic", "chaos"):
+        with pytest.raises(ValueError, match="tcp"):
+            runtime.PSConfig(**kw)
+        assert getattr(runtime.PSConfig(transport="tcp", **kw),
+                       field) == value
+    else:
+        assert getattr(runtime.PSConfig(**kw), field) == value
     with pytest.raises(ValueError):
         runtime.PSConfig(algorithm="nope")

@@ -1,6 +1,9 @@
 """The port stands alone: importing every ``repro_torch`` module, and
 ``chip_smoke.py``, loads neither ``jax`` nor any module of ``repro``; nor
-does the tcp worker's own import footprint."""
+does the tcp worker's own import footprint, the live telemetry plane's
+(``obs.live``, ``obs.regress``, ``launch.monitor``) or elastic
+membership's (``ft.membership``, ``ft.chaos``, ``ft.elastic_scale``,
+``ft.straggler``)."""
 import os
 import subprocess
 import sys
@@ -19,7 +22,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
 assert not bad, bad
-assert len(names) >= 61, names
+assert len(names) >= 68, names
 print("IMPORTS-OK", len(names))
 """
 
@@ -31,6 +34,10 @@ import repro_torch.net.peer
 import repro_torch.obs
 from repro_torch.obs import clock, metrics, report, trace
 import repro_torch.ps.problems
+import repro_torch.ft.chaos, repro_torch.ft.membership
+import repro_torch.ft.elastic_scale, repro_torch.ft.straggler
+import repro_torch.obs.live, repro_torch.obs.regress
+import repro_torch.launch.monitor
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))

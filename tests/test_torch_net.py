@@ -241,9 +241,15 @@ def test_get_transport_names_tcp_and_refuses_others():
     ("telemetry", True), ("elastic", True), ("chaos", {"wid": 0}),
 ])
 def test_deferred_features_still_refused_on_tcp(field, value):
+    """Telemetry, elastic membership and chaos are ported; topology is
+    still deferred, and refused whichever of them comes with it."""
+    topo = costmodel.Topology(2, 1)
     with pytest.raises(NotImplementedError, match="not ported"):
         runtime.PSConfig(algorithm="sync_easgd", transport="tcp",
-                         **{field: value})
+                         n_workers=2, topology=topo, **{field: value})
+    cfg = runtime.PSConfig(algorithm="sync_easgd", transport="tcp",
+                           **{field: value})
+    assert getattr(cfg, field) == value
 
 
 # ---------------------------------------------------------------------------
