@@ -145,7 +145,26 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    post-shrink bucket update at P = 3 bitwise its plain version; then on
    the numpy MLP a SIGTERM departure, a p2p sync_sgd kill and respawn,
    master-plane sync_easgd and sync_sgd kills (the plan rebuilt for
-   P′ = 2) and a kill with elastic off, which must fail.
+   P′ = 2) and a kill with elastic off, which must fail;
+19. topology-aware scale-out (the card has one host, so a topology is
+   emulated pacing): (a) the numpy MLP on the thread plane at P = 8, ring
+   with no topology == ring under ``emulated_topology(1, 8)`` bit for bit,
+   hierarchical under ``emulated_topology(2, 4)`` for Sync EASGD and Sync
+   SGD card == CPU bit for bit, each round paced to ``t_rounds``; (b) P =
+   16 under ``emulated_topology(2, 8)``, "auto" resolving hierarchical,
+   and one ``measured_link_profile``; (c) the numpy MLP over tcp p2p at
+   P = 4 under ``emulated_topology(2, 2)``, hierarchical, 8 iterations,
+   both sync algorithms: per-link bytes == ``predicted_link_bytes``, the
+   intra / cross totals its ``host_of`` partition, card == CPU bit for
+   bit; (d) full-width AlexNet on tcp p2p, P = 4, 4 MiB buckets, 8 rounds
+   a schedule, the intra class the loopback α–β and the cross class 20x
+   its α and 4x its β: ring, hierarchical and "auto" from a tcp
+   ``calibrate`` profile (``--burn`` interpreters), traced: µs/iter,
+   shares, bytes against the prediction, each wid's paced exchange time
+   against its measured one, exact launches; (e) ``launch.cluster
+   --topology 2x2 --sync-plane p2p`` and ``launch.train --model jax-mlp
+   --transport tcp`` as subprocesses, and jax-mlp on the card against the
+   CPU (relative 1e-5).
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, a JSON ``kernels`` line, and the JSON result line
@@ -2460,6 +2479,316 @@ def phase_elastic(torch, runtime, zoo, problems, kernels, comm_rounds, eu,
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 19: topology-aware scale-out and the jax-mlp problem
+# ---------------------------------------------------------------------------
+
+def host_split(per_link: dict, topo) -> tuple:
+    """(intra-host, cross-host) totals of ``{(i, j): bytes}``."""
+    intra = sum(b for (i, j), b in per_link.items()
+                if topo.host_of(i) == topo.host_of(j))
+    return intra, sum(per_link.values()) - intra
+
+
+def phase_topology_thread(torch, runtime, problems, kernels, costmodel,
+                          comm_rounds, comm_schedules, EASGDConfig,
+                          device="cuda") -> dict:
+    """(19a, 19b) The numpy MLP on the thread plane under emulated
+    two-level fabrics (the PS wire inside a host; 20x its α and 4x its β
+    across). (a) P = 8, 8 rounds: ring with no topology == ring under
+    ``emulated_topology(1, 8)`` bit for bit; hierarchical under
+    ``emulated_topology(2, 4)``, Sync EASGD and Sync SGD, card == CPU bit
+    for bit (rows 1-2 against their plain versions under a topology), each
+    round paced to ``t_rounds`` over the link classes. (b) P = 16 under
+    ``emulated_topology(2, 8)``, schedule "auto": hierarchical, and one
+    ``measured_link_profile`` of that fabric."""
+    easgd = EASGDConfig(eta=ETA, rho=RHO, mu=MU)
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+
+    def run(algo, p, rounds, schedule, dev, topology):
+        cfg = runtime.PSConfig(algorithm=algo, n_workers=p,
+                               total_iters=p * rounds, schedule=schedule,
+                               eval_every_iters=10**9, topology=topology)
+        kernels.reset_launch_counts()
+        res = runtime.run_ps(problems.NUMPY_MLP, easgd, cfg, device=dev)
+        return res, kernels.launch_counts()
+
+    p, rounds = 8, 8
+    run("sync_easgd", p, 1, "ring", device, None)     # warm-up, not read
+    flat, c_flat = run("sync_easgd", p, rounds, "ring", device, None)
+    one, c_one = run("sync_easgd", p, rounds, "ring", device,
+                     costmodel.emulated_topology(1, p))
+    want = only(c_flat, fused_sync_easgd_update=p * rounds)
+    check(c_flat == c_one == want, f"ring P={p}: launched {c_flat} flat, "
+          f"{c_one} under 1x{p}, expected {want}")
+    check(same_run(torch, flat, one), f"ring P={p}: emulated_topology(1, "
+          f"{p}) == no topology, bitwise")
+    add_counts(totals, c_flat)
+    add_counts(totals, c_one)
+    n = flat.center.numel()
+    us = [1e6 * r.total_time_s / r.total_iters for r in (one, flat)]
+    print(f"topology 1x{p} sync_easgd numpy MLP ring {rounds} rounds: == "
+          f"the run with no topology, bitwise; {us[0]:.1f} us/iter paced on "
+          f"the PS wire ({us[1]:.1f} unpaced); launches {want}", flush=True)
+    topo = costmodel.emulated_topology(2, 4)
+    hier = comm_schedules.get("hierarchical").rounds(p, n * 8, topology=topo)
+    t_exch = comm_rounds.t_rounds(hier, n * 8, topology=topo)
+    for algo, upd, n_upd in (("sync_easgd", "fused_sync_easgd_update",
+                              p * rounds),
+                             ("sync_sgd", "fused_sync_sgd_update", rounds)):
+        card, c_card = run(algo, p, rounds, "hierarchical", device, topo)
+        cpu, _ = run(algo, p, rounds, "hierarchical", "cpu", topo)
+        check(c_card == only(c_card, **{upd: n_upd}),
+              f"{algo} 2x4 launched {c_card}, expected {n_upd} {upd}")
+        check(card.schedule == "hierarchical" and same_run(torch, card, cpu),
+              f"{algo} 2x4 hierarchical: card == CPU")
+        per_round = card.total_time_s / rounds
+        check(per_round >= t_exch, f"{algo} 2x4: a round took "
+              f"{per_round:.6f} s, under its paced exchange {t_exch:.6f} s")
+        add_counts(totals, c_card)
+        print(f"topology 2x4 {algo} numpy MLP P={p} hierarchical {rounds} "
+              f"rounds: card == CPU, bitwise ({upd} == its plain version "
+              f"under a topology, {n_upd} launches); "
+              f"{1e6 * card.total_time_s / card.total_iters:.1f} us/iter, "
+              f"{1e3 * per_round:.4f} ms a round against t_rounds "
+              f"{1e3 * t_exch:.4f} ms (intra {topo.intra.alpha * 1e6:g} us "
+              f"+ n/{9e6:g} B/s, cross 20x alpha 4x beta)", flush=True)
+    # (19b)
+    p16, topo16 = 16, costmodel.emulated_topology(2, 8)
+    res, c16 = run("sync_easgd", p16, 4, "auto", device, topo16)
+    check(res.schedule == "hierarchical"
+          and c16 == only(c16, fused_sync_easgd_update=4 * p16),
+          f"P=16 2x8 auto resolved {res.schedule}, launched {c16}")
+    add_counts(totals, c16)
+    prof = runtime.measured_link_profile(runtime.PSConfig(
+        algorithm="sync_easgd", n_workers=p16, topology=topo16),
+        device=device)
+    t = prof.topology
+    chosen = comm_schedules.choose(n * 8, p16, profile=prof)
+    print(f"topology 2x8 sync_easgd numpy MLP P=16 auto: resolves "
+          f"{res.schedule}, {1e6 * res.total_time_s / res.total_iters:.1f} "
+          f"us/iter; measured_link_profile ({prof.source}, device copy "
+          f"alpha {1e6 * prof.detail['alpha0_s']:.3f} us beta "
+          f"{1e12 * prof.detail['beta0_s_per_byte']:.4f} ps/B): intra "
+          f"alpha {1e6 * t.intra.alpha:.3f} us beta "
+          f"{1e9 * t.intra.beta:.4f} ns/B, cross alpha "
+          f"{1e6 * t.cross.alpha:.3f} us beta {1e9 * t.cross.beta:.4f} "
+          f"ns/B; choose(profile=) -> {chosen}", flush=True)
+    check(chosen == "hierarchical", f"the measured profile chose {chosen}")
+    return totals
+
+
+def phase_topology_tcp(torch, runtime, problems, kernels, costmodel,
+                       comm_schedules, peer, EASGDConfig,
+                       device="cuda") -> dict:
+    """(19c) The numpy MLP over tcp p2p at P = 4 under
+    ``emulated_topology(2, 2)``, hierarchical, 8 iterations, Sync EASGD and
+    Sync SGD: every peer link moves ``predicted_link_bytes``, the
+    intra / cross totals are its ``host_of`` partition (both > 0), the
+    update launches in the workers exactly, and the card's run equals the
+    CPU's bit for bit."""
+    easgd = EASGDConfig(eta=ETA, rho=RHO, mu=MU)
+    p, iters = 4, 8
+    topo = costmodel.emulated_topology(2, 2)
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+    for algo, upd in (("sync_easgd", "fused_sync_easgd_update"),
+                      ("sync_sgd", "fused_sync_sgd_update")):
+        cfg = runtime.PSConfig(algorithm=algo, n_workers=p, total_iters=iters,
+                               transport="tcp", schedule="hierarchical",
+                               sync_plane="p2p", deterministic=True,
+                               eval_every_iters=10**9, topology=topo)
+        kernels.reset_launch_counts()
+        res = runtime.run_ps(problems.NUMPY_MLP, easgd, cfg, device=device)
+        counts = kernels.launch_counts()
+        cpu = runtime.run_ps(problems.NUMPY_MLP, easgd, dataclasses.replace(
+            cfg, transport="thread", sync_plane="master"), device="cpu")
+        n = res.center.numel()
+        per = peer.predicted_link_bytes(
+            comm_schedules.get("hierarchical").rounds(p, n * 8,
+                                                      topology=topo),
+            n + (-n) % p)
+        ex = iters // p
+        want = {f"{i}-{j}": ex * b for (i, j), b in per.items()}
+        intra, cross = (ex * b for b in host_split(per, topo))
+        c = res.counters
+        check(c["peer_link_bytes"] == want, f"{algo} 2x2 peer_link_bytes "
+              f"{c['peer_link_bytes']}, predicted {want}")
+        check(c["intra_host_bytes"] == intra and c["cross_host_bytes"]
+              == cross and intra > 0 and cross > 0,
+              f"{algo} 2x2 intra / cross {c.get('intra_host_bytes')} / "
+              f"{c.get('cross_host_bytes')}, predicted {intra} / {cross}")
+        check(counts == only(counts, **{upd: iters}),
+              f"{algo} 2x2 tcp p2p launched {counts}")
+        check(same_run(torch, res, cpu), f"{algo} 2x2 tcp p2p: card == CPU")
+        add_counts(totals, counts)
+        print(f"topology 2x2 {algo} numpy MLP tcp p2p hierarchical {iters} "
+              f"iterations: card == CPU, bitwise; peer_link_bytes {want} "
+              f"== predicted_link_bytes; intra_host_bytes {intra}, "
+              f"cross_host_bytes {cross} == the host_of partition; {upd} "
+              f"launches {iters} (in the workers); worker spawn to READY "
+              f"{c['worker_ready_s']} s", flush=True)
+    return totals
+
+
+def phase_topology_alexnet(torch, runtime, zoo, kernels, costmodel,
+                           comm_rounds, comm_schedules, peer, wire,
+                           EASGDConfig, device="cuda") -> dict:
+    """(19d) Full-width AlexNet on tcp p2p, P = 4, 4 MiB buckets, 8 rounds
+    a schedule, under ``emulated_topology(2, 2)`` whose intra class is the
+    loopback α–β ``wire.measure_link`` reads and whose cross class is 20x
+    its α and 4x its β: ring, hierarchical and "auto" (resolved from a tcp
+    ``calibrate`` profile, timed by ``--burn`` worker interpreters), each
+    traced: µs/iter, the Table-3 shares, peer / intra / cross bytes
+    against the prediction, each wid's paced exchange time against the
+    exchange time it measured, and kernel 1's launches, exact."""
+    p, rounds = 4, 8
+    easgd = EASGDConfig(eta=0.005, rho=0.01, mu=MU)
+    problem = zoo.resolve("alexnet")
+    alpha, beta = wire.measure_link()
+    intra = costmodel.Network("loopback (wire.measure_link)", alpha, beta)
+    topo = costmodel.emulated_topology(2, 2, intra)
+    print(f"topology-slice loopback link: alpha {1e6 * alpha:.2f} us, beta "
+          f"{1e9 * beta:.4f} ns/B = {1e-9 / beta:.3f} GB/s; cross class "
+          f"alpha {1e6 * topo.cross.alpha:.2f} us, beta "
+          f"{1e9 * topo.cross.beta:.4f} ns/B", flush=True)
+    _, grad_fn, _ = problem.build(device)
+    n_pad = N_ALEXNET + (-N_ALEXNET) % p
+    cuts = comm_rounds.default_bucket_boundaries(grad_fn.layer_sizes, n_pad,
+                                                 4 << 20)
+    live = sum(a < N_ALEXNET for a in cuts[:-1])
+    base = runtime.PSConfig(algorithm="sync_easgd", n_workers=p,
+                            total_iters=p * rounds, transport="tcp",
+                            sync_plane="p2p", bucket_bytes=4 << 20,
+                            deterministic=True, eval_every_iters=10**9,
+                            topology=topo, trace=True)
+    t0 = time.perf_counter()
+    cal = runtime.calibrate(problem, dataclasses.replace(
+        base, schedule="auto"), samples=3, device=device)
+    auto = dataclasses.replace(base, schedule="auto").resolved_schedule(
+        N_ALEXNET * 8, profile=cal.profile)
+    pt = cal.profile.topology
+    priced = ", ".join(
+        f"{s} {comm_schedules.get(s).cost_topo(N_ALEXNET * 8, p, pt):.4f} s"
+        for s in ("butterfly", "ring", "hierarchical"))
+    print(f"topology-slice tcp calibrate ({time.perf_counter() - t0:.1f} s; "
+          f"{p} --burn worker interpreters: {1e3 * cal.t_grad_concurrent:.2f}"
+          f" ms a gradient concurrent, {1e3 * cal.t_grad_serial:.2f} serial)"
+          f": profile {cal.profile.source} intra alpha "
+          f"{1e6 * pt.intra.alpha:.2f} us beta {1e9 * pt.intra.beta:.4f} "
+          f"ns/B, cross alpha {1e6 * pt.cross.alpha:.2f} us beta "
+          f"{1e9 * pt.cross.beta:.4f} ns/B; auto resolves {auto} (priced "
+          f"{priced})", flush=True)
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+    want = p * rounds * live
+    for name, kw in (("ring", {"schedule": "ring"}),
+                     ("hierarchical", {"schedule": "hierarchical"}),
+                     ("auto", {"schedule": "auto",
+                               "link_profile": cal.profile})):
+        kernels.reset_launch_counts()
+        res = runtime.run_ps(problem, easgd, dataclasses.replace(base, **kw),
+                             device=device)
+        counts = kernels.launch_counts()
+        check(counts == only(counts, fused_sync_easgd_update=want),
+              f"topology alexnet {name} launched {counts}, expected {want}")
+        check(res.center.numel() == N_ALEXNET
+              and bool(torch.isfinite(res.center).all())
+              and bool(torch.isfinite(res.workers).all())
+              and math.isfinite(res.final_metric)
+              and res.total_iters == p * rounds, f"topology {name} finite")
+        sched = res.schedule.split("+")[0]
+        check(name != "auto" or sched == auto,
+              f"auto ran {sched}, resolved {auto}")
+        rr = comm_schedules.get(sched).rounds(p, N_ALEXNET * 8,
+                                              topology=topo)
+        per = peer.predicted_link_bytes(rr, n_pad, cuts)
+        links = {f"{i}-{j}": rounds * b for (i, j), b in per.items()}
+        intra_b, cross_b = (rounds * b for b in host_split(per, topo))
+        c = res.counters
+        check(c["peer_link_bytes"] == links
+              and c.get("intra_host_bytes") == intra_b
+              and c.get("cross_host_bytes") == cross_b,
+              f"topology alexnet {name}: peer_link_bytes "
+              f"{c['peer_link_bytes']} (predicted {links}), intra / cross "
+              f"{c.get('intra_host_bytes')} / {c.get('cross_host_bytes')}")
+        paced = [sum(comm_rounds.t_rounds_buckets(rr, n_pad, cuts,
+                                                  topology=topo, wid=w))
+                 for w in range(p)]
+        per_w = {int(k): v for k, v in res.trace["report"]["workers"].items()}
+        meas = [per_w[w]["comm_busy_s"] / rounds for w in range(p)]
+        add_counts(totals, counts)
+        print(f"topology-slice alexnet sync_easgd {name} -> {res.schedule} "
+              f"P={p} 2x2, 4MiB buckets, {rounds} rounds, traced: "
+              f"{1e6 * res.total_time_s / res.total_iters:.1f} us/iter; "
+              f"Table-3 shares {shares(res)}; intra_host_bytes {intra_b}, "
+              f"cross_host_bytes {cross_b} == predicted; paced exchange per "
+              f"wid {[round(t, 4) for t in paced]} s, measured "
+              f"{[round(t, 4) for t in meas]} s; fused_sync_easgd_update "
+              f"launches {want} ({live} live buckets x {p} workers x "
+              f"{rounds} rounds); worker spawn to READY "
+              f"{c['worker_ready_s']} s", flush=True)
+    return totals
+
+
+def phase_topology_entry_points(torch, runtime, problems, zoo, kernels,
+                                EASGDConfig, device="cuda") -> dict:
+    """(19e) ``launch.cluster --workers 4 --topology 2x2 --sync-plane p2p``
+    and ``launch.train --mode ps --model jax-mlp --transport tcp
+    --ps-workers 2`` as subprocesses on the card; then jax-mlp on the
+    thread plane, the card's run against the CPU's within the tests'
+    f32 limit (relative norm of the center's move 1e-5)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC)
+    cmds = ((["-m", "repro_torch.launch.cluster", "--workers", "4",
+              "--topology", "2x2", "--sync-plane", "p2p", "--algorithm",
+              "sync_easgd", "--schedule", "hierarchical", "--iters", "16",
+              "--device", device], f"[tcp/hierarchical+p2p@{device}",
+             "'cross_host_bytes'"),
+            (["-m", "repro_torch.launch.train", "--mode", "ps", "--model",
+              "jax-mlp", "--transport", "tcp", "--ps-workers", "2",
+              "--algorithm", "sync_easgd", "--ps-iters", "16", "--emulate",
+              "none", "--device", device], f"[tcp/ring@{device}",
+             "ratio="))
+    # both at once: they are checked for their paths, not timed
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, *args], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for args, _, _ in cmds]
+    errs = []
+    for proc, (args, tag, field) in zip(procs, cmds):
+        out, err_out = proc.communicate(timeout=600)
+        lines = [ln for ln in out.splitlines() if " err=" in ln]
+        check(proc.returncode == 0 and len(lines) == 1, f"{args[1]} exited "
+              f"{proc.returncode}: {err_out[-2000:]}")
+        err = float(lines[0].split(" err=")[1].split()[0])
+        check(math.isfinite(err) and tag in lines[0] and field in lines[0],
+              f"line {lines[0]!r}")
+        errs.append(err)
+        print(f"{args[1]} {' '.join(args[2:])}: exit 0 "
+              f"{time.perf_counter() - t:.1f} s after both started: "
+              f"{lines[0][:500]}", flush=True)
+    easgd = EASGDConfig(eta=0.02, rho=0.01, mu=MU)
+    cfg = runtime.PSConfig(algorithm="sync_easgd", n_workers=2,
+                           total_iters=16, schedule="ring",
+                           eval_every_iters=10**9)
+    kernels.reset_launch_counts()
+    card = runtime.run_ps(zoo.resolve("jax-mlp"), easgd, cfg, device=device)
+    counts = kernels.launch_counts()
+    cpu = runtime.run_ps(zoo.resolve("jax-mlp"), easgd, cfg, device="cpu")
+    w0 = problems.make_jax_mlp(device="cpu")[0]
+    moved = cpu.center - w0
+    rel = float(torch.linalg.vector_norm(card.center.cpu() - w0 - moved)
+                / torch.linalg.vector_norm(moved))
+    check(rel <= 1e-5 and counts == only(counts, fused_sync_easgd_update=16),
+          f"jax-mlp card vs CPU relative {rel:.3e} (limit 1e-5), "
+          f"launches {counts}")
+    print(f"jax-mlp sync_easgd P=2 16 iterations, thread plane: the card's "
+          f"center move vs the CPU's, relative norm {rel:.3e} (limit 1e-5); "
+          f"test error card {card.final_metric:.4f}, CPU "
+          f"{cpu.final_metric:.4f}, the launcher's tcp run {errs[1]:.4f}; "
+          f"launches {counts}", flush=True)
+    return counts
+
+
 SOURCES = {"fused_sync_easgd_update": "elastic_update.cu",
            "fused_sync_sgd_update": "elastic_update.cu",
            "flash_attention_fwd": "flash_attention.cu",
@@ -2506,6 +2835,7 @@ def main() -> int:
 
     from repro_torch import configs, kernels
     from repro_torch.comm import rounds as comm_rounds
+    from repro_torch.comm import schedules as comm_schedules
     from repro_torch.core import async_engine, costmodel, elastic
     from repro_torch.core.easgd import EASGDConfig
     from repro_torch.data import synthetic
@@ -2517,7 +2847,7 @@ def main() -> int:
     from repro_torch.models import common
     from repro_torch.models import transformer as tfm
     from repro_torch.launch import train as launcher
-    from repro_torch.net import server, wire
+    from repro_torch.net import peer, server, wire
     from repro_torch.ps import problems, runtime, zoo
     from repro_torch.runtime import train
     from repro_torch.utils import timing
@@ -2682,6 +3012,29 @@ def main() -> int:
                                        costmodel, EASGDConfig))
     print(f"phase 18c: {time.perf_counter() - t18:.1f} s", flush=True)
     print(f"phase elastic (18): {time.perf_counter() - t:.1f} s", flush=True)
+
+    # topology-aware scale-out and the jax-mlp problem (phase 19)
+    release_card(torch, "before phase 19")
+    t = time.perf_counter()
+    add_counts(launches, phase_topology_thread(
+        torch, runtime, problems, kernels, costmodel, comm_rounds,
+        comm_schedules, EASGDConfig))
+    print(f"phase 19a-b: {time.perf_counter() - t:.1f} s", flush=True)
+    t19 = time.perf_counter()
+    add_counts(launches, phase_topology_tcp(
+        torch, runtime, problems, kernels, costmodel, comm_schedules, peer,
+        EASGDConfig))
+    print(f"phase 19c: {time.perf_counter() - t19:.1f} s", flush=True)
+    t19 = time.perf_counter()
+    add_counts(launches, phase_topology_alexnet(
+        torch, runtime, zoo, kernels, costmodel, comm_rounds, comm_schedules,
+        peer, wire, EASGDConfig))
+    print(f"phase 19d: {time.perf_counter() - t19:.1f} s", flush=True)
+    t19 = time.perf_counter()
+    add_counts(launches, phase_topology_entry_points(
+        torch, runtime, problems, zoo, kernels, EASGDConfig))
+    print(f"phase 19e: {time.perf_counter() - t19:.1f} s", flush=True)
+    print(f"phase topology (19): {time.perf_counter() - t:.1f} s", flush=True)
 
     check("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),

@@ -87,6 +87,11 @@ class ExchangePlan:
         (sign_ef signs stay int8: one byte per element)."""
         return n_elements * self.compression.jit_wire_bytes_per_element
 
+    def framed_wire_bytes(self, n_elements: int) -> float:
+        """Bytes on a framed point-to-point wire (``net``): sign_ef signs
+        bit-packed."""
+        return n_elements * self.compression.wire_bytes_per_element
+
     def cost_s(self, n_elements: int, net: costmodel.Network,
                p: int | None = None) -> float:
         """α–β time of one exchange of ``n_elements`` packed f32 elements;

@@ -48,6 +48,10 @@ class Message:
         seg = n_elements // self.chunks
         return self.chunk * seg, (self.chunk + 1) * seg
 
+    def nbytes(self, n_bytes: float) -> float:
+        """Payload bytes this message moves out of an n-byte buffer."""
+        return self.frac * n_bytes
+
 
 def round_robin_rounds(p, n_bytes=0.0, net=None, topology=None):
     """2·p serialized master↔worker messages: gather in rank order, then
@@ -158,23 +162,42 @@ def hierarchical_rounds(p, n_bytes=0.0, net=None, topology=None, group=None):
     return rounds
 
 
-def t_rounds(rounds, n_bytes: float, net=None, topology=None) -> float:
+def _link_net(m: Message, net, topology):
+    """The network a message rides: its link class under a topology (a
+    master endpoint, wid < 0, is its own host: master links are cross),
+    else ``net``."""
+    return topology.link(m.src, m.dst) if topology is not None else net
+
+
+def t_rounds(rounds, n_bytes: float, net=None, topology=None,
+             wid: int | None = None) -> float:
     """α–β time of a round structure: each round costs the max over its
     messages of ``link.α + frac·n·link.β`` (each message on its own link
-    class when a ``topology`` is given); rounds serialize."""
+    class when a ``topology`` is given); rounds serialize. ``wid`` keeps
+    only the messages touching that worker: its own pacing deadline on a
+    heterogeneous mesh, where an intra-host pair finishes early and waits
+    on its cross-host peers at the blocking recv, not by sleeping."""
     net = net or costmodel.PCIE3_X16
     total = 0.0
     for rnd in rounds:
         worst = None
         for m in rnd:
-            link = topology.link(m.src, m.dst) if topology is not None \
-                else net
+            if wid is not None and m.src != wid and m.dst != wid:
+                continue
+            link = _link_net(m, net, topology)
             t = link.alpha + m.frac * n_bytes * link.beta
             if worst is None or t > worst:
                 worst = t
         if worst is not None:
             total += worst
     return total
+
+
+def bytes_from_rounds(rounds, n_bytes: float) -> float:
+    """Total payload bytes all messages of ``rounds`` move for an n-byte
+    buffer, every message counted: what the p2p per-link byte counters
+    add up to."""
+    return sum(m.nbytes(n_bytes) for rnd in rounds for m in rnd)
 
 
 # ---------------------------------------------------------------------------
@@ -315,18 +338,28 @@ def execute_rounds(mailbox, n: int, rounds, counters=None,
 # the p2p data plane's view of the rounds
 # ---------------------------------------------------------------------------
 
-def t_rounds_buckets(rounds, n_elements: int, boundaries,
-                     net) -> list[float]:
-    """Per-bucket α–β time of the bucketed view of ``rounds``: bucket b
-    pays, for every round it appears in, the max over its clipped messages
-    of ``α + (b − a)·8·β`` — exactly the SEGMENT frames it moves."""
+def t_rounds_buckets(rounds, n_elements: int, boundaries, net=None,
+                     topology=None, wid: int | None = None) -> list[float]:
+    """Per-bucket α–β time of the bucketed view of ``rounds``, priced as
+    ``t_rounds`` prices (``topology``: per link class; ``wid``: that
+    worker's messages only): bucket b pays, for every round it appears
+    in, the max over its clipped messages of ``link.α + (b − a)·8·link.β``
+    — exactly the SEGMENT frames it moves."""
+    net = net or costmodel.PCIE3_X16
     out = []
     for plan in bucket_rounds(rounds, n_elements, boundaries):
         t = 0.0
         for rnd in plan:
-            if rnd:
-                t += max(net.alpha + (b - a) * 8 * net.beta
-                         for _, (a, b) in rnd)
+            worst = None
+            for m, (a, b) in rnd:
+                if wid is not None and m.src != wid and m.dst != wid:
+                    continue
+                link = _link_net(m, net, topology)
+                tm = link.alpha + (b - a) * 8 * link.beta
+                if worst is None or tm > worst:
+                    worst = tm
+            if worst is not None:
+                t += worst
         out.append(t)
     return out
 

@@ -18,9 +18,9 @@ from typing import Callable
 import torch
 
 from repro_torch.core import costmodel
-from repro_torch.comm.rounds import (butterfly_rounds, execute_rounds,
-                                     hierarchical_rounds, inner_size,
-                                     psum_rounds, ring_rounds,
+from repro_torch.comm.rounds import (bytes_from_rounds, butterfly_rounds,
+                                     execute_rounds, hierarchical_rounds,
+                                     inner_size, psum_rounds, ring_rounds,
                                      round_robin_rounds, t_rounds,
                                      tree_rounds)
 
@@ -91,6 +91,20 @@ class Schedule:
             return self.rounds_fn(p, n_bytes, net, topology=topology)
         return self.rounds_fn(p, n_bytes, net)
 
+    def cost_from_rounds(self, n_bytes: float, p: int,
+                         net: costmodel.Network = _NET) -> float:
+        """Per-round α–β pricing: each round costs α + max_frac·n·β (its
+        messages fly concurrently); rounds serialize."""
+        return sum(net.alpha + max(m.frac for m in rnd) * n_bytes * net.beta
+                   for rnd in self.rounds(p, n_bytes, net))
+
+    def bytes_from_rounds(self, n_bytes: float, p: int,
+                          net: costmodel.Network = _NET) -> float:
+        """Total payload bytes the schedule's messages move for one
+        exchange of an n-byte buffer (what the p2p per-link byte counters
+        sum to)."""
+        return bytes_from_rounds(self.rounds(p, n_bytes, net), n_bytes)
+
     def cost_topo(self, n_bytes: float, p: int,
                   topology: costmodel.Topology | None = None) -> float:
         """α–β time on a two-level fabric: the schedule's own rounds priced
@@ -154,11 +168,15 @@ register(Schedule(
 
 
 def choose(n_bytes: float, p: int, net: costmodel.Network = _NET,
-           topology: costmodel.Topology | None = None) -> str:
+           topology: costmodel.Topology | None = None,
+           profile: costmodel.LinkProfile | None = None) -> str:
     """α–β-driven choice: latency-bound small buffers → butterfly,
     bandwidth-bound → ring; butterfly only for a power-of-two p. On a
-    non-uniform ``topology`` hierarchical joins the candidates and each is
+    non-uniform ``topology`` (or a measured ``profile``'s, when no
+    topology is given) hierarchical joins the candidates and each is
     priced link by link; candidate order breaks ties."""
+    if profile is not None and topology is None:
+        topology = profile.topology
     if p <= 1:
         return "psum"
     if topology is not None and not topology.uniform:

@@ -1,11 +1,13 @@
 """α–β communication model (paper Table 2) — the part of
 ``repro/core/costmodel.py`` that the exchange schedules price with.
 
-A message of n bytes costs α + n·β seconds. The reference's TPU link and
-chip constants and its roofline are not carried over: nothing here
-describes the card. ``PCIE3_X16`` is the PS runtime's own default network
+A message of n bytes costs α + n·β seconds. The reference's chip
+constants and its roofline are not carried over: nothing here describes
+the card. ``PCIE3_X16`` is the PS runtime's own default network
 (``repro/ps/runtime.py:60``) and is the default wherever a schedule is
-priced without an explicit network.
+priced without an explicit network. The two-level fabric (``Topology``,
+``LinkProfile``, ``emulated_topology``) prices the PS runtime's per-link
+pacing and the schedule choice under ``PSConfig.topology``.
 """
 from __future__ import annotations
 
@@ -29,6 +31,14 @@ PCIE3_X16 = Network("PCIe3x16", 5e-6, 1 / 12e9)
 # per-minibatch compute matches the paper's AlexNet-over-Ethernet regime
 PS_WIRE = Network("emulated PS wire (Ethernet-class, model-scaled)",
                   50e-6, 1.0 / 9e6)
+
+# the network on which the reference prices its packed multi-pod exchange
+# (its cross-pod link, ``repro/core/costmodel.py`` TPU_DCI): the multi-pod
+# step's "auto" schedule is chosen on it so that the port resolves the
+# reference's schedule, and so sums the pod rows in the same order. It
+# describes no link of the card (the pods are rows of one tensor there)
+POD_EXCHANGE_NET = Network("the reference's pod-row exchange network",
+                            10.0e-6, 1.0 / 12.5e9)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +71,72 @@ class Topology:
     def uniform(self) -> bool:
         """True when every link prices identically."""
         return self.hosts <= 1 or self.intra == self.cross
+
+    def to_wire(self) -> dict:
+        """JSON-safe form (WELCOME ships it to the workers)."""
+        return {"hosts": self.hosts, "slots": self.slots,
+                "intra": [self.intra.name, self.intra.alpha,
+                          self.intra.beta],
+                "cross": [self.cross.name, self.cross.alpha,
+                          self.cross.beta]}
+
+    @staticmethod
+    def from_wire(d: dict) -> "Topology":
+        return Topology(hosts=int(d["hosts"]), slots=int(d["slots"]),
+                        intra=Network(*d["intra"]),
+                        cross=Network(*d["cross"]))
+
+
+@dataclasses.dataclass(frozen=True)
+class LinkProfile:
+    """Per-link-class α–β as measured on a live mesh
+    (``ps.measured_link_profile``), in the shape the chooser prices.
+    ``source`` names where the numbers came from ('analytic',
+    'measured:thread', 'measured:tcp'); ``detail`` carries the raw
+    observations."""
+
+    topology: Topology
+    source: str = "analytic"
+    detail: dict = dataclasses.field(default_factory=dict)
+
+    def to_wire(self) -> dict:
+        return {"topology": self.topology.to_wire(), "source": self.source,
+                "detail": dict(self.detail)}
+
+    @staticmethod
+    def from_wire(d: dict) -> "LinkProfile":
+        return LinkProfile(topology=Topology.from_wire(d["topology"]),
+                           source=str(d.get("source", "analytic")),
+                           detail=dict(d.get("detail", {})))
+
+
+def emulated_topology(hosts: int, slots: int, intra: Network = PS_WIRE,
+                      cross_alpha_x: float = 20.0,
+                      cross_beta_x: float = 4.0) -> Topology:
+    """The emulated two-level fabric: intra-host links are ``intra``;
+    cross-host links stretch its α by ``cross_alpha_x`` and β by
+    ``cross_beta_x``. Unit multipliers give ``cross = intra`` (the same
+    object): a uniform topology."""
+    if hosts < 1 or slots < 1:
+        raise ValueError(f"topology needs hosts, slots >= 1, "
+                         f"got {hosts}x{slots}")
+    if cross_alpha_x == 1.0 and cross_beta_x == 1.0:
+        cross = intra
+    else:
+        cross = Network(
+            f"{intra.name} [cross-host {cross_alpha_x:g}xA "
+            f"{cross_beta_x:g}xB]",
+            intra.alpha * cross_alpha_x, intra.beta * cross_beta_x)
+    return Topology(hosts=hosts, slots=slots, intra=intra, cross=cross)
+
+
+def t_hierarchical_two_level(n: float, topo: Topology) -> float:
+    """Closed-form two-level hierarchical all-reduce on ``topo``: a ring
+    inside each host (intra links) plus a butterfly across hosts (cross
+    links) — the analytic cross-check of the rounds-level price."""
+    inner = t_ring_allreduce(n, topo.slots, topo.intra)
+    outer = t_butterfly_allreduce(n, topo.hosts, topo.cross)
+    return inner + outer
 
 
 def t_msg(n: float, net: Network) -> float:

@@ -42,6 +42,7 @@ import torch
 from repro_torch.comm import plan as comm_plan
 from repro_torch.comm import schedules as comm_schedules
 from repro_torch.core import compression as compression_lib
+from repro_torch.core import costmodel
 from repro_torch.core.easgd import EASGDConfig
 from repro_torch.kernels import elastic_update as eu
 from repro_torch.models.common import tree_leaves_with_path
@@ -70,17 +71,18 @@ class ElasticConfig:
     def resolve_schedule(self, n_total: int,
                          n_elements: int | None = None) -> str:
         """Resolve "auto" to a registry name via ``comm.choose`` on the
-        post-compression bytes of the pod-row reduction. The reference
-        prices its TPU cross-pod link; the pods of this port share one
-        card, so the choice is priced on the schedules' default network.
-        Without a buffer size, psum."""
+        post-compression bytes of the pod-row reduction, priced on
+        ``costmodel.POD_EXCHANGE_NET`` (the network the reference prices
+        it on), so that both resolve the same schedule. Without a buffer
+        size, psum."""
         if self.schedule != "auto":
             return self.schedule
         if n_elements is None or n_total <= 1:
             return "psum"
         comp = compression_lib.get(self.compression)
         wire = n_elements * comp.jit_wire_bytes_per_element
-        return comm_schedules.choose(wire, n_total)
+        return comm_schedules.choose(wire, n_total,
+                                     costmodel.POD_EXCHANGE_NET)
 
     def exchange_plan(self, n_total: int, n_elements: int | None = None
                       ) -> comm_plan.ExchangePlan:

@@ -32,6 +32,14 @@ the p2p mesh is firewall-predictable:
         --algorithm sync_easgd --schedule ring --sync-plane p2p \\
         --hosts h1,h2 --port 29500
 
+``--topology HOSTSxSLOTS`` (sync family) paces every message on its link
+class of an emulated two-level fabric, in place of ``--emulate wire``;
+``--schedule auto`` then chooses from a profile measured on the mesh:
+
+    PYTHONPATH=src python -m repro_torch.launch.cluster --workers 4 \\
+        --algorithm sync_easgd --schedule auto --sync-plane p2p \\
+        --topology 2x2 --iters 64
+
 ``--telemetry`` / ``--telemetry-jsonl PATH`` turn the live plane on (the
 run ends with a ``# health: N event(s)`` report; with a pinned --port,
 ``python -m repro_torch.launch.monitor --connect`` watches it), and
@@ -107,6 +115,18 @@ def main(argv=None):
     ap.add_argument("--emulate", default="none", choices=["wire", "none"],
                     help="'wire': deadline-pace every message under "
                          "costmodel.PS_WIRE on top of the real socket")
+    ap.add_argument("--topology", default=None, metavar="HOSTSxSLOTS",
+                    help="sync family: emulate a two-level fabric (e.g. "
+                         "2x8; HOSTSxSLOTS must equal --workers). Cross-host "
+                         "links pace at --cross-alpha-x / --cross-beta-x "
+                         "times the intra-host wire; '--schedule auto' then "
+                         "chooses per link class from a measured profile. "
+                         "Replaces --emulate wire")
+    ap.add_argument("--cross-alpha-x", type=float, default=20.0,
+                    help="cross-host latency multiplier for --topology")
+    ap.add_argument("--cross-beta-x", type=float, default=4.0,
+                    help="cross-host inverse-bandwidth multiplier for "
+                         "--topology")
     ap.add_argument("--hosts", default=None,
                     help="comma-separated worker hosts; the master binds "
                          "0.0.0.0:--port and waits for them (omit: spawn "
@@ -119,8 +139,8 @@ def main(argv=None):
                          "over ssh instead of only printing them")
     ap.add_argument("--model", default="tiny-mlp",
                     help="training problem (ps.zoo): tiny-mlp (default), "
-                         "mlp, mlp-large, lenet, alexnet, gemma3-4b or "
-                         "mamba2-780m (the reduced LMs)")
+                         "mlp, mlp-large, jax-mlp, lenet, alexnet, "
+                         "gemma3-4b or mamba2-780m (the reduced LMs)")
     ap.add_argument("--bucket-bytes", type=int, default=0,
                     help="sync family: bucket the exchange into ~this many "
                          "payload bytes per bucket at layer edges (0 = "
@@ -173,6 +193,31 @@ def main(argv=None):
             ap.error(f"--sync-plane p2p applies to the sync family only; "
                      f"{bad} exchange through the master by definition")
     easgd = EASGDConfig(eta=args.eta, rho=args.rho, mu=0.9, tau=args.tau)
+    emulate = costmodel.PS_WIRE if args.emulate == "wire" else None
+    topology = None
+    if args.topology:
+        try:
+            t_hosts, t_slots = (int(x)
+                                for x in args.topology.lower().split("x"))
+        except ValueError:
+            ap.error(f"--topology wants HOSTSxSLOTS (e.g. 2x8), got "
+                     f"'{args.topology}'")
+        if t_hosts * t_slots != args.workers:
+            ap.error(f"--topology {t_hosts}x{t_slots} does not tile "
+                     f"--workers {args.workers}")
+        if args.transport not in ("thread", "tcp"):
+            ap.error("--topology needs --transport thread or tcp")
+        bad = [a for a in algos if a not in SYNC_FAMILY]
+        if bad:
+            ap.error(f"--topology prices the sync-family exchange; {bad} "
+                     f"are not sync algorithms")
+        if args.elastic:
+            ap.error("--topology and --elastic are not yet composed (an "
+                     "epoch's survivors no longer tile the declared grid)")
+        topology = costmodel.emulated_topology(
+            t_hosts, t_slots, cross_alpha_x=args.cross_alpha_x,
+            cross_beta_x=args.cross_beta_x)
+        emulate = None  # the topology replaces the global emulated wire
     multi_host = bool(args.hosts)
     port = args.port if args.port is not None else (29500 if multi_host
                                                     else 0)
@@ -181,12 +226,11 @@ def main(argv=None):
         algorithm=algos[0], n_workers=args.workers,
         transport=args.transport, schedule=args.schedule,
         total_iters=args.iters, eval_every_iters=args.eval_every,
-        emulate_net=costmodel.PS_WIRE if args.emulate == "wire" else None,
-        wire_compression=args.compression,
+        emulate_net=emulate, wire_compression=args.compression,
         tcp_host="0.0.0.0" if multi_host else "127.0.0.1",
         tcp_port=port, spawn_workers=not multi_host,
         sync_plane=args.sync_plane, bucket_bytes=args.bucket_bytes,
-        overlap=not args.no_overlap,
+        overlap=not args.no_overlap, topology=topology,
         trace=args.trace or bool(args.trace_dir), trace_dir=args.trace_dir,
         telemetry=args.telemetry, telemetry_jsonl=args.telemetry_jsonl,
         elastic=args.elastic)

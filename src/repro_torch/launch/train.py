@@ -34,6 +34,17 @@ held against the DES calibrated once on the same device:
         --algorithm sync_easgd --transport tcp --sync-plane p2p \\
         --schedule ring --ps-workers 4 --ps-iters 80 --trace --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.train --mode ps \\
+        --algorithm sync_easgd --transport tcp --sync-plane p2p \\
+        --schedule auto --ps-workers 4 --topology 2x2 --device cuda
+
+``--topology HOSTSxSLOTS`` (sync family, thread or tcp) paces each
+message on its link class of an emulated two-level fabric (cross-host
+links ``--cross-alpha-x`` / ``--cross-beta-x`` times the intra-host PS
+wire) in place of ``--emulate``; ``--schedule auto`` then chooses from a
+link profile measured by the calibration. ``--model jax-mlp`` is the
+reference's autograd MLP problem.
+
 Each algorithm prints the reference's result line (``measured=…us/iter
 des=…us/iter ratio=…``) with the run's device after the schedule and the
 launch counts of every kernel of the port over the DES run and the
@@ -92,14 +103,35 @@ def run_ps_mode(args) -> list:
         raise SystemExit("--sync-plane p2p needs --transport tcp (the p2p "
                          "data plane is worker↔worker sockets)")
     problem = zoo.resolve(args.model)
+    net = costmodel.PS_WIRE if args.emulate == "wire" else None
+    topology = None
+    if args.topology:
+        try:
+            hosts, slots = (int(x) for x in args.topology.lower().split("x"))
+        except ValueError:
+            raise SystemExit(f"--topology wants HOSTSxSLOTS (e.g. 2x8), "
+                             f"got '{args.topology}'")
+        if hosts * slots != args.ps_workers:
+            raise SystemExit(f"--topology {hosts}x{slots} does not tile "
+                             f"--ps-workers {args.ps_workers}")
+        if args.transport not in ("thread", "tcp"):
+            raise SystemExit("--topology needs --transport thread or tcp "
+                             "(per-link pacing lives on those planes)")
+        topology = costmodel.emulated_topology(
+            hosts, slots, cross_alpha_x=args.cross_alpha_x,
+            cross_beta_x=args.cross_beta_x)
+        algos = [a for a in algos if a in SYNC_FAMILY]
+        if not algos:
+            raise SystemExit("--topology prices the sync-family exchange — "
+                             "pick a sync_* algorithm (or 'all')")
+        net = None      # the topology replaces the global emulated wire
     base = runtime.PSConfig(
         algorithm=algos[0], n_workers=args.ps_workers,
         transport=args.transport, schedule=args.schedule or "ring",
         total_iters=args.ps_iters, eval_every_iters=args.ps_eval_every,
-        emulate_net=(costmodel.PS_WIRE if args.emulate == "wire"
-                     else None),
-        wire_compression=wire_codec, bucket_bytes=args.bucket_bytes,
-        overlap=not args.no_overlap,
+        emulate_net=net, wire_compression=wire_codec,
+        bucket_bytes=args.bucket_bytes, overlap=not args.no_overlap,
+        topology=topology,
         trace=args.trace or bool(args.trace_dir), trace_dir=args.trace_dir)
     cal = runtime.calibrate(problem, base, device=args.device)
     out = []
@@ -262,8 +294,9 @@ def main(argv=None):
                     help="directory for worker trace spills and the merged "
                          "trace (implies --trace)")
     ap.add_argument("--model", default="tiny-mlp",
-                    help="tiny-mlp (default), mlp, lenet, alexnet, "
-                         "gemma3-4b or mamba2-780m (the reduced LMs)")
+                    help="tiny-mlp (default), mlp, mlp-large, jax-mlp (the "
+                         "autograd MLP), lenet, alexnet, gemma3-4b or "
+                         "mamba2-780m (the reduced LMs)")
     ap.add_argument("--ps-workers", type=int, default=4)
     ap.add_argument("--ps-iters", type=int, default=400)
     ap.add_argument("--ps-eval-every", type=int, default=200)
@@ -274,6 +307,19 @@ def main(argv=None):
                     help="'wire' sleeps each master message / exchange "
                          "round's α+nβ under costmodel.PS_WIRE; 'none' uses "
                          "raw device memory")
+    ap.add_argument("--topology", default=None, metavar="HOSTSxSLOTS",
+                    help="ps sync family: emulate a two-level fabric (e.g. "
+                         "2x8; HOSTSxSLOTS must equal --ps-workers): "
+                         "cross-host links pace at --cross-alpha-x / "
+                         "--cross-beta-x times the intra-host PS wire and "
+                         "'--schedule auto' chooses per link class. "
+                         "Replaces --emulate")
+    ap.add_argument("--cross-alpha-x", type=float, default=20.0,
+                    help="cross-host latency multiplier for --topology "
+                         "(default 20)")
+    ap.add_argument("--cross-beta-x", type=float, default=4.0,
+                    help="cross-host inverse-bandwidth multiplier for "
+                         "--topology (default 4)")
     args = ap.parse_args(argv)
     if args.mode == "ps":
         return run_ps_mode(args)

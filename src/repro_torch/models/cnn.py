@@ -1,5 +1,6 @@
-"""LeNet-5 and AlexNet-for-CIFAR in PyTorch (the port of
-``repro/models/cnn.py``: the two CNNs, ``xent_loss`` and ``accuracy``).
+"""LeNet-5, AlexNet-for-CIFAR and the small ReLU MLP in PyTorch (the port
+of ``repro/models/cnn.py``: the two CNNs, ``mlp_init`` / ``mlp_apply``,
+``xent_loss`` and ``accuracy``).
 
 The public layout is the reference's, so the tests compare like with like:
 
@@ -7,8 +8,10 @@ The public layout is the reference's, so the tests compare like with like:
 * the parameters are a dict with the reference's key names, conv weights
   in HWIO and dense weights as ``(in, out)``;
 * the flat parameter row is ``jax.flatten_util.ravel_pytree``'s layout:
-  keys sorted (``c1b, c1w, c2b, …, f3w`` — bias before weight), each leaf
-  raveled in C order.
+  keys sorted (``c1b, c1w, c2b, …, f3w`` — bias before weight; the MLP's
+  ``b0, b1, b_out, w0, w1, w_out``), each leaf raveled in C order. The
+  MLP's widths (``d_in``, ``d_hidden``, ``depth``) ride as keyword
+  arguments wherever a layout is needed.
 
 Inside, activations run NCHW through ``F.conv2d`` (weights permuted to
 OIHW; "SAME" padding is 1 for the 3×3 kernels and 2 for LeNet's 5×5) and
@@ -26,9 +29,20 @@ import torch.nn.functional as F
 from repro_torch.utils.device import resolve_device
 
 
-def param_shapes(model: str, n_classes: int = 10) -> dict:
+def param_shapes(model: str, n_classes: int = 10, d_in: int = 64,
+                 d_hidden: int = 128, depth: int = 2) -> dict:
     """``{key: (shape, fan_in)}`` in the reference's init order; ``fan_in``
-    is None for a bias."""
+    is None for a bias. ``d_in``, ``d_hidden`` and ``depth`` size the
+    MLP only."""
+    if model == "mlp":
+        out, d = {}, d_in
+        for i in range(depth):
+            out[f"w{i}"] = ((d, d_hidden), d)
+            out[f"b{i}"] = ((d_hidden,), None)
+            d = d_hidden
+        out["w_out"] = ((d, n_classes), d)
+        out["b_out"] = ((n_classes,), None)
+        return out
     if model == "lenet":
         return {
             "c1w": ((5, 5, 1, 6), 25), "c1b": ((6,), None),
@@ -48,23 +62,25 @@ def param_shapes(model: str, n_classes: int = 10) -> dict:
             "f2w": ((1024, 512), 1024), "f2b": ((512,), None),
             "f3w": ((512, n_classes), 512), "f3b": ((n_classes,), None),
         }
-    raise ValueError(f"unknown cnn '{model}' (lenet/alexnet)")
+    raise ValueError(f"unknown model '{model}' (lenet/alexnet/mlp)")
 
 
-def ravel_layout(model: str, n_classes: int = 10) -> list:
+def ravel_layout(model: str, n_classes: int = 10, **dims) -> list:
     """``[(key, shape)]`` in flat-row order (``ravel_pytree``: sorted keys)."""
-    shapes = param_shapes(model, n_classes)
+    shapes = param_shapes(model, n_classes, **dims)
     return [(k, shapes[k][0]) for k in sorted(shapes)]
 
 
-def _init(model: str, generator: torch.Generator, n_classes: int, device):
+def _init(model: str, generator: torch.Generator, n_classes: int, device,
+          **dims):
     """He-normal weights, zero biases, drawn from ``generator`` on the CPU
     (the same bits on every device) and moved to ``device``. PyTorch cannot
     redraw JAX's threefry bits: runs held against the reference take its
     weights through ``params_from_jax`` instead."""
     dev = resolve_device(device)
     out = {}
-    for k, (shape, fan_in) in param_shapes(model, n_classes).items():
+    for k, (shape, fan_in) in param_shapes(model, n_classes,
+                                           **dims).items():
         if fan_in is None:
             t = torch.zeros(shape)
         else:
@@ -83,15 +99,25 @@ def alexnet_init(generator: torch.Generator, n_classes: int = 10,
     return _init("alexnet", generator, n_classes, device)
 
 
+def mlp_init(generator: torch.Generator, d_in: int = 64, d_hidden: int = 128,
+             n_classes: int = 10, depth: int = 2, device=None):
+    """``depth`` ReLU layers of ``d_hidden`` and a linear head, in the
+    reference's layout (``w{i}`` as ``(in, out)``, ``b{i}``, ``w_out``,
+    ``b_out``): He-normal weights, zero biases."""
+    return _init("mlp", generator, n_classes, device, d_in=d_in,
+                 d_hidden=d_hidden, depth=depth)
+
+
 def flatten_params(params: dict) -> torch.Tensor:
     """The flat f64 row in ``ravel_pytree`` order."""
     return torch.cat([params[k].reshape(-1).to(torch.float64)
                       for k in sorted(params)])
 
 
-def unflatten(row: torch.Tensor, model: str, n_classes: int = 10) -> dict:
+def unflatten(row: torch.Tensor, model: str, n_classes: int = 10,
+              **dims) -> dict:
     """Views of ``row`` as the parameter dict (no copy)."""
-    layout = ravel_layout(model, n_classes)
+    layout = ravel_layout(model, n_classes, **dims)
     total = sum(math.prod(shape) for _, shape in layout)
     if row.numel() != total:
         raise ValueError(f"row has {row.numel()} elements, {model} needs "
@@ -105,14 +131,15 @@ def unflatten(row: torch.Tensor, model: str, n_classes: int = 10) -> dict:
 
 
 def params_from_jax(params_or_flat_row, model: str = "alexnet",
-                    n_classes: int = 10, device=None):
+                    n_classes: int = 10, device=None, **dims):
     """Carry the reference's weights across: ``params_or_flat_row`` is the
     reference's parameter dict (numpy arrays, HWIO / (in, out)) or its flat
     ``ravel_pytree`` row. Returns ``(params, row)``: the dict as f32
-    tensors in the same layout, and the flat f64 row in the same order."""
+    tensors in the same layout, and the flat f64 row in the same order.
+    ``model="mlp"`` takes the MLP's widths in ``dims``."""
     dev = resolve_device(device)
     if isinstance(params_or_flat_row, dict):
-        layout = dict(ravel_layout(model, n_classes))
+        layout = dict(ravel_layout(model, n_classes, **dims))
         if set(params_or_flat_row) != set(layout):
             raise ValueError(f"keys {sorted(params_or_flat_row)} are not "
                              f"{model}'s {sorted(layout)}")
@@ -127,7 +154,7 @@ def params_from_jax(params_or_flat_row, model: str = "alexnet",
     row = torch.from_numpy(
         np.array(params_or_flat_row, dtype=np.float64)).to(dev)
     params = {k: v.to(torch.float32).clone()
-              for k, v in unflatten(row, model, n_classes).items()}
+              for k, v in unflatten(row, model, n_classes, **dims).items()}
     return params, row
 
 
@@ -163,6 +190,14 @@ def alexnet_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.relu(h @ p["f1w"] + p["f1b"])
     h = F.relu(h @ p["f2w"] + p["f2b"])
     return h @ p["f3w"] + p["f3b"]
+
+
+def mlp_apply(p: dict, x: torch.Tensor, depth: int = 2) -> torch.Tensor:
+    """x: (B, d_in) -> logits (B, n_classes)."""
+    h = x
+    for i in range(depth):
+        h = F.relu(h @ p[f"w{i}"] + p[f"b{i}"])
+    return h @ p["w_out"] + p["b_out"]
 
 
 def xent_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -151,6 +151,10 @@ class PeerMesh:
         #                                  doomed exchange
         self.tracer = None               # obs.trace.Tracer of the comm
         #                                  thread (None = tracing off)
+        self.host_of = None              # wid -> host (set by the worker
+        #                                  when WELCOME ships a topology):
+        #                                  stats() then labels each peer
+        #                                  link "intra" or "cross"
 
     # -- mesh setup ----------------------------------------------------------
 
@@ -449,6 +453,10 @@ class PeerMesh:
             "peer_links": {
                 str(peer): {"messages": c["messages"].value,
                             "wire_bytes": c["wire_bytes"].value,
+                            **({"link": ("intra" if self.host_of(peer)
+                                         == self.host_of(self.wid)
+                                         else "cross")}
+                               if self.host_of is not None else {}),
                             **({"ef_ratio": r}
                                if (peer in self.links
                                    and (r := self.links[peer].ef_ratio()))

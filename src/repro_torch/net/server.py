@@ -32,7 +32,14 @@ overwritten early.
 Wire emulation (``PSConfig.emulate_net``) composes with the real socket:
 deadlines are taken before a transfer and slept to after it;
 ``PSConfig.link_slow`` stretches one worker's deadlines (a controlled
-straggler on the clock, never on the math).
+straggler on the clock, never on the math). ``PSConfig.topology`` takes
+the emulated wire's place: every message is priced over its link class
+(intra-host or cross-host; a master link is cross), each p2p worker gets
+its own deadlines in WELCOME (``t_wire_s`` / ``t_wire_bucket_s`` over the
+messages it touches: an intra-host pair finishes early and waits at the
+blocking recv), "auto" is chosen over a link profile (measured here on
+the real sockets when none is given), and the run's counters split the
+peer bytes into ``intra_host_bytes`` and ``cross_host_bytes``.
 
 The live plane (``PSConfig.telemetry``, ``obs.live``): every
 telemetry-bearing HEARTBEAT feeds a ``LiveMonitor`` through
@@ -70,7 +77,7 @@ from repro_torch import kernels
 from repro_torch.comm import rounds as comm_rounds
 from repro_torch.comm import schedules as comm_schedules
 from repro_torch.comm.rounds import execute_rounds
-from repro_torch.core import easgd_flat
+from repro_torch.core import costmodel, easgd_flat
 from repro_torch.core.compression import sign_ef_wire_nbytes
 from repro_torch.ft import chaos as ft_chaos
 from repro_torch.ft import membership as ft_membership
@@ -310,9 +317,19 @@ class MasterServer:
         self.n = n = self.w0.numel()
         P = cfg.n_workers
         self.tau = max(int(easgd.tau), 1)
-        self.sched_name = cfg.resolved_schedule(n * 8)
+        # heterogeneous fabric: the topology prices every pacing sleep per
+        # link class; with schedule="auto" and no profile given, one is
+        # measured now (a short burst over the real sockets) so the choice
+        # ranks the schedules on the fabric the run has
+        self.topology = cfg.topology
+        self.profile = cfg.link_profile
+        if (self.topology is not None and self.profile is None
+                and cfg.schedule == "auto"):
+            from repro_torch.ps.runtime import measured_link_profile
+            self.profile = measured_link_profile(cfg)
+        self.sched_name = cfg.resolved_schedule(n * 8, profile=self.profile)
         self.rounds = (comm_schedules.get(self.sched_name)
-                       .rounds(P, n * 8, cfg.net)
+                       .rounds(P, n * 8, cfg.net, topology=self.topology)
                        if cfg.algorithm in SYNC else [])
         self.sync_p2p = cfg.algorithm in SYNC and cfg.sync_plane == "p2p"
         if self.sync_p2p and any(
@@ -443,6 +460,15 @@ class MasterServer:
         it, not the iterates)."""
         codec = self.cfg.wire_compression
         slow = self.cfg.link_slow_factor(wid) if wid is not None else 1.0
+        if self.topology is not None:
+            # a master link rides the (MASTER, wid) class: cross-host
+            # whenever hosts > 1 — the master is its own host
+            link = self.topology.link(comm_rounds.MASTER,
+                                      0 if wid is None else wid)
+            return (slow * costmodel.t_msg(
+                        wire_payload_nbytes(self._down_elems(), codec), link),
+                    slow * costmodel.t_msg(
+                        wire_payload_nbytes(self._up_elems(), codec), link))
         return (slow * self.cfg.t_msg_emulated(
                     wire_payload_nbytes(self._down_elems(), codec)),
                 slow * self.cfg.t_msg_emulated(
@@ -451,15 +477,26 @@ class MasterServer:
     def _n_sync_rounds(self) -> int:
         return -(-self.cfg.total_iters // (self.cfg.n_workers * self.tau))
 
-    def _t_sync_wire(self) -> float:
+    def _t_sync_wire(self, wid: int | None = None) -> float:
         """Emulated time of one exchange: the rounds serialize, each
-        costs α + max_frac·n·β."""
+        costs α + max_frac·n·β. Under a topology each message is priced
+        over its link class, and ``wid`` keeps that worker's own segments:
+        its deadline on a heterogeneous mesh (an intra-host pair finishes
+        early and waits on its cross-host peers at the blocking recv)."""
+        if self.topology is not None:
+            return comm_rounds.t_rounds(self.rounds, self.n * 8,
+                                        topology=self.topology, wid=wid)
         return sum(
             self.cfg.t_msg_emulated(max(m.frac for m in rnd) * self.n * 8)
             for rnd in self.rounds)
 
-    def _t_sync_wire_buckets(self) -> list:
-        """Per-bucket emulated wire time of the bucketed view."""
+    def _t_sync_wire_buckets(self, wid: int | None = None) -> list:
+        """Per-bucket emulated wire time of the bucketed view (topology
+        and ``wid`` as in ``_t_sync_wire``)."""
+        if self.topology is not None:
+            return comm_rounds.t_rounds_buckets(
+                self.rounds, self.padded, self.boundaries,
+                topology=self.topology, wid=wid)
         if self.cfg.emulate_net is None:
             return [0.0] * (len(self.boundaries) - 1)
         return comm_rounds.t_rounds_buckets(self.rounds, self.padded,
@@ -496,15 +533,20 @@ class MasterServer:
             "eta": e.eta, "mu": e.mu, "rho": e.rho,
             "codec": cfg.wire_compression,
             "warmup": 2,
-            "hb_interval_s": cfg.hb_interval_s,
+            "hb_interval_s": cfg.hb_interval_eff_s(),
             "trace": bool(cfg.trace),
             "trace_dir": cfg.trace_dir,
         }
+        if self.topology is not None:
+            welcome["topology"] = self.topology.to_wire()
+        if self.profile is not None:
+            welcome["link_profile"] = self.profile.to_wire()
         if self.sync_p2p:
             # a link_slow worker paces its exchange deadlines slower: the
             # mesh is lockstep, so its lag shows in every worker's clock,
             # but its own heartbeat telemetry is what names it
             slow = cfg.link_slow_factor(wid)
+            own = wid if self.topology is not None else None
             welcome.update({
                 "sync_plane": "p2p",
                 "p": len(self.links) if rejoin else cfg.n_workers,
@@ -512,12 +554,12 @@ class MasterServer:
                 "rounds": comm_rounds.rounds_to_wire(self.rounds),
                 "n_rounds": self._n_sync_rounds(),
                 "eval_rounds": self._eval_rounds(),
-                "t_wire_s": slow * self._t_sync_wire(),
+                "t_wire_s": slow * self._t_sync_wire(own),
                 "peers": {str(w): a for w, a in self.peer_addrs.items()},
                 "bucket_bounds": self.boundaries,
                 "overlap": cfg.overlap,
                 "t_wire_bucket_s": ([slow * t for t in
-                                     self._t_sync_wire_buckets()]
+                                     self._t_sync_wire_buckets(own)]
                                     if self.boundaries else []),
                 "elastic": self.elastic,
             })
@@ -708,16 +750,17 @@ class MasterServer:
                             for l in list(self.links.values()))
                 cell = self.counters.gauge("hb_staleness_max_s")
                 cell.value = max(cell.value, round(worst, 3))
+            hb_timeout = self.cfg.hb_timeout_eff_s()
             stale = [w for w, l in list(self.links.items())
-                     if time.monotonic() - l.last_seen > self.cfg.hb_timeout_s]
+                     if time.monotonic() - l.last_seen > hb_timeout]
             if stale:
                 if absorb:
                     return self._member_lost(
                         stale[0], "dead",
-                        f"silent for more than {self.cfg.hb_timeout_s}s")
+                        f"silent for more than {hb_timeout}s")
                 raise RuntimeError(
                     f"worker(s) {stale} silent for more than "
-                    f"{self.cfg.hb_timeout_s}s (heartbeats stopped)")
+                    f"{hb_timeout}s (heartbeats stopped)")
             try:
                 wid, kind, detail = self.events.get(timeout=0.5)
             except queue.Empty:
@@ -776,7 +819,7 @@ class MasterServer:
         self.counters.counter("health_events")
         self.live = obs_live.LiveMonitor(
             cfg.n_workers, deadline_factor=cfg.straggler_factor,
-            hb_interval_s=cfg.hb_interval_s,
+            hb_interval_s=cfg.hb_interval_eff_s(),
             jsonl_path=cfg.telemetry_jsonl,
             counters=self.counters,
             meta={"algorithm": cfg.algorithm, "transport": "tcp",
@@ -1583,6 +1626,18 @@ class MasterServer:
             counters["peer_link_bytes"] = link_bytes
             counters["peer_wire_bytes"] = sum(link_bytes.values())
             counters["peer_messages"] = msgs
+            if self.topology is not None and self.topology.hosts > 1:
+                # bytes that stayed on intra-host links vs crossed hosts:
+                # what hierarchical drives down
+                intra_b = cross_b = 0
+                for key, v in link_bytes.items():
+                    i, j = (int(x) for x in key.split("-"))
+                    if self.topology.host_of(i) == self.topology.host_of(j):
+                        intra_b += int(v)
+                    else:
+                        cross_b += int(v)
+                counters["intra_host_bytes"] = intra_b
+                counters["cross_host_bytes"] = cross_b
             # representative per-worker stats from the lowest reporting
             # wid: under elastic membership worker 0 may not have survived
             rep = (self.bye_stats[min(self.bye_stats)]

@@ -45,6 +45,12 @@ touched every 2 s for an external supervisor. Fault injection
 (``ft.chaos``, armed from ``REPRO_CHAOS``) fires at the same boundaries
 and refuses the HELLO dial for a window.
 
+Under a topology (WELCOME's ``topology``) the worker labels each peer
+link ``intra`` or ``cross`` in BYE; its pacing deadlines already come
+priced for its own links. ``--burn SPEC_JSON`` is the tcp calibration's
+burner: build and warm up the problem, print "R", wait for a line on
+stdin, time ``--samples`` gradients and print the seconds per gradient.
+
 Elastic membership (WELCOME's ``elastic``, p2p): a control thread owns the
 master link's inbound side, a failed exchange or a RECONFIGURE enters
 ``_recover`` (ack the freeze with the rounds completed, roll back to the
@@ -89,7 +95,8 @@ from repro_torch.net.wire import HostRow, Link, sleep_until  # noqa: E402
 from repro_torch.obs import clock as obs_clock  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.utils.device import resolve_device  # noqa: E402
-from repro_torch.utils.timing import stream_sync  # noqa: E402
+from repro_torch.utils.timing import (  # noqa: E402
+    Timer, stream_sync, synchronize)
 
 SYNC = easgd_flat.SYNC_FAMILY
 _IMPORT_S = time.perf_counter() - _T_IMPORT     # torch and the port
@@ -366,6 +373,13 @@ def _p2p_sync_loop(link: Link, mesh: PeerMesh, cfg: dict, grad_fn, w0,
     rejoin = bool(cfg.get("rejoin"))
     reporter = 0                   # the lowest live wid reports CENTER
     mesh.codec = cfg.get("codec", "none")
+    topo_wire = cfg.get("topology")
+    if topo_wire and int(topo_wire.get("hosts", 1)) > 1:
+        # a two-level fabric: label this worker's peer links intra / cross
+        # in BYE (the pacing needs nothing here: WELCOME's t_wire_s is
+        # already priced for this worker's own links)
+        slots = int(topo_wire["slots"])
+        mesh.host_of = lambda w: -1 if w < 0 else w // slots
     if not rejoin:
         # a rejoiner holds off: the RECONFIGURE that folds it in names the
         # epoch's geometry (WELCOME's copy is stale at the next event)
@@ -810,6 +824,8 @@ def _p2p_sync_loop(link: Link, mesh: PeerMesh, cfg: dict, grad_fn, w0,
         stats.update({"comm_s": comm_s, "exposed_s": exposed_s,
                       "overlapped_s": max(0.0, comm_s - exposed_s),
                       "overlap": overlap})
+        if mesh.host_of is not None:
+            stats["host"] = mesh.host_of(wid)
         if elastic:
             stats["epoch"] = cur_epoch
             stats["epochs"] = epochs
@@ -843,6 +859,27 @@ def _p2p_sync_loop(link: Link, mesh: PeerMesh, cfg: dict, grad_fn, w0,
                 recovered = True
 
 
+def burn_main(spec_json: str, samples: int, wid: int, device) -> None:
+    """Calibration burner: this interpreter, with a worker's imports,
+    times its own gradients while its siblings do the same
+    (``ps.calibrate`` on tcp takes the median). Protocol: build and warm
+    up, print "R", wait for a line on stdin (the gate), run ``samples``
+    gradients, print the seconds per gradient."""
+    spec = json.loads(spec_json)
+    dev = resolve_device(device)
+    w0, grad_fn, _ = build_problem(spec["factory"], spec["kwargs"], dev)
+    w = w0.to(dev, torch.float64).clone()
+    for k in range(5):
+        grad_fn(w, k, -(wid + 2))
+    synchronize(dev)
+    print("R", flush=True)
+    sys.stdin.readline()
+    with Timer(dev) as tm:
+        for k in range(samples):
+            grad_fn(w, k, -(wid + 2))
+    print(tm.elapsed / samples, flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--connect", default=None, metavar="HOST:PORT")
@@ -872,7 +909,15 @@ def main(argv=None):
                     help="rejoin a running elastic master mid-run (a "
                          "respawn is a re-exec with REPRO_CLUSTER_SPEC "
                          "set plus this flag)")
+    ap.add_argument("--burn", default=None, metavar="SPEC_JSON",
+                    help="calibration mode: time this interpreter's "
+                         "gradients while its siblings run, instead of "
+                         "training")
+    ap.add_argument("--samples", type=int, default=20)
     args = ap.parse_args(argv)
+    if args.burn is not None:
+        burn_main(args.burn, args.samples, args.wid, args.device or "cuda")
+        return
     # the declarative spec (server.cluster_spec_env) fills any connection
     # detail the command line leaves out
     spec = os.environ.get("REPRO_CLUSTER_SPEC")
@@ -891,7 +936,8 @@ def main(argv=None):
         if args.device is None and "device" in spec:
             args.device = spec["device"]
     if args.connect is None:
-        ap.error("--connect is required (unless REPRO_CLUSTER_SPEC is set)")
+        ap.error("--connect is required (unless --burn or "
+                 "REPRO_CLUSTER_SPEC is set)")
     if args.wid < 0:
         ap.error("--wid is required (unless REPRO_CLUSTER_SPEC names it)")
     host, port = args.connect.rsplit(":", 1)

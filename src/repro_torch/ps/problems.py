@@ -1,5 +1,6 @@
 """Training problems for the PS runtime (the port of ``repro/ps/problems.py``:
-``ProblemSpec``, ``spec`` and the numpy MLPs).
+``ProblemSpec``, ``spec``, the numpy MLPs and the autograd MLP behind the
+zoo name ``jax-mlp``).
 
 Contract, on the run's device:
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import math
 
 import numpy as np
 import torch
@@ -125,3 +127,66 @@ NUMPY_MLP_MED = spec("repro_torch.ps.problems:make_numpy_mlp",
 NUMPY_MLP_LARGE = spec("repro_torch.ps.problems:make_numpy_mlp",
                        d_in=128, d_hidden=512, batch=32, n_train=4096,
                        n_test=1024, n_classes=4)
+
+
+def make_jax_mlp(seed: int = 0, n_train: int = 2048, n_test: int = 512,
+                 d_in: int = 32, d_hidden: int = 64, n_classes: int = 4,
+                 batch: int = 16, noise: float = 1.6, depth: int = 2,
+                 w0=None, device=None):
+    """The zoo's ``jax-mlp``: the reference's jax-backed MLP problem
+    (``repro/ps/problems.py`` ``make_jax_mlp``, keeping its name so its
+    counterpart is found), computed here by torch autograd — ``depth``
+    ReLU layers (``models.cnn.mlp_apply``), f32 compute, f64 rows at the
+    runtime boundary, worker ``w``'s batches from
+    ``np.random.RandomState(1000 + w)``. Spawn-safe: a module-level
+    factory that process and tcp workers rebuild from its spec.
+
+    The flat row is ``ravel_pytree``'s (sorted keys: ``b0, b1, b_out, w0,
+    w1, w_out``). ``w0`` is such a row (the reference's own init, carried
+    across); without it the port draws He-normal weights from
+    ``torch.Generator().manual_seed(seed)``."""
+    from repro_torch.models import cnn
+    from repro_torch.utils.device import fp32_products
+
+    dev = resolve_device(device)
+    fp32_products()
+    x, y = make_classification_dataset(n_train + n_test, shape=(d_in,),
+                                       n_classes=n_classes, noise=noise,
+                                       seed=seed)
+    x = torch.from_numpy(x).to(dev)
+    y = torch.from_numpy(y.astype(np.int64)).to(dev)
+    xtr, ytr, xte, yte = x[:n_train], y[:n_train], x[n_train:], y[n_train:]
+    dims = {"d_in": d_in, "d_hidden": d_hidden, "depth": depth}
+    if w0 is None:
+        row = cnn.flatten_params(cnn.mlp_init(
+            torch.Generator().manual_seed(seed), n_classes=n_classes,
+            device=dev, **dims))
+    else:
+        row = torch.as_tensor(np.array(w0, dtype=np.float64)).to(dev)
+    layout = cnn.ravel_layout("mlp", n_classes, **dims)
+    if row.numel() != sum(math.prod(s) for _, s in layout):
+        raise ValueError(f"w0 has {row.numel()} elements, not the mlp's")
+
+    rngs: dict = {}
+
+    def grad_fn(w, step, worker):
+        rng = rngs.setdefault(worker, np.random.RandomState(1000 + worker))
+        idx = torch.from_numpy(rng.randint(0, n_train, size=batch)).to(dev)
+        leaf = w.detach().to(torch.float32).requires_grad_(True)
+        params = cnn.unflatten(leaf, "mlp", n_classes, **dims)
+        loss = cnn.xent_loss(cnn.mlp_apply(params, xtr[idx], depth),
+                             ytr[idx])
+        loss.backward()
+        return leaf.grad.to(torch.float64)
+
+    @torch.no_grad()
+    def eval_fn(w):
+        params = cnn.unflatten(w.to(torch.float32), "mlp", n_classes, **dims)
+        return 1.0 - float(cnn.accuracy(cnn.mlp_apply(params, xte, depth),
+                                        yte))
+
+    grad_fn.layer_sizes = [math.prod(s) for _, s in layout]
+    return row, grad_fn, eval_fn
+
+
+JAX_MLP = spec("repro_torch.ps.problems:make_jax_mlp")

@@ -29,6 +29,14 @@ Concurrency disciplines (paper §4–5):
 τ (``EASGDConfig.tau``) is honoured by every loop: τ−1 local-only steps
 between exchanges.
 
+A ``PSConfig.topology`` (sync family, thread or tcp) replaces the emulated
+wire with a two-level fabric: each exchange is paced to ``t_rounds`` over
+its messages' link classes, hierarchical groups its ring by host, and
+"auto" ranks the schedules over a ``LinkProfile`` measured on the live
+machinery (``measured_link_profile``; ``calibrate`` builds one). The
+pacing sleeps between the exchange and barrier B, never inside an
+update, so the bits are the flat run's whenever the schedule is.
+
 Exactness kept from the reference: the same operation order in every
 update (``core.easgd_flat``); snapshot-before-apply in every exchange
 round; the version-flipped center of Sync EASGD (copied back by the
@@ -152,16 +160,21 @@ class PSConfig:
     #                                  kill_at_iter, signal "kill" | "term",
     #                                  dial_refuse_s), handed to the spawned
     #                                  workers in REPRO_CHAOS; tcp only
-    # -- the one reference feature this port does not implement yet:
-    #    setting it raises NotImplementedError instead of being ignored ------
-    topology: Optional[costmodel.Topology] = None
+    # -- heterogeneous fabric (topology-aware scale-out) --------------------
+    topology: Optional[costmodel.Topology] = None    # hosts × slots link
+    #                                  model: it replaces emulate_net for
+    #                                  the sync family — every pacing sleep
+    #                                  (master rounds, p2p segment
+    #                                  deadlines) prices each message over
+    #                                  its link class (fast intra-host /
+    #                                  slow cross-host), and "auto" ranks
+    #                                  the schedules on the topology
+    link_profile: Optional[costmodel.LinkProfile] = None     # a measured
+    #                                  per-link-class profile
+    #                                  (measured_link_profile / calibrate):
+    #                                  "auto" prices over it instead
 
     def __post_init__(self):
-        if self.topology is not None:
-            raise NotImplementedError(
-                "PSConfig.topology is not ported yet (topology and "
-                "link_profile pacing are the next slice; see ROADMAP.md, "
-                "queue 1)")
         if self.algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm '{self.algorithm}', have "
                              f"{ALGORITHMS}")
@@ -228,6 +241,33 @@ class PSConfig:
                     f"(transport='{self.transport}')")
             from repro_torch.ft.chaos import ChaosSpec
             ChaosSpec.from_config(self.chaos)    # validates the fields
+        if self.topology is not None:
+            if self.algorithm not in SYNC:
+                raise ValueError(
+                    f"a topology prices the sync family's exchange rounds — "
+                    f"algorithm '{self.algorithm}' has none")
+            if self.topology.p != self.n_workers:
+                raise ValueError(
+                    f"topology is {self.topology.hosts}x"
+                    f"{self.topology.slots}={self.topology.p} slots but "
+                    f"n_workers={self.n_workers}")
+            if self.transport not in ("thread", "tcp"):
+                raise ValueError(
+                    f"topology pacing exists on the thread and tcp planes "
+                    f"(transport='{self.transport}')")
+            if self.emulate_net is not None:
+                raise ValueError(
+                    "topology REPLACES emulate_net: per-link pacing and the "
+                    "global emulated wire would double-charge the clock")
+            if self.elastic:
+                raise ValueError(
+                    "topology-aware pacing + elastic membership are not yet "
+                    "composed (an epoch's survivors no longer tile the "
+                    "declared hosts x slots grid)")
+        if self.link_profile is not None and self.topology is None:
+            raise ValueError(
+                "link_profile rides a topology — set PSConfig.topology to "
+                "the fabric the profile was measured on")
 
     @property
     def telemetry_on(self) -> bool:
@@ -241,12 +281,35 @@ class PSConfig:
             return 1.0
         return float(self.link_slow[wid])
 
-    def resolved_schedule(self, n_bytes: float) -> str:
-        """Schedule name for an n-byte exchange ("auto": ``comm.choose``
-        over ``self.net``)."""
+    def resolved_schedule(self, n_bytes: float,
+                          profile: Optional[costmodel.LinkProfile] = None
+                          ) -> str:
+        """Schedule name for an n-byte exchange. "auto" ranks the
+        candidates over, in this order: the ``profile`` passed,
+        ``self.link_profile``, ``self.topology``, else the flat
+        ``self.net``."""
         if self.schedule != "auto":
             return self.schedule
+        prof = profile if profile is not None else self.link_profile
+        if prof is not None:
+            return comm_schedules.choose(n_bytes, self.n_workers,
+                                         profile=prof)
+        if self.topology is not None:
+            return comm_schedules.choose(n_bytes, self.n_workers,
+                                         topology=self.topology)
         return comm_schedules.choose(n_bytes, self.n_workers, self.net)
+
+    def hb_interval_eff_s(self, p: Optional[int] = None) -> float:
+        """Heartbeat period scaled with the mesh: × max(1, P/16), so every
+        P ≤ 16 keeps exactly its configured period and P = 64 beats 4×
+        slower (P links at a fixed period flood the master's readers)."""
+        pp = self.n_workers if p is None else p
+        return self.hb_interval_s * max(1.0, pp / 16.0)
+
+    def hb_timeout_eff_s(self, p: Optional[int] = None) -> float:
+        """Staleness threshold: never below the configured timeout, and at
+        least 12 effective periods."""
+        return max(self.hb_timeout_s, 12.0 * self.hb_interval_eff_s(p))
 
     def t_msg_emulated(self, n_bytes: float) -> float:
         """Per-message emulated wire time (0 without emulation)."""
@@ -311,9 +374,15 @@ def _comm_executor(ctx: PSContext) -> None:
     third = ctx.cfg.algorithm == "sync_sgd"
     tr = _tracer(ctx, "comm")
     # emulated wire: one exchange costs Σ (α + max_frac·n·β) on top of the
-    # real copies, paced as one absolute deadline per exchange
-    t_wire = sum(ctx.cfg.t_msg_emulated(max(m.frac for m in rnd) * ctx.n * 8)
-                 for rnd in ctx.rounds)
+    # real copies, paced as one absolute deadline per exchange; under a
+    # topology each round is priced over its messages' link classes
+    if ctx.cfg.topology is not None:
+        t_wire = comm_rounds.t_rounds(ctx.rounds, ctx.n * 8,
+                                      topology=ctx.cfg.topology)
+    else:
+        t_wire = sum(
+            ctx.cfg.t_msg_emulated(max(m.frac for m in rnd) * ctx.n * 8)
+            for rnd in ctx.rounds)
     try:
         for _ in range(n_rounds):
             if tr is not None:
@@ -654,8 +723,8 @@ def run_ps(problem, easgd: EASGDConfig, cfg: PSConfig, device=None,
     n, P = w0.numel(), cfg.n_workers
     sync = cfg.algorithm in SYNC
     sched_name = cfg.resolved_schedule(n * 8)
-    rounds = (comm_schedules.get(sched_name).rounds(P, n * 8, cfg.net)
-              if sync else [])
+    rounds = (comm_schedules.get(sched_name).rounds(
+        P, n * 8, cfg.net, topology=cfg.topology) if sync else [])
     padded = n + (-n) % P
 
     shapes = {"center": (n,), "center_alt": (n,), "master_vel": (n,),
@@ -868,6 +937,10 @@ class Calibration:
     alpha: float
     link_alpha: float = 0.0          # tcp: the socket link's measured α–β
     link_beta: float = 0.0           # (net.wire.measure_link)
+    profile: Optional[costmodel.LinkProfile] = None   # measured per-link-
+    #                                  class α–β (cfg.topology runs only):
+    #                                  what comm.choose consumes at build
+    #                                  time and WELCOME ships to workers
 
     def sim_config(self, algorithm: str, schedule: str,
                    eval_every_iters: int = 200, seed: int = 0,
@@ -877,17 +950,23 @@ class Calibration:
         at a time, alone); everyone else runs P workers concurrently, each
         delivering a gradient every ``t_grad_concurrent``. Pass ``net`` =
         the run's ``PSConfig.emulate_net`` so both clocks charge the same
-        wire; default: the measured device-memory 'network'."""
+        wire; default: the measured device-memory 'network', or under a
+        measured profile its topology's intra class — the links a topology
+        run paces on (the DES then prices the exchange per link class)."""
         if algorithm == "original_easgd":
             t_compute = self.t_grad_serial
         else:
             t_compute = self.t_grad_concurrent
+        topology = self.profile.topology if self.profile else None
         if net is None:
-            net = (costmodel.Network("tcp-link", self.link_alpha,
-                                     self.link_beta)
-                   if self.transport == "tcp" and self.link_alpha
-                   else costmodel.Network("shm", self.alpha,
-                                          self.t_axpy / (self.n * 8)))
+            if topology is not None:
+                net = topology.intra
+            else:
+                net = (costmodel.Network("tcp-link", self.link_alpha,
+                                         self.link_beta)
+                       if self.transport == "tcp" and self.link_alpha
+                       else costmodel.Network("shm", self.alpha,
+                                              self.t_axpy / (self.n * 8)))
         return SimConfig(
             n_workers=self.n_workers,
             net=net,
@@ -896,7 +975,45 @@ class Calibration:
             compute_jitter=0.0,
             t_update_per_byte=self.t_axpy / (self.n * 8),
             eval_every_iters=eval_every_iters,
-            seed=seed)
+            seed=seed,
+            topology=topology)
+
+
+def _tcp_concurrent_rate(problem, P: int, samples: int, device) -> float:
+    """Median per-gradient wall period across P tcp worker interpreters
+    burning at once (``python -m repro_torch.net.worker --burn``): the
+    tcp transport's own substrate. The stdin gate keeps interpreter
+    start-up, the problem's build and the warm-up off the clock."""
+    import json
+    import subprocess
+    import sys
+
+    from repro_torch.net.server import worker_env
+    env = worker_env()
+    env.setdefault("OMP_NUM_THREADS",
+                   str(max(1, (os.cpu_count() or 1) // (P + 1))))
+    spec_json = json.dumps({"factory": problem.factory,
+                            "kwargs": list(problem.kwargs)})
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.net.worker", "--wid", str(i),
+         "--burn", spec_json, "--samples", str(samples),
+         "--device", str(device)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, env=env)
+        for i in range(P)]
+    try:
+        for pr in procs:
+            if pr.stdout.readline().strip() != "R":    # built and warm
+                raise RuntimeError(
+                    f"calibration burner exited {pr.wait()} before READY")
+        for pr in procs:
+            pr.stdin.write("go\n")
+            pr.stdin.flush()
+        periods = [float(pr.stdout.readline()) for pr in procs]
+    finally:
+        for pr in procs:
+            pr.stdin.close()
+            pr.wait()
+    return statistics.median(periods)
 
 
 def _process_burner(problem, samples, wid, gate, device, period):
@@ -945,9 +1062,11 @@ def calibrate(problem, cfg: PSConfig, samples: int = 10,
             for th in ths:
                 th.join()
         t_concurrent = tm.elapsed / samples
+    elif cfg.transport == "tcp":
+        # the tcp workers are fresh interpreters: time exactly those
+        t_concurrent = _tcp_concurrent_rate(problem, P, samples, dev)
     else:
-        # real processes from a gate (the tcp workers are processes too):
-        # spawn and imports off the clock
+        # real processes from a gate: spawn and imports off the clock
         mp = torch.multiprocessing.get_context("spawn")
         gate = mp.Barrier(P + 1)
         periods = [mp.RawValue("d", 0.0) for _ in range(P)]
@@ -984,10 +1103,76 @@ def calibrate(problem, cfg: PSConfig, samples: int = 10,
         # what the DES charges when no wire is emulated
         from repro_torch.net.wire import measure_link
         link_alpha, link_beta = measure_link(cfg.tcp_host)
+    profile = None
+    if cfg.topology is not None:
+        profile = measured_link_profile(
+            cfg, base=(link_alpha, link_beta) if link_alpha else None,
+            device=dev)
     return Calibration(n=n, n_workers=P, transport=cfg.transport,
                        t_grad_serial=t_serial, t_grad_concurrent=t_concurrent,
                        t_axpy=t_axpy, alpha=alpha, link_alpha=link_alpha,
-                       link_beta=link_beta)
+                       link_beta=link_beta, profile=profile)
+
+
+def measured_link_profile(cfg: PSConfig, counters=None,
+                          base: Optional[tuple] = None,
+                          device=None) -> costmodel.LinkProfile:
+    """A per-link-class α–β profile learned on the live machinery.
+
+    The physical floor: for tcp a short burst through the real framing
+    (``net.wire.measure_link``), for the thread plane a timed copy in the
+    run's device memory (its wire). A run's ``counters['link_alpha_s']``
+    (clock-probe rtt / 2 per master link) overrides the floor's α when
+    given; ``base`` is an already-measured (α, β) pair. The floor adds to
+    the topology's declared classes: pacing sleeps ride on top of the real
+    transfer."""
+    topo = cfg.topology
+    if topo is None:
+        raise ValueError("measured_link_profile needs cfg.topology")
+    detail: dict = {}
+    if base is not None:
+        alpha0, beta0 = base
+        source = f"measured:{cfg.transport}"
+    elif cfg.transport == "tcp":
+        from repro_torch.net.wire import measure_link
+        alpha0, beta0 = measure_link(cfg.tcp_host, reps=12,
+                                     big_bytes=1_000_000)
+        source = "measured:tcp"
+    else:
+        dev = resolve_device(device)
+        buf = torch.zeros(1 << 17, dtype=torch.float64, device=dev)
+        src = torch.ones(1 << 17, dtype=torch.float64, device=dev)
+        buf.copy_(src)                            # warm
+        with timing.Timer(dev) as tm:
+            for _ in range(8):
+                buf.copy_(src)
+        beta0 = tm.elapsed / 8 / (buf.numel() * 8)
+        tiny_d = torch.zeros(64, dtype=torch.float64, device=dev)
+        tiny_s = torch.ones(64, dtype=torch.float64, device=dev)
+        with timing.Timer(dev) as tm:
+            for _ in range(100):
+                tiny_d.copy_(tiny_s)
+        alpha0 = tm.elapsed / 100
+        source = "measured:thread"
+    detail["alpha0_s"] = float(alpha0)
+    detail["beta0_s_per_byte"] = float(beta0)
+    probes = (counters or {}).get("link_alpha_s")
+    if isinstance(probes, dict) and probes:
+        vals = sorted(probes.values())
+        alpha0 = float(vals[len(vals) // 2])
+        detail["alpha0_s"] = alpha0
+        detail["alpha0_source"] = "clock-probe rtt/2 median"
+    intra = costmodel.Network(f"{topo.intra.name} +measured",
+                              topo.intra.alpha + alpha0,
+                              topo.intra.beta + beta0)
+    cross = (intra if topo.cross == topo.intra else
+             costmodel.Network(f"{topo.cross.name} +measured",
+                               topo.cross.alpha + alpha0,
+                               topo.cross.beta + beta0))
+    measured = costmodel.Topology(hosts=topo.hosts, slots=topo.slots,
+                                  intra=intra, cross=cross)
+    return costmodel.LinkProfile(topology=measured, source=source,
+                                 detail=detail)
 
 
 def calibrate_sim(problem, cfg: PSConfig, samples: int = 10,
@@ -997,7 +1182,7 @@ def calibrate_sim(problem, cfg: PSConfig, samples: int = 10,
     schedule."""
     cal = calibrate(problem, cfg, samples=samples, device=device)
     return cal.sim_config(
-        cfg.algorithm, cfg.resolved_schedule(cal.n * 8),
+        cfg.algorithm, cfg.resolved_schedule(cal.n * 8, profile=cal.profile),
         eval_every_iters=eval_every_iters or cfg.eval_every_iters,
         seed=cfg.seed)
 
@@ -1013,13 +1198,16 @@ def run_vs_des(problem, easgd: EASGDConfig, cfg: PSConfig,
         cal = calibrate(problem, cfg, device=dev)
     built = problem.build(dev) if hasattr(problem, "build") else problem
     w0, grad_fn, eval_fn = built
-    sched_name = cfg.resolved_schedule(cal.n * 8)
+    sched_name = cfg.resolved_schedule(cal.n * 8, profile=cal.profile)
     sim = cal.sim_config(
         cfg.algorithm, sched_name,
         eval_every_iters=cfg.eval_every_iters, seed=cfg.seed,
         net=cfg.emulate_net)
     des = PSEngine(grad_fn, eval_fn, w0, easgd, sim).run(
         cfg.algorithm, total_iters=cfg.total_iters)
+    if cal.profile is not None and cfg.link_profile is None:
+        # the run consumes the profile the choice and the DES priced
+        cfg = dataclasses.replace(cfg, link_profile=cal.profile)
     res = run_ps(problem, easgd, cfg, device=dev)
     meas = res.total_time_s / max(res.total_iters, 1)
     pred = des.total_time_s / max(des.total_iters, 1)
@@ -1038,5 +1226,8 @@ def run_vs_des(problem, easgd: EASGDConfig, cfg: PSConfig,
         "curve_real": [(round(t, 4), it, e) for t, it, e in res.history],
         "curve_des": [(round(t, 4), it, e) for t, it, e in des.history],
     }
+    if cal.profile is not None:
+        record["profile_source"] = cal.profile.source
+        record["profile_detail"] = dict(cal.profile.detail)
     return res, des, record
 

@@ -1,5 +1,5 @@
 """Real models as PS problems (the port of ``repro/ps/zoo.py``:
-``make_zoo_lm``, ``make_zoo_cnn`` and ``resolve``).
+``make_zoo_lm``, ``make_zoo_cnn``, ``names`` and ``resolve``).
 
 The gradient is computed on the run's device. The f64 row is cast to ONE
 f32 leaf with ``requires_grad``; the parameters are views of that leaf in
@@ -19,7 +19,7 @@ from repro_torch.data.synthetic import make_classification_dataset
 from repro_torch.models import cnn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import init_params
-from repro_torch.ps.problems import (NUMPY_MLP, NUMPY_MLP_LARGE,
+from repro_torch.ps.problems import (JAX_MLP, NUMPY_MLP, NUMPY_MLP_LARGE,
                                      NUMPY_MLP_MED, ProblemSpec, spec)
 from repro_torch.utils.device import fp32_products, resolve_device
 
@@ -141,19 +141,29 @@ def make_zoo_cnn(model: str = "lenet", seed: int = 0, n_train: int = 512,
     return row, grad_fn, eval_fn
 
 
+def names() -> list[str]:
+    """The names ``--model`` knows, as the reference's ``zoo_names`` lists
+    them (its arch ids included; ``resolve`` raises for those not ported
+    yet)."""
+    return (["tiny-mlp", "mlp-large", "jax-mlp", "lenet", "alexnet"]
+            + sorted(configs.ARCH_IDS))
+
+
 def resolve(name: str) -> ProblemSpec:
     """``--model`` name -> ProblemSpec. Ported arch ids map to
-    ``make_zoo_lm``; the reference's other entries (jax-mlp and the
-    unported arch ids) raise ``NotImplementedError``."""
+    ``make_zoo_lm``; the reference's other arch ids raise
+    ``NotImplementedError``."""
     fixed = {"tiny-mlp": NUMPY_MLP_MED, "mlp": NUMPY_MLP,
-             "mlp-large": NUMPY_MLP_LARGE}
+             "mlp-large": NUMPY_MLP_LARGE, "jax-mlp": JAX_MLP}
     if name in fixed:
         return fixed[name]
     if name in _CNNS:
         return spec("repro_torch.ps.zoo:make_zoo_cnn", model=name)
     if name in configs.ARCHS:
         return spec("repro_torch.ps.zoo:make_zoo_lm", arch=name)
-    raise NotImplementedError(
-        f"model '{name}' is not ported to repro_torch yet (this slice has "
-        f"{sorted(fixed) + sorted(_CNNS) + sorted(configs.ARCHS)}); see "
-        f"ROADMAP.md, queue 1")
+    if name in configs.ARCH_IDS:
+        raise NotImplementedError(
+            f"model '{name}' is not ported to repro_torch yet (this slice "
+            f"has {sorted(fixed) + sorted(_CNNS) + sorted(configs.ARCHS)}); "
+            f"see ROADMAP.md, queue 1")
+    raise ValueError(f"unknown model '{name}'; have: {names()}")

@@ -455,12 +455,12 @@ def test_launcher_runs_all_nine_with_des_columns():
     ("telemetry", True), ("elastic", True), ("chaos", {"wid": 1}),
     ("topology", costmodel.Topology(2, 2))])
 def test_unported_stay_raising(field, value):
-    """Only topology is still unported: it raises NotImplementedError; the
-    ported features are accepted (elastic membership and chaos on tcp
-    alone)."""
+    """Every feature is ported: elastic membership and chaos are accepted
+    on tcp alone, and a topology (the sync family's) is refused for an
+    asynchronous discipline, with the reference's message."""
     kw = {"algorithm": "async_easgd", field: value}
     if field == "topology":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="sync family"):
             runtime.PSConfig(**kw)
     elif field in ("elastic", "chaos"):
         with pytest.raises(ValueError, match="tcp"):

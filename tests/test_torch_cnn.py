@@ -123,9 +123,12 @@ def test_zoo_resolve_names():
     assert lm.factory == "repro_torch.ps.zoo:make_zoo_lm"
     assert ref_lm.factory == "repro.ps.zoo:make_zoo_lm"
     assert lm.kwargs == ref_lm.kwargs == (("arch", "gemma3-4b"),)
-    for name in ("jax-mlp", "recurrentgemma-2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            zoo.resolve(name)
+    assert zoo.resolve("jax-mlp").factory == \
+        "repro_torch.ps.problems:make_jax_mlp"
+    assert ref_zoo.resolve("jax-mlp").factory == \
+        "repro.ps.problems:make_jax_mlp"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        zoo.resolve("recurrentgemma-2b")
     with pytest.raises(ValueError):
         zoo.make_zoo_cnn("resnet", device="cpu")
 

@@ -636,10 +636,27 @@ def test_consensus_contraction():
 
 
 def test_auto_schedule_resolves_from_the_packed_bytes():
-    cfg = elastic.ElasticConfig(schedule="auto", compression="sign_ef")
-    assert cfg.resolve_schedule(1, 10**6) == "psum"
-    assert cfg.resolve_schedule(4) == "psum"
-    name = cfg.resolve_schedule(4, 10**6)
-    assert name == schedules.choose(
-        10**6 * compression.SIGN_EF.jit_wire_bytes_per_element, 4)
-    assert cfg.exchange_plan(4, 10**6).schedule.name == name
+    """"auto" resolves the reference's schedule by name over P ∈ {2, 3,
+    4, 8, 16} and packed sizes of 2^8 … 2^33 bytes (130 cells), so both
+    sum the pod rows in the same order. Priced on the port's default
+    network instead, three cells differed: (P 4, 512 KiB), (8, 1 MiB) and
+    (16, 1 MiB), butterfly in the reference and ring in the port."""
+    cfg = elastic.ElasticConfig(schedule="auto")
+    ref = ref_elastic.ElasticConfig(schedule="auto")
+    differ = []
+    for p in (2, 3, 4, 8, 16):
+        for k in range(8, 34):
+            n_el = 2**k // 4                       # f32 pod rows
+            got = cfg.resolve_schedule(p, n_el)
+            want = ref.resolve_schedule(p, n_el)
+            if got != want:
+                differ.append((p, 2**k, want, got))
+    assert not differ, f"(P, bytes, reference, port): {differ}"
+    sign = elastic.ElasticConfig(schedule="auto", compression="sign_ef")
+    ref_sign = ref_elastic.ElasticConfig(schedule="auto",
+                                         compression="sign_ef")
+    assert sign.resolve_schedule(1, 10**6) == "psum"
+    assert sign.resolve_schedule(4) == "psum"
+    name = sign.resolve_schedule(4, 10**6)
+    assert name == ref_sign.resolve_schedule(4, 10**6)
+    assert sign.exchange_plan(4, 10**6).schedule.name == name

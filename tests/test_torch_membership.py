@@ -15,7 +15,8 @@ the RECONFIGURE plane of ``repro_torch.net``), against the reference
     started on the reconfigure event rejoins at epoch 2, and a chaos
     dial-refuse window is absorbed bit for bit (port == port == the
     reference).
- 3. Elastic off keeps a kill fatal; ``topology`` still raises.
+ 3. Elastic off keeps a kill fatal; ``topology`` still raises beside
+    ``elastic``.
 """
 import dataclasses
 import socket
@@ -309,9 +310,13 @@ def test_config_gates():
 
 
 def test_topology_still_raises_naming_the_next_slice():
-    with pytest.raises(NotImplementedError, match="next slice"):
+    """Topology is ported; beside elastic membership it still raises, as
+    in the reference (the two are not composed)."""
+    with pytest.raises(ValueError, match="elastic"):
         runtime.PSConfig(algorithm="sync_easgd", transport="tcp",
-                         topology=costmodel.Topology(2, 2))
+                         elastic=True, topology=costmodel.Topology(2, 2))
+    assert runtime.PSConfig(algorithm="sync_easgd", transport="tcp",
+                            topology=costmodel.Topology(2, 2)).topology
 
 
 # ---------------------------------------------------------------------------

@@ -241,12 +241,19 @@ def test_get_transport_names_tcp_and_refuses_others():
     ("telemetry", True), ("elastic", True), ("chaos", {"wid": 0}),
 ])
 def test_deferred_features_still_refused_on_tcp(field, value):
-    """Telemetry, elastic membership and chaos are ported; topology is
-    still deferred, and refused whichever of them comes with it."""
+    """Telemetry, elastic membership, chaos and topology are ported; of
+    them only elastic membership is refused beside a topology (the
+    reference's condition: an epoch's survivors no longer tile the
+    declared grid)."""
     topo = costmodel.Topology(2, 1)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        runtime.PSConfig(algorithm="sync_easgd", transport="tcp",
-                         n_workers=2, topology=topo, **{field: value})
+    if field == "elastic":
+        with pytest.raises(ValueError, match="elastic"):
+            runtime.PSConfig(algorithm="sync_easgd", transport="tcp",
+                             n_workers=2, topology=topo, **{field: value})
+    else:
+        assert runtime.PSConfig(algorithm="sync_easgd", transport="tcp",
+                                n_workers=2, topology=topo,
+                                **{field: value}).topology == topo
     cfg = runtime.PSConfig(algorithm="sync_easgd", transport="tcp",
                            **{field: value})
     assert getattr(cfg, field) == value

@@ -115,13 +115,15 @@ def test_alexnet_short_run_matches_reference():
     ("telemetry", True), ("elastic", True), ("chaos", {"wid": 1}),
     ("topology", costmodel.Topology(2, 2))])
 def test_unported_config_raises(field, value):
-    """Topology, the one feature still unported, raises NotImplementedError
-    naming ROADMAP. The ported ones are accepted; elastic membership and
-    chaos only on the tcp transport."""
+    """Every feature is ported and accepted where the reference accepts
+    it: elastic membership and chaos only on the tcp transport, a topology
+    on the thread and tcp planes (the process transport has no pacing of
+    its own)."""
     kw = {"algorithm": "sync_easgd", field: value}
     if field == "topology":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            runtime.PSConfig(**kw)
+        assert runtime.PSConfig(**kw).topology == value
+        with pytest.raises(ValueError, match="thread and tcp"):
+            runtime.PSConfig(transport="process", **kw)
         return
     if field in ("elastic", "chaos"):
         with pytest.raises(ValueError, match="tcp"):
