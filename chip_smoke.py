@@ -39,7 +39,9 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    parameters, f32 params, bf16 compute), B 1, S 4096: ``lm_loss`` and its
    gradient through the kernels and through the plain versions, held to a
    relative 1e-3 (loss) and 2e-2 (gradient norm), with exact launch counts
-   per gradient, each path's time the median of three gradients;
+   per gradient, each path's time the median of three gradients; the
+   parameters one flat row through ``unflatten``, as the PS and multi-pod
+   paths hold them, timed at remat "none" too;
 8. the second main path: ``run_ps`` on ``--model gemma3-4b`` (the reduced
    decoder, as the reference's PS trainer runs it), P = 4, ring, 64 KiB
    buckets, 16 rounds, Sync EASGD and then Sync SGD, counters 0 before each
@@ -103,7 +105,9 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    disciplines in their real FCFS / lock-free / turnstile forms, each
    finite with its iteration count, 2 messages an exchange and the bytes
    to match, and its µs/iter; ``run_vs_des`` for async_easgd and
-   hogwild_easgd (``measured_over_des``); (c) ``--model gemma3-4b`` with
+   hogwild_easgd (``measured_over_des``); read, not held, async_msgd at
+   η 0.001 (twice the η held), one real run and the DES in four seeded
+   FCFS orders, each finite or not; (c) ``--model gemma3-4b`` with
    original_easgd and hogwild_easgd and ``--model mamba2-780m`` with
    deterministic async_measgd, exact launch counts; (d) the process
    transport (spawned workers, CUDA IPC): deterministic async_easgd and
@@ -120,8 +124,9 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    counted exactly in the master or in the workers (BYE); (b) full-width
    AlexNet, P = 4, ring, 4 MiB buckets, 16 rounds, Sync EASGD on the
    thread plane, the tcp master plane and the tcp p2p plane with overlap
-   on, off and with sign_ef: µs/iter untraced and traced, the Table-3
-   shares, master / peer / wire bytes, exact update launches, the loopback
+   on, off and with sign_ef: µs/iter traced (the thread plane untraced
+   too), the Table-3 shares, master / peer / wire bytes, exact update
+   launches, the loopback
    α–β, and whether each tcp run equals the thread run bit for bit
    (reported); (c) tracing's cost on the thread plane (AlexNet, traced
    and untraced in turns); (d) ``launch.train --transport tcp
@@ -164,7 +169,34 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    against its measured one, exact launches; (e) ``launch.cluster
    --topology 2x2 --sync-plane p2p`` and ``launch.train --model jax-mlp
    --transport tcp`` as subprocesses, and jax-mlp on the card against the
-   CPU (relative 1e-5).
+   CPU (relative 1e-5);
+20. per-slot remat and six more model families (every LM phase above runs
+   with the configs' remat "full": each period slot's layer checkpointed,
+   its attention or SSD forward launched again in the backward): (a) the
+   full-width gradient (B 1, S 4096) with remat "full" against "none" on
+   gemma3-4b at 6 layers, mamba2-780m at 48 and qwen1.5-4b at all 40: ms
+   (median of 3) and peak memory of each, exact launches, loss and
+   gradient on against off bit for bit where they are (else 1e-3 / 2e-2);
+   (b) qwen1.5-4b (40 layers), phi3-mini-3.8b (32, attention at head dim
+   96), musicgen-medium (48), recurrentgemma-2b (26: 8 periods and 2
+   remainder RG-LRU layers), gemma3-27b (8) and qwen2-vl-72b (2, with
+   distinct t / h / w M-RoPE positions and 256 patch embeddings from a
+   seed) at full width, B 1, S 4096, bf16: loss and gradient through the
+   kernels against the plain versions (1e-3 / 2e-2), exact launches, the
+   families without qk-norm with q / k drawn at fan-in d_model (the
+   reference's fan-in H makes their gradient chaotic at this width: a
+   ``qk conditioning`` line reads both draws at f32, each beside the plain
+   path against itself with attention and the CE in f64); (c) attention at
+   phi3-mini's shape (B 1, S 4096, H 32, KVH 32, D 96) and at D 24 (H 4,
+   KVH 2), bf16, timed against the plain version and
+   scaled_dot_product_attention beside the bound, and both dims in f32,
+   held; (d) the packed multi-pod step on recurrentgemma-2b at 8 layers
+   (1,352,829,440 parameters), P = 2, B 1 per pod, S 4096, psum, overlap
+   on, 3 steps, as phases 10 and 14; (e) for each of the six ids the
+   reduced multi-pod step on the card against the CPU at f32 compute (2
+   steps, loss 1e-3, params 2e-2) and ``launch.train --mode sync --arch <id>
+   --reduced``, then ``launch.train --mode ps --model gemma3-27b`` on the
+   thread transport (attention at D 24), each with exact launches.
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, a JSON ``kernels`` line, and the JSON result line
@@ -205,6 +237,7 @@ ETA, RHO, MU = 0.05, 0.07, 0.9
 N_ALEXNET = 6_976_842
 N_GEMMA_6L = 1_237_356_032
 N_MAMBA2 = 780_148_992
+N_RECURRENTGEMMA_8L = 1_352_829_440
 CSRC = "src/repro_torch/kernels/csrc/"
 KERNEL_SOURCE = CSRC + "elastic_update.cu"
 # limits on the relative norm ||kernel - plain|| / ||plain|| of one output.
@@ -595,9 +628,10 @@ def print_ssd_build(log: str, lib: Path) -> None:
 
 
 def phase_attention(torch, F, fa, timing, dev, bw, bf16,
-                    cases=ATTN_CASES) -> dict:
+                    cases=ATTN_CASES, tag_timed="") -> dict:
     """Attention kernels against their plain versions; times at full
-    width beside the bound and scaled_dot_product_attention."""
+    width beside the bound and scaled_dot_product_attention, under keys
+    ``ms<tag_timed>[_window<w>]`` and the like."""
     rows = {"flash_attention_fwd": {}, "flash_attention_bwd": {}}
     for i, (B, S, H, KVH, D, causal, window, dt, timed) in \
             enumerate(cases):
@@ -666,7 +700,7 @@ def phase_attention(torch, F, fa, timing, dev, bw, bf16,
                 lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dot,
                                             retain_graph=True), reps=10),
         }
-        suffix = "" if window == 0 else f"_window{window}"
+        suffix = tag_timed + ("" if window == 0 else f"_window{window}")
         for name, kind, (b_ms, by) in (("flash_attention_fwd", "fwd", b_fwd),
                                        ("flash_attention_bwd", "bwd", b_bwd)):
             rows[name].update({
@@ -872,68 +906,161 @@ def plain_versions(*modules):
             setattr(m, name, fn)
 
 
+def rel_norm_parts(torch, got, want, dev, part=1 << 27) -> float:
+    """``rel_norm`` of two gradients given as lists of per-leaf tensors
+    (on the card or the host), a part at a time on ``dev`` (sums in
+    f64)."""
+    num = den = 0.0
+    for a_leaf, b_leaf in zip(got, want):
+        a_leaf, b_leaf = a_leaf.reshape(-1), b_leaf.reshape(-1)
+        for i in range(0, b_leaf.numel(), part):
+            a = a_leaf[i:i + part].to(dev, torch.float64)
+            b = b_leaf[i:i + part].to(dev, torch.float64)
+            num += float(((a - b) ** 2).sum())
+            den += float((b ** 2).sum())
+    return math.sqrt(num / den)
+
+
+def lm_params(torch, tfm, common, cfg, dev, qk_fan_in_d=False):
+    """The parameter pytree from ``torch.Generator`` seed 0 on ``dev``;
+    with ``qk_fan_in_d`` the query and key projections drawn with the std
+    of fan-in d_model, 1/√d, where the reference's init takes fan-in H
+    (the stacked shape's second-to-last dim): see ``phase_qk_conditioning``
+    for why the families without qk-norm need it at full width."""
+    params = common.init_params(tfm.model_defs(cfg),
+                                torch.Generator(device=dev).manual_seed(0),
+                                device=dev)
+    for path, t in common.tree_leaves_with_path(params):
+        if qk_fan_in_d and path[-2:] in (("attn", "wq"), ("attn", "wk")):
+            t.mul_(math.sqrt(t.shape[-2] / cfg.d_model))
+    return params
+
+
+def lm_gradient(torch, tfm, common, cfg, params, batch) -> tuple:
+    """``lm_loss`` and its gradient with each parameter a leaf of its own:
+    ``(loss, [per-leaf gradient], metrics)``. (A flat row of views, as
+    the PS and multi-pod paths hold the parameters, adds one row-sized
+    concatenation at the end of the backward: its peak is 3n, where this
+    one's is 2n and the activations.)"""
+    leaves = [t.detach().requires_grad_(True)
+              for _, t in common.tree_leaves_with_path(params)]
+    loss, metrics = tfm.lm_loss(cfg, common.tree_unflatten(params, leaves),
+                                batch)
+    loss.backward()
+    return loss.detach(), [t.grad for t in leaves], metrics
+
+
+def lm_batch(torch, np, cfg, S, dev, seed=7) -> dict:
+    """B 1 of S tokens from ``seed``; for an M-RoPE config distinct t / h /
+    w positions (the t stream the sequence; h and w a 16-wide grid over
+    the patches, then the text's position) and ``patch_embed_tokens``
+    patch embeddings of unit scale, all from the seed."""
+    rng = np.random.RandomState(seed)
+    tok = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                       size=(1, S + 1))).to(dev)
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:],
+             "mask": torch.ones((1, S), device=dev)}
+    if cfg.mrope_sections is not None:
+        s, P_ = np.arange(S), cfg.patch_embed_tokens
+        hw = np.where(s < P_, s // 16, s - P_ + P_ // 16)
+        ww = np.where(s < P_, s % 16, s - P_ + P_ // 16)
+        batch["mrope_positions"] = torch.from_numpy(np.stack(
+            [s, hw, ww])[:, None].astype(np.int64)).to(dev)
+        batch["patch_embeds"] = torch.from_numpy(rng.randn(
+            1, P_, cfg.d_model).astype(np.float32)).to(dev)
+    return batch
+
+
 def phase_full_width(torch, np, cfg, S, tfm, common, kernel_mods, kernels,
-                     timing, dev, held_dtype=None, variant=None) -> dict:
+                     timing, dev, held_dtype=None, variant=None,
+                     reps=3, flat_row=False) -> dict:
     """An LM at full width, B 1, S 4096 (gemma3-4b at 6 layers; mamba2-780m
-    at all 48): loss and gradient through the kernels against the plain
-    versions, with exact launch counts per gradient.
+    at all 48; phase 20b's six families): loss and gradient through the
+    kernels against the plain versions, with exact launch counts per
+    gradient. Each path's time is the median of ``reps`` gradients after
+    the first (with ``reps`` 0, the first's own time); the peak is the
+    first's, each parameter a leaf of its own (``lm_gradient``), or with
+    ``flat_row`` all of them views of one row through ``tfm.unflatten``,
+    as the PS and multi-pod paths hold them; that form also times its
+    gradient at remat "none" (the form of PR 17's reading).
 
     With ``held_dtype``, the config's own (bf16) gradient is timed and its
     loss held, but its gradient is read, not held: beside it stands the
     reading of the plain path against itself with ``variant`` (a context
     that swaps in a second, more exact plain version), which is how far
     two valid evaluations of that gradient lie apart at this depth. The
-    gradient is then held at ``held_dtype`` compute."""
-    n = tfm.n_params(cfg)
+    gradient is then held at ``held_dtype`` compute. Above 4.5 B
+    parameters the first gradient waits on the host while the second
+    runs (the params and two f32 gradients would not fit beside the
+    activations). Without qk-norm the query and key projections are
+    drawn at fan-in d_model (``lm_params``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    init = common.init_params(tfm.model_defs(cfg),
-                              torch.Generator(device=dev).manual_seed(0),
-                              device=dev)
-    leaf = torch.cat([t.reshape(-1) for _, t in
-                      common.tree_leaves_with_path(init)])
-    del init
-    tok = torch.from_numpy(np.random.RandomState(7).randint(
-        0, cfg.vocab_size, size=(1, S + 1))).to(dev)
-    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:],
-             "mask": torch.ones((1, S), device=dev)}
+    torch.cuda.empty_cache()
+    qk_fan_in_d = not cfg.qk_norm and any(
+        k in ("attn", "local") for k in cfg.layer_kinds())
+    params = lm_params(torch, tfm, common, cfg, dev, qk_fan_in_d)
+    n = sum(t.numel() for _, t in common.tree_leaves_with_path(params))
+    host_grads = n > 4.5e9
+    batch = lm_batch(torch, np, cfg, S, dev)
+    if flat_row:
+        row = torch.cat([t.reshape(-1) for _, t in
+                         common.tree_leaves_with_path(params)])
+        params = None
 
     def gradient(c=cfg):
-        w = leaf.detach().requires_grad_(True)
+        if not flat_row:
+            return lm_gradient(torch, tfm, common, c, params, batch)
+        w = row.detach().requires_grad_(True)
         loss, metrics = tfm.lm_loss(c, tfm.unflatten(w, c), batch)
         loss.backward()
-        return loss.detach(), w.grad, metrics
+        return loss.detach(), [w.grad], metrics
+
+    def keep(grads):
+        """The gradient, in pinned host memory with ``host_grads``."""
+        if not host_grads:
+            return grads
+        out = [torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
+               for g in grads]
+        for o, g in zip(out, grads):
+            o.copy_(g)
+        return out
+
+    def finite(grads):
+        return all(bool(torch.isfinite(g).all()) for g in grads)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    loss_k, grad_k, metrics = gradient()
-    torch.cuda.synchronize()
+    with timing.Timer("cuda") as tm:
+        loss_k, grad_k, metrics = gradient()
+    first_ms = 1e3 * tm.elapsed
     counts = kernels.launch_counts()
     want = lm_counts(cfg, 1)
     check(counts == want, f"launches per full-width gradient {counts}")
     peak = torch.cuda.max_memory_allocated()
+    grad_k = keep(grad_k)
 
-    def timed_ms(reps=3):
+    def timed_ms(first, c=cfg):
         """Median host time of ``reps`` synchronised gradients: on this
         eager path one gradient alone drifts from run to run by more than
         a kernel's share of it (PERF.md §7)."""
         times = []
         for _ in range(reps):
             with timing.Timer("cuda") as tm:
-                gradient()
+                gradient(c)
             times.append(1e3 * tm.elapsed)
+        times = times or [first]
         return statistics.median(times), times
 
-    ms, ms_all = timed_ms()
+    ms, ms_all = timed_ms(first_ms)
     with plain_versions(*kernel_mods):
-        loss_p, grad_p, _ = gradient()
-        plain_ms, plain_all = timed_ms()
+        with timing.Timer("cuda") as tm:
+            loss_p, grad_p, _ = gradient()
+        plain_ms, plain_all = timed_ms(1e3 * tm.elapsed)
     rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    rel_grad = (torch.linalg.vector_norm(grad_k - grad_p)
-                / torch.linalg.vector_norm(grad_p)).item()
-    check(math.isfinite(loss_k.item())
-          and bool(torch.isfinite(grad_k).all()),
+    rel_grad = rel_norm_parts(torch, grad_k, grad_p, dev)
+    check(math.isfinite(loss_k.item()) and finite(grad_k),
           "full-width loss and gradient finite")
     check(rel_loss <= 1e-3, f"full-width loss kernels vs plain {rel_loss:.3e}")
     out = {"params": n, "loss": loss_k.item(), "loss_plain": loss_p.item(),
@@ -942,18 +1069,23 @@ def phase_full_width(torch, np, cfg, S, tfm, common, kernel_mods, kernels,
            "peak_bytes": peak,
            "accuracy": metrics["accuracy"].item(), "launches": counts}
     held = "limit 2e-2"
+    del grad_k
     if held_dtype is None:
         check(rel_grad <= 2e-2, f"full-width gradient kernels vs plain "
               f"{rel_grad:.3e}")
     else:
         with plain_versions(*kernel_mods), variant():
             _, grad_v, _ = gradient()
-        out["rel_grad_variant"] = rel_norm(grad_v, grad_p)
+        out["rel_grad_variant"] = rel_norm_parts(torch, grad_v, grad_p, dev)
+        del grad_v
         held = (f"read, not held; the plain path against its more exact "
                 f"variant reads {out['rel_grad_variant']:.3e}")
+    del grad_p
     print(f"full width {cfg.name} {cfg.n_layers} layers n={n} B=1 S={S} "
-          f"{str(cfg.compute_dtype)[6:]} compute: loss kernels "
-          f"{out['loss']:.6f} plain {out['loss_plain']:.6f} (rel "
+          f"{str(cfg.compute_dtype)[6:]} compute remat={cfg.remat}"
+          f"{', one flat row through unflatten' if flat_row else ''}"
+          f"{', q / k at fan-in d_model' if qk_fan_in_d else ''}: loss "
+          f"kernels {out['loss']:.6f} plain {out['loss_plain']:.6f} (rel "
           f"{rel_loss:.3e}, limit 1e-3), gradient rel norm {rel_grad:.3e} "
           f"({held}); {ms:.1f} ms per gradient through the kernels "
           f"(median of {[round(v, 1) for v in ms_all]}), {plain_ms:.1f} ms "
@@ -961,19 +1093,33 @@ def phase_full_width(torch, np, cfg, S, tfm, common, kernel_mods, kernels,
           f"{[round(v, 1) for v in plain_all]}); peak "
           f"{peak / 2**30:.2f} GiB (max_memory_allocated); launches per "
           f"gradient {counts}", flush=True)
+    if flat_row:
+        off = dataclasses.replace(cfg, remat="none")
+        kernels.reset_launch_counts()
+        with timing.Timer("cuda") as tm:
+            gradient(off)
+        counts_off = kernels.launch_counts()
+        check(counts_off == lm_counts(off, 1), f"launches per flat-row "
+              f"gradient at remat none {counts_off}")
+        out["none_ms"], out["none_ms_all"] = timed_ms(1e3 * tm.elapsed, off)
+        print(f"full width {cfg.name} {cfg.n_layers} layers, one flat row "
+              f"through unflatten, remat=none: {out['none_ms']:.1f} ms per "
+              f"gradient through the kernels (median of "
+              f"{[round(v, 1) for v in out['none_ms_all']]}); launches "
+              f"{counts_off}", flush=True)
     if held_dtype is not None:
-        del grad_k, grad_p, grad_v
         torch.cuda.empty_cache()
         held_cfg = dataclasses.replace(cfg, compute_dtype=held_dtype)
         loss_k, grad_k, _ = gradient(held_cfg)
+        grad_k = keep(grad_k)
         with plain_versions(*kernel_mods):
             loss_p, grad_p, _ = gradient(held_cfg)
         out["held"] = {
             "dtype": str(held_dtype),
             "rel_loss": abs(loss_k.item() - loss_p.item()) / abs(
                 loss_p.item()),
-            "rel_grad": rel_norm(grad_k, grad_p)}
-        check(bool(torch.isfinite(grad_k).all()), "held gradient finite")
+            "rel_grad": rel_norm_parts(torch, grad_k, grad_p, dev)}
+        check(finite(grad_k), "held gradient finite")
         check(out["held"]["rel_loss"] <= 1e-3, f"full-width loss at "
               f"{held_dtype} kernels vs plain {out['held']['rel_loss']:.3e}")
         check(out["held"]["rel_grad"] <= 2e-2, f"full-width gradient at "
@@ -983,7 +1129,64 @@ def phase_full_width(torch, np, cfg, S, tfm, common, kernel_mods, kernels,
               f"{loss_k.item():.6f} plain {loss_p.item():.6f} (rel "
               f"{out['held']['rel_loss']:.3e}, limit 1e-3), gradient rel "
               f"norm {out['held']['rel_grad']:.3e} (limit 2e-2)", flush=True)
+        del grad_k, grad_p
+    del params
+    torch.cuda.empty_cache()
     return out
+
+
+@contextlib.contextmanager
+def f64_attention_ce(torch, fa, ce):
+    """Inside ``plain_versions``: attention and the CE as dense f64
+    functions of their inputs, rounded back to the inputs' dtypes (the
+    same functions, more exactly than any f32 order of sums)."""
+    saved = (fa.flash_attention_fwd, fa.flash_attention_bwd,
+             ce.fused_ce_fwd, ce.fused_ce_bwd)
+
+    def attend(q, k, v, causal, window):
+        S, G = q.shape[1], q.shape[2] // k.shape[2]
+        pos = torch.arange(S, device=q.device)
+        keep = fa._tile_mask(pos, pos, causal, window)
+        k, v = (t.double().repeat_interleave(G, dim=2) for t in (k, v))
+        s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k) / math.sqrt(
+            q.shape[-1])
+        s = s.masked_fill(~keep, float("-inf"))
+        lse = torch.logsumexp(s, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", torch.exp(s - lse[..., None]),
+                           v)
+        return out, lse.transpose(1, 2)
+
+    def attn_fwd(q, k, v, causal, window, *_):
+        out, lse = attend(q, k, v, causal, window)
+        return out.to(q.dtype), lse.float()
+
+    def attn_bwd(q, k, v, out, lse, dout, causal, window, *_):
+        with torch.enable_grad():
+            xs = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+            o, _ = attend(*xs, causal, window)
+            grads = torch.autograd.grad(o, xs, dout.double())
+        return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
+
+    def ce_fwd(h, w, targets):
+        logits = h.double() @ w.double()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(1, targets[:, None])[:, 0]
+        return (lse - tgt).float(), lse.float(), logits.argmax(dim=-1)
+
+    def ce_bwd(h, w, targets, lse, g):
+        p = torch.softmax(h.double() @ w.double(), dim=-1)
+        p[torch.arange(h.shape[0], device=h.device), targets] -= 1.0
+        dl = p * g[:, None].double()
+        return ((dl @ w.double().t()).to(h.dtype),
+                (h.double().t() @ dl).to(w.dtype))
+
+    (fa.flash_attention_fwd, fa.flash_attention_bwd, ce.fused_ce_fwd,
+     ce.fused_ce_bwd) = attn_fwd, attn_bwd, ce_fwd, ce_bwd
+    try:
+        yield
+    finally:
+        (fa.flash_attention_fwd, fa.flash_attention_bwd, ce.fused_ce_fwd,
+         ce.fused_ce_bwd) = saved
 
 
 @contextlib.contextmanager
@@ -1165,20 +1368,29 @@ def lm_counts(cfg, grads: int, evals: int = 0, updates: int = 0) -> dict:
     """The launches ``grads`` LM gradients and ``evals`` forward passes
     imply: per pass one attention (``attn`` / ``local`` layers) or SSD
     (``ssm`` layers) forward per layer and one cross-entropy forward, and
-    for a gradient the backwards too; the packed update ``updates`` times;
-    the f64 updates none."""
+    for a gradient the backwards too; with remat (``cfg.remat`` other than
+    "none") a gradient runs each period slot's forward once more, in its
+    backward (the remainder layers and an eval's ``no_grad`` forward are
+    not checkpointed); ``rglru`` layers launch nothing; the packed update
+    ``updates`` times; the f64 updates none."""
     kinds = cfg.layer_kinds()
-    attn = sum(k in ("attn", "local") for k in kinds)
-    ssd = sum(k == "ssm" for k in kinds)
-    check(attn + ssd == len(kinds), f"layer kinds {set(kinds)}")
+    period = cfg.n_periods * len(cfg.pattern)
+    again = period if cfg.remat != "none" else 0
+
+    def of(want):
+        n = sum(k in want for k in kinds)
+        n_again = sum(k in want for k in kinds[:again])
+        return n * (grads + evals) + n_again * grads, n * grads
+
+    attn_f, attn_b = of(("attn", "local"))
+    ssd_f, ssd_b = of(("ssm",))
+    check(set(kinds) <= {"attn", "local", "ssm", "rglru"},
+          f"layer kinds {set(kinds)}")
     return {"fused_sync_easgd_update": 0, "fused_sync_sgd_update": 0,
-            "flash_attention_fwd": attn * (grads + evals),
-            "flash_attention_bwd": attn * grads,
+            "flash_attention_fwd": attn_f, "flash_attention_bwd": attn_b,
             "fused_ce_fwd": grads + evals, "fused_ce_bwd": grads,
             "fused_elastic_update": updates,
-            "ssd_intra_fwd": ssd * (grads + evals),
-            "ssd_intra_bwd": ssd * grads}
-
+            "ssd_intra_fwd": ssd_f, "ssd_intra_bwd": ssd_b}
 
 
 def phase_multi_pod(torch, np, cfg, S, elastic, EASGDConfig, train,
@@ -1467,9 +1679,13 @@ ASYNC_ALGOS = ("async_sgd", "async_easgd", "async_msgd", "async_measgd",
                "hogwild_easgd", "original_easgd")
 NON_SYNC = ("original_easgd", "async_sgd", "async_easgd", "async_msgd",
             "async_measgd", "hogwild_sgd", "hogwild_easgd")
-# phase 16's η on AlexNet: async_msgd's master momentum diverges at 0.005
-# and 0.002 within 64 iterations in a CPU run of these settings (PERF.md)
-ETA_ASYNC_ALEXNET = 0.001
+# phase 16's η on AlexNet: async_msgd's master momentum (μ 0.9 on stale
+# FCFS gradients) diverges at 0.005 and 0.002 within 64 iterations in a CPU
+# run of these settings, and at 0.001 it went non-finite in one of three
+# whole runs on the card (the FCFS order differs from run to run); phase
+# 16b reads 0.001 beside it, the real run and the DES in seeded FCFS orders
+ETA_ASYNC_ALEXNET = 0.0005
+ETA_MSGD_READ = 0.001
 
 
 def no_launches(counts: dict) -> dict:
@@ -1534,10 +1750,15 @@ def phase_async_card_vs_cpu(torch, runtime, problems, async_engine, kernels,
 
 
 def phase_async_alexnet(torch, runtime, zoo, kernels, EASGDConfig,
-                        device="cuda") -> None:
+                        async_engine, device="cuda",
+                        des_seeds=range(4)) -> None:
     """(b) Full-width AlexNet, P = 4, thread transport, 64 iterations, each
     non-sync discipline for real (FCFS, lock-free, turnstile); then
-    ``run_vs_des`` for async_easgd and hogwild_easgd."""
+    ``run_vs_des`` for async_easgd and hogwild_easgd. Last, read and not
+    held: async_msgd at ``ETA_MSGD_READ``, one real FCFS run and the DES
+    (no threads, so no race; its update is the reference's bit for bit,
+    tests/test_torch_async.py) in the FCFS orders of ``des_seeds`` (compute
+    jitter 0.1): whether each ends finite."""
     p, iters = 4, 64
     easgd = EASGDConfig(eta=ETA_ASYNC_ALEXNET, rho=0.01, mu=MU)
     problem = zoo.resolve("alexnet")
@@ -1582,6 +1803,23 @@ def phase_async_alexnet(torch, runtime, zoo, kernels, EASGDConfig,
               f"{rec['measured_us_per_iter']:.1f} us/iter, DES "
               f"{rec['des_us_per_iter']:.1f} us/iter, measured_over_des "
               f"{rec['measured_over_des']:.3f}", flush=True)
+    msgd = EASGDConfig(eta=ETA_MSGD_READ, rho=0.01, mu=MU)
+
+    def finite(r):
+        return bool(torch.isfinite(r.center).all()
+                    and torch.isfinite(r.workers).all())
+
+    real = runtime.run_ps(problem, msgd, dataclasses.replace(
+        base, algorithm="async_msgd"), device=device)
+    w0, grad_fn, eval_fn = problem.build(device)
+    des = [finite(async_engine.PSEngine(
+        grad_fn, eval_fn, w0, msgd, async_engine.SimConfig(
+            n_workers=p, compute_jitter=0.1, seed=seed,
+            eval_every_iters=10**9)).run("async_msgd", total_iters=iters))
+        for seed in des_seeds]
+    print(f"async_msgd alexnet P={p} eta={ETA_MSGD_READ} (read, not held): "
+          f"real FCFS run finite {finite(real)}; DES finite by seed "
+          f"{dict(zip(des_seeds, des))}", flush=True)
 
 
 def phase_async_lm(torch, runtime, zoo, kernels, configs, EASGDConfig,
@@ -1804,8 +2042,10 @@ def phase_tcp_alexnet(torch, runtime, zoo, kernels, comm_rounds, wire,
                       EASGDConfig, device="cuda", notes=None) -> dict:
     """(17b) Full-width AlexNet, P = 4, ring, 4 MiB buckets, 16 rounds,
     Sync EASGD five ways: thread, tcp master plane, tcp p2p with overlap on
-    and off, tcp p2p with sign_ef. Each untraced (µs/iter) and traced
-    (the Table-3 shares); the bytes on the master's links, on each peer
+    and off, tcp p2p with sign_ef. The thread plane untraced (µs/iter) and
+    traced (the Table-3 shares), the tcp ways traced only (17c reads what
+    tracing costs; phase 18b runs the p2p-overlap cell untraced as its
+    telemetry-off run); the bytes on the master's links, on each peer
     link and in all; kernel 1's launches, exact; the loopback α–β."""
     p, rounds = 4, 16
     easgd = EASGDConfig(eta=0.005, rho=0.01, mu=MU)
@@ -1831,7 +2071,7 @@ def phase_tcp_alexnet(torch, runtime, zoo, kernels, comm_rounds, wire,
         p2p = kw.get("sync_plane") == "p2p"
         want = p * rounds * (live if p2p else 1)
         det = kw.get("wire_compression", "none") == "none"
-        for trace in (False, True):
+        for trace in ((False, True) if name == "thread" else (True,)):
             cfg = runtime.PSConfig(algorithm="sync_easgd", n_workers=p,
                                    total_iters=p * rounds, schedule="ring",
                                    eval_every_iters=10**9,
@@ -1849,14 +2089,18 @@ def phase_tcp_alexnet(torch, runtime, zoo, kernels, comm_rounds, wire,
                   and res.total_iters == p * rounds, f"{name} finite")
             add_counts(totals, counts)
             results[name, trace] = res
-        plain, traced = results[name, False], results[name, True]
-        c = plain.counters
-        us = [1e6 * r.total_time_s / (p * rounds) for r in (plain, traced)]
+        traced = results[name, True]
+        plain = results.get((name, False))
+        c = traced.counters
+        us = 1e6 * traced.total_time_s / (p * rounds)
         if notes is not None:
-            notes[name] = us[0]
+            notes[name] = us
+        untraced = ("" if plain is None else
+                    f"{1e6 * plain.total_time_s / (p * rounds):.1f} us/iter "
+                    f"untraced, ")
         print(f"tcp-slice alexnet sync_easgd {name} P={p} ring 4MiB "
-              f"buckets, {rounds} rounds: {us[0]:.1f} us/iter untraced, "
-              f"{us[1]:.1f} us/iter traced; Table-3 shares (traced) "
+              f"buckets, {rounds} rounds: {untraced}{us:.1f} us/iter "
+              f"traced; Table-3 shares (traced) "
               f"{shares(traced)}; master_link_bytes "
               f"{c.get('master_link_bytes', 0)}, peer_link_bytes "
               f"{c.get('peer_link_bytes', {})}, peer_wire_bytes "
@@ -1870,13 +2114,13 @@ def phase_tcp_alexnet(torch, runtime, zoo, kernels, comm_rounds, wire,
                  if "worker_ready_s" in c else ""), flush=True)
     ref = results["thread", False]
     for name in ("tcp master", "tcp p2p overlap", "tcp p2p no overlap"):
-        res = results[name, False]
+        res = results[name, True]
         same = (torch.equal(res.center, ref.center)
                 and torch.equal(res.workers, ref.workers))
         print(f"tcp-slice alexnet {name} == thread run bit for bit: {same}",
               flush=True)
-    none = results["tcp p2p overlap", False].counters["peer_wire_bytes"]
-    sign = results["tcp p2p sign_ef", False].counters["peer_wire_bytes"]
+    none = results["tcp p2p overlap", True].counters["peer_wire_bytes"]
+    sign = results["tcp p2p sign_ef", True].counters["peer_wire_bytes"]
     print(f"tcp-slice alexnet sign_ef cuts peer_wire_bytes {none / sign:.2f}x",
           flush=True)
     return totals
@@ -2111,7 +2355,7 @@ def phase_live(torch, runtime, zoo, problems, kernels, costmodel,
     print(f"live alexnet sync_easgd tcp p2p P={p} ring 4MiB buckets, "
           f"{rounds} rounds: {us[False]:.1f} us/iter telemetry off, "
           f"{us[True]:.1f} us/iter telemetry on ({us[True] / us[False]:.3f}x)"
-          + (f"; phase 17b untraced {ref:.1f} us/iter" if ref else "")
+          + (f"; phase 17b traced {ref:.1f} us/iter" if ref else "")
           + f"; fused_sync_easgd_update launches {want} each", flush=True)
 
     port = free_port()
@@ -2789,6 +3033,274 @@ def phase_topology_entry_points(torch, runtime, problems, zoo, kernels,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 20: per-slot remat and six more model families
+# ---------------------------------------------------------------------------
+
+# phase 20b: the six families at the published widths, depth cut only where
+# one card forces it (f32 params and gradients 13.5-35 GiB); the f32 rows
+# of those over 3.5 B parameters are compared on the host
+FAMILIES = (("qwen1.5-4b", 40, 3_950_369_280),
+            ("phi3-mini-3.8b", 32, 3_821_079_552),
+            ("musicgen-medium", 48, 1_818_379_776),
+            ("recurrentgemma-2b", 26, 2_894_574_080),
+            ("gemma3-27b", 8, 4_712_393_984),
+            ("qwen2-vl-72b", 2, 4_246_794_240))
+# 20c: phi3-mini's attention at full width (D 96 on the 128-column tiles)
+# and reduced gemma3-27b's head dim (24 on the 32-column tiles) at S 4096,
+# timed; both dims in f32 on the CUDA cores, held
+ATTN_D96_CASES = ((1, 4096, 32, 32, 96, True, 0, "bfloat16", True),
+                  (1, 1024, 32, 32, 96, True, 0, "float32", False))
+ATTN_D24_CASES = ((1, 4096, 4, 2, 24, True, 0, "bfloat16", True),
+                  (1, 1024, 4, 2, 24, True, 8, "float32", False))
+REMAT_CASES = (("gemma3-4b", 6), ("mamba2-780m", 48), ("qwen1.5-4b", 40))
+
+
+def phase_remat(torch, np, cfg, S, tfm, common, kernels, timing, dev,
+                reps=3) -> dict:
+    """(20a) One full-width gradient (B 1, S 4096) with remat "full"
+    against remat "none": the median of ``reps`` timed gradients and the
+    peak of the first (``max_memory_allocated``; each parameter a leaf of
+    its own, ``lm_gradient``), each with exact launches; loss and gradient
+    on against off, bit for bit where they are, else held to 1e-3 / 2e-2.
+    The "none" gradient stays on the card while "full" runs; its bytes
+    are taken off "full"'s peak, so each peak is the run's own."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    params = lm_params(torch, tfm, common, cfg, dev)
+    batch = lm_batch(torch, np, cfg, S, dev)
+    out = {"params": tfm.n_params(cfg)}
+    kept, held_over = {}, 0
+    for remat in ("none", "full"):
+        c = dataclasses.replace(cfg, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        loss, grads, _ = lm_gradient(torch, tfm, common, c, params, batch)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        check(counts == lm_counts(c, 1), f"remat={remat} {cfg.name} "
+              f"launched {counts}, expected {lm_counts(c, 1)}")
+        peak = torch.cuda.max_memory_allocated() - held_over
+        kept[remat] = (loss, grads)
+        held_over = sum(g.numel() * g.element_size() for g in grads)
+        del grads
+        times = []
+        for _ in range(reps):
+            with timing.Timer("cuda") as tm:
+                lm_gradient(torch, tfm, common, c, params, batch)
+            times.append(1e3 * tm.elapsed)
+        out[remat] = {"ms": statistics.median(times), "ms_all": times,
+                      "peak_bytes": peak, "launches": counts}
+    (l0, g0), (l1, g1) = kept["none"], kept["full"]
+    bitwise = torch.equal(l0, l1) and all(
+        torch.equal(a, b) for a, b in zip(g0, g1))
+    rel_loss = abs(l1.item() - l0.item()) / abs(l0.item())
+    rel_grad = rel_norm_parts(torch, g1, g0, dev)
+    check(bool(torch.isfinite(l1)) and all(
+        bool(torch.isfinite(g).all()) for g in g1), f"remat {cfg.name} "
+        f"finite")
+    check(rel_loss <= 1e-3 and rel_grad <= 2e-2, f"remat {cfg.name} on vs "
+          f"off: loss {rel_loss:.3e}, gradient {rel_grad:.3e}")
+    out.update(bitwise=bitwise, rel_loss=rel_loss, rel_grad=rel_grad)
+    on, off = out["full"], out["none"]
+    print(f"remat {cfg.name} {cfg.n_layers} layers n={out['params']} B=1 "
+          f"S={S}: full {on['ms']:.1f} ms (median of "
+          f"{[round(v, 1) for v in on['ms_all']]}), peak "
+          f"{on['peak_bytes'] / 2**30:.2f} GiB; none {off['ms']:.1f} ms "
+          f"(median of {[round(v, 1) for v in off['ms_all']]}), peak "
+          f"{off['peak_bytes'] / 2**30:.2f} GiB; on {on['ms'] / off['ms']:.3f}"
+          f"x the time, {on['peak_bytes'] / off['peak_bytes']:.3f}x the "
+          f"peak; loss and gradient on == off "
+          + ("bit for bit" if bitwise else f"not bit for bit: loss rel "
+             f"{rel_loss:.3e} (limit 1e-3), gradient rel norm "
+             f"{rel_grad:.3e} (limit 2e-2)")
+          + f"; launches per gradient full {on['launches']}, none "
+          f"{off['launches']}", flush=True)
+    del params, kept, g0, g1
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_family_launchers(torch, np, configs, elastic, EASGDConfig, train,
+                           launcher, kernels, dev, archs) -> dict:
+    """(20e) Each arch of ``archs`` reduced: the multi-pod step (P = 2, B 2
+    per pod, S 24, 2 steps) on the card against the CPU from the same
+    state (loss 1e-3 relative, params by relative norm 2e-2) at f32
+    compute, then ``launch.train --mode sync --arch <id> --reduced`` (the
+    config's bf16) for 2 steps on the card, each with exact launches. The
+    comparison runs at f32 because four of these reduced configs have no
+    qk-norm, and at the reference's init their bf16 gradient lies farther
+    from its f64 one than the bf16 limit (tests/torch_lm_parity.py)."""
+    p, B, steps, S = 2, 2, 2, 24
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+    for arch in archs:
+        spec = configs.get(arch)
+        cfg = dataclasses.replace(spec.reduced, compute_dtype=torch.float32)
+        rng = np.random.RandomState(1)
+        batches = [{"tokens": rng.randint(0, cfg.vocab_size, (p, B, S)),
+                    "targets": rng.randint(0, cfg.vocab_size, (p, B, S)),
+                    "mask": np.ones((p, B, S), np.float32)}
+                   for _ in range(steps)]
+        want = lm_counts(cfg, p * steps, updates=steps)
+        runs = []
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for where in ("cpu", dev):
+            ecfg = elastic.ElasticConfig(
+                easgd=EASGDConfig(eta=0.05, rho=0.05, mu=MU),
+                schedule="psum", center_dtype=spec.center_dtype,
+                momentum_dtype=spec.momentum_dtype)
+            build = train.build_train_step(cfg, ecfg, n_pods=p,
+                                           per_pod_batch=B, seq=S,
+                                           device=where)
+            if where == "cpu":
+                init = build.init_state()
+            state = init.to(where)
+            kernels.reset_launch_counts()
+            losses = []
+            for b in batches:
+                state, metrics = build.step(state, b)
+                losses.append(metrics["loss"].item())
+            counts = kernels.launch_counts()
+            if where != "cpu":
+                check(counts == want, f"{arch} multi-pod launched {counts}, "
+                      f"expected {want}")
+                add_counts(totals, counts)
+            runs.append((state.to("cpu"), losses))
+        (cpu, cpu_losses), (card, card_losses) = runs
+        rel_loss = max(abs(a - b) / abs(b)
+                       for a, b in zip(card_losses, cpu_losses))
+        rel_params = rel_norm(card.params, cpu.params)
+        check(rel_loss <= 1e-3 and rel_params <= 2e-2, f"{arch}: card vs "
+              f"CPU loss {rel_loss:.3e}, params {rel_params:.3e}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            losses = launcher.main([
+                "--arch", arch, "--reduced", "--n-pods", str(p), "--batch",
+                str(p * B), "--seq", str(S), "--steps", str(steps),
+                "--log-every", "1", "--device", torch.device(dev).type])
+        counts = kernels.launch_counts()
+        check(counts == want, f"launcher --arch {arch} launched {counts}, "
+              f"expected {want}")
+        check(len(losses) == steps and all(map(math.isfinite, losses)),
+              f"launcher --arch {arch} losses finite")
+        add_counts(totals, counts)
+        print(f"launcher --mode sync --arch {arch} --reduced P={p} B={B} "
+              f"S={S} {steps} steps: card vs CPU at f32 compute loss rel "
+              f"{rel_loss:.3e} "
+              f"(limit 1e-3), params rel norm {rel_params:.3e} (limit "
+              f"2e-2); the launcher's losses {[round(x, 5) for x in losses]}"
+              f", launches {counts}", flush=True)
+    return totals
+
+
+def phase_ps_model(launcher, kernels, configs, arch="gemma3-27b",
+                   device="cuda") -> dict:
+    """(20e) ``launch.train --mode ps --model <arch>`` on the thread
+    transport, Sync EASGD, P = 2, 8 rounds: every worker warms up on 2
+    gradients and takes one a round, one final eval, the update once per
+    worker and round; the DES beside the run computes its own gradient
+    per iteration (it runs the problem's ``grad_fn``), launching the LM
+    kernels too. The launcher sets the counts to 0 after its
+    calibration."""
+    p, rounds = 2, 8
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        results = launcher.main([
+            "--mode", "ps", "--model", arch, "--algorithm", "sync_easgd",
+            "--transport", "thread", "--ps-workers", str(p), "--ps-iters",
+            str(p * rounds), "--emulate", "none", "--device", device])
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    counts = kernels.launch_counts()
+    want = lm_counts(configs.get(arch).reduced, 2 * p + 2 * p * rounds,
+                     evals=1)
+    want["fused_sync_easgd_update"] = p * rounds
+    check(len(results) == 1 and math.isfinite(results[0].final_metric),
+          f"--model {arch} finite")
+    check(counts == want, f"--mode ps --model {arch} launched {counts}, "
+          f"expected {want}")
+    print(f"launcher --mode ps --model {arch} thread P={p} {rounds} rounds: "
+          f"final eval loss {results[0].final_metric:.4f}, launches "
+          f"{counts}", flush=True)
+    return counts
+
+
+def merge_rows(rows: dict, more: dict) -> None:
+    """Fold a later phase's kernel rows into ``rows``: its tagged timings
+    join them; the largest |error| and the reading nearest its limit
+    stay."""
+    for name, new in more.items():
+        row = rows[name]
+        err = max(row.get("max_abs_err", 0.0), new.pop("max_abs_err", 0.0))
+        if new.get("err_to_tol", 0.0) < row.get("err_to_tol", 0.0):
+            for k in ("rel_err", "tol", "err_to_tol"):
+                new.pop(k, None)
+        row.update(new, max_abs_err=err)
+
+
+def phase_qk_conditioning(torch, np, configs, tfm, common, fa, ce, kernels,
+                          dev, arch="musicgen-medium", layers=8) -> dict:
+    """(20b) Why the families without qk-norm draw q / k at fan-in
+    d_model: ``arch`` at full width, ``layers`` deep, f32 compute, one
+    gradient through the kernels and one through the plain versions, at
+    the reference's init and at fan-in d_model. Beside each, the plain
+    path against itself with attention and the CE in f64
+    (``f64_attention_ce``): where that gap is as large as the kernels',
+    the gradient itself is ill-conditioned and no limit tells a right
+    kernel from a wrong one. Read, not held."""
+    cfg = dataclasses.replace(configs.get(arch).config, n_layers=layers,
+                              compute_dtype=torch.float32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = lm_batch(torch, np, cfg, 4096, dev)
+    out = {}
+    for fan_in_d in (False, True):
+        params = lm_params(torch, tfm, common, cfg, dev, fan_in_d)
+        loss_k, grad_k, _ = lm_gradient(torch, tfm, common, cfg, params,
+                                        batch)
+        with plain_versions(fa, ce):
+            loss_p, grad_p, _ = lm_gradient(torch, tfm, common, cfg, params,
+                                            batch)
+        rel_k = rel_norm_parts(torch, grad_k, grad_p, dev)
+        del grad_k
+        with plain_versions(fa, ce), f64_attention_ce(torch, fa, ce):
+            _, grad_v, _ = lm_gradient(torch, tfm, common, cfg, params,
+                                       batch)
+        out["fan_in_d" if fan_in_d else "reference"] = (
+            abs(loss_k.item() - loss_p.item()) / abs(loss_p.item()),
+            rel_k, rel_norm_parts(torch, grad_v, grad_p, dev))
+        del params, grad_v, grad_p
+    torch.cuda.empty_cache()
+    print(f"qk conditioning {arch} {layers} layers f32 compute B=1 S=4096: "
+          f"kernels vs plain at the reference's init (q / k fan-in H) loss "
+          f"rel {out['reference'][0]:.3e}, gradient rel norm "
+          f"{out['reference'][1]:.3e} (plain vs plain with attention and CE "
+          f"in f64 {out['reference'][2]:.3e}); at fan-in d_model loss rel "
+          f"{out['fan_in_d'][0]:.3e}, gradient rel norm "
+          f"{out['fan_in_d'][1]:.3e} (plain vs f64 "
+          f"{out['fan_in_d'][2]:.3e}) (read, not held)", flush=True)
+    return out
+
+
+def phase_families(torch, np, configs, tfm, common, fa, ce, kernels, timing,
+                   dev) -> None:
+    """(20b) The six families at full width (``FAMILIES``), B 1, S 4096,
+    remat on, bf16 compute: loss and gradient through the kernels against
+    the plain versions (1e-3 / 2e-2), one timed gradient each way, exact
+    launches."""
+    phase_qk_conditioning(torch, np, configs, tfm, common, fa, ce, kernels,
+                          dev)
+    for arch, layers, n in FAMILIES:
+        cfg = dataclasses.replace(configs.get(arch).config, n_layers=layers)
+        check(tfm.n_params(cfg) == n, f"{arch} at {layers} layers: "
+              f"{tfm.n_params(cfg)} params")
+        t = time.perf_counter()
+        phase_full_width(torch, np, cfg, 4096, tfm, common, (fa, ce),
+                         kernels, timing, dev, reps=0)
+        print(f"phase 20b {arch}: {time.perf_counter() - t:.1f} s",
+              flush=True)
+
+
 SOURCES = {"fused_sync_easgd_update": "elastic_update.cu",
            "fused_sync_sgd_update": "elastic_update.cu",
            "flash_attention_fwd": "flash_attention.cu",
@@ -2895,7 +3407,7 @@ def main() -> int:
     full = dataclasses.replace(configs.get("gemma3-4b").config, n_layers=6)
     check(tfm.n_params(full) == N_GEMMA_6L, "gemma3-4b at 6 layers")
     phase_full_width(torch, np, full, 4096, tfm, common, (fa, ce), kernels,
-                     timing, dev)
+                     timing, dev, flat_row=True)
     print(f"phase full width: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     add_counts(launches, phase_lm_main_path(
@@ -2962,7 +3474,8 @@ def main() -> int:
     t = time.perf_counter()
     add_counts(launches, phase_async_card_vs_cpu(
         torch, runtime, problems, async_engine, kernels, EASGDConfig))
-    phase_async_alexnet(torch, runtime, zoo, kernels, EASGDConfig)
+    phase_async_alexnet(torch, runtime, zoo, kernels, EASGDConfig,
+                        async_engine)
     add_counts(launches, phase_async_lm(torch, runtime, zoo, kernels, configs,
                                         EASGDConfig))
     add_counts(launches, phase_process(torch, runtime, problems, zoo, kernels,
@@ -3035,6 +3548,45 @@ def main() -> int:
         torch, runtime, problems, zoo, kernels, EASGDConfig))
     print(f"phase 19e: {time.perf_counter() - t19:.1f} s", flush=True)
     print(f"phase topology (19): {time.perf_counter() - t:.1f} s", flush=True)
+
+    # per-slot remat and six more model families (phase 20)
+    release_card(torch, "before phase 20")
+    t = time.perf_counter()
+    for arch, layers in REMAT_CASES:
+        phase_remat(torch, np, dataclasses.replace(
+            configs.get(arch).config, n_layers=layers), 4096, tfm, common,
+            kernels, timing, dev)
+    print(f"phase 20a: {time.perf_counter() - t:.1f} s", flush=True)
+    t20 = time.perf_counter()
+    phase_families(torch, np, configs, tfm, common, fa, ce, kernels, timing,
+                   dev)
+    print(f"phase 20b: {time.perf_counter() - t20:.1f} s", flush=True)
+    t20 = time.perf_counter()
+    merge_rows(rows, phase_attention(torch, F, fa, timing, dev, bw, bf16,
+                                     cases=ATTN_D96_CASES, tag_timed="_d96"))
+    merge_rows(rows, phase_attention(torch, F, fa, timing, dev, bw, bf16,
+                                     cases=ATTN_D24_CASES, tag_timed="_d24"))
+    print(f"phase 20c: {time.perf_counter() - t20:.1f} s", flush=True)
+    t20 = time.perf_counter()
+    hybrid = dataclasses.replace(configs.get("recurrentgemma-2b").config,
+                                 n_layers=8)
+    check(tfm.n_params(hybrid) == N_RECURRENTGEMMA_8L,
+          "recurrentgemma-2b at 8 layers")
+    multi, counts = phase_multi_pod(torch, np, hybrid, 4096, elastic,
+                                    EASGDConfig, train, synthetic, eu,
+                                    kernels, timing, dev, bw, f32)
+    add_counts(launches, counts)
+    rows["fused_elastic_update"].update(
+        ms_in_step_recurrentgemma=multi["update_ms"],
+        bound_ms_in_step_recurrentgemma=multi["update_bound_ms"])
+    print(f"phase 20d: {time.perf_counter() - t20:.1f} s", flush=True)
+    t20 = time.perf_counter()
+    add_counts(launches, phase_family_launchers(
+        torch, np, configs, elastic, EASGDConfig, train, launcher, kernels,
+        dev, [arch for arch, _, _ in FAMILIES]))
+    add_counts(launches, phase_ps_model(launcher, kernels, configs))
+    print(f"phase 20e: {time.perf_counter() - t20:.1f} s", flush=True)
+    print(f"phase families (20): {time.perf_counter() - t:.1f} s", flush=True)
 
     check("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),

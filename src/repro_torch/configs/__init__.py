@@ -1,12 +1,15 @@
 """Architecture registry (the port of ``repro/configs/__init__.py``).
 
-The registry knows every arch id of the reference. gemma3-4b and
-mamba2-780m are ported; ``get`` raises ``NotImplementedError`` for the
-others.
+The registry knows every arch id of the reference. Eight are ported: the
+dense, audio, vision-language, SSM and hybrid families. ``get`` raises
+``NotImplementedError`` for the MoE / MLA ones (grok-1-314b,
+deepseek-v2-236b).
 """
 from __future__ import annotations
 
-from repro_torch.configs import gemma3_4b, mamba2_780m
+from repro_torch.configs import (gemma3_4b, gemma3_27b, mamba2_780m,
+                                 musicgen_medium, phi3_mini, qwen2_vl_72b,
+                                 qwen15_4b, recurrentgemma_2b)
 from repro_torch.configs.base import (ALL_SHAPES, QUADRATIC_SHAPES, SHAPES,
                                       ArchSpec)
 
@@ -15,7 +18,9 @@ ARCH_IDS = ("gemma3-4b", "qwen1.5-4b", "phi3-mini-3.8b", "gemma3-27b",
             "recurrentgemma-2b", "grok-1-314b", "deepseek-v2-236b")
 
 ARCHS = {spec.arch_id: spec
-         for spec in (gemma3_4b.SPEC, mamba2_780m.SPEC)}
+         for spec in (gemma3_4b.SPEC, qwen15_4b.SPEC, phi3_mini.SPEC,
+                      gemma3_27b.SPEC, qwen2_vl_72b.SPEC, mamba2_780m.SPEC,
+                      musicgen_medium.SPEC, recurrentgemma_2b.SPEC)}
 
 __all__ = ["ALL_SHAPES", "ARCHS", "ARCH_IDS", "ArchSpec", "QUADRATIC_SHAPES",
            "SHAPES", "get"]

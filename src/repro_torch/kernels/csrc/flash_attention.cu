@@ -74,6 +74,16 @@
 //              about 71 % of the bound.
 // Tiles live in shared memory in wgmma's swizzled layout (sm90.cuh).
 //
+// Head dims 24 and 96 run on the next tile width up (32, 128), with the
+// true D as the kernels' `dt`: global strides and offsets use dt; TMA maps
+// span dt columns, so a box reads zeros at dt and past it; the cp.async
+// and CUDA-core loads zero those columns; the stores of out, dq, dk and dv
+// skip them. Zero columns add nothing to Q.K^T or dO.V^T and give zero
+// columns of P.V, dS.K and dS^T.Q, so every product is the true-D one; the
+// scale is 1/sqrt(dt). The padded columns cost their share of the work
+// (a third at 96, a quarter at 24). The other instantiations fold dt to
+// their tile width (tile_dt) and compile as they did without it.
+//
 // f32 route (namespace simt): the first version, f32 FMA on the CUDA cores
 // from f32 shared-memory tiles (row stride D + 1), the same blocks and
 // passes with 64 x 64 forward and 32 x 32 backward tiles.
@@ -90,6 +100,13 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+
+// the head dim a kernel works on: only the 32- and 128-column tiles serve a
+// narrower D (24, 96), so the others fold it to their constant tile width
+// and compile as they would without it
+template <int D> __device__ __forceinline__ int tile_dt(int dt) {
+    return D == 32 || D == 128 ? dt : D;
+}
 
 __device__ __forceinline__ bool allowed(int qpos, int kpos, int S, int causal,
                                         int window) {
@@ -138,16 +155,18 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
     return to_f(from_f<T>(x));
 }
 
-// rows [r0, r0 + n) of one head of a (B, S, heads, D) tensor -> f32 tile
-// with row stride ld; rows at or past S are zero
+// rows [r0, r0 + n) of one head of a (B, S, heads, dt) tensor -> f32 tile
+// of D columns with row stride ld; rows at or past S and columns at or past
+// dt are zero
 template <typename T, int D>
 __device__ __forceinline__ void load_rows(float* dst, int ld, const T* base,
                                           long row_stride, int r0, int n,
-                                          int S) {
+                                          int S, int dt) {
     for (int i = threadIdx.x; i < n * D; i += kThreads) {
         const int r = i / D, c = i % D;
-        dst[r * ld + c] =
-            r0 + r < S ? to_f(base[(long)(r0 + r) * row_stride + c]) : 0.f;
+        dst[r * ld + c] = r0 + r < S && c < dt
+                              ? to_f(base[(long)(r0 + r) * row_stride + c])
+                              : 0.f;
     }
 }
 
@@ -160,7 +179,8 @@ __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, T* __restrict__ out,
                 float* __restrict__ lse, int S, int H, int KVH, int causal,
-                int window, float scale) {
+                int window, float scale, int dt) {
+    dt = tile_dt<D>(dt);
     constexpr int BQ = 64, BK = 64, QS = D + 1, SS = BK + 1;
     constexpr int RP = BQ * D / kThreads;     // output rows per thread
     extern __shared__ float smem[];
@@ -175,12 +195,12 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int tid = threadIdx.x;
     const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
     const int kvh = h / (H / KVH);
-    const long qrs = (long)H * D, kvrs = (long)KVH * D;
-    const T* qb = q + (long)b * S * qrs + (long)h * D;
-    const T* kb = k + (long)b * S * kvrs + (long)kvh * D;
-    const T* vb = v + (long)b * S * kvrs + (long)kvh * D;
+    const long qrs = (long)H * dt, kvrs = (long)KVH * dt;
+    const T* qb = q + (long)b * S * qrs + (long)h * dt;
+    const T* kb = k + (long)b * S * kvrs + (long)kvh * dt;
+    const T* vb = v + (long)b * S * kvrs + (long)kvh * dt;
 
-    load_rows<T, D>(q_s, QS, qb, qrs, q0, BQ, S);
+    load_rows<T, D>(q_s, QS, qb, qrs, q0, BQ, S, dt);
     if (tid < BQ) {
         m_s[tid] = kNegInf;
         l_s[tid] = 0.f;
@@ -198,8 +218,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jt = lo; jt < hi; ++jt) {
         const int k0 = jt * BK;
         __syncthreads();
-        load_rows<T, D>(k_s, QS, kb, kvrs, k0, BK, S);
-        load_rows<T, D>(v_s, D, vb, kvrs, k0, BK, S);
+        load_rows<T, D>(k_s, QS, kb, kvrs, k0, BK, S, dt);
+        load_rows<T, D>(v_s, D, vb, kvrs, k0, BK, S, dt);
         __syncthreads();
         float acc[4][4];
 #pragma unroll
@@ -266,11 +286,11 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
     }
     __syncthreads();
-    T* ob = out + (long)b * S * qrs + (long)h * D;
+    T* ob = out + (long)b * S * qrs + (long)h * dt;
 #pragma unroll
     for (int i = 0; i < RP; ++i) {
         const int r = orow + i;
-        if (q0 + r < S)
+        if (q0 + r < S && oc < dt)
             ob[(long)(q0 + r) * qrs + oc] =
                 from_f<T>(o[i] / fmaxf(l_s[r], 1e-30f));
     }
@@ -340,7 +360,8 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int S, int H, int KVH, int causal,
-                     int window, float scale) {
+                     int window, float scale, int dt) {
+    dt = tile_dt<D>(dt);
     constexpr int BQ = 32, BK = 32, QS = D + 1, SS = BK + 1;
     constexpr int RP = BK * D / kThreads;     // dk / dv rows per thread
     extern __shared__ float smem[];
@@ -356,11 +377,11 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int tid = threadIdx.x;
     const int k0 = blockIdx.x * BK, kvh = blockIdx.y, b = blockIdx.z;
     const int G = H / KVH;
-    const long qrs = (long)H * D, kvrs = (long)KVH * D;
-    const T* kb = k + (long)b * S * kvrs + (long)kvh * D;
-    const T* vb = v + (long)b * S * kvrs + (long)kvh * D;
-    load_rows<T, D>(k_s, QS, kb, kvrs, k0, BK, S);
-    load_rows<T, D>(v_s, QS, vb, kvrs, k0, BK, S);
+    const long qrs = (long)H * dt, kvrs = (long)KVH * dt;
+    const T* kb = k + (long)b * S * kvrs + (long)kvh * dt;
+    const T* vb = v + (long)b * S * kvrs + (long)kvh * dt;
+    load_rows<T, D>(k_s, QS, kb, kvrs, k0, BK, S, dt);
+    load_rows<T, D>(v_s, QS, vb, kvrs, k0, BK, S, dt);
 
     const int ac = tid % D, arow = (tid / D) * RP;
     float dka[RP], dva[RP];
@@ -371,13 +392,13 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     q_range(k0, min(k0 + BK, S), S, BQ, causal, window, &lo, &hi);
     for (int g = 0; g < G; ++g) {
         const int h = kvh * G + g;
-        const T* qb = q + (long)b * S * qrs + (long)h * D;
-        const T* ob = dout + (long)b * S * qrs + (long)h * D;
+        const T* qb = q + (long)b * S * qrs + (long)h * dt;
+        const T* ob = dout + (long)b * S * qrs + (long)h * dt;
         for (int it = lo; it < hi; ++it) {
             const int q0 = it * BQ;
             __syncthreads();
-            load_rows<T, D>(q_s, QS, qb, qrs, q0, BQ, S);
-            load_rows<T, D>(o_s, QS, ob, qrs, q0, BQ, S);
+            load_rows<T, D>(q_s, QS, qb, qrs, q0, BQ, S, dt);
+            load_rows<T, D>(o_s, QS, ob, qrs, q0, BQ, S, dt);
             if (tid < BQ) {
                 const bool ok = q0 + tid < S;
                 const long at = ((long)b * S + q0 + tid) * H + h;
@@ -398,12 +419,12 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             }
         }
     }
-    T* dkb = dk + (long)b * S * kvrs + (long)kvh * D;
-    T* dvb = dv + (long)b * S * kvrs + (long)kvh * D;
+    T* dkb = dk + (long)b * S * kvrs + (long)kvh * dt;
+    T* dvb = dv + (long)b * S * kvrs + (long)kvh * dt;
 #pragma unroll
     for (int r = 0; r < RP; ++r) {
         const int s = k0 + arow + r;
-        if (s < S) {
+        if (s < S && ac < dt) {
             dkb[(long)s * kvrs + ac] = from_f<T>(dka[r]);
             dvb[(long)s * kvrs + ac] = from_f<T>(dva[r]);
         }
@@ -416,7 +437,9 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, T* __restrict__ dq, int S,
-                   int H, int KVH, int causal, int window, float scale) {
+                   int H, int KVH, int causal, int window, float scale,
+                   int dt) {
+    dt = tile_dt<D>(dt);
     constexpr int BQ = 32, BK = 32, QS = D + 1, SS = BK + 1;
     constexpr int RP = BQ * D / kThreads;     // dq rows per thread
     extern __shared__ float smem[];
@@ -431,13 +454,13 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int tid = threadIdx.x;
     const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
     const int kvh = h / (H / KVH);
-    const long qrs = (long)H * D, kvrs = (long)KVH * D;
-    const T* kb = k + (long)b * S * kvrs + (long)kvh * D;
-    const T* vb = v + (long)b * S * kvrs + (long)kvh * D;
-    load_rows<T, D>(q_s, QS, q + (long)b * S * qrs + (long)h * D, qrs, q0,
-                    BQ, S);
-    load_rows<T, D>(o_s, QS, dout + (long)b * S * qrs + (long)h * D, qrs,
-                    q0, BQ, S);
+    const long qrs = (long)H * dt, kvrs = (long)KVH * dt;
+    const T* kb = k + (long)b * S * kvrs + (long)kvh * dt;
+    const T* vb = v + (long)b * S * kvrs + (long)kvh * dt;
+    load_rows<T, D>(q_s, QS, q + (long)b * S * qrs + (long)h * dt, qrs, q0,
+                    BQ, S, dt);
+    load_rows<T, D>(o_s, QS, dout + (long)b * S * qrs + (long)h * dt, qrs,
+                    q0, BQ, S, dt);
     if (tid < BQ) {
         const bool ok = q0 + tid < S;
         const long at = ((long)b * S + q0 + tid) * H + h;
@@ -454,8 +477,8 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jt = lo; jt < hi; ++jt) {
         const int k0 = jt * BK;
         __syncthreads();
-        load_rows<T, D>(k_s, QS, kb, kvrs, k0, BK, S);
-        load_rows<T, D>(v_s, QS, vb, kvrs, k0, BK, S);
+        load_rows<T, D>(k_s, QS, kb, kvrs, k0, BK, S, dt);
+        load_rows<T, D>(v_s, QS, vb, kvrs, k0, BK, S, dt);
         __syncthreads();
         bwd_tile<T, D>(q_s, o_s, k_s, v_s, lse_s, dl_s, nullptr, ds_s, q0,
                        k0, S, causal, window, scale);
@@ -467,11 +490,11 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 dqa[r] = fmaf(ds_s[(arow + r) * SS + j], kv, dqa[r]);
         }
     }
-    T* dqb = dq + (long)b * S * qrs + (long)h * D;
+    T* dqb = dq + (long)b * S * qrs + (long)h * dt;
 #pragma unroll
     for (int r = 0; r < RP; ++r) {
         const int s = q0 + arow + r;
-        if (s < S) dqb[(long)s * qrs + ac] = from_f<T>(dqa[r]);
+        if (s < S && ac < dt) dqb[(long)s * qrs + ac] = from_f<T>(dqa[r]);
     }
 }
 
@@ -619,7 +642,8 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
                 bf16* __restrict__ out, float* __restrict__ lse, int S, int H,
-                int KVH, int causal, int window, float scale_log2) {
+                int KVH, int causal, int window, float scale_log2, int dt) {
+    dt = tile_dt<D>(dt);
     using L = FwdSmem<D>;
     constexpr int BK = kFwdBK;
     extern __shared__ uint8_t smem_raw[];
@@ -635,7 +659,7 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     // the causal mask), all heads of one q tile together
     const int q0 = (gridDim.x / H - 1 - blockIdx.x / H) * 2 * kFwdRows;
     const int h = blockIdx.x % H, b = blockIdx.y, kvh = h / (H / KVH);
-    const long qrs = (long)H * D;
+    const long qrs = (long)H * dt;
     int lo, hi;
     kv_range(q0, min(q0 + 2 * kFwdRows, S), S, BK, causal, window, &lo, &hi);
 
@@ -751,10 +775,11 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
         l[i] = fmaxf(l[i], 1e-30f);
     }
-    bf16* ob = out + (long)b * S * qrs + (long)h * D;
+    bf16* ob = out + (long)b * S * qrs + (long)h * dt;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
         const int col = 8 * n + 2 * t;
+        if (col >= dt) continue;
         if (r0 < S)
             *reinterpret_cast<uint32_t*>(ob + (long)r0 * qrs + col) =
                 pack_bf16(o[4 * n] / l[0], o[4 * n + 1] / l[0]);
@@ -875,10 +900,10 @@ __device__ __forceinline__ void store_scores(uint32_t tile, int row, int col,
 }
 
 // acc (this warp's AccTile block) -> rows [row0, + 64) of a (B, S,
-// heads, D) tensor, rows at or past S dropped
+// heads, dt) tensor, rows at or past S and columns at or past dt dropped
 template <int D>
 __device__ __forceinline__ void store_acc(bf16* base, long stride, int row0,
-                                          int w, int S, int lane,
+                                          int w, int S, int dt, int lane,
                                           const float (*acc)[4]) {
     using A = AccTile<D>;
     const int g = lane / 4, t = lane % 4;
@@ -889,6 +914,7 @@ __device__ __forceinline__ void store_acc(bf16* base, long stride, int row0,
             const float* x = acc[mb * A::kNB + nb];
             const int r = row0 + A::m0(w) + 16 * mb + g;
             const int c = A::n0(w) + 8 * nb + 2 * t;
+            if (c >= dt) continue;
             if (r < S)
                 *reinterpret_cast<uint32_t*>(base + (long)r * stride + c) =
                     pack_bf16(x[0], x[1]);
@@ -960,7 +986,8 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int S, int H, int KVH, int causal,
-                     int window, float scale) {
+                     int window, float scale, int dt) {
+    dt = tile_dt<D>(dt);
     using L = BwdSmem<D>;
     constexpr int BQ = kBwdB, BK = kBwdB;
     extern __shared__ uint8_t smem_raw[];
@@ -975,11 +1002,11 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = blockIdx.x / KVH * BK, kvh = blockIdx.x % KVH;
     const int b = blockIdx.y;
     const int G = H / KVH;
-    const long qrs = (long)H * D, kvrs = (long)KVH * D;
-    const bf16* kb = k + (long)b * S * kvrs + (long)kvh * D;
-    const bf16* vb = v + (long)b * S * kvrs + (long)kvh * D;
-    copy_tile<BK, D, kBwdThreads>(k_s, kb, kvrs, k0, S, tid);
-    copy_tile<BK, D, kBwdThreads>(v_s, vb, kvrs, k0, S, tid);
+    const long qrs = (long)H * dt, kvrs = (long)KVH * dt;
+    const bf16* kb = k + (long)b * S * kvrs + (long)kvh * dt;
+    const bf16* vb = v + (long)b * S * kvrs + (long)kvh * dt;
+    copy_tile<BK, D, kBwdThreads>(k_s, kb, kvrs, k0, S, dt, tid);
+    copy_tile<BK, D, kBwdThreads>(v_s, vb, kvrs, k0, S, dt, tid);
 
     int lo, hi;
     q_range(k0, min(k0 + BK, S), S, BQ, causal, window, &lo, &hi);
@@ -988,10 +1015,10 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     auto issue = [&](int x) {
         const int h = kvh * G + x / nqt, q0 = (lo + x % nqt) * BQ;
         const uint32_t st = ring + (x % 2) * 2 * L::kTile;
-        const long at = (long)b * S * qrs + (long)h * D;
-        copy_tile<BQ, D, kBwdThreads>(st, q + at, qrs, q0, S, tid);
+        const long at = (long)b * S * qrs + (long)h * dt;
+        copy_tile<BQ, D, kBwdThreads>(st, q + at, qrs, q0, S, dt, tid);
         copy_tile<BQ, D, kBwdThreads>(st + L::kTile, dout + at, qrs, q0, S,
-                                      tid);
+                                      dt, tid);
     };
     if (n > 0) issue(0);
     cp_async_commit();
@@ -1026,10 +1053,10 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         acc_product<D>(dka, ds_s, qs, m0, n0, lane);
         __syncthreads();
     }
-    store_acc<D>(dk + (long)b * S * kvrs + (long)kvh * D, kvrs, k0, w, S,
-                 lane, dka);
-    store_acc<D>(dv + (long)b * S * kvrs + (long)kvh * D, kvrs, k0, w, S,
-                 lane, dva);
+    store_acc<D>(dk + (long)b * S * kvrs + (long)kvh * dt, kvrs, k0, w, S,
+                 dt, lane, dka);
+    store_acc<D>(dv + (long)b * S * kvrs + (long)kvh * dt, kvrs, k0, w, S,
+                 dt, lane, dva);
 }
 
 // dQ pass: the forward's block (two consumer warpgroups of 64 query rows,
@@ -1082,7 +1109,8 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, bf16* __restrict__ dq,
                    int S, int H, int KVH, int causal, int window,
-                   float scale) {
+                   float scale, int dt) {
+    dt = tile_dt<D>(dt);
     using L = DqSmem<D>;
     constexpr int BK = kDqBK;
     extern __shared__ uint8_t smem_raw[];
@@ -1203,11 +1231,12 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_arrive(&empty[it % kStages]);
     }
 
-    const long qrs = (long)H * D;
-    bf16* qb = dq + (long)b * S * qrs + (long)h * D;
+    const long qrs = (long)H * dt;
+    bf16* qb = dq + (long)b * S * qrs + (long)h * dt;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
         const int col = 8 * n + 2 * t;
+        if (col >= dt) continue;
         if (r0 < S)
             *reinterpret_cast<uint32_t*>(qb + (long)r0 * qrs + col) =
                 pack_bf16(acc[4 * n], acc[4 * n + 1]);
@@ -1243,7 +1272,7 @@ int delta(const void* out, const void* dout, float* dl, long rows, int D,
 template <int D>
 int fwd_f32(const void* q, const void* k, const void* v, void* out,
             float* lse, int B, int S, int H, int KVH, int causal, int window,
-            float scale, cudaStream_t st) {
+            float scale, int dt, cudaStream_t st) {
     constexpr int BQ = 64, BK = 64;
     const size_t bytes =
         sizeof(float) * ((BQ + BK) * (D + 1) + BK * D + BQ * (BK + 1) + 3 * BQ);
@@ -1252,7 +1281,7 @@ int fwd_f32(const void* q, const void* k, const void* v, void* out,
     const dim3 grid((S + BQ - 1) / BQ, H, B);
     kern<<<grid, simt::kThreads, bytes, st>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)out, lse,
-        S, H, KVH, causal, window, scale);
+        S, H, KVH, causal, window, scale, dt);
     return (int)cudaGetLastError();
 }
 
@@ -1260,9 +1289,9 @@ template <int D>
 int bwd_f32(const void* q, const void* k, const void* v, const void* out,
             const void* dout, const float* lse, float* dl, void* dq, void* dk,
             void* dv, int B, int S, int H, int KVH, int causal, int window,
-            float scale, cudaStream_t st) {
+            float scale, int dt, cudaStream_t st) {
     constexpr int BQ = 32, BK = 32;
-    if (int rc = delta<float>(out, dout, dl, (long)B * S * H, D, st))
+    if (int rc = delta<float>(out, dout, dl, (long)B * S * H, dt, st))
         return rc;
     const size_t b_kv = sizeof(float) *
                         (4 * 32 * (D + 1) + 2 * BQ * (BK + 1) + 2 * BQ);
@@ -1271,7 +1300,7 @@ int bwd_f32(const void* q, const void* k, const void* v, const void* out,
     kkv<<<dim3((S + BK - 1) / BK, KVH, B), simt::kThreads, b_kv, st>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, lse, dl, (float*)dk, (float*)dv, S, H, KVH,
-        causal, window, scale);
+        causal, window, scale, dt);
     if (int rc = (int)cudaGetLastError()) return rc;
     const size_t b_q = sizeof(float) *
                        (4 * 32 * (D + 1) + BQ * (BK + 1) + 2 * BQ);
@@ -1280,23 +1309,27 @@ int bwd_f32(const void* q, const void* k, const void* v, const void* out,
     kq<<<dim3((S + BQ - 1) / BQ, H, B), simt::kThreads, b_q, st>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, lse, dl, (float*)dq, S, H, KVH, causal, window,
-        scale);
+        scale, dt);
     return (int)cudaGetLastError();
 }
 
-// a TMA map of one (B, S, heads, D) bf16 tensor whose box is one slab of
-// kRows rows of one head, swizzled as sm90.cuh lays tiles out
+// a TMA map of one (B, S, heads, dt) bf16 tensor whose box is one slab of
+// kRows rows of one head of a tile D columns wide, swizzled as sm90.cuh
+// lays tiles out. The map spans the true dt columns, so the box's columns
+// at or past dt (a head dim run on the next tile width up) come back zero,
+// as its rows past S do.
 template <int D, int kRows>
-int row_map(CUtensorMap* map, const void* base, int B, int S, int heads) {
+int row_map(CUtensorMap* map, const void* base, int B, int S, int heads,
+            int dt) {
     int rc = 0;
     const sm90::EncodeTiled encode = sm90::tensor_map_encoder(&rc);
     if (encode == nullptr) return rc;
     using Sw = sm90::Swz<D>;
-    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+    const cuuint64_t dims[4] = {(cuuint64_t)dt, (cuuint64_t)heads,
                                 (cuuint64_t)S, (cuuint64_t)B};
-    const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
-                                   (cuuint64_t)heads * D * 2,
-                                   (cuuint64_t)S * heads * D * 2};
+    const cuuint64_t strides[3] = {(cuuint64_t)dt * 2,
+                                   (cuuint64_t)heads * dt * 2,
+                                   (cuuint64_t)S * heads * dt * 2};
     const cuuint32_t box[4] = {(cuuint32_t)Sw::kSlabCols, 1,
                                (cuuint32_t)kRows, 1};
     const cuuint32_t step[4] = {1, 1, 1, 1};
@@ -1326,20 +1359,20 @@ int regs_moved(K kernel) {
 template <int D>
 int fwd_bf16(const void* q, const void* k, const void* v, void* out,
              float* lse, int B, int S, int H, int KVH, int causal,
-             int window, float scale, cudaStream_t st) {
+             int window, float scale, int dt, cudaStream_t st) {
     using bf16 = __nv_bfloat16;
     const size_t bytes = tc::FwdSmem<D>::kAlloc;
     auto kern = tc::attn_fwd_kernel<D>;
     if (int rc = set_smem(kern, bytes)) return rc;
     if (int rc = regs_moved<D>(kern)) return rc;
     CUtensorMap tq, tk, tv;
-    if (int rc = row_map<D, tc::kFwdRows>(&tq, q, B, S, H)) return rc;
-    if (int rc = row_map<D, tc::kFwdBK>(&tk, k, B, S, KVH)) return rc;
-    if (int rc = row_map<D, tc::kFwdBK>(&tv, v, B, S, KVH)) return rc;
+    if (int rc = row_map<D, tc::kFwdRows>(&tq, q, B, S, H, dt)) return rc;
+    if (int rc = row_map<D, tc::kFwdBK>(&tk, k, B, S, KVH, dt)) return rc;
+    if (int rc = row_map<D, tc::kFwdBK>(&tv, v, B, S, KVH, dt)) return rc;
     const dim3 grid((S + 2 * tc::kFwdRows - 1) / (2 * tc::kFwdRows) * H, B);
     kern<<<grid, tc::kFwdThreads, bytes, st>>>(
         tq, tk, tv, (bf16*)out, lse, S, H, KVH, causal, window,
-        scale * tc::kLog2e);
+        scale * tc::kLog2e, dt);
     return (int)cudaGetLastError();
 }
 
@@ -1347,38 +1380,45 @@ template <int D>
 int bwd_bf16(const void* q, const void* k, const void* v, const void* out,
              const void* dout, const float* lse, float* dl, void* dq,
              void* dk, void* dv, int B, int S, int H, int KVH, int causal,
-             int window, float scale, cudaStream_t st) {
+             int window, float scale, int dt, cudaStream_t st) {
     using bf16 = __nv_bfloat16;
     constexpr int BT = tc::kBwdB;
-    if (int rc = delta<bf16>(out, dout, dl, (long)B * S * H, D, st))
+    if (int rc = delta<bf16>(out, dout, dl, (long)B * S * H, dt, st))
         return rc;
     const size_t bytes = tc::BwdSmem<D>::kAlloc;
     auto kkv = tc::attn_bwd_dkdv_kernel<D>;
     if (int rc = set_smem(kkv, bytes)) return rc;
     kkv<<<dim3((S + BT - 1) / BT * KVH, B), tc::kBwdThreads, bytes, st>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        lse, dl, (bf16*)dk, (bf16*)dv, S, H, KVH, causal, window, scale);
+        lse, dl, (bf16*)dk, (bf16*)dv, S, H, KVH, causal, window, scale, dt);
     if (int rc = (int)cudaGetLastError()) return rc;
     auto kq = tc::attn_bwd_dq_kernel<D>;
     const size_t q_bytes = tc::DqSmem<D>::kAlloc;
     if (int rc = set_smem(kq, q_bytes)) return rc;
     if (int rc = regs_moved<D>(kq)) return rc;
     CUtensorMap tq, to, tk, tv;
-    if (int rc = row_map<D, tc::kFwdRows>(&tq, q, B, S, H)) return rc;
-    if (int rc = row_map<D, tc::kFwdRows>(&to, dout, B, S, H)) return rc;
-    if (int rc = row_map<D, tc::kDqBK>(&tk, k, B, S, KVH)) return rc;
-    if (int rc = row_map<D, tc::kDqBK>(&tv, v, B, S, KVH)) return rc;
+    if (int rc = row_map<D, tc::kFwdRows>(&tq, q, B, S, H, dt)) return rc;
+    if (int rc = row_map<D, tc::kFwdRows>(&to, dout, B, S, H, dt)) return rc;
+    if (int rc = row_map<D, tc::kDqBK>(&tk, k, B, S, KVH, dt)) return rc;
+    if (int rc = row_map<D, tc::kDqBK>(&tv, v, B, S, KVH, dt)) return rc;
     kq<<<dim3((S + 2 * tc::kFwdRows - 1) / (2 * tc::kFwdRows) * H, B),
          tc::kFwdThreads, q_bytes, st>>>(tq, to, tk, tv, lse, dl, (bf16*)dq,
-                                         S, H, KVH, causal, window, scale);
+                                         S, H, KVH, causal, window, scale,
+                                         dt);
     return (int)cudaGetLastError();
 }
 
+// D picks the tile width: 16, 32, 64, 128 and 256 are their own; 24 runs
+// on the 32-column tiles and 96 on the 128-column ones (the launchers take
+// the true D as dt: the loads zero the columns at dt and past it, the
+// stores skip them, and zero columns leave every product as it is)
 #define REPRO_BY_HEAD_DIM(FN, ...)                           \
     switch (D) {                                             \
         case 16: return FN<16>(__VA_ARGS__);                 \
+        case 24: return FN<32>(__VA_ARGS__);                 \
         case 32: return FN<32>(__VA_ARGS__);                 \
         case 64: return FN<64>(__VA_ARGS__);                 \
+        case 96: return FN<128>(__VA_ARGS__);                \
         case 128: return FN<128>(__VA_ARGS__);               \
         case 256: return FN<256>(__VA_ARGS__);               \
         default: return (int)cudaErrorInvalidValue;          \
@@ -1387,7 +1427,7 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* out,
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
-// D in {16, 32, 64, 128, 256}.
+// D in {16, 24, 32, 64, 96, 128, 256}.
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* out, float* lse, int B, int S, int H,
                                int KVH, int D, int causal, int window,
@@ -1395,10 +1435,10 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
     cudaStream_t st = (cudaStream_t)stream;
     if (dtype == 0) {
         REPRO_BY_HEAD_DIM(fwd_f32, q, k, v, out, lse, B, S, H, KVH, causal,
-                          window, scale, st)
+                          window, scale, D, st)
     }
     REPRO_BY_HEAD_DIM(fwd_bf16, q, k, v, out, lse, B, S, H, KVH, causal,
-                      window, scale, st)
+                      window, scale, D, st)
 }
 
 // delta is a (B, S, H) f32 scratch buffer the caller allocates.
@@ -1411,8 +1451,8 @@ extern "C" int repro_flash_bwd(const void* q, const void* k, const void* v,
     cudaStream_t st = (cudaStream_t)stream;
     if (dtype == 0) {
         REPRO_BY_HEAD_DIM(bwd_f32, q, k, v, out, dout, lse, delta, dq, dk,
-                          dv, B, S, H, KVH, causal, window, scale, st)
+                          dv, B, S, H, KVH, causal, window, scale, D, st)
     }
     REPRO_BY_HEAD_DIM(bwd_bf16, q, k, v, out, dout, lse, delta, dq, dk, dv,
-                      B, S, H, KVH, causal, window, scale, st)
+                      B, S, H, KVH, causal, window, scale, D, st)
 }

@@ -71,21 +71,22 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// rows [r0, r0 + R) of one head (row stride `stride` elements, D columns)
-// into a swizzled tile; rows at or past S are zero. Threads [0, NT) share
-// the copy, 16 bytes each at a time.
+// rows [r0, r0 + R) of one head (row stride `stride` elements, `cols`
+// columns, a multiple of 8 no larger than D) into a swizzled tile D columns
+// wide; rows at or past S and columns at or past `cols` are zero. Threads
+// [0, NT) share the copy, 16 bytes each at a time.
 template <int R, int D, int NT>
 __device__ __forceinline__ void copy_tile(uint32_t tile,
                                           const __nv_bfloat16* base,
                                           long stride, int r0, int S,
-                                          int tid) {
+                                          int cols, int tid) {
     constexpr int kChunks = D / 8, kTotal = R * kChunks;
 #pragma unroll
     for (int k = 0; k < (kTotal + NT - 1) / NT; ++k) {
         const int i = tid + k * NT;
         if (kTotal % NT == 0 || i < kTotal) {
             const int r = i / kChunks, c = i % kChunks;
-            const bool ok = r0 + r < S;
+            const bool ok = r0 + r < S && 8 * c < cols;
             const __nv_bfloat16* src =
                 base + (long)(ok ? r0 + r : 0) * stride + c * 8;
             cp_async16(tile + Swz<D>::template off<R>(r, c), src, ok);

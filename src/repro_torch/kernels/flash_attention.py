@@ -20,8 +20,11 @@ current stream or raises: there is no fallback. The route follows the
 dtype alone, never a failure: bf16 runs on the tensor cores (``wgmma`` for
 the forward and the backward's dQ pass, fed by TMA rings of K / V tiles;
 ``mma.sync`` for the dK/dV pass, fed by a ``cp.async`` ring), which need
-every bf16 base address 16-byte aligned; f32 runs on the CUDA cores.
-Each wrapper call that launches adds one to the wrapper's ``launches``.
+every bf16 base address 16-byte aligned; f32 runs on the CUDA cores. Head
+dims 24 and 96 run on the 32- and 128-column tiles (the ``.cu``
+dispatch's choice): the kernels take the true D, read zeros past it and write nothing there; no
+tensor is padded. Each wrapper call that launches adds one to the
+wrapper's ``launches``.
 
 The plain versions are eager ports of the reference's tiled loops (q tiles
 of ``q_block``, kv tiles of ``kv_block``, padded to tile multiples), so on
@@ -39,7 +42,10 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128, 256)      # the kernels' instantiations
+# the head dims the kernels take: 24 and 96 run on the next instantiation
+# up, the kernels zeroing the columns past D in every load and skipping
+# them in every store
+HEAD_DIMS = (16, 24, 32, 64, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 

@@ -7,8 +7,8 @@ launch the CUDA kernels for tensors on the card and run the plain versions
 (eager ports of ``_flash_fwd_impl`` / ``_flash_bwd_impl``) on the CPU.
 
 Not ported yet (see ROADMAP.md): decode and prefill with a cache,
-``decode_attention``, ``apply_mrope`` and ``blocked_attention``'s serving
-path. ``sctx.shard`` has no counterpart on one device.
+``decode_attention`` and ``blocked_attention``'s serving path.
+``sctx.shard`` has no counterpart on one device.
 """
 from __future__ import annotations
 
@@ -40,9 +40,26 @@ def apply_rope(x, positions, theta: float):
 
 
 def apply_mrope(x, positions, theta: float, sections):
-    raise NotImplementedError(
-        "multimodal RoPE (qwen2-vl) is not ported to repro_torch yet; see "
-        "ROADMAP.md, queue 1")
+    """Qwen2-VL multimodal RoPE. x: (..., S, H, D); positions: (3, ..., S)
+    for the (t, h, w) streams; ``sections`` splits the rotary half-dim
+    across them: channel j turns by the stream whose section holds it.
+    f32 inside, cast back to x's dtype."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"half the head dim, {half}")
+    inv = _rope_inv_freq(x.shape[-1], theta, x.device)      # (half,)
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(list(sections), device=x.device))      # (half,)
+    pos = positions[sec_id].movedim(0, -1)                  # (..., S, half)
+    ang = pos.to(torch.float32) * inv
+    sin = torch.sin(ang)[..., None, :]
+    cos = torch.cos(ang)[..., None, :]
+    x1 = x[..., :half].to(torch.float32)
+    x2 = x[..., half:].to(torch.float32)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 def flash_attention_train(q, k, v, *, causal=True, window=0, q_block=512,

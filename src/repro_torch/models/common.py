@@ -29,6 +29,14 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    """RecurrentGemma RG-LRU recurrent block."""
+    width: int = 2560            # lru width (= d_model for recurrentgemma)
+    d_conv: int = 4
+    c: float = 8.0               # power in a_t = a^(c·r_t)
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                  # dense | moe | ssm | hybrid | vlm | audio
@@ -40,8 +48,8 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0            # 0 -> d_model // n_heads
     # layer pattern, cycled over n_layers: "attn" (global), "local"
-    # (sliding window), "ssm" (Mamba-2); the other kinds of the reference
-    # are not ported
+    # (sliding window), "ssm" (Mamba-2), "rglru" (Griffin's RG-LRU block);
+    # the reference's "mla" and "moe" kinds are not ported
     pattern: tuple = ("attn",)
     window: int = 1024           # sliding window for "local" layers
     rope_theta: float = 10_000.0
@@ -53,17 +61,20 @@ class ModelConfig:
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
     ssm: Optional[SSMConfig] = None
-    # sub-configs of the unported families (MoE, MLA, RG-LRU)
+    rglru: Optional[RGLRUConfig] = None
+    # sub-configs of the unported families (MoE, MLA)
     moe: Optional[Any] = None
     mla: Optional[Any] = None
-    rglru: Optional[Any] = None
     # precisions
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
     fsdp: bool = False
     patch_embed_tokens: int = 0
     loss_chunk: int = 32768
-    remat: str = "full"
+    remat: str = "full"          # "none" keeps every layer's activations;
+                                 # any other value checkpoints each period
+                                 # slot ("dots" is "full", as in the
+                                 # reference: no policy)
     attn_q_block: int = 512
     attn_kv_block: int = 1024
     moe_ep: bool = True

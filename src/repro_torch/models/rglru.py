@@ -1,0 +1,111 @@
+"""RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427), the
+training path (the port of ``repro/models/rglru.py``: ``rglru_defs``,
+``_causal_conv``, ``_rglru_gates``, ``rglru_scan`` and the non-cache branch
+of ``rglru_block``).
+
+Real-Gated Linear Recurrent Unit::
+
+    r_t = σ(W_a x_t + b_a)                  (recurrence gate)
+    i_t = σ(W_x x_t + b_x)                  (input gate)
+    log a_t = −c · r_t · softplus(Λ)        (so a_t = σ(Λ)^{c·r_t} ∈ (0,1))
+    h_t = a_t ⊙ h_{t−1} + √(1 − a_t²) ⊙ (i_t ⊙ x_t)
+
+The gates and the recurrence run in f32. The recurrence is a log-depth
+associative scan over the sequence (Hillis–Steele doubling of
+``(a1·a2, a2·b1 + b2)``: ⌈log2 S⌉ steps of whole-tensor ops, 12 at S 4096),
+which sums in another order than ``lax.associative_scan``'s tree, so it
+agrees with the reference to f32 rounding, not bit for bit. The block
+follows Griffin: two branches (GeLU gate ∥ conv1d → RG-LRU), multiplied,
+projected. The reference has no Pallas kernel here, and the port has no
+CUDA kernel: the scan is plain torch on either device.
+
+Not ported yet (see ROADMAP.md, queue 1, serving): decode with a cache
+(``rglru_step``, ``rglru_block``'s cache branch).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ModelConfig, ParamDef, _gelu_tanh
+from repro_torch.models.ssm import _causal_conv  # noqa: F401  (the same)
+
+
+def _serving():
+    return NotImplementedError(
+        "RG-LRU decode with a cache (rglru_step, rglru_block's cache "
+        "branch) is not ported to repro_torch yet; see ROADMAP.md, queue 1 "
+        "(serving)")
+
+
+def rglru_defs(cfg: ModelConfig) -> dict:
+    g = cfg.rglru
+    d, w = cfg.d_model, g.width
+    return {
+        "w_y": ParamDef((d, w), ("embed", "inner")),       # gate branch
+        "w_x": ParamDef((d, w), ("embed", "inner")),       # recurrent branch
+        "conv_w": ParamDef((g.d_conv, w), ("conv", "inner")),
+        "conv_b": ParamDef((w,), ("inner",), init="zeros"),
+        "wa": ParamDef((w, w), ("inner", "inner2")),
+        "ba": ParamDef((w,), ("inner",), init="zeros"),
+        "wi": ParamDef((w, w), ("inner", "inner2")),
+        "bi": ParamDef((w,), ("inner",), init="zeros"),
+        "lam": ParamDef((w,), ("inner",), init="ones"),    # Λ
+        "w_out": ParamDef((w, d), ("inner", "embed_out")),
+    }
+
+
+def _rglru_gates(cfg: ModelConfig, p, x):
+    """-> (a, gated input), both f32 (B, S, w)."""
+    g = cfg.rglru
+    x32 = x.to(torch.float32)
+    r = torch.sigmoid(x32 @ p["wa"].to(torch.float32)
+                      + p["ba"].to(torch.float32))
+    i = torch.sigmoid(x32 @ p["wi"].to(torch.float32)
+                      + p["bi"].to(torch.float32))
+    log_a = -g.c * r * F.softplus(p["lam"].to(torch.float32))
+    a = torch.exp(log_a)
+    gated_in = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * x32)
+    return a, gated_in
+
+
+def linear_scan(a, b):
+    """``h_t = a_t · h_{t−1} + b_t`` from ``h_{−1} = 0`` along dim 1, by
+    Hillis–Steele doubling: after the step with shift s each position holds
+    the combination of its last 2s elements."""
+    S, shift = a.shape[1], 1
+    while shift < S:
+        b = torch.cat([b[:, :shift], a[:, shift:] * b[:, :-shift]
+                       + b[:, shift:]], dim=1)
+        if 2 * shift < S:          # the last step needs no new a
+            a = torch.cat([a[:, :shift], a[:, shift:] * a[:, :-shift]],
+                          dim=1)
+        shift *= 2
+    return b
+
+
+def rglru_scan(cfg: ModelConfig, p, x):
+    """x: (B, S, w) -> h: (B, S, w) f32, by the associative scan over
+    time."""
+    a, b = _rglru_gates(cfg, p, x)
+    return linear_scan(a, b)
+
+
+def rglru_step(cfg: ModelConfig, p, x_t, h_prev):
+    raise _serving()
+
+
+def rglru_block(cfg: ModelConfig, p, x, positions=None, *, cache=None,
+                cache_pos=None, **_unused):
+    """Griffin recurrent block, training / teacher-forced forward only
+    (``cache is None``). Returns ``(y, None)`` like the reference."""
+    if cache is not None:
+        raise _serving()
+    cd = cfg.compute_dtype
+    y_gate = _gelu_tanh(torch.matmul(x, p["w_y"].to(cd)))
+    xr = torch.matmul(x, p["w_x"].to(cd))
+    conv_out = _causal_conv(xr.to(cd), p["conv_w"].to(cd),
+                            p["conv_b"].to(cd))
+    h = rglru_scan(cfg, p, conv_out)
+    out = h.to(cd) * y_gate
+    return torch.matmul(out, p["w_out"].to(cd)), None

@@ -1,4 +1,4 @@
-"""Decoder LM: the dense and Mamba-2 layer kinds of the reference's
+"""Decoder LM: the dense, Mamba-2 and RG-LRU layer kinds of the reference's
 pattern-cycled stack, its forward and its loss (the port of ``repro/models/
 transformer.py``: ``model_defs``, ``forward`` without caches,
 ``_unembed_weight``, ``_divisor_chunk`` and ``lm_loss``).
@@ -9,18 +9,27 @@ dim, as in the reference; the forward walks the periods in a Python loop
 (``kernels.fused_ce.FusedCrossEntropy``): the CUDA kernels on the card,
 the dense plain version on the CPU.
 
+Remat, as the reference does it: with ``cfg.remat`` other than ``"none"``
+each period slot's layer runs under ``torch.utils.checkpoint`` (non-
+reentrant) when autograd records, so the backward keeps one layer's
+input per slot and recomputes the rest; ``"dots"`` is ``"full"`` (the
+reference passes no policy). The remainder layers are not checkpointed,
+nor is a forward under ``torch.no_grad()``. The recompute runs the layer's
+forward kernels again, so a checkpointed layer launches its attention or
+SSD forward twice per gradient.
+
 Flat rows: ``ravel_layout`` / ``flatten_params`` / ``unflatten`` follow
 ``jax.flatten_util.ravel_pytree``'s order (dict keys sorted: ``blocks``,
 ``embed``, ``final_norm``, ``rem``; inside a block ``attn`` {k_norm,
 q_norm, wk, wo, wq, wv}, ``ffn`` {w_down, w_gate, w_up}, ``norm1``,
 ``norm2``; an ``ssm`` block is {``norm1``, ``ssm`` {A_log, D, conv_b,
 conv_w, dt_bias, norm, w_in, w_out}}, capitals first, as ``sorted`` and
-``ravel_pytree`` order them), and ``params_from_jax`` carries the
-reference's params across.
+``ravel_pytree`` order them; an ``rglru`` block is {``ffn``, ``norm1``,
+``norm2``, ``rec`` {ba, bi, conv_b, conv_w, lam, w_out, w_x, w_y, wa,
+wi}}), and ``params_from_jax`` carries the reference's params across.
 
-Not ported yet (see ROADMAP.md): the ``mla``, ``moe`` and ``rglru`` kinds,
-caches, ``prefill`` / ``decode_step``, and ``cfg.remat`` (the port keeps
-every layer's activations for the backward).
+Not ported yet (see ROADMAP.md): the ``mla`` and ``moe`` kinds, caches,
+``prefill`` / ``decode_step``.
 """
 from __future__ import annotations
 
@@ -28,10 +37,12 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.fused_ce import FusedCrossEntropy
 from repro_torch.models import attention
 from repro_torch.models import ffn as ffn_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (ModelConfig, ParamDef, rms_norm,
                                        tree_leaves_with_path, tree_map,
@@ -39,7 +50,7 @@ from repro_torch.models.common import (ModelConfig, ParamDef, rms_norm,
 from repro_torch.utils.device import resolve_device
 
 DENSE_KINDS = ("attn", "local")
-PORTED_KINDS = DENSE_KINDS + ("ssm",)
+PORTED_KINDS = DENSE_KINDS + ("ssm", "rglru")
 
 
 def _unported(kind):
@@ -54,7 +65,7 @@ def _unported(kind):
 
 def _block_defs(cfg: ModelConfig, kind: str) -> dict:
     if kind not in PORTED_KINDS:
-        if kind in ("mla", "rglru") or kind.startswith("moe"):
+        if kind == "mla" or kind.startswith("moe"):
             raise _unported(kind)
         raise ValueError(f"unknown layer kind {kind}")
     d = cfg.d_model
@@ -63,8 +74,9 @@ def _block_defs(cfg: ModelConfig, kind: str) -> dict:
                 "ssm": ssm_lib.ssm_defs(cfg)}
     if cfg.moe is not None:
         raise _unported("moe")
-    return {"norm1": ParamDef((d,), ("embed",), init="zeros"),
-            "attn": attention.attention_defs(cfg),
+    mixer = ({"rec": rglru_lib.rglru_defs(cfg)} if kind == "rglru"
+             else {"attn": attention.attention_defs(cfg)})
+    return {"norm1": ParamDef((d,), ("embed",), init="zeros"), **mixer,
             "norm2": ParamDef((d,), ("embed",), init="zeros"),
             "ffn": ffn_lib.ffn_defs(cfg)}
 
@@ -109,17 +121,18 @@ def flatten_params(params) -> torch.Tensor:
 
 
 def unflatten(row: torch.Tensor, cfg: ModelConfig):
-    """Views of ``row`` as the parameter pytree (no copy)."""
+    """Views of ``row`` as the parameter pytree (no copy). One ``split``:
+    its backward writes the flat gradient in one concatenation, where a
+    slice per leaf would each write a zero-filled gradient of the whole
+    row (a 4 B-parameter row: 16 GB a leaf, beside the row and its
+    gradient)."""
     layout = ravel_layout(cfg)
-    total = sum(math.prod(s) for _, s in layout)
-    if row.dim() != 1 or row.numel() != total:
+    sizes = [math.prod(s) for _, s in layout]
+    if row.dim() != 1 or row.numel() != sum(sizes):
         raise ValueError(f"row has {row.numel()} elements, {cfg.name} needs "
-                         f"{total}")
-    views, off = {}, 0
-    for path, shape in layout:
-        size = math.prod(shape)
-        views[path] = row[off:off + size].view(shape)
-        off += size
+                         f"{sum(sizes)}")
+    views = {path: part.view(shape) for (path, shape), part in
+             zip(layout, torch.split(row, sizes))}
     return _assemble(model_defs(cfg), views)
 
 
@@ -162,41 +175,73 @@ def params_from_jax(params_or_flat_row, cfg: ModelConfig, device=None):
 # forward
 # ---------------------------------------------------------------------------
 
-def _apply_block(cfg: ModelConfig, kind: str, p, x, positions):
+def _apply_block(cfg: ModelConfig, kind: str, p, x, positions,
+                 mrope_positions=None):
     h = rms_norm(x, p["norm1"])
     if kind == "ssm":
         y, _ = ssm_lib.ssm_block(cfg, p["ssm"], h, positions)
         return x + y
-    y, _ = attention.attention_block(cfg, p["attn"], h, positions, kind=kind)
+    if kind == "rglru":
+        y, _ = rglru_lib.rglru_block(cfg, p["rec"], h, positions)
+    else:
+        y, _ = attention.attention_block(cfg, p["attn"], h, positions,
+                                         kind=kind,
+                                         mrope_positions=mrope_positions)
     x = x + y
     h2 = rms_norm(x, p["norm2"])
     return x + ffn_lib.ffn_block(cfg, p["ffn"], h2)
 
 
 def _unstack(tree, n: int) -> list:
-    """The n layers of a stacked param pytree, as n pytrees of views: one
-    ``unbind`` per leaf, whose backward stacks the n layers' gradients in
-    one pass. Indexing ``t[i]`` per layer instead costs a zero-filled
-    full-size gradient per layer and leaf, n² layer-sized writes."""
+    """The n layers of a stacked param pytree, as n lists of views in tree
+    order: one ``unbind`` per leaf, whose backward stacks the n layers'
+    gradients in one pass. Indexing ``t[i]`` per layer instead costs a
+    zero-filled full-size gradient per layer and leaf, n² layer-sized
+    writes."""
     leaves = [t.unbind(0) for _, t in tree_leaves_with_path(tree)]
-    return [tree_unflatten(tree, [ts[i] for ts in leaves]) for i in range(n)]
+    return [[ts[i] for ts in leaves] for i in range(n)]
 
 
-def forward(cfg: ModelConfig, params, tokens, *, positions=None):
+def _slot_fn(cfg: ModelConfig, kind: str, structure):
+    """One period slot's layer as a function of tensors alone: the hidden
+    state, the positions and the layer's parameter views (``_unstack``'s
+    list) as arguments, so a checkpoint sees them as its inputs."""
+    def fn(x, positions, mrope_positions, *leaves):
+        p = tree_unflatten(structure, list(leaves))
+        return _apply_block(cfg, kind, p, x, positions, mrope_positions)
+    return fn
+
+
+def forward(cfg: ModelConfig, params, tokens, *, positions=None,
+            mrope_positions=None, patch_embeds=None):
     """tokens: (B, S) int64. Returns ``(hidden (B, S, d), None, aux)`` like
-    the reference's training forward (no caches; aux is 0 for dense)."""
+    the reference's training forward (no caches; aux is 0 for dense).
+    ``patch_embeds`` (B, P, d) replace the embeddings of the first P
+    positions (the vision stub); ``mrope_positions`` (3, B, S) drive
+    M-RoPE where the config has ``mrope_sections``."""
     cd = cfg.compute_dtype
     B, S = tokens.shape
     h = params["embed"][tokens].to(cd)
+    if patch_embeds is not None:
+        P_ = patch_embeds.shape[1]
+        h = torch.cat([patch_embeds.to(cd), h[:, P_:]], dim=1)
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     layers = [_unstack(params["blocks"][s], cfg.n_periods)
               for s in range(len(cfg.pattern))]
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    slots = [_slot_fn(cfg, kind, params["blocks"][s])
+             for s, kind in enumerate(cfg.pattern)]
     for i in range(cfg.n_periods):
-        for s, kind in enumerate(cfg.pattern):
-            h = _apply_block(cfg, kind, layers[s][i], h, positions)
+        for s in range(len(cfg.pattern)):
+            if remat:
+                h = checkpoint(slots[s], h, positions, mrope_positions,
+                               *layers[s][i], use_reentrant=False)
+            else:
+                h = slots[s](h, positions, mrope_positions, *layers[s][i])
     for i, kind in enumerate(cfg.remainder_kinds):
-        h = _apply_block(cfg, kind, params["rem"][i], h, positions)
+        h = _apply_block(cfg, kind, params["rem"][i], h, positions,
+                         mrope_positions)
     h = rms_norm(h, params["final_norm"])
     return h, None, torch.zeros((), dtype=torch.float32, device=h.device)
 
@@ -220,16 +265,19 @@ def _divisor_chunk(T: int, want: int) -> int:
 
 def lm_loss(cfg: ModelConfig, params, batch):
     """Next-token cross-entropy. batch: {tokens (B,S), targets (B,S),
-    mask (B,S)}. Returns ``(loss, {ce, aux, accuracy, tokens})`` like the
-    reference. The reference chunks the sequence to bound its logits
-    memory; the fused kernels never hold the logits, so the port runs the
-    whole batch through one call (only the order of the final sums
-    differs)."""
+    mask (B,S)} + the modality extras ``mrope_positions`` and
+    ``patch_embeds``, passed on to ``forward``. Returns ``(loss, {ce, aux,
+    accuracy, tokens})`` like the reference. The reference chunks the
+    sequence to bound its logits memory; the fused kernels never hold the
+    logits, so the port runs the whole batch through one call (only the
+    order of the final sums differs)."""
     if cfg.logit_softcap:
         raise NotImplementedError(
             "logit_softcap is not supported by the fused cross-entropy; see "
             "ROADMAP.md")
-    h, _, aux = forward(cfg, params, batch["tokens"])
+    extra = {k: batch[k] for k in ("mrope_positions", "patch_embeds")
+             if k in batch}
+    h, _, aux = forward(cfg, params, batch["tokens"], **extra)
     B, S, d = h.shape
     w = _unembed_weight(cfg, params).to(h.dtype)
     mask = batch["mask"].to(torch.float32).reshape(-1)

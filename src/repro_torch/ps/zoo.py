@@ -37,7 +37,8 @@ def make_zoo_lm(arch: str = "gemma3-4b", seq: int = 24, batch: int = 2,
                 seed: int = 0, w0=None, device=None):
     """The reduced-config decoder LM of ``arch`` as a PS problem:
     next-token loss on synthetic token streams, as the reference builds it
-    (``repro/ps/zoo.py:48``): worker ``w`` draws its batches from
+    (``repro/ps/zoo.py:48``; an M-RoPE arch gets the positions broadcast
+    over its three streams): worker ``w`` draws its batches from
     ``np.random.RandomState(1000 + w)``, the eval batch comes from
     ``RandomState(seed + 7)``, and ``grad_fn.layer_sizes`` lists the
     leaves in ravel order. The gradient is ``lm_loss``'s on one f32 leaf
@@ -62,9 +63,16 @@ def make_zoo_lm(arch: str = "gemma3-4b", seq: int = 24, batch: int = 2,
     def _tokens(rng):
         t = torch.from_numpy(rng.randint(0, cfg.vocab_size,
                                          size=(batch, seq + 1))).to(dev)
-        return {"tokens": t[:, :-1], "targets": t[:, 1:],
-                "mask": torch.ones((batch, seq), dtype=torch.float32,
-                                   device=dev)}
+        out = {"tokens": t[:, :-1], "targets": t[:, 1:],
+               "mask": torch.ones((batch, seq), dtype=torch.float32,
+                                  device=dev)}
+        if cfg.mrope_sections is not None:
+            # the sequence's positions on all three M-RoPE streams, as the
+            # reference's problem passes them
+            out["mrope_positions"] = torch.arange(
+                seq, dtype=torch.int32, device=dev)[None, None].expand(
+                3, batch, seq)
+        return out
 
     rngs: dict = {}
 
@@ -151,8 +159,8 @@ def names() -> list[str]:
 
 def resolve(name: str) -> ProblemSpec:
     """``--model`` name -> ProblemSpec. Ported arch ids map to
-    ``make_zoo_lm``; the reference's other arch ids raise
-    ``NotImplementedError``."""
+    ``make_zoo_lm``; the reference's other arch ids (the MoE / MLA ones)
+    raise ``NotImplementedError``."""
     fixed = {"tiny-mlp": NUMPY_MLP_MED, "mlp": NUMPY_MLP,
              "mlp-large": NUMPY_MLP_LARGE, "jax-mlp": JAX_MLP}
     if name in fixed:

@@ -64,6 +64,10 @@ IMPL_CASES = [
     (1, 96, 4, 2, 32, True, 11, 32, 32),
     (2, 64, 2, 2, 16, False, 0, 16, 32),
     (1, 128, 8, 4, 64, True, 24, 64, 32),
+    # head dims the kernels run on the next tile width up
+    (2, 64, 4, 2, 24, True, 8, 32, 16),      # reduced gemma3-27b
+    (1, 64, 4, 4, 96, True, 0, 32, 32),      # phi3-mini
+    (1, 64, 2, 2, 96, False, 0, 16, 32),
 ]
 
 
@@ -215,6 +219,19 @@ def test_wrapper_checks():
         fa.flash_attention_fwd(q, torch.zeros(1, 8, 2, 16,
                                               device="meta"),
                                torch.zeros(1, 8, 2, 16, device="meta"))
+
+
+def test_kernel_checks_take_the_padded_head_dims():
+    """D 24 and 96 run on the 32- and 128-column tiles; other dims that are
+    no instantiation are refused (``_check_cuda`` reads no device)."""
+    for D, dt in ((24, torch.bfloat16), (96, torch.bfloat16),
+                  (24, torch.float32), (96, torch.float32)):
+        k = torch.zeros(1, 8, 2, D, dtype=dt)
+        assert fa._check_cuda(k, k) == (dt == torch.bfloat16)
+    for D in (8, 48, 80, 192):
+        k = torch.zeros(1, 8, 2, D)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa._check_cuda(k, k)
 
 
 def test_kernel_checks_route_by_dtype_and_refuse_unaligned_bf16():

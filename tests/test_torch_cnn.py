@@ -128,7 +128,7 @@ def test_zoo_resolve_names():
     assert ref_zoo.resolve("jax-mlp").factory == \
         "repro.ps.problems:make_jax_mlp"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.resolve("recurrentgemma-2b")
+        zoo.resolve("deepseek-v2-236b")
     with pytest.raises(ValueError):
         zoo.make_zoo_cnn("resnet", device="cpu")
 

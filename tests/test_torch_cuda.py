@@ -115,6 +115,13 @@ def _close(got, want, kind):
     (1, 100, 4, 2, 32, True, 0, torch.bfloat16),
     (2, 150, 4, 2, 128, True, 48, torch.bfloat16),
     (1, 77, 4, 4, 64, False, 0, torch.bfloat16),    # ragged, no mask
+    # head dims on the next tile width up: 24 (reduced gemma3-27b) on the
+    # 32-column tiles, 96 (phi3-mini) on the 128-column ones
+    (2, 130, 4, 2, 24, True, 8, torch.bfloat16),
+    (1, 100, 4, 2, 24, True, 0, torch.float32),
+    (1, 200, 4, 4, 96, True, 0, torch.bfloat16),
+    (1, 150, 4, 2, 96, False, 0, torch.bfloat16),
+    (1, 90, 2, 2, 96, True, 48, torch.float32),
 ])
 def test_attention_kernels_match_plain_versions(cuda, B, S, H, KVH, D,
                                                 causal, window, dtype):
@@ -149,6 +156,34 @@ def test_attention_backward_gives_the_same_bits_twice(cuda, window):
     first = fa.flash_attention_bwd(q, k, v, out, lse, do, True, window)
     again = fa.flash_attention_bwd(q, k, v, out, lse, do, True, window)
     torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,dtype", [
+    (24, torch.bfloat16), (24, torch.float32),
+    (96, torch.bfloat16), (96, torch.float32)])
+def test_padded_head_dims_read_only_their_own_columns(cuda, D, dtype):
+    """At D 24 and 96 the kernels run on wider tiles. The same inputs laid
+    in larger buffers whose tail holds a large value give the same bits:
+    no load reads past a (B, S, heads, D) tensor. The backward twice gives
+    the same bits."""
+    rng = np.random.RandomState(D)
+    B, S, H, KVH = 1, 160, 4, 2
+    xs = [torch.from_numpy(rng.randn(B, S, h, D).astype(np.float32)).to(
+        cuda, dtype) for h in (H, KVH, KVH, H)]
+    out, lse = fa.flash_attention_fwd(*xs[:3], True, 0)
+    first = fa.flash_attention_bwd(*xs[:3], out, lse, xs[3], True, 0)
+    views = []
+    for x in xs:
+        buf = torch.full((x.numel() + 4096,), 1e4, dtype=dtype, device=cuda)
+        views.append(buf[:x.numel()].view(x.shape).copy_(x))
+    out2, lse2 = fa.flash_attention_fwd(*views[:3], True, 0)
+    again = fa.flash_attention_bwd(*views[:3], out2, lse2, views[3], True,
+                                   0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
     for a, b in zip(first, again):
         assert torch.equal(a, b)
 

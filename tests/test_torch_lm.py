@@ -156,10 +156,10 @@ def test_own_init_is_seeded_with_the_reference_std():
 
 def test_unported_kinds_and_arch_ids_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get("recurrentgemma-2b")
+        configs.get("grok-1-314b")
     with pytest.raises(ValueError):
         configs.get("no-such-arch")
-    cfg = dataclasses.replace(configs.get(ARCH).reduced, pattern=("rglru",))
+    cfg = dataclasses.replace(configs.get(ARCH).reduced, pattern=("mla",))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfm.model_defs(cfg)
 
