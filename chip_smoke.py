@@ -196,7 +196,29 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    reduced multi-pod step on the card against the CPU at f32 compute (2
    steps, loss 1e-3, params 2e-2) and ``launch.train --mode sync --arch <id>
    --reduced``, then ``launch.train --mode ps --model gemma3-27b`` on the
-   thread transport (attention at D 24), each with exact launches.
+   thread transport (attention at D 24), each with exact launches;
+21. the MoE and MLA families: (a) attention at deepseek-v2-236b's shape
+   (B 1, S 4096, H 128 = KVH, Dqk 192, Dv 128, causal, bf16: the kernels'
+   (256, 128) tiles) timed against the plain version and
+   scaled_dot_product_attention (its backend named by its kernels)
+   beside the bound, and in f32 at S 1024 and at the reduced pair (24,
+   16) in both dtypes, held; (b) deepseek-v2-236b (5,020,697,600
+   parameters) and grok-1-314b (6,530,598,912) at one layer each at the
+   published widths, f32 leaves, bf16 compute, B 1, S 4096: loss and
+   gradient through the kernels against the plain versions (1e-3 /
+   2e-2, compared over two leaf groups), exact launches, ms and the peak
+   against the card's memory, and how many of the first MoE layer's
+   routing decisions the two paths' rounding flips (read, not held);
+   deepseek-v2's gradient with remat full == none bit for bit; (c) both reduced ids on the multi-pod step (P = 2)
+   against the CPU, ``launch.train --mode sync --arch <id> --reduced``
+   and ``launch.train --mode ps --model <id>``, each with exact
+   launches.
+
+Each phase prints its seconds (and each sub-phase's from 16 on). Phase
+17a's sync runs share their worker start-ups with the thread ↔ master ↔
+p2p triangle, 17d starts its two entry points at once, and a gradient
+above 4.5 B parameters is compared over two leaf groups (phase 20b's
+gemma3-27b, 21b) rather than parked in host memory.
 
 The last three lines are the card's name and power limit as ``nvidia-smi``
 gives them, a JSON ``kernels`` line, and the JSON result line
@@ -246,6 +268,10 @@ KERNEL_SOURCE = CSRC + "elastic_update.cu"
 # exact products in kernel and plain version. bf16 outputs take LIMIT_BF16,
 # set from the card's readings (PERF.md).
 LIMIT_F32 = {"fwd": 1e-5, "bwd": 1e-4}
+# above this many parameters the params and two whole f32 gradients would
+# not fit one card beside the activations: phase_full_width compares the
+# two paths over two halves of the leaves
+GROUPED_ABOVE = 4.5e9
 LIMIT_BF16 = 1e-2
 
 
@@ -522,7 +548,8 @@ ATTN_ROUTES = {("tc", "attn_fwd_kernel"): "wgmma",
                ("tc", "attn_bwd_dkdv_kernel"): "mma.sync",
                ("tc", "attn_bwd_dq_kernel"): "wgmma"}
 _ATTN_FN = re.compile(r"Compiling entry function '(\S*?(tc|simt)\d+"
-                      r"(attn_\w+?_kernel)I(f|13__nv_bfloat16)?(?:Li(\d+)E)?\S*)'")
+                      r"(attn_\w+?_kernel)I(f|13__nv_bfloat16)?(?:Li(\d+)E)?"
+                      r"(?:Li(\d+)E)?\S*)'")
 # the cross-entropy kernels: the bf16 route (namespace tc) on wgmma, the
 # f32 route (simt) on the CUDA cores, the split merge without products;
 # the boolean template argument names the variant
@@ -563,11 +590,14 @@ def ptxas_table(log: str, fn=_ATTN_FN) -> list:
 
 def print_attention_build(log: str) -> None:
     """One line per attention instantiation: its instruction route,
-    registers and spill bytes, from the build's ptxas output."""
-    for (_, ns, name, t, d), regs, st, ld in ptxas_table(log):
+    registers and spill bytes, from the build's ptxas output. An
+    instantiation is named by its tile widths: ``D=<d>`` for an equal
+    pair, ``D=<q/k tile>/<v tile>`` for an MLA pair."""
+    for (_, ns, name, t, d, dv), regs, st, ld in ptxas_table(log):
         dtype = "bf16" if ns == "tc" or (t and "bfloat" in t) else "f32"
         route = ATTN_ROUTES.get((ns, name), "CUDA-core FMA")
-        print(f"attention build {name} {dtype} D={d}: {route}, {regs} "
+        tile = d if dv in (None, d) else f"{d}/{dv}"
+        print(f"attention build {name} {dtype} D={tile}: {route}, {regs} "
               f"registers, spill stores {st} B, spill loads {ld} B",
               flush=True)
 
@@ -631,21 +661,26 @@ def phase_attention(torch, F, fa, timing, dev, bw, bf16,
                     cases=ATTN_CASES, tag_timed="") -> dict:
     """Attention kernels against their plain versions; times at full
     width beside the bound and scaled_dot_product_attention, under keys
-    ``ms<tag_timed>[_window<w>]`` and the like."""
+    ``ms<tag_timed>[_window<w>]`` and the like. A case's head dim is D,
+    or a pair (D, Dv) where v, out and dout are Dv wide (MLA); with
+    ``timed`` the library call's kernels are named (torch.profiler)."""
     rows = {"flash_attention_fwd": {}, "flash_attention_bwd": {}}
     for i, (B, S, H, KVH, D, causal, window, dt, timed) in \
             enumerate(cases):
+        D, Dv = D if isinstance(D, tuple) else (D, D)
         dtype = getattr(torch, dt)
         gen = torch.Generator(device=dev).manual_seed(100 + i)
-        q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device=dev)
-                       .to(dtype) for h in (H, KVH, KVH, H))
+        q, k, v, do = (torch.randn(B, S, h, w, generator=gen, device=dev)
+                       .to(dtype) for h, w in ((H, D), (KVH, D), (KVH, Dv),
+                                               (H, Dv)))
         args = (causal, window)
         out, lse = fa.flash_attention_fwd(q, k, v, *args)
         p_out, p_lse = fa.flash_attention_fwd_ref(q, k, v, *args)
         grads = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
         p_grads = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, *args)
         torch.cuda.synchronize()
-        tag = (f"B={B} S={S} H={H} KVH={KVH} D={D} causal={causal} "
+        tag = (f"B={B} S={S} H={H} KVH={KVH} D={D}"
+               f"{f' Dv={Dv}' if Dv != D else ''} causal={causal} "
                f"window={window} {dt}")
         hold(rows["flash_attention_fwd"], f"flash_attention_fwd {tag}", "fwd",
              (("out", out, p_out), ("lse", lse, p_lse)))
@@ -661,13 +696,17 @@ def phase_attention(torch, F, fa, timing, dev, bw, bf16,
               flush=True)
         es = q.element_size()
         pairs = B * H * attn_pairs(S, causal, window)
-        qo = B * S * H * D * es
-        kv = B * S * KVH * D * es
+        q_b, o_b = B * S * H * D * es, B * S * H * Dv * es
+        k_b, v_b = B * S * KVH * D * es, B * S * KVH * Dv * es
         lse_b = B * S * H * 4
-        # forward: s = q·kᵀ and p·v over the unmasked pairs; backward: s
-        # again, dp, dv, dq, dk (the flash backward's five products)
-        b_fwd = bound(2 * qo + 2 * kv + lse_b, 4 * pairs * D, bw, bf16)
-        b_bwd = bound(4 * qo + 4 * kv + lse_b, 10 * pairs * D, bw, bf16)
+        # forward: s = q·kᵀ (over D) and p·v (over Dv) on the unmasked
+        # pairs, reading q, k, v and writing out and lse; backward: s and
+        # dq, dk over D, dp and dv over Dv (the flash backward's five
+        # products), reading q, k, v, out, dout, lse and writing dq, dk, dv
+        b_fwd = bound(q_b + k_b + v_b + o_b + lse_b, 2 * pairs * (D + Dv),
+                      bw, bf16)
+        b_bwd = bound(2 * (q_b + k_b + v_b + o_b) + lse_b,
+                      2 * pairs * (3 * D + 2 * Dv), bw, bf16)
         # the library's same function: the (B, H, S, D) layout, GQA by
         # enable_gqa, the window as a boolean mask
         qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
@@ -701,6 +740,10 @@ def phase_attention(torch, F, fa, timing, dev, bw, bf16,
                                             retain_graph=True), reps=10),
         }
         suffix = tag_timed + ("" if window == 0 else f"_window{window}")
+        if Dv != D:
+            # the backend the library picks at this pair, by its kernels
+            print(f"scaled_dot_product_attention {tag}: forward runs "
+                  f"{kernel_times(torch, lib, t['fwd_lib'])}", flush=True)
         for name, kind, (b_ms, by) in (("flash_attention_fwd", "fwd", b_fwd),
                                        ("flash_attention_bwd", "bwd", b_bwd)):
             rows[name].update({
@@ -906,10 +949,10 @@ def plain_versions(*modules):
             setattr(m, name, fn)
 
 
-def rel_norm_parts(torch, got, want, dev, part=1 << 27) -> float:
-    """``rel_norm`` of two gradients given as lists of per-leaf tensors
-    (on the card or the host), a part at a time on ``dev`` (sums in
-    f64)."""
+def sq_parts(torch, got, want, dev, part=1 << 27) -> tuple:
+    """``(Σ (got − want)², Σ want²)`` over two gradients given as lists of
+    per-leaf tensors (on the card or the host), a part at a time on
+    ``dev`` (sums in f64)."""
     num = den = 0.0
     for a_leaf, b_leaf in zip(got, want):
         a_leaf, b_leaf = a_leaf.reshape(-1), b_leaf.reshape(-1)
@@ -918,36 +961,67 @@ def rel_norm_parts(torch, got, want, dev, part=1 << 27) -> float:
             b = b_leaf[i:i + part].to(dev, torch.float64)
             num += float(((a - b) ** 2).sum())
             den += float((b ** 2).sum())
+    return num, den
+
+
+def rel_norm_parts(torch, got, want, dev) -> float:
+    """``rel_norm`` of two gradients given as lists of per-leaf tensors."""
+    num, den = sq_parts(torch, got, want, dev)
     return math.sqrt(num / den)
 
 
+def leaf_groups(params, common, k=2) -> list:
+    """The leaf indices of ``params`` in ``k`` groups of about equal size
+    (largest leaf first, each to the smallest group)."""
+    sizes = [t.numel() for _, t in common.tree_leaves_with_path(params)]
+    groups, totals = [set() for _ in range(k)], [0] * k
+    for i in sorted(range(len(sizes)), key=lambda i: -sizes[i]):
+        j = totals.index(min(totals))
+        groups[j].add(i)
+        totals[j] += sizes[i]
+    return groups
+
+
+# the query and key projections: dense attention's wq / wk, MLA's w_uq /
+# w_uk (which contract over q_lora_rank / kv_lora_rank)
+QK_LEAVES = (("attn", "wq"), ("attn", "wk"), ("attn", "w_uq"),
+             ("attn", "w_uk"))
+
+
 def lm_params(torch, tfm, common, cfg, dev, qk_fan_in_d=False):
-    """The parameter pytree from ``torch.Generator`` seed 0 on ``dev``;
-    with ``qk_fan_in_d`` the query and key projections drawn with the std
-    of fan-in d_model, 1/√d, where the reference's init takes fan-in H
-    (the stacked shape's second-to-last dim): see ``phase_qk_conditioning``
-    for why the families without qk-norm need it at full width."""
+    """The parameter pytree from ``torch.Generator`` seed 0 on ``dev``
+    (f32 leaves); with ``qk_fan_in_d`` the query and key
+    projections drawn with the std of fan-in their contraction dim (d_model
+    for wq / wk, the lora ranks for MLA's w_uq / w_uk), where the
+    reference's init takes fan-in H (the stacked shape's second-to-last
+    dim): see ``phase_qk_conditioning`` for why the families without
+    qk-norm need it at full width."""
     params = common.init_params(tfm.model_defs(cfg),
                                 torch.Generator(device=dev).manual_seed(0),
                                 device=dev)
     for path, t in common.tree_leaves_with_path(params):
-        if qk_fan_in_d and path[-2:] in (("attn", "wq"), ("attn", "wk")):
-            t.mul_(math.sqrt(t.shape[-2] / cfg.d_model))
+        if qk_fan_in_d and path[-2:] in QK_LEAVES:
+            t.mul_(math.sqrt(t.shape[-2] / t.shape[-3]))
     return params
 
 
-def lm_gradient(torch, tfm, common, cfg, params, batch) -> tuple:
+def lm_gradient(torch, tfm, common, cfg, params, batch, only=None) -> tuple:
     """``lm_loss`` and its gradient with each parameter a leaf of its own:
-    ``(loss, [per-leaf gradient], metrics)``. (A flat row of views, as
-    the PS and multi-pod paths hold the parameters, adds one row-sized
-    concatenation at the end of the backward: its peak is 3n, where this
-    one's is 2n and the activations.)"""
-    leaves = [t.detach().requires_grad_(True)
-              for _, t in common.tree_leaves_with_path(params)]
+    ``(loss, [per-leaf gradient], metrics)``; with ``only`` (a set of leaf
+    indices) just those leaves take a gradient, the others' are None. (A
+    flat row of views, as the PS and multi-pod paths hold the parameters,
+    adds one row-sized concatenation at the end of the backward: its peak
+    is 3n, where this one's is 2n and the activations.)"""
+    leaves = [t.detach().requires_grad_(only is None or i in only)
+              for i, (_, t) in enumerate(
+                  common.tree_leaves_with_path(params))]
     loss, metrics = tfm.lm_loss(cfg, common.tree_unflatten(params, leaves),
                                 batch)
     loss.backward()
-    return loss.detach(), [t.grad for t in leaves], metrics
+    # detached: a metric still on the graph would keep every leaf, and so
+    # its gradient, alive after the caller drops the gradient
+    return loss.detach(), [t.grad for t in leaves], {
+        k: v.detach() for k, v in metrics.items()}
 
 
 def lm_batch(torch, np, cfg, S, dev, seed=7) -> dict:
@@ -990,44 +1064,56 @@ def phase_full_width(torch, np, cfg, S, tfm, common, kernel_mods, kernels,
     that swaps in a second, more exact plain version), which is how far
     two valid evaluations of that gradient lie apart at this depth. The
     gradient is then held at ``held_dtype`` compute. Above 4.5 B
-    parameters the first gradient waits on the host while the second
-    runs (the params and two f32 gradients would not fit beside the
-    activations). Without qk-norm the query and key projections are
-    drawn at fan-in d_model (``lm_params``)."""
+    parameters the params and two whole gradients would not fit beside
+    the activations: the whole gradients are timed, counted and checked
+    finite, and the two paths are then compared over two halves of the
+    leaves (``leaf_groups``), each half's gradient taken through the
+    kernels and through the plain versions with only its leaves
+    requiring one; the relative norm sums over both halves. Without
+    qk-norm the query and key projections are drawn at fan-in their
+    contraction dim (``lm_params``). The peak is printed against the
+    card's memory."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.cuda.empty_cache()
     qk_fan_in_d = not cfg.qk_norm and any(
-        k in ("attn", "local") for k in cfg.layer_kinds())
+        k in ("attn", "local", "mla") for k in cfg.layer_kinds())
     params = lm_params(torch, tfm, common, cfg, dev, qk_fan_in_d)
     n = sum(t.numel() for _, t in common.tree_leaves_with_path(params))
-    host_grads = n > 4.5e9
+    groups = leaf_groups(params, common) if n > GROUPED_ABOVE else None
+    check(not (groups and (flat_row or held_dtype)), "a grouped comparison "
+          "takes neither flat_row nor held_dtype")
     batch = lm_batch(torch, np, cfg, S, dev)
     if flat_row:
         row = torch.cat([t.reshape(-1) for _, t in
                          common.tree_leaves_with_path(params)])
         params = None
 
-    def gradient(c=cfg):
+    def gradient(c=cfg, only=None):
         if not flat_row:
-            return lm_gradient(torch, tfm, common, c, params, batch)
+            return lm_gradient(torch, tfm, common, c, params, batch, only)
         w = row.detach().requires_grad_(True)
         loss, metrics = tfm.lm_loss(c, tfm.unflatten(w, c), batch)
         loss.backward()
-        return loss.detach(), [w.grad], metrics
-
-    def keep(grads):
-        """The gradient, in pinned host memory with ``host_grads``."""
-        if not host_grads:
-            return grads
-        out = [torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
-               for g in grads]
-        for o, g in zip(out, grads):
-            o.copy_(g)
-        return out
+        return loss.detach(), [w.grad], {k: v.detach()
+                                         for k, v in metrics.items()}
 
     def finite(grads):
         return all(bool(torch.isfinite(g).all()) for g in grads)
+
+    def grouped_rel_grad() -> float:
+        """The kernels' gradient against the plain versions', one leaf
+        group at a time."""
+        num = den = 0.0
+        for g in groups:
+            _, gk, _ = gradient(only=g)
+            gk = [gk[i] for i in sorted(g)]
+            with plain_versions(*kernel_mods):
+                _, gp, _ = gradient(only=g)
+            a, b = sq_parts(torch, gk, [gp[i] for i in sorted(g)], dev)
+            num, den = num + a, den + b
+            del gk, gp
+        return math.sqrt(num / den)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1039,7 +1125,10 @@ def phase_full_width(torch, np, cfg, S, tfm, common, kernel_mods, kernels,
     want = lm_counts(cfg, 1)
     check(counts == want, f"launches per full-width gradient {counts}")
     peak = torch.cuda.max_memory_allocated()
-    grad_k = keep(grad_k)
+    check(math.isfinite(loss_k.item()) and finite(grad_k),
+          "full-width loss and gradient finite")
+    if groups:
+        del grad_k
 
     def timed_ms(first, c=cfg):
         """Median host time of ``reps`` synchronised gradients: on this
@@ -1059,9 +1148,11 @@ def phase_full_width(torch, np, cfg, S, tfm, common, kernel_mods, kernels,
             loss_p, grad_p, _ = gradient()
         plain_ms, plain_all = timed_ms(1e3 * tm.elapsed)
     rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    rel_grad = rel_norm_parts(torch, grad_k, grad_p, dev)
-    check(math.isfinite(loss_k.item()) and finite(grad_k),
-          "full-width loss and gradient finite")
+    if groups:
+        del grad_p
+        rel_grad = grouped_rel_grad()
+    else:
+        rel_grad = rel_norm_parts(torch, grad_k, grad_p, dev)
     check(rel_loss <= 1e-3, f"full-width loss kernels vs plain {rel_loss:.3e}")
     out = {"params": n, "loss": loss_k.item(), "loss_plain": loss_p.item(),
            "rel_loss": rel_loss, "rel_grad": rel_grad, "ms": ms,
@@ -1069,7 +1160,7 @@ def phase_full_width(torch, np, cfg, S, tfm, common, kernel_mods, kernels,
            "peak_bytes": peak,
            "accuracy": metrics["accuracy"].item(), "launches": counts}
     held = "limit 2e-2"
-    del grad_k
+    grad_k = None
     if held_dtype is None:
         check(rel_grad <= 2e-2, f"full-width gradient kernels vs plain "
               f"{rel_grad:.3e}")
@@ -1080,19 +1171,23 @@ def phase_full_width(torch, np, cfg, S, tfm, common, kernel_mods, kernels,
         del grad_v
         held = (f"read, not held; the plain path against its more exact "
                 f"variant reads {out['rel_grad_variant']:.3e}")
-    del grad_p
+    grad_p = None
+    total = torch.cuda.get_device_properties(dev).total_memory
+    out["total_bytes"] = total
     print(f"full width {cfg.name} {cfg.n_layers} layers n={n} B=1 S={S} "
           f"{str(cfg.compute_dtype)[6:]} compute remat={cfg.remat}"
           f"{', one flat row through unflatten' if flat_row else ''}"
-          f"{', q / k at fan-in d_model' if qk_fan_in_d else ''}: loss "
+          f"{', q / k at fan-in of their contraction dim' if qk_fan_in_d else ''}"
+          f"{', compared over 2 leaf groups' if groups else ''}: loss "
           f"kernels {out['loss']:.6f} plain {out['loss_plain']:.6f} (rel "
           f"{rel_loss:.3e}, limit 1e-3), gradient rel norm {rel_grad:.3e} "
           f"({held}); {ms:.1f} ms per gradient through the kernels "
           f"(median of {[round(v, 1) for v in ms_all]}), {plain_ms:.1f} ms "
           f"through the plain versions (median of "
           f"{[round(v, 1) for v in plain_all]}); peak "
-          f"{peak / 2**30:.2f} GiB (max_memory_allocated); launches per "
-          f"gradient {counts}", flush=True)
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated) of the card's "
+          f"{total / 2**30:.2f} GiB; launches per gradient {counts}",
+          flush=True)
     if flat_row:
         off = dataclasses.replace(cfg, remat="none")
         kernels.reset_launch_counts()
@@ -1111,7 +1206,6 @@ def phase_full_width(torch, np, cfg, S, tfm, common, kernel_mods, kernels,
         torch.cuda.empty_cache()
         held_cfg = dataclasses.replace(cfg, compute_dtype=held_dtype)
         loss_k, grad_k, _ = gradient(held_cfg)
-        grad_k = keep(grad_k)
         with plain_versions(*kernel_mods):
             loss_p, grad_p, _ = gradient(held_cfg)
         out["held"] = {
@@ -1366,9 +1460,10 @@ def watch_update(elastic, eu, torch, sl):
 
 def lm_counts(cfg, grads: int, evals: int = 0, updates: int = 0) -> dict:
     """The launches ``grads`` LM gradients and ``evals`` forward passes
-    imply: per pass one attention (``attn`` / ``local`` layers) or SSD
-    (``ssm`` layers) forward per layer and one cross-entropy forward, and
-    for a gradient the backwards too; with remat (``cfg.remat`` other than
+    imply: per pass one attention (``attn`` / ``local`` / ``mla``
+    layers) or SSD (``ssm`` layers) forward per layer and one
+    cross-entropy forward (a MoE FFN launches nothing), and for a
+    gradient the backwards too; with remat (``cfg.remat`` other than
     "none") a gradient runs each period slot's forward once more, in its
     backward (the remainder layers and an eval's ``no_grad`` forward are
     not checkpointed); ``rglru`` layers launch nothing; the packed update
@@ -1382,9 +1477,9 @@ def lm_counts(cfg, grads: int, evals: int = 0, updates: int = 0) -> dict:
         n_again = sum(k in want for k in kinds[:again])
         return n * (grads + evals) + n_again * grads, n * grads
 
-    attn_f, attn_b = of(("attn", "local"))
+    attn_f, attn_b = of(("attn", "local", "mla"))
     ssd_f, ssd_b = of(("ssm",))
-    check(set(kinds) <= {"attn", "local", "ssm", "rglru"},
+    check(set(kinds) <= {"attn", "local", "mla", "ssm", "rglru"},
           f"layer kinds {set(kinds)}")
     return {"fused_sync_easgd_update": 0, "fused_sync_sgd_update": 0,
             "flash_attention_fwd": attn_f, "flash_attention_bwd": attn_b,
@@ -1964,9 +2059,11 @@ def only(counts: dict, **want) -> dict:
 def phase_tcp_bitwise(torch, runtime, problems, kernels, EASGDConfig,
                       device="cuda") -> dict:
     """(17a) The numpy MLP under deterministic admission: the card's tcp
-    run equals the card's thread run and the CPU's thread run bit for bit
-    (72 iterations, round_robin); then the thread ↔ master ↔ p2p triangle
-    on the card. The fused updates launch in the master (master plane) or
+    run equals the card's thread run and the CPU's thread run bit for bit,
+    and for the sync algorithms the thread ↔ master ↔ p2p triangle on the
+    card closes on the same configs (48 iterations: sync_easgd P 2 tree
+    and P 3 ring, sync_sgd P 4 butterfly; async_easgd P 2 round_robin, 72
+    iterations). The fused updates launch in the master (master plane) or
     in the worker processes (p2p), counted exactly either way."""
     easgd = EASGDConfig(eta=ETA, rho=RHO, mu=MU)
     totals = {k.__name__: 0 for k in kernels.KERNELS}
@@ -1985,42 +2082,38 @@ def phase_tcp_bitwise(torch, runtime, problems, kernels, EASGDConfig,
                 and torch.equal(a.workers.cpu(), b.workers.cpu())
                 and a.total_iters == b.total_iters)
 
-    for algo, p in (("sync_easgd", 2), ("sync_easgd", 3), ("sync_sgd", 4),
-                    ("async_easgd", 2)):
-        tcp, c_tcp = run(algo, p, 72, "round_robin", device,
-                         transport="tcp")
-        thr, c_thr = run(algo, p, 72, "round_robin", device)
-        cpu, _ = run(algo, p, 72, "round_robin", "cpu")
-        want = {"sync_easgd": only(c_tcp, fused_sync_easgd_update=72),
-                "sync_sgd": only(c_tcp, fused_sync_sgd_update=72 // p),
-                "async_easgd": only(c_tcp)}[algo]
-        check(c_tcp == c_thr == want, f"{algo} P={p} launched {c_tcp} over "
-              f"tcp, {c_thr} in threads, expected {want}")
-        check(same(tcp, thr) and same(thr, cpu) and tcp.total_iters == 72,
-              f"{algo} P={p}: card tcp == card thread == CPU thread")
-        add_counts(totals, c_tcp)
-        print(f"tcp {algo} numpy MLP P={p} deterministic: card tcp == card "
-              f"thread == CPU thread, bitwise; launches {want}; worker "
-              f"spawn to READY {tcp.counters['worker_ready_s']} s, start-up "
-              f"{tcp.counters['worker_startup_s']}", flush=True)
+    # the sync runs share their worker start-ups with the triangle: one
+    # tcp master run and one tcp p2p run per config, each held against
+    # the card's thread run, which is held against the CPU's
     for algo, p, schedule in (("sync_easgd", 2, "tree"),
                               ("sync_easgd", 3, "ring"),
-                              ("sync_sgd", 4, "butterfly")):
-        thr, c_thr = run(algo, p, 48, schedule, device)
-        mst, c_mst = run(algo, p, 48, schedule, device, transport="tcp")
-        p2p, c_p2p = run(algo, p, 48, schedule, device, transport="tcp",
-                         sync_plane="p2p")
+                              ("sync_sgd", 4, "butterfly"),
+                              ("async_easgd", 2, "round_robin")):
+        iters = 72 if algo == "async_easgd" else 48
+        thr, c_thr = run(algo, p, iters, schedule, device)
+        cpu, _ = run(algo, p, iters, schedule, "cpu")
+        mst, c_mst = run(algo, p, iters, schedule, device, transport="tcp")
         upd = {"sync_easgd": "fused_sync_easgd_update",
-               "sync_sgd": "fused_sync_sgd_update"}[algo]
-        central = 48 if algo == "sync_easgd" else 48 // p
-        check(c_thr == c_mst == only(c_thr, **{upd: central})
-              and c_p2p == only(c_p2p, **{upd: 48}),
-              f"{algo} {schedule}: launches thread {c_thr}, master {c_mst}, "
-              f"p2p {c_p2p}")
-        check(same(thr, mst) and same(thr, p2p)
-              and p2p.schedule == f"{schedule}+p2p",
-              f"{algo} P={p} {schedule}: thread == master == p2p")
+               "sync_sgd": "fused_sync_sgd_update"}.get(algo)
+        want = only(c_mst) if upd is None else only(c_mst, **{
+            upd: iters if algo == "sync_easgd" else iters // p})
+        check(c_mst == c_thr == want, f"{algo} P={p} launched {c_mst} over "
+              f"tcp, {c_thr} in threads, expected {want}")
+        check(same(mst, thr) and same(thr, cpu) and mst.total_iters == iters,
+              f"{algo} P={p}: card tcp == card thread == CPU thread")
         add_counts(totals, c_mst)
+        print(f"tcp {algo} numpy MLP P={p} {schedule} deterministic: card "
+              f"tcp == card thread == CPU thread, bitwise; launches {want}; "
+              f"worker spawn to READY {mst.counters['worker_ready_s']} s, "
+              f"start-up {mst.counters['worker_startup_s']}", flush=True)
+        if upd is None:
+            continue
+        p2p, c_p2p = run(algo, p, iters, schedule, device, transport="tcp",
+                         sync_plane="p2p")
+        check(c_p2p == only(c_p2p, **{upd: iters}),
+              f"{algo} {schedule}: launches p2p {c_p2p}")
+        check(same(thr, p2p) and p2p.schedule == f"{schedule}+p2p",
+              f"{algo} P={p} {schedule}: thread == master == p2p")
         add_counts(totals, c_p2p)
         print(f"triangle {algo} P={p} {schedule}: thread == tcp master == "
               f"tcp p2p on the card, bitwise; {upd} launches master "
@@ -2160,8 +2253,9 @@ def phase_trace_cost(torch, runtime, zoo, kernels, EASGDConfig,
 
 
 def phase_tcp_entry_points(device="cuda") -> None:
-    """(17d) The entry points as subprocesses on the card: ``launch.train
-    --transport tcp --sync-plane p2p --trace`` and ``launch.cluster``."""
+    """(17d) The entry points as subprocesses on the card, both at once:
+    ``launch.train --transport tcp --sync-plane p2p --trace`` and
+    ``launch.cluster``."""
     out_dir = Path(__file__).resolve().parent / "build" / "tcp_trace"
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
@@ -2173,23 +2267,27 @@ def phase_tcp_entry_points(device="cuda") -> None:
             ["-m", "repro_torch.launch.cluster", "--workers", "2",
              "--algorithm", "sync_easgd", "--iters", "40", "--device",
              device])
-    for args in cmds:
-        t = time.perf_counter()
-        proc = subprocess.run([sys.executable, *args], env=env,
-                              capture_output=True, text=True, timeout=600)
-        lines = [ln for ln in proc.stdout.splitlines() if " err=" in ln]
+    # both at once: they are checked for their paths, not timed
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, *args], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for args in cmds]
+    for proc, args in zip(procs, cmds):
+        out, err_out = proc.communicate(timeout=600)
+        lines = [ln for ln in out.splitlines() if " err=" in ln]
         check(proc.returncode == 0 and bool(lines), f"{args[1]} exited "
-              f"{proc.returncode}: {proc.stderr[-2000:]}")
+              f"{proc.returncode}: {err_out[-2000:]}")
         for line in lines:
             err = float(line.split(" err=")[1].split()[0])
             check(math.isfinite(err) and "[tcp/ring" in line
                   and f"@{device}" in line, f"line {line!r}")
             print(f"{args[1]}: {line[:400]}", flush=True)
-        for line in proc.stdout.splitlines():
+        for line in out.splitlines():
             if " trace: " in line:
                 print(f"{args[1]}: {line}", flush=True)
-        print(f"{args[1]} as a subprocess on the card: exit 0 in "
-              f"{time.perf_counter() - t:.1f} s", flush=True)
+        print(f"{args[1]} as a subprocess on the card: exit 0, "
+              f"{time.perf_counter() - t:.1f} s after both started",
+              flush=True)
 
 
 def phase_tcp_lm(torch, runtime, zoo, kernels, configs, EASGDConfig,
@@ -2712,7 +2810,10 @@ def phase_elastic(torch, runtime, zoo, problems, kernels, comm_rounds, eu,
             chaos={"wid": 1, "kill_at_iter": 10, "signal": "kill"}),
             device=device)
     except RuntimeError as exc:
-        check("worker 1" in str(exc), f"elastic off names the worker: {exc}")
+        # which worker the master hears of first is a race: the killed
+        # one's dropped socket or the survivor's ConnectionResetError
+        check(re.search(r"worker \d+", str(exc)) is not None,
+              f"elastic off names a worker: {exc}")
         print(f"elastic off: the kill is fatal, RuntimeError({str(exc)[:120]!r})",
               flush=True)
     else:
@@ -3301,6 +3402,128 @@ def phase_families(torch, np, configs, tfm, common, fa, ce, kernels, timing,
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the MoE and MLA families (grok-1-314b, deepseek-v2-236b)
+# ---------------------------------------------------------------------------
+
+# 21b: one layer each at the published widths (two would not fit one card:
+# deepseek-v2 at 2 layers is 8,992,814,080 params, 72 GB of f32 leaves and
+# gradients)
+MOE_FAMILIES = (("deepseek-v2-236b", 1, 5_020_697_600),
+                ("grok-1-314b", 1, 6_530_598_912))
+# 21a: deepseek-v2's attention at full width (H 128, Dqk 192 = 128 nope +
+# 64 rope, Dv 128), timed; in f32 at S 1024 and at the reduced pair (24,
+# 16), held
+ATTN_MLA_CASES = ((1, 4096, 128, 128, (192, 128), True, 0, "bfloat16", True),
+                  (1, 1024, 128, 128, (192, 128), True, 0, "float32", False),
+                  (2, 130, 4, 4, (24, 16), True, 0, "bfloat16", False),
+                  (1, 1024, 4, 4, (24, 16), True, 8, "float32", False))
+
+
+def phase_remat_grouped(torch, np, cfg, S, tfm, common, kernels, dev) -> bool:
+    """(21b) The full-width gradient with remat "full" and "none", equal
+    bit for bit: the MoE dispatch and combine gather (no atomics), so the
+    recompute gives the forward's bits. Compared over two leaf groups
+    (the params and two whole gradients would not fit), each with only
+    its leaves requiring a gradient (so a group's backward launches only
+    the kernels on its leaves' paths: the whole gradient's launches are
+    held in ``phase_full_width``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = lm_params(torch, tfm, common, cfg, dev, not cfg.qk_norm)
+    batch = lm_batch(torch, np, cfg, S, dev)
+    same = True
+    for g in leaf_groups(params, common):
+        got = {}
+        for remat in ("none", "full"):
+            c = dataclasses.replace(cfg, remat=remat)
+            loss, grads, _ = lm_gradient(torch, tfm, common, c, params,
+                                         batch, only=g)
+            got[remat] = (loss, [grads[i] for i in sorted(g)])
+            del grads
+        (l0, g0), (l1, g1) = got["none"], got["full"]
+        same = same and torch.equal(l0, l1) and all(
+            torch.equal(a, b) for a, b in zip(g0, g1))
+        del got, g0, g1
+    check(same, f"remat {cfg.name}: full == none, bit for bit")
+    print(f"remat {cfg.name} {cfg.n_layers} layer full width B=1 S={S}: "
+          f"loss and gradient remat full == none, bit for bit (over 2 leaf "
+          f"groups)", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return same
+
+
+def routing_flips(torch, np, cfg, S, tfm, common, fa, ce, moe,
+                  dev) -> tuple:
+    """(21b) The first MoE layer's routing on a forward through the
+    kernels and on one through the plain versions (the same params and
+    batch, bf16 compute): how many tokens route to another expert set,
+    and how many slots one path keeps and the other drops. Every such
+    token takes a different function's gradient, so this counts how far
+    the model's own discontinuities carry the kernels' rounding (read,
+    not held)."""
+    params = lm_params(torch, tfm, common, cfg, dev, not cfg.qk_norm)
+    batch = lm_batch(torch, np, cfg, S, dev)
+    real, seen = moe.route, []
+
+    def first_route(*args, **kw):
+        r = real(*args, **kw)
+        seen.append(r)
+        return r
+    moe.route = first_route
+    try:
+        with torch.no_grad():
+            tfm.lm_loss(cfg, params, batch)
+            n_kernel = len(seen)
+            with plain_versions(fa, ce):
+                tfm.lm_loss(cfg, params, batch)
+    finally:
+        moe.route = real
+    a, b = seen[0], seen[n_kernel]
+    tokens = int((a.top_e.sort(-1).values != b.top_e.sort(-1).values)
+                 .any(-1).sum())
+    slots = int((a.keep != b.keep).sum())
+    n_tok, n_slot = a.top_e.shape[0] * a.top_e.shape[1], a.keep.numel()
+    print(f"routing {cfg.name} layer 0, kernels vs plain forward: {tokens} "
+          f"of {n_tok} tokens route to another expert set, {slots} of "
+          f"{n_slot} slots kept on one path and dropped on the other (C "
+          f"{a.C} per expert and group of {a.Tg}; read, not held)",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return tokens, slots
+
+
+def phase_moe_families(torch, np, configs, tfm, common, fa, ce, kernels,
+                       timing, dev) -> dict:
+    """(21b) deepseek-v2-236b and grok-1-314b at one layer each, at the
+    published widths, B 1, S 4096, remat on, f32 leaves, bf16 compute:
+    loss and gradient through the kernels against the plain versions
+    (1e-3 / 2e-2), the second of two gradients timed each way, exact
+    launches, the peak against the card's memory, and how many routing
+    decisions the two paths' rounding flips (``routing_flips``); then
+    deepseek-v2's remat full == none bit for bit."""
+    from repro_torch.models import moe
+    out = {}
+    for arch, layers, n in MOE_FAMILIES:
+        cfg = dataclasses.replace(configs.get(arch).config, n_layers=layers)
+        check(tfm.n_params(cfg) == n, f"{arch} at {layers} layer: "
+              f"{tfm.n_params(cfg)} params")
+        t = time.perf_counter()
+        out[arch] = phase_full_width(torch, np, cfg, 4096, tfm, common,
+                                     (fa, ce), kernels, timing, dev, reps=1)
+        out[arch]["routing"] = routing_flips(torch, np, cfg, 4096, tfm,
+                                             common, fa, ce, moe, dev)
+        print(f"phase 21b {arch}: {time.perf_counter() - t:.1f} s",
+              flush=True)
+    t = time.perf_counter()
+    phase_remat_grouped(torch, np, dataclasses.replace(
+        configs.get("deepseek-v2-236b").config, n_layers=1), 4096, tfm,
+        common, kernels, dev)
+    print(f"phase 21b remat: {time.perf_counter() - t:.1f} s", flush=True)
+    return out
+
+
 SOURCES = {"fused_sync_easgd_update": "elastic_update.cu",
            "fused_sync_sgd_update": "elastic_update.cu",
            "flash_attention_fwd": "flash_attention.cu",
@@ -3587,6 +3810,28 @@ def main() -> int:
     add_counts(launches, phase_ps_model(launcher, kernels, configs))
     print(f"phase 20e: {time.perf_counter() - t20:.1f} s", flush=True)
     print(f"phase families (20): {time.perf_counter() - t:.1f} s", flush=True)
+
+    # the MoE and MLA families (phase 21)
+    release_card(torch, "before phase 21")
+    t = time.perf_counter()
+    merge_rows(rows, phase_attention(torch, F, fa, timing, dev, bw, bf16,
+                                     cases=ATTN_MLA_CASES, tag_timed="_mla"))
+    print(f"phase 21a: {time.perf_counter() - t:.1f} s", flush=True)
+    t21 = time.perf_counter()
+    phase_moe_families(torch, np, configs, tfm, common, fa, ce, kernels,
+                       timing, dev)
+    print(f"phase 21b: {time.perf_counter() - t21:.1f} s", flush=True)
+    t21 = time.perf_counter()
+    moe_ids = [arch for arch, _, _ in MOE_FAMILIES]
+    add_counts(launches, phase_family_launchers(
+        torch, np, configs, elastic, EASGDConfig, train, launcher, kernels,
+        dev, moe_ids))
+    for arch in moe_ids:
+        add_counts(launches, phase_ps_model(launcher, kernels, configs,
+                                            arch=arch))
+    print(f"phase 21c: {time.perf_counter() - t21:.1f} s", flush=True)
+    print(f"phase moe families (21): {time.perf_counter() - t:.1f} s",
+          flush=True)
 
     check("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),

@@ -11,9 +11,12 @@
 //                       pure JAX in the reference: the TPU kernel is
 //                       forward-only
 //
-// Layout: q, out, dout (B, S, H, D); k, v (B, S, KVH, D); lse, delta
-// (B, S, H) f32. Head h reads KV head h / (H / KVH): K and V are never
-// expanded per query head (the reference's GQA wrapper repeats them).
+// Layout: q (B, S, H, D), k (B, S, KVH, D), v (B, S, KVH, Dv), out and
+// dout (B, S, H, Dv); lse, delta (B, S, H) f32. Dv may differ from D (MLA:
+// D 192 = 128 nope + 64 rope, Dv 128): S = Q.K^T and dQ, dK run over D, P.V,
+// dP = dO.V^T, dV and delta over Dv, and the scale is 1/sqrt(D). Head h
+// reads KV head h / (H / KVH): K and V are never expanded per query head
+// (the reference's GQA wrapper repeats them).
 // Masks: key < S, causal (query >= key), window (query - key < window;
 // 0 = none). Masked scores are -1e30, not -inf, as in the reference.
 //
@@ -84,6 +87,18 @@
 // (a third at 96, a quarter at 24). The other instantiations fold dt to
 // their tile width (tile_dt) and compile as they did without it.
 //
+// Every kernel is templated on two tile widths, DK for Q and K (and dQ,
+// dK) and DV for V, O and dO (and dV), with the true widths dtk and dtv at
+// run time. The equal pairs (DK == DV) take dtv = dtk and compile to the
+// code of one width. MLA's pairs run D 192 on the 256-column Q/K tiles
+// with Dv 128 on the 128-column V tiles, and the reduced D 24 / Dv 16 on
+// the 32- and 16-column ones; K and V have their own TMA maps, swizzles
+// and shared-memory tiles, and the Q.K^T products stop at the last k-step
+// that holds a column below dtk (192: three of the four 64-column slabs),
+// whose TMA copies alone are issued. The dQ products still run over all
+// DK columns (wgmma's N is the tile); the columns past dtk read whatever
+// the unloaded K slab holds and are never stored.
+//
 // f32 route (namespace simt): the first version, f32 FMA on the CUDA cores
 // from f32 shared-memory tiles (row stride D + 1), the same blocks and
 // passes with 64 x 64 forward and 32 x 32 backward tiles.
@@ -101,11 +116,20 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 
-// the head dim a kernel works on: only the 32- and 128-column tiles serve a
-// narrower D (24, 96), so the others fold it to their constant tile width
-// and compile as they would without it
-template <int D> __device__ __forceinline__ int tile_dt(int dt) {
-    return D == 32 || D == 128 ? dt : D;
+// the head dim a kernel works on, D its tile width and DO the other
+// operand's: only the 32- and 128-column tiles serve a narrower D (24, 96)
+// among the equal pairs, so the others fold it to their constant tile
+// width and compile as they would without it; an MLA pair (DK != DV)
+// takes both dims at run time
+template <int D, int DO> __device__ __forceinline__ int tile_dt(int dt) {
+    return D == 32 || D == 128 || D != DO ? dt : D;
+}
+
+// dtk and dtv of a (DK, DV) kernel: an equal pair has one width
+template <int DK, int DV>
+__device__ __forceinline__ void tile_dts(int* dtk, int* dtv) {
+    *dtk = tile_dt<DK, DV>(*dtk);
+    *dtv = DK == DV ? *dtk : tile_dt<DV, DK>(*dtv);
 }
 
 __device__ __forceinline__ bool allowed(int qpos, int kpos, int S, int causal,
@@ -174,20 +198,20 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const T* base,
 // forward
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, T* __restrict__ out,
                 float* __restrict__ lse, int S, int H, int KVH, int causal,
-                int window, float scale, int dt) {
-    dt = tile_dt<D>(dt);
-    constexpr int BQ = 64, BK = 64, QS = D + 1, SS = BK + 1;
-    constexpr int RP = BQ * D / kThreads;     // output rows per thread
+                int window, float scale, int dtk, int dtv) {
+    tile_dts<DK, DV>(&dtk, &dtv);
+    constexpr int BQ = 64, BK = 64, QS = DK + 1, SS = BK + 1;
+    constexpr int RP = BQ * DV / kThreads;    // output rows per thread
     extern __shared__ float smem[];
     float* q_s = smem;                        // [BQ][QS]
     float* k_s = q_s + BQ * QS;               // [BK][QS]
-    float* v_s = k_s + BK * QS;               // [BK][D]
-    float* s_s = v_s + BK * D;                // [BQ][SS]
+    float* v_s = k_s + BK * QS;               // [BK][DV]
+    float* s_s = v_s + BK * DV;               // [BQ][SS]
     float* m_s = s_s + BQ * SS;               // [BQ] running max
     float* l_s = m_s + BQ;                    // [BQ] running sum
     float* c_s = l_s + BQ;                    // [BQ] this tile's correction
@@ -195,18 +219,19 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int tid = threadIdx.x;
     const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
     const int kvh = h / (H / KVH);
-    const long qrs = (long)H * dt, kvrs = (long)KVH * dt;
-    const T* qb = q + (long)b * S * qrs + (long)h * dt;
-    const T* kb = k + (long)b * S * kvrs + (long)kvh * dt;
-    const T* vb = v + (long)b * S * kvrs + (long)kvh * dt;
+    const long qrs = (long)H * dtk, krs = (long)KVH * dtk;
+    const long vrs = (long)KVH * dtv, ors = (long)H * dtv;
+    const T* qb = q + (long)b * S * qrs + (long)h * dtk;
+    const T* kb = k + (long)b * S * krs + (long)kvh * dtk;
+    const T* vb = v + (long)b * S * vrs + (long)kvh * dtv;
 
-    load_rows<T, D>(q_s, QS, qb, qrs, q0, BQ, S, dt);
+    load_rows<T, DK>(q_s, QS, qb, qrs, q0, BQ, S, dtk);
     if (tid < BQ) {
         m_s[tid] = kNegInf;
         l_s[tid] = 0.f;
     }
     // output accumulator: column oc, rows orow .. orow + RP
-    const int oc = tid % D, orow = (tid / D) * RP;
+    const int oc = tid % DV, orow = (tid / DV) * RP;
     float o[RP];
 #pragma unroll
     for (int i = 0; i < RP; ++i) o[i] = 0.f;
@@ -218,8 +243,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jt = lo; jt < hi; ++jt) {
         const int k0 = jt * BK;
         __syncthreads();
-        load_rows<T, D>(k_s, QS, kb, kvrs, k0, BK, S, dt);
-        load_rows<T, D>(v_s, D, vb, kvrs, k0, BK, S, dt);
+        load_rows<T, DK>(k_s, QS, kb, krs, k0, BK, S, dtk);
+        load_rows<T, DV>(v_s, DV, vb, vrs, k0, BK, S, dtv);
         __syncthreads();
         float acc[4][4];
 #pragma unroll
@@ -227,7 +252,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
             for (int n = 0; n < 4; ++n) acc[i][n] = 0.f;
 #pragma unroll 4
-        for (int d = 0; d < D; ++d) {
+        for (int d = 0; d < DK; ++d) {
             float a[4], kk[4];
 #pragma unroll
             for (int i = 0; i < 4; ++i) a[i] = q_s[(sr + i) * QS + d];
@@ -279,19 +304,19 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < RP; ++i) o[i] *= c_s[orow + i];
         for (int j = 0; j < BK; ++j) {
-            const float vv = v_s[j * D + oc];
+            const float vv = v_s[j * DV + oc];
 #pragma unroll
             for (int i = 0; i < RP; ++i)
                 o[i] = fmaf(s_s[(orow + i) * SS + j], vv, o[i]);
         }
     }
     __syncthreads();
-    T* ob = out + (long)b * S * qrs + (long)h * dt;
+    T* ob = out + (long)b * S * ors + (long)h * dtv;
 #pragma unroll
     for (int i = 0; i < RP; ++i) {
         const int r = orow + i;
-        if (q0 + r < S && oc < dt)
-            ob[(long)(q0 + r) * qrs + oc] =
+        if (q0 + r < S && oc < dtv)
+            ob[(long)(q0 + r) * ors + oc] =
                 from_f<T>(o[i] / fmaxf(l_s[r], 1e-30f));
     }
     if (tid < BQ && q0 + tid < S)
@@ -303,7 +328,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // backward
 // ---------------------------------------------------------------------------
 
-// delta = sum over D of dout * out, one warp per (b, s, h) row
+// delta = sum over Dv of dout * out, one warp per (b, s, h) row
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attn_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
@@ -319,8 +344,9 @@ attn_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
 }
 
 // scores and dP of one (32 x 32) tile; this thread's row si, columns
-// sj + 8 n. Writes round(p) to p_s (when given) and round(ds) to ds_s.
-template <typename T, int D>
+// sj + 8 n. q_s and k_s have row stride DK + 1, o_s (dO) and v_s DV + 1.
+// Writes round(p) to p_s (when given) and round(ds) to ds_s.
+template <typename T, int DK, int DV>
 __device__ __forceinline__ void bwd_tile(const float* q_s, const float* o_s,
                                          const float* k_s, const float* v_s,
                                          const float* lse_s,
@@ -328,16 +354,33 @@ __device__ __forceinline__ void bwd_tile(const float* q_s, const float* o_s,
                                          float* ds_s, int q0, int k0, int S,
                                          int causal, int window,
                                          float scale) {
-    constexpr int QS = D + 1, SS = 32 + 1;
+    constexpr int QS = DK + 1, VS = DV + 1, SS = 32 + 1;
     const int si = threadIdx.x / 8, sj = threadIdx.x % 8;
     float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (DK == DV) {
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-        const float a = q_s[si * QS + d], g = o_s[si * QS + d];
+        for (int d = 0; d < DK; ++d) {
+            const float a = q_s[si * QS + d], g = o_s[si * VS + d];
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
-            s[n] = fmaf(a, k_s[(sj + 8 * n) * QS + d], s[n]);
-            dp[n] = fmaf(g, v_s[(sj + 8 * n) * QS + d], dp[n]);
+            for (int n = 0; n < 4; ++n) {
+                s[n] = fmaf(a, k_s[(sj + 8 * n) * QS + d], s[n]);
+                dp[n] = fmaf(g, v_s[(sj + 8 * n) * VS + d], dp[n]);
+            }
+        }
+    } else {
+#pragma unroll 4
+        for (int d = 0; d < DK; ++d) {
+            const float a = q_s[si * QS + d];
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+                s[n] = fmaf(a, k_s[(sj + 8 * n) * QS + d], s[n]);
+        }
+#pragma unroll 4
+        for (int d = 0; d < DV; ++d) {
+            const float g = o_s[si * VS + d];
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+                dp[n] = fmaf(g, v_s[(sj + 8 * n) * VS + d], dp[n]);
         }
     }
 #pragma unroll
@@ -353,23 +396,24 @@ __device__ __forceinline__ void bwd_tile(const float* q_s, const float* o_s,
     }
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int S, int H, int KVH, int causal,
-                     int window, float scale, int dt) {
-    dt = tile_dt<D>(dt);
-    constexpr int BQ = 32, BK = 32, QS = D + 1, SS = BK + 1;
-    constexpr int RP = BK * D / kThreads;     // dk / dv rows per thread
+                     int window, float scale, int dtk, int dtv) {
+    tile_dts<DK, DV>(&dtk, &dtv);
+    constexpr int BQ = 32, BK = 32, QS = DK + 1, VS = DV + 1, SS = BK + 1;
+    constexpr int RPK = BK * DK / kThreads;   // dk rows per thread
+    constexpr int RPV = BK * DV / kThreads;   // dv rows per thread
     extern __shared__ float smem[];
     float* k_s = smem;                        // [BK][QS]
-    float* v_s = k_s + BK * QS;               // [BK][QS]
-    float* q_s = v_s + BK * QS;               // [BQ][QS]
-    float* o_s = q_s + BQ * QS;               // [BQ][QS] dout
-    float* p_s = o_s + BQ * QS;               // [BQ][SS]
+    float* v_s = k_s + BK * QS;               // [BK][VS]
+    float* q_s = v_s + BK * VS;               // [BQ][QS]
+    float* o_s = q_s + BQ * QS;               // [BQ][VS] dout
+    float* p_s = o_s + BQ * VS;               // [BQ][SS]
     float* ds_s = p_s + BQ * SS;              // [BQ][SS]
     float* lse_s = ds_s + BQ * SS;            // [BQ]
     float* dl_s = lse_s + BQ;                 // [BQ]
@@ -377,28 +421,32 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int tid = threadIdx.x;
     const int k0 = blockIdx.x * BK, kvh = blockIdx.y, b = blockIdx.z;
     const int G = H / KVH;
-    const long qrs = (long)H * dt, kvrs = (long)KVH * dt;
-    const T* kb = k + (long)b * S * kvrs + (long)kvh * dt;
-    const T* vb = v + (long)b * S * kvrs + (long)kvh * dt;
-    load_rows<T, D>(k_s, QS, kb, kvrs, k0, BK, S, dt);
-    load_rows<T, D>(v_s, QS, vb, kvrs, k0, BK, S, dt);
+    const long qrs = (long)H * dtk, krs = (long)KVH * dtk;
+    const long vrs = (long)KVH * dtv, ors = (long)H * dtv;
+    const T* kb = k + (long)b * S * krs + (long)kvh * dtk;
+    const T* vb = v + (long)b * S * vrs + (long)kvh * dtv;
+    load_rows<T, DK>(k_s, QS, kb, krs, k0, BK, S, dtk);
+    load_rows<T, DV>(v_s, VS, vb, vrs, k0, BK, S, dtv);
 
-    const int ac = tid % D, arow = (tid / D) * RP;
-    float dka[RP], dva[RP];
+    const int ack = tid % DK, arowk = (tid / DK) * RPK;
+    const int acv = tid % DV, arowv = (tid / DV) * RPV;
+    float dka[RPK], dva[RPV];
 #pragma unroll
-    for (int i = 0; i < RP; ++i) dka[i] = dva[i] = 0.f;
+    for (int i = 0; i < RPK; ++i) dka[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < RPV; ++i) dva[i] = 0.f;
 
     int lo, hi;
     q_range(k0, min(k0 + BK, S), S, BQ, causal, window, &lo, &hi);
     for (int g = 0; g < G; ++g) {
         const int h = kvh * G + g;
-        const T* qb = q + (long)b * S * qrs + (long)h * dt;
-        const T* ob = dout + (long)b * S * qrs + (long)h * dt;
+        const T* qb = q + (long)b * S * qrs + (long)h * dtk;
+        const T* ob = dout + (long)b * S * ors + (long)h * dtv;
         for (int it = lo; it < hi; ++it) {
             const int q0 = it * BQ;
             __syncthreads();
-            load_rows<T, D>(q_s, QS, qb, qrs, q0, BQ, S, dt);
-            load_rows<T, D>(o_s, QS, ob, qrs, q0, BQ, S, dt);
+            load_rows<T, DK>(q_s, QS, qb, qrs, q0, BQ, S, dtk);
+            load_rows<T, DV>(o_s, VS, ob, ors, q0, BQ, S, dtv);
             if (tid < BQ) {
                 const bool ok = q0 + tid < S;
                 const long at = ((long)b * S + q0 + tid) * H + h;
@@ -406,68 +454,98 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 dl_s[tid] = ok ? delta[at] : 0.f;
             }
             __syncthreads();
-            bwd_tile<T, D>(q_s, o_s, k_s, v_s, lse_s, dl_s, p_s, ds_s, q0,
-                           k0, S, causal, window, scale);
+            bwd_tile<T, DK, DV>(q_s, o_s, k_s, v_s, lse_s, dl_s, p_s, ds_s,
+                                q0, k0, S, causal, window, scale);
             __syncthreads();
-            for (int i = 0; i < BQ; ++i) {
-                const float gv = o_s[i * QS + ac], qv = q_s[i * QS + ac];
+            if constexpr (DK == DV) {
+                for (int i = 0; i < BQ; ++i) {
+                    const float gv = o_s[i * VS + acv];
+                    const float qv = q_s[i * QS + ack];
 #pragma unroll
-                for (int r = 0; r < RP; ++r) {
-                    dva[r] = fmaf(p_s[i * SS + arow + r], gv, dva[r]);
-                    dka[r] = fmaf(ds_s[i * SS + arow + r], qv, dka[r]);
+                    for (int r = 0; r < RPK; ++r) {
+                        dva[r] = fmaf(p_s[i * SS + arowv + r], gv, dva[r]);
+                        dka[r] = fmaf(ds_s[i * SS + arowk + r], qv, dka[r]);
+                    }
+                }
+            } else {
+                for (int i = 0; i < BQ; ++i) {
+                    const float gv = o_s[i * VS + acv];
+                    const float qv = q_s[i * QS + ack];
+#pragma unroll
+                    for (int r = 0; r < RPV; ++r)
+                        dva[r] = fmaf(p_s[i * SS + arowv + r], gv, dva[r]);
+#pragma unroll
+                    for (int r = 0; r < RPK; ++r)
+                        dka[r] = fmaf(ds_s[i * SS + arowk + r], qv, dka[r]);
                 }
             }
         }
     }
-    T* dkb = dk + (long)b * S * kvrs + (long)kvh * dt;
-    T* dvb = dv + (long)b * S * kvrs + (long)kvh * dt;
+    T* dkb = dk + (long)b * S * krs + (long)kvh * dtk;
+    T* dvb = dv + (long)b * S * vrs + (long)kvh * dtv;
+    if constexpr (DK == DV) {
 #pragma unroll
-    for (int r = 0; r < RP; ++r) {
-        const int s = k0 + arow + r;
-        if (s < S && ac < dt) {
-            dkb[(long)s * kvrs + ac] = from_f<T>(dka[r]);
-            dvb[(long)s * kvrs + ac] = from_f<T>(dva[r]);
+        for (int r = 0; r < RPK; ++r) {
+            const int s = k0 + arowk + r;
+            if (s < S && ack < dtk) {
+                dkb[(long)s * krs + ack] = from_f<T>(dka[r]);
+                dvb[(long)s * vrs + acv] = from_f<T>(dva[r]);
+            }
+        }
+    } else {
+#pragma unroll
+        for (int r = 0; r < RPK; ++r) {
+            const int s = k0 + arowk + r;
+            if (s < S && ack < dtk)
+                dkb[(long)s * krs + ack] = from_f<T>(dka[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < RPV; ++r) {
+            const int s = k0 + arowv + r;
+            if (s < S && acv < dtv)
+                dvb[(long)s * vrs + acv] = from_f<T>(dva[r]);
         }
     }
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, T* __restrict__ dq, int S,
                    int H, int KVH, int causal, int window, float scale,
-                   int dt) {
-    dt = tile_dt<D>(dt);
-    constexpr int BQ = 32, BK = 32, QS = D + 1, SS = BK + 1;
-    constexpr int RP = BQ * D / kThreads;     // dq rows per thread
+                   int dtk, int dtv) {
+    tile_dts<DK, DV>(&dtk, &dtv);
+    constexpr int BQ = 32, BK = 32, QS = DK + 1, VS = DV + 1, SS = BK + 1;
+    constexpr int RP = BQ * DK / kThreads;    // dq rows per thread
     extern __shared__ float smem[];
     float* q_s = smem;                        // [BQ][QS]
-    float* o_s = q_s + BQ * QS;               // [BQ][QS] dout
-    float* k_s = o_s + BQ * QS;               // [BK][QS]
-    float* v_s = k_s + BK * QS;               // [BK][QS]
-    float* ds_s = v_s + BK * QS;              // [BQ][SS]
+    float* o_s = q_s + BQ * QS;               // [BQ][VS] dout
+    float* k_s = o_s + BQ * VS;               // [BK][QS]
+    float* v_s = k_s + BK * QS;               // [BK][VS]
+    float* ds_s = v_s + BK * VS;              // [BQ][SS]
     float* lse_s = ds_s + BQ * SS;            // [BQ]
     float* dl_s = lse_s + BQ;                 // [BQ]
 
     const int tid = threadIdx.x;
     const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
     const int kvh = h / (H / KVH);
-    const long qrs = (long)H * dt, kvrs = (long)KVH * dt;
-    const T* kb = k + (long)b * S * kvrs + (long)kvh * dt;
-    const T* vb = v + (long)b * S * kvrs + (long)kvh * dt;
-    load_rows<T, D>(q_s, QS, q + (long)b * S * qrs + (long)h * dt, qrs, q0,
-                    BQ, S, dt);
-    load_rows<T, D>(o_s, QS, dout + (long)b * S * qrs + (long)h * dt, qrs,
-                    q0, BQ, S, dt);
+    const long qrs = (long)H * dtk, krs = (long)KVH * dtk;
+    const long vrs = (long)KVH * dtv, ors = (long)H * dtv;
+    const T* kb = k + (long)b * S * krs + (long)kvh * dtk;
+    const T* vb = v + (long)b * S * vrs + (long)kvh * dtv;
+    load_rows<T, DK>(q_s, QS, q + (long)b * S * qrs + (long)h * dtk, qrs, q0,
+                     BQ, S, dtk);
+    load_rows<T, DV>(o_s, VS, dout + (long)b * S * ors + (long)h * dtv, ors,
+                     q0, BQ, S, dtv);
     if (tid < BQ) {
         const bool ok = q0 + tid < S;
         const long at = ((long)b * S + q0 + tid) * H + h;
         lse_s[tid] = ok ? lse[at] : 0.f;
         dl_s[tid] = ok ? delta[at] : 0.f;
     }
-    const int ac = tid % D, arow = (tid / D) * RP;
+    const int ac = tid % DK, arow = (tid / DK) * RP;
     float dqa[RP];
 #pragma unroll
     for (int i = 0; i < RP; ++i) dqa[i] = 0.f;
@@ -477,11 +555,11 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jt = lo; jt < hi; ++jt) {
         const int k0 = jt * BK;
         __syncthreads();
-        load_rows<T, D>(k_s, QS, kb, kvrs, k0, BK, S, dt);
-        load_rows<T, D>(v_s, QS, vb, kvrs, k0, BK, S, dt);
+        load_rows<T, DK>(k_s, QS, kb, krs, k0, BK, S, dtk);
+        load_rows<T, DV>(v_s, VS, vb, vrs, k0, BK, S, dtv);
         __syncthreads();
-        bwd_tile<T, D>(q_s, o_s, k_s, v_s, lse_s, dl_s, nullptr, ds_s, q0,
-                       k0, S, causal, window, scale);
+        bwd_tile<T, DK, DV>(q_s, o_s, k_s, v_s, lse_s, dl_s, nullptr, ds_s,
+                            q0, k0, S, causal, window, scale);
         __syncthreads();
         for (int j = 0; j < BK; ++j) {
             const float kv = k_s[j * QS + ac];
@@ -490,11 +568,11 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 dqa[r] = fmaf(ds_s[(arow + r) * SS + j], kv, dqa[r]);
         }
     }
-    T* dqb = dq + (long)b * S * qrs + (long)h * dt;
+    T* dqb = dq + (long)b * S * qrs + (long)h * dtk;
 #pragma unroll
     for (int r = 0; r < RP; ++r) {
         const int s = q0 + arow + r;
-        if (s < S && ac < dt) dqb[(long)s * qrs + ac] = from_f<T>(dqa[r]);
+        if (s < S && ac < dtk) dqb[(long)s * qrs + ac] = from_f<T>(dqa[r]);
     }
 }
 
@@ -518,28 +596,33 @@ constexpr int kFwdRows = 64, kFwdBK = 64, kStages = 2;
 constexpr int kConsumers = 256, kProducers = 128;
 constexpr int kFwdThreads = kConsumers + kProducers;
 // 384 threads start with 168 registers each (each SM quarter holds three
-// warps); at D 256 the producers give 128 of theirs to the consumers,
-// whose O alone takes 128 (168 would spill it)
+// warps); where the accumulator is 256 columns wide (O of the forward at
+// DV 256, dQ at DK 256) the producers give 128 of theirs to the consumers,
+// whose accumulator alone takes 128 (168 would spill it)
 constexpr int kFwdRegs = 168, kProducerRegs = 40, kConsumerRegs = 232;
-template <int D> constexpr bool kMoveRegs = D == 256;
+template <int N> constexpr bool kMoveRegs = N == 256;
 
-template <int D> struct FwdSmem {
-    static constexpr int kQ = kFwdRows * D * 2;        // a warpgroup's Q
-    static constexpr int kKV = kFwdBK * D * 2;         // one K or V tile
-    static constexpr int kBarriers = 2 * kQ + 2 * kStages * kKV;
+template <int DK, int DV> struct FwdSmem {
+    static constexpr int kQ = kFwdRows * DK * 2;       // a warpgroup's Q
+    static constexpr int kK = kFwdBK * DK * 2;         // one K tile
+    static constexpr int kV = kFwdBK * DV * 2;         // one V tile
+    static constexpr int kBarriers = 2 * kQ + kStages * (kK + kV);
     // + the mbarriers, + slack to align the base to 1024 bytes
     static constexpr size_t kAlloc = kBarriers + 8 * (2 * kStages + 1) + 1024;
 };
 
 // s = A . B^T for one warpgroup: A a 64-row tile (Q or dO), B a BK-row
-// tile (K or V), D / 16 wgmma k-steps, both K-major in shared memory
-template <int D, int BK>
+// tile (K or V), D / 16 wgmma k-steps, both K-major in shared memory.
+// kRagged (an MLA pair's Q.K^T): stop after the last k-step that holds a
+// column below dt; the zero columns past it add nothing.
+template <int D, int BK, bool kRagged = false>
 __device__ __forceinline__ void issue_scores(float* s, uint32_t qa,
-                                             uint32_t ks) {
+                                             uint32_t ks, int dt = D) {
     using Sw = Swz<D>;
     constexpr int RB = Sw::kRowBytes, KPR = RB / 32;   // k-steps a row
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+        if (kRagged && 16 * kk >= dt) break;
         const uint32_t at = (kk / KPR) * kFwdRows * RB + (kk % KPR) * 32;
         const uint32_t bt = (kk / KPR) * BK * RB + (kk % KPR) * 32;
         WgmmaSS<BK>::run(s, wgmma_desc(qa + at, 16, 8 * RB, Sw::kLayout),
@@ -636,20 +719,22 @@ __device__ __forceinline__ void pack_p(const float* s, uint32_t (*pa)[4]) {
     }
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
                 bf16* __restrict__ out, float* __restrict__ lse, int S, int H,
-                int KVH, int causal, int window, float scale_log2, int dt) {
-    dt = tile_dt<D>(dt);
-    using L = FwdSmem<D>;
+                int KVH, int causal, int window, float scale_log2, int dtk,
+                int dtv) {
+    tile_dts<DK, DV>(&dtk, &dtv);
+    using L = FwdSmem<DK, DV>;
     constexpr int BK = kFwdBK;
     extern __shared__ uint8_t smem_raw[];
     uint8_t* sm = aligned_smem(smem_raw);
     const uint32_t q_s = smem_u32(sm);        // warpgroup u: q_s + u kQ
     const uint32_t kv_s = q_s + 2 * L::kQ;    // stage st: K, then V
+    constexpr int kStage = L::kK + L::kV;
     uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBarriers);
     uint64_t* empty = full + kStages;
     uint64_t* q_full = empty + kStages;
@@ -659,7 +744,7 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     // the causal mask), all heads of one q tile together
     const int q0 = (gridDim.x / H - 1 - blockIdx.x / H) * 2 * kFwdRows;
     const int h = blockIdx.x % H, b = blockIdx.y, kvh = h / (H / KVH);
-    const long qrs = (long)H * dt;
+    const long ors = (long)H * dtv;
     int lo, hi;
     kv_range(q0, min(q0 + 2 * kFwdRows, S), S, BK, causal, window, &lo, &hi);
 
@@ -677,35 +762,53 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         // producer warpgroup: one thread issues the TMA copies, Q once and
         // then the K / V ring, each slab of 64 columns one box of 64 rows
         // (rows past S come back zero)
-        if constexpr (kMoveRegs<D>)
+        if constexpr (kMoveRegs<DV>)
             asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                          :: "n"(kProducerRegs));
         if (tid != kConsumers) return;
-        constexpr int kSlabs = D / Swz<D>::kSlabCols;
-        constexpr int kSlab = kFwdRows * Swz<D>::kRowBytes;   // bytes
-        mbar_expect_tx(q_full, 2 * L::kQ);
+        using SK = Swz<DK>;
+        using SV = Swz<DV>;
+        constexpr int kSlabs = DK / SK::kSlabCols;
+        constexpr int kSlab = kFwdRows * SK::kRowBytes;       // bytes
+        constexpr int kVSlabs = DV / SV::kSlabCols;
+        constexpr int kVSlab = kFwdBK * SV::kRowBytes;
+        // an MLA pair loads the Q / K slabs that hold a column below dtk:
+        // the products stop there (issue_scores)
+        const int qk_slabs = DK == DV ? kSlabs
+                                      : (dtk + SK::kSlabCols - 1) /
+                                            SK::kSlabCols;
+        mbar_expect_tx(q_full, 2 * qk_slabs * kSlab);
         for (int u = 0; u < 2; ++u)
-            for (int c = 0; c < kSlabs; ++c)
+            for (int c = 0; c < qk_slabs; ++c)
                 tma_load_4d(q_s + u * L::kQ + c * kSlab, &tm_q,
-                            c * Swz<D>::kSlabCols, h, q0 + u * kFwdRows, b,
+                            c * SK::kSlabCols, h, q0 + u * kFwdRows, b,
                             q_full);
         for (int j = lo; j < hi; ++j) {
             const int it = j - lo, st = it % kStages;
             if (it >= kStages) mbar_wait(&empty[st], (it / kStages - 1) & 1);
-            const uint32_t ks = kv_s + st * 2 * L::kKV;
-            mbar_expect_tx(&full[st], 2 * L::kKV);
-            for (int c = 0; c < kSlabs; ++c) {
-                tma_load_4d(ks + c * kSlab, &tm_k, c * Swz<D>::kSlabCols, kvh,
-                            j * BK, b, &full[st]);
-                tma_load_4d(ks + L::kKV + c * kSlab, &tm_v,
-                            c * Swz<D>::kSlabCols, kvh, j * BK, b, &full[st]);
+            const uint32_t ks = kv_s + st * kStage;
+            mbar_expect_tx(&full[st], qk_slabs * kSlab + L::kV);
+            if constexpr (DK == DV) {
+                for (int c = 0; c < kSlabs; ++c) {
+                    tma_load_4d(ks + c * kSlab, &tm_k, c * SK::kSlabCols, kvh,
+                                j * BK, b, &full[st]);
+                    tma_load_4d(ks + L::kK + c * kSlab, &tm_v,
+                                c * SK::kSlabCols, kvh, j * BK, b, &full[st]);
+                }
+            } else {
+                for (int c = 0; c < qk_slabs; ++c)
+                    tma_load_4d(ks + c * kSlab, &tm_k, c * SK::kSlabCols, kvh,
+                                j * BK, b, &full[st]);
+                for (int c = 0; c < kVSlabs; ++c)
+                    tma_load_4d(ks + L::kK + c * kVSlab, &tm_v,
+                                c * SV::kSlabCols, kvh, j * BK, b, &full[st]);
             }
         }
         return;
     }
 
     // consumer warpgroup wg; this thread's rows r0, r1
-    if constexpr (kMoveRegs<D>)
+    if constexpr (kMoveRegs<DV>)
         asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
                      :: "n"(kConsumerRegs));
     const int wg = tid / 128, w = (tid % 128) / 32, lane = tid % 32;
@@ -713,15 +816,15 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int qw = q0 + wg * kFwdRows;
     const int r0 = qw + w * 16 + lane / 4, r1 = r0 + 8;
     const uint32_t qa = q_s + wg * L::kQ;
-    auto stage = [&](int j) { return kv_s + (j - lo) % kStages * 2 * L::kKV; };
+    auto stage = [&](int j) { return kv_s + (j - lo) % kStages * kStage; };
     auto edge = [&](int k0) {   // does the tile cross a mask edge here?
         return k0 + BK > S || (causal && k0 + BK - 1 > qw) ||
                (window && qw + 63 - k0 >= window);
     };
-    float o[D / 2], s[BK / 2];
+    float o[DV / 2], s[BK / 2];
     uint32_t pa[BK / 16][4];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, c[2], ps[2];
     mbar_wait(q_full, 0);
 
@@ -736,7 +839,7 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
             for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
             fence_regs<BK / 2>(s);
             wgmma_fence();
-            issue_scores<D, BK>(s, qa, stage(j));
+            issue_scores<DK, BK, DK != DV>(s, qa, stage(j), dtk);
             wgmma_commit();
             wgmma_wait<0>();
             fence_regs<BK / 2>(s);
@@ -749,7 +852,7 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
             // o * 1 is o: skip the rescale when no row of the warp moved
             if (__any_sync(0xffffffffu, c[0] != 1.f || c[1] != 1.f)) {
 #pragma unroll
-                for (int n = 0; n < D / 8; ++n) {
+                for (int n = 0; n < DV / 8; ++n) {
                     o[4 * n] *= c[0];
                     o[4 * n + 1] *= c[0];
                     o[4 * n + 2] *= c[1];
@@ -759,12 +862,12 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
             l[0] = l[0] * c[0] + ps[0];
             l[1] = l[1] * c[1] + ps[1];
             pack_p(s, pa);
-            fence_regs<D / 2>(o);
+            fence_regs<DV / 2>(o);
             wgmma_fence();
-            issue_pv<D, BK>(o, pa, stage(j) + L::kKV);
+            issue_pv<DV, BK>(o, pa, stage(j) + L::kK);
             wgmma_commit();
             wgmma_wait<0>();
-            fence_regs<D / 2>(o);
+            fence_regs<DV / 2>(o);
         }
         mbar_arrive(&empty[it % kStages]);
     }
@@ -775,16 +878,16 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
         l[i] = fmaxf(l[i], 1e-30f);
     }
-    bf16* ob = out + (long)b * S * qrs + (long)h * dt;
+    bf16* ob = out + (long)b * S * ors + (long)h * dtv;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
         const int col = 8 * n + 2 * t;
-        if (col >= dt) continue;
+        if (col >= dtv) continue;
         if (r0 < S)
-            *reinterpret_cast<uint32_t*>(ob + (long)r0 * qrs + col) =
+            *reinterpret_cast<uint32_t*>(ob + (long)r0 * ors + col) =
                 pack_bf16(o[4 * n] / l[0], o[4 * n + 1] / l[0]);
         if (r1 < S)
-            *reinterpret_cast<uint32_t*>(ob + (long)r1 * qrs + col) =
+            *reinterpret_cast<uint32_t*>(ob + (long)r1 * ors + col) =
                 pack_bf16(o[4 * n + 2] / l[1], o[4 * n + 3] / l[1]);
     }
     if (t == 0) {
@@ -798,29 +901,64 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 // backward: 64 x 64 tiles, 8 warps
 constexpr int kBwdB = 64, kBwdThreads = 256;
 
-template <int D> struct BwdSmem {
-    static constexpr int kTile = kBwdB * D * 2;          // 64 rows of D
+template <int DK, int DV> struct BwdSmem {
+    static constexpr int kTileK = kBwdB * DK * 2;        // 64 rows of DK
+    static constexpr int kTileV = kBwdB * DV * 2;        // 64 rows of DV
     static constexpr int kScore = kBwdB * kBwdB * 2;     // a 64 x 64 bf16 tile
-    // two resident tiles, a ring of 2 stages x 2 tiles, P and dS
-    static constexpr size_t kAlloc = 6 * kTile + 2 * kScore + 1024;
+    // resident K and V, a ring of 2 stages x (Q, dO), P and dS
+    static constexpr size_t kAlloc =
+        3 * (kTileK + kTileV) + 2 * kScore + 1024;
 };
 
 // S = Q.K^T and dP = dO.V^T for this warp's 16 query rows [16 wr, + 16)
-// and 32 keys [32 wc, + 32) of a 64 x 64 tile pair; sa, da: 4 n8 blocks
-template <int D>
+// and 32 keys [32 wc, + 32) of a 64 x 64 tile pair; sa, da: 4 n8 blocks.
+// An MLA pair runs the two products as two loops, S over the k-steps that
+// hold a column below dtk.
+template <int DK, int DV>
 __device__ __forceinline__ void scores(uint32_t q_s, uint32_t o_s,
                                        uint32_t k_s, uint32_t v_s, int wr,
                                        int wc, int lane, float (*sa)[4],
-                                       float (*da)[4]) {
-    using Sw = Swz<D>;
+                                       float (*da)[4], int dtk) {
+    using Sw = Swz<DK>;
+    using Sv = Swz<DV>;
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sa[n][e] = da[n][e] = 0.f;
     const int ar = 16 * wr + lane % 16, ac = lane / 16;
     const int br = 32 * wc + lane % 8 + (lane / 16) * 8, bc = (lane / 8) % 2;
+    if constexpr (DK != DV) {
 #pragma unroll 4
-    for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < DK / 16; ++kk) {
+            if (16 * kk >= dtk) break;
+            uint32_t aq[4];
+            ldsm_x4(aq, q_s + Sw::template off<kBwdB>(ar, 2 * kk + ac));
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                uint32_t bk[4];
+                ldsm_x4(bk, k_s + Sw::template off<kBwdB>(br + 16 * h,
+                                                          2 * kk + bc));
+                mma_bf16(sa[2 * h], aq, bk[0], bk[1]);
+                mma_bf16(sa[2 * h + 1], aq, bk[2], bk[3]);
+            }
+        }
+#pragma unroll 4
+        for (int kk = 0; kk < DV / 16; ++kk) {
+            uint32_t ao[4];
+            ldsm_x4(ao, o_s + Sv::template off<kBwdB>(ar, 2 * kk + ac));
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                uint32_t bv[4];
+                ldsm_x4(bv, v_s + Sv::template off<kBwdB>(br + 16 * h,
+                                                          2 * kk + bc));
+                mma_bf16(da[2 * h], ao, bv[0], bv[1]);
+                mma_bf16(da[2 * h + 1], ao, bv[2], bv[3]);
+            }
+        }
+        return;
+    }
+#pragma unroll 4
+    for (int kk = 0; kk < DK / 16; ++kk) {
         uint32_t aq[4], ao[4];
         ldsm_x4(aq, q_s + Sw::template off<kBwdB>(ar, 2 * kk + ac));
         ldsm_x4(ao, o_s + Sw::template off<kBwdB>(ar, 2 * kk + ac));
@@ -979,22 +1117,23 @@ __device__ __forceinline__ bool tile_edge(int q0, int k0, int S, int causal,
            (window && q0 + kBwdB - 1 - k0 >= window);
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int S, int H, int KVH, int causal,
-                     int window, float scale, int dt) {
-    dt = tile_dt<D>(dt);
-    using L = BwdSmem<D>;
+                     int window, float scale, int dtk, int dtv) {
+    tile_dts<DK, DV>(&dtk, &dtv);
+    using L = BwdSmem<DK, DV>;
     constexpr int BQ = kBwdB, BK = kBwdB;
     extern __shared__ uint8_t smem_raw[];
     const uint32_t k_s = smem_u32(aligned_smem(smem_raw));
-    const uint32_t v_s = k_s + L::kTile;
-    const uint32_t ring = v_s + L::kTile;         // stage st: Q, then dO
-    const uint32_t p_s = ring + 4 * L::kTile, ds_s = p_s + L::kScore;
+    const uint32_t v_s = k_s + L::kTileK;
+    const uint32_t ring = v_s + L::kTileV;        // stage st: Q, then dO
+    constexpr int kStage = L::kTileK + L::kTileV;
+    const uint32_t p_s = ring + 2 * kStage, ds_s = p_s + L::kScore;
 
     const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
     const int wr = w % 4, wc = w / 4;
@@ -1002,11 +1141,12 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = blockIdx.x / KVH * BK, kvh = blockIdx.x % KVH;
     const int b = blockIdx.y;
     const int G = H / KVH;
-    const long qrs = (long)H * dt, kvrs = (long)KVH * dt;
-    const bf16* kb = k + (long)b * S * kvrs + (long)kvh * dt;
-    const bf16* vb = v + (long)b * S * kvrs + (long)kvh * dt;
-    copy_tile<BK, D, kBwdThreads>(k_s, kb, kvrs, k0, S, dt, tid);
-    copy_tile<BK, D, kBwdThreads>(v_s, vb, kvrs, k0, S, dt, tid);
+    const long qrs = (long)H * dtk, krs = (long)KVH * dtk;
+    const long vrs = (long)KVH * dtv, ors = (long)H * dtv;
+    const bf16* kb = k + (long)b * S * krs + (long)kvh * dtk;
+    const bf16* vb = v + (long)b * S * vrs + (long)kvh * dtv;
+    copy_tile<BK, DK, kBwdThreads>(k_s, kb, krs, k0, S, dtk, tid);
+    copy_tile<BK, DV, kBwdThreads>(v_s, vb, vrs, k0, S, dtv, tid);
 
     int lo, hi;
     q_range(k0, min(k0 + BK, S), S, BQ, causal, window, &lo, &hi);
@@ -1014,21 +1154,27 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // tile x of the fixed order: head kvh G + x / nqt, q tile lo + x % nqt
     auto issue = [&](int x) {
         const int h = kvh * G + x / nqt, q0 = (lo + x % nqt) * BQ;
-        const uint32_t st = ring + (x % 2) * 2 * L::kTile;
-        const long at = (long)b * S * qrs + (long)h * dt;
-        copy_tile<BQ, D, kBwdThreads>(st, q + at, qrs, q0, S, dt, tid);
-        copy_tile<BQ, D, kBwdThreads>(st + L::kTile, dout + at, qrs, q0, S,
-                                      dt, tid);
+        const uint32_t st = ring + (x % 2) * kStage;
+        copy_tile<BQ, DK, kBwdThreads>(st, q + (long)b * S * qrs +
+                                       (long)h * dtk, qrs, q0, S, dtk, tid);
+        copy_tile<BQ, DV, kBwdThreads>(st + L::kTileK, dout + (long)b * S *
+                                       ors + (long)h * dtv, ors, q0, S, dtv,
+                                       tid);
     };
     if (n > 0) issue(0);
     cp_async_commit();
 
-    float dka[D / 16][4], dva[D / 16][4];
+    float dka[DK / 16][4], dva[DV / 16][4];
 #pragma unroll
-    for (int i = 0; i < D / 16; ++i)
+    for (int i = 0; i < DK / 16; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
-    const int m0 = AccTile<D>::m0(w), n0 = AccTile<D>::n0(w);
+        for (int e = 0; e < 4; ++e) dka[i][e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DV / 16; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dva[i][e] = 0.f;
+    const int m0k = AccTile<DK>::m0(w), n0k = AccTile<DK>::n0(w);
+    const int m0v = AccTile<DV>::m0(w), n0v = AccTile<DV>::n0(w);
 
     for (int x = 0; x < n; ++x) {
         if (x + 1 < n) issue(x + 1);
@@ -1039,9 +1185,9 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   wr, lane, S, H, ls, dl);
         cp_async_wait<1>();
         __syncthreads();
-        const uint32_t qs = ring + (x % 2) * 2 * L::kTile, os = qs + L::kTile;
+        const uint32_t qs = ring + (x % 2) * kStage, os = qs + L::kTileK;
         float sa[4][4], da[4][4];
-        scores<D>(qs, os, k_s, v_s, wr, wc, lane, sa, da);
+        scores<DK, DV>(qs, os, k_s, v_s, wr, wc, lane, sa, da, dtk);
         if (tile_edge(q0, k0, S, causal, window))
             softmax_grad<true>(sa, da, p_s, ds_s, q0, k0, wr, wc, lane, ls,
                                dl, S, causal, window, scale);
@@ -1049,14 +1195,14 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             softmax_grad<false>(sa, da, p_s, ds_s, q0, k0, wr, wc, lane, ls,
                                 dl, S, causal, window, scale);
         __syncthreads();
-        acc_product<D>(dva, p_s, os, m0, n0, lane);
-        acc_product<D>(dka, ds_s, qs, m0, n0, lane);
+        acc_product<DV>(dva, p_s, os, m0v, n0v, lane);
+        acc_product<DK>(dka, ds_s, qs, m0k, n0k, lane);
         __syncthreads();
     }
-    store_acc<D>(dk + (long)b * S * kvrs + (long)kvh * dt, kvrs, k0, w, S,
-                 dt, lane, dka);
-    store_acc<D>(dv + (long)b * S * kvrs + (long)kvh * dt, kvrs, k0, w, S,
-                 dt, lane, dva);
+    store_acc<DK>(dk + (long)b * S * krs + (long)kvh * dtk, krs, k0, w, S,
+                  dtk, lane, dka);
+    store_acc<DV>(dv + (long)b * S * vrs + (long)kvh * dtv, vrs, k0, w, S,
+                  dtv, lane, dva);
 }
 
 // dQ pass: the forward's block (two consumer warpgroups of 64 query rows,
@@ -1067,10 +1213,12 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // operand of dQ += dS.K, wgmma m64nDk16 with K read MN-major.
 constexpr int kDqBK = 32;
 
-template <int D> struct DqSmem {
-    static constexpr int kQ = kFwdRows * D * 2;        // a warpgroup's Q
-    static constexpr int kKV = kDqBK * D * 2;          // one K or V tile
-    static constexpr int kBarriers = 4 * kQ + 2 * kStages * kKV;
+template <int DK, int DV> struct DqSmem {
+    static constexpr int kQ = kFwdRows * DK * 2;       // a warpgroup's Q
+    static constexpr int kO = kFwdRows * DV * 2;       // a warpgroup's dO
+    static constexpr int kK = kDqBK * DK * 2;          // one K tile
+    static constexpr int kV = kDqBK * DV * 2;          // one V tile
+    static constexpr int kBarriers = 2 * kQ + 2 * kO + kStages * (kK + kV);
     static constexpr size_t kAlloc = kBarriers + 8 * (2 * kStages + 1) + 1024;
 };
 
@@ -1100,7 +1248,7 @@ __device__ __forceinline__ void ds_frags(const float* s, const float* dp,
     pack_p<kDqBK>(ds, da);
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_o,
@@ -1109,15 +1257,16 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, bf16* __restrict__ dq,
                    int S, int H, int KVH, int causal, int window,
-                   float scale, int dt) {
-    dt = tile_dt<D>(dt);
-    using L = DqSmem<D>;
+                   float scale, int dtk, int dtv) {
+    tile_dts<DK, DV>(&dtk, &dtv);
+    using L = DqSmem<DK, DV>;
     constexpr int BK = kDqBK;
     extern __shared__ uint8_t smem_raw[];
     uint8_t* sm = aligned_smem(smem_raw);
     const uint32_t q_s = smem_u32(sm);        // warpgroup u: q_s + u kQ
     const uint32_t o_s = q_s + 2 * L::kQ;     // dO, the same way
-    const uint32_t kv_s = o_s + 2 * L::kQ;    // stage st: K, then V
+    const uint32_t kv_s = o_s + 2 * L::kO;    // stage st: K, then V
+    constexpr int kStage = L::kK + L::kV;
     uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBarriers);
     uint64_t* empty = full + kStages;
     uint64_t* q_full = empty + kStages;
@@ -1140,46 +1289,77 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     __syncthreads();
 
     if (tid >= kConsumers) {
-        if constexpr (kMoveRegs<D>)
+        if constexpr (kMoveRegs<DK>)
             asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                          :: "n"(kProducerRegs));
         if (tid != kConsumers) return;
-        constexpr int kSlabs = D / Swz<D>::kSlabCols;
-        constexpr int kQSlab = kFwdRows * Swz<D>::kRowBytes;
-        constexpr int kKSlab = BK * Swz<D>::kRowBytes;
-        mbar_expect_tx(q_full, 4 * L::kQ);
-        for (int u = 0; u < 2; ++u)
-            for (int c = 0; c < kSlabs; ++c) {
-                const int col = c * Swz<D>::kSlabCols, row = q0 + u * kFwdRows;
-                tma_load_4d(q_s + u * L::kQ + c * kQSlab, &tm_q, col, h, row, b,
-                            q_full);
-                tma_load_4d(o_s + u * L::kQ + c * kQSlab, &tm_o, col, h, row, b,
-                            q_full);
+        using SK = Swz<DK>;
+        using SV = Swz<DV>;
+        constexpr int kSlabs = DK / SK::kSlabCols;
+        constexpr int kQSlab = kFwdRows * SK::kRowBytes;
+        constexpr int kKSlab = BK * SK::kRowBytes;
+        constexpr int kVSlabs = DV / SV::kSlabCols;
+        constexpr int kOSlab = kFwdRows * SV::kRowBytes;
+        constexpr int kVSlab = BK * SV::kRowBytes;
+        // an MLA pair loads the Q / K slabs that hold a column below dtk:
+        // S stops there, and the K slabs past it only reach columns of dQ
+        // at or past dtk, which are never stored
+        const int qk_slabs = DK == DV ? kSlabs
+                                      : (dtk + SK::kSlabCols - 1) /
+                                            SK::kSlabCols;
+        mbar_expect_tx(q_full, 2 * qk_slabs * kQSlab + 2 * L::kO);
+        for (int u = 0; u < 2; ++u) {
+            const int row = q0 + u * kFwdRows;
+            if constexpr (DK == DV) {
+                for (int c = 0; c < kSlabs; ++c) {
+                    const int col = c * SK::kSlabCols;
+                    tma_load_4d(q_s + u * L::kQ + c * kQSlab, &tm_q, col, h,
+                                row, b, q_full);
+                    tma_load_4d(o_s + u * L::kO + c * kQSlab, &tm_o, col, h,
+                                row, b, q_full);
+                }
+            } else {
+                for (int c = 0; c < qk_slabs; ++c)
+                    tma_load_4d(q_s + u * L::kQ + c * kQSlab, &tm_q,
+                                c * SK::kSlabCols, h, row, b, q_full);
+                for (int c = 0; c < kVSlabs; ++c)
+                    tma_load_4d(o_s + u * L::kO + c * kOSlab, &tm_o,
+                                c * SV::kSlabCols, h, row, b, q_full);
             }
+        }
         for (int j = lo; j < hi; ++j) {
             const int it = j - lo, st = it % kStages;
             if (it >= kStages) mbar_wait(&empty[st], (it / kStages - 1) & 1);
-            const uint32_t ks = kv_s + st * 2 * L::kKV;
-            mbar_expect_tx(&full[st], 2 * L::kKV);
-            for (int c = 0; c < kSlabs; ++c) {
-                const int col = c * Swz<D>::kSlabCols;
-                tma_load_4d(ks + c * kKSlab, &tm_k, col, kvh, j * BK, b,
-                            &full[st]);
-                tma_load_4d(ks + L::kKV + c * kKSlab, &tm_v, col, kvh, j * BK,
-                            b, &full[st]);
+            const uint32_t ks = kv_s + st * kStage;
+            mbar_expect_tx(&full[st], qk_slabs * kKSlab + L::kV);
+            if constexpr (DK == DV) {
+                for (int c = 0; c < kSlabs; ++c) {
+                    const int col = c * SK::kSlabCols;
+                    tma_load_4d(ks + c * kKSlab, &tm_k, col, kvh, j * BK, b,
+                                &full[st]);
+                    tma_load_4d(ks + L::kK + c * kKSlab, &tm_v, col, kvh,
+                                j * BK, b, &full[st]);
+                }
+            } else {
+                for (int c = 0; c < qk_slabs; ++c)
+                    tma_load_4d(ks + c * kKSlab, &tm_k, c * SK::kSlabCols, kvh,
+                                j * BK, b, &full[st]);
+                for (int c = 0; c < kVSlabs; ++c)
+                    tma_load_4d(ks + L::kK + c * kVSlab, &tm_v,
+                                c * SV::kSlabCols, kvh, j * BK, b, &full[st]);
             }
         }
         return;
     }
 
-    if constexpr (kMoveRegs<D>)
+    if constexpr (kMoveRegs<DK>)
         asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
                      :: "n"(kConsumerRegs));
     const int wg = tid / 128, w = (tid % 128) / 32, lane = tid % 32;
     const int t = lane % 4;
     const int qw = q0 + wg * kFwdRows;
     const int r0 = qw + w * 16 + lane / 4, r1 = r0 + 8;
-    const uint32_t qa = q_s + wg * L::kQ, oa = o_s + wg * L::kQ;
+    const uint32_t qa = q_s + wg * L::kQ, oa = o_s + wg * L::kO;
     float ls[2], dl[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -1188,15 +1368,15 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         ls[i] = r < S ? lse[at] * kLog2e : 0.f;
         dl[i] = r < S ? delta[at] : 0.f;
     }
-    float acc[D / 2], s[BK / 2], dp[BK / 2];
+    float acc[DK / 2], s[BK / 2], dp[BK / 2];
     uint32_t da[BK / 16][4];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DK / 2; ++i) acc[i] = 0.f;
     mbar_wait(q_full, 0);
 
     for (int j = lo; j < hi; ++j) {
         const int it = j - lo, k0 = j * BK;
-        const uint32_t ks = kv_s + it % kStages * 2 * L::kKV;
+        const uint32_t ks = kv_s + it % kStages * kStage;
         mbar_wait(&full[it % kStages], (it / kStages) & 1);
         // tiles wholly masked for this warpgroup's rows are skipped
         const bool skip = qw >= S || (causal && k0 > qw + 63) ||
@@ -1207,8 +1387,8 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
             fence_regs<BK / 2>(s);
             fence_regs<BK / 2>(dp);
             wgmma_fence();
-            issue_scores<D, BK>(s, qa, ks);
-            issue_scores<D, BK>(dp, oa, ks + L::kKV);
+            issue_scores<DK, BK, DK != DV>(s, qa, ks, dtk);
+            issue_scores<DV, BK>(dp, oa, ks + L::kK);
             wgmma_commit();
             wgmma_wait<0>();
             fence_regs<BK / 2>(s);
@@ -1221,22 +1401,22 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
             else
                 ds_frags<false>(s, dp, k0, r0, r1, t, S, causal, window,
                                 scale, ls, dl, da);
-            fence_regs<D / 2>(acc);
+            fence_regs<DK / 2>(acc);
             wgmma_fence();
-            issue_pv<D, BK>(acc, da, ks);
+            issue_pv<DK, BK>(acc, da, ks);
             wgmma_commit();
             wgmma_wait<0>();
-            fence_regs<D / 2>(acc);
+            fence_regs<DK / 2>(acc);
         }
         mbar_arrive(&empty[it % kStages]);
     }
 
-    const long qrs = (long)H * dt;
-    bf16* qb = dq + (long)b * S * qrs + (long)h * dt;
+    const long qrs = (long)H * dtk;
+    bf16* qb = dq + (long)b * S * qrs + (long)h * dtk;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DK / 8; ++n) {
         const int col = 8 * n + 2 * t;
-        if (col >= dt) continue;
+        if (col >= dtk) continue;
         if (r0 < S)
             *reinterpret_cast<uint32_t*>(qb + (long)r0 * qrs + col) =
                 pack_bf16(acc[4 * n], acc[4 * n + 1]);
@@ -1258,58 +1438,58 @@ int set_smem(K kernel, size_t bytes) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// delta = sum over D of dout * out
+// delta = sum over Dv of dout * out
 template <typename T>
-int delta(const void* out, const void* dout, float* dl, long rows, int D,
+int delta(const void* out, const void* dout, float* dl, long rows, int Dv,
           cudaStream_t st) {
     simt::attn_delta_kernel<T>
         <<<(unsigned)((rows * 32 + simt::kThreads - 1) / simt::kThreads),
            simt::kThreads, 0, st>>>((const T*)out, (const T*)dout, dl, rows,
-                                    D);
+                                    Dv);
     return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DK, int DV>
 int fwd_f32(const void* q, const void* k, const void* v, void* out,
             float* lse, int B, int S, int H, int KVH, int causal, int window,
-            float scale, int dt, cudaStream_t st) {
+            float scale, int dtk, int dtv, cudaStream_t st) {
     constexpr int BQ = 64, BK = 64;
-    const size_t bytes =
-        sizeof(float) * ((BQ + BK) * (D + 1) + BK * D + BQ * (BK + 1) + 3 * BQ);
-    auto kern = simt::attn_fwd_kernel<float, D>;
+    const size_t bytes = sizeof(float) * ((BQ + BK) * (DK + 1) + BK * DV +
+                                          BQ * (BK + 1) + 3 * BQ);
+    auto kern = simt::attn_fwd_kernel<float, DK, DV>;
     if (int rc = set_smem(kern, bytes)) return rc;
     const dim3 grid((S + BQ - 1) / BQ, H, B);
     kern<<<grid, simt::kThreads, bytes, st>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)out, lse,
-        S, H, KVH, causal, window, scale, dt);
+        S, H, KVH, causal, window, scale, dtk, dtv);
     return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DK, int DV>
 int bwd_f32(const void* q, const void* k, const void* v, const void* out,
             const void* dout, const float* lse, float* dl, void* dq, void* dk,
             void* dv, int B, int S, int H, int KVH, int causal, int window,
-            float scale, int dt, cudaStream_t st) {
+            float scale, int dtk, int dtv, cudaStream_t st) {
     constexpr int BQ = 32, BK = 32;
-    if (int rc = delta<float>(out, dout, dl, (long)B * S * H, dt, st))
+    if (int rc = delta<float>(out, dout, dl, (long)B * S * H, dtv, st))
         return rc;
-    const size_t b_kv = sizeof(float) *
-                        (4 * 32 * (D + 1) + 2 * BQ * (BK + 1) + 2 * BQ);
-    auto kkv = simt::attn_bwd_dkdv_kernel<float, D>;
+    const size_t b_kv = sizeof(float) * (2 * 32 * (DK + 1) + 2 * 32 * (DV + 1) +
+                                         2 * BQ * (BK + 1) + 2 * BQ);
+    auto kkv = simt::attn_bwd_dkdv_kernel<float, DK, DV>;
     if (int rc = set_smem(kkv, b_kv)) return rc;
     kkv<<<dim3((S + BK - 1) / BK, KVH, B), simt::kThreads, b_kv, st>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, lse, dl, (float*)dk, (float*)dv, S, H, KVH,
-        causal, window, scale, dt);
+        causal, window, scale, dtk, dtv);
     if (int rc = (int)cudaGetLastError()) return rc;
-    const size_t b_q = sizeof(float) *
-                       (4 * 32 * (D + 1) + BQ * (BK + 1) + 2 * BQ);
-    auto kq = simt::attn_bwd_dq_kernel<float, D>;
+    const size_t b_q = sizeof(float) * (2 * 32 * (DK + 1) + 2 * 32 * (DV + 1) +
+                                        BQ * (BK + 1) + 2 * BQ);
+    auto kq = simt::attn_bwd_dq_kernel<float, DK, DV>;
     if (int rc = set_smem(kq, b_q)) return rc;
     kq<<<dim3((S + BQ - 1) / BQ, H, B), simt::kThreads, b_q, st>>>(
         (const float*)q, (const float*)k, (const float*)v,
         (const float*)dout, lse, dl, (float*)dq, S, H, KVH, causal, window,
-        scale, dt);
+        scale, dtk, dtv);
     return (int)cudaGetLastError();
 }
 
@@ -1346,99 +1526,110 @@ int row_map(CUtensorMap* map, const void* base, int B, int S, int heads,
 
 // setmaxnreg moves registers within the block's allocation: a build of a
 // producer / consumer kernel with fewer than kFwdRegs would leave its
-// consumers waiting, so it is refused
-template <int D, typename K>
+// consumers waiting, so it is refused (N: the accumulator's width)
+template <int N, typename K>
 int regs_moved(K kernel) {
-    if (!tc::kMoveRegs<D>) return 0;
+    if (!tc::kMoveRegs<N>) return 0;
     cudaFuncAttributes attr;
     if (int rc = (int)cudaFuncGetAttributes(&attr, kernel)) return rc;
     return attr.numRegs == tc::kFwdRegs ? 0
                                         : (int)cudaErrorLaunchOutOfResources;
 }
 
-template <int D>
+template <int DK, int DV>
 int fwd_bf16(const void* q, const void* k, const void* v, void* out,
              float* lse, int B, int S, int H, int KVH, int causal,
-             int window, float scale, int dt, cudaStream_t st) {
+             int window, float scale, int dtk, int dtv, cudaStream_t st) {
     using bf16 = __nv_bfloat16;
-    const size_t bytes = tc::FwdSmem<D>::kAlloc;
-    auto kern = tc::attn_fwd_kernel<D>;
+    const size_t bytes = tc::FwdSmem<DK, DV>::kAlloc;
+    auto kern = tc::attn_fwd_kernel<DK, DV>;
     if (int rc = set_smem(kern, bytes)) return rc;
-    if (int rc = regs_moved<D>(kern)) return rc;
+    if (int rc = regs_moved<DV>(kern)) return rc;
     CUtensorMap tq, tk, tv;
-    if (int rc = row_map<D, tc::kFwdRows>(&tq, q, B, S, H, dt)) return rc;
-    if (int rc = row_map<D, tc::kFwdBK>(&tk, k, B, S, KVH, dt)) return rc;
-    if (int rc = row_map<D, tc::kFwdBK>(&tv, v, B, S, KVH, dt)) return rc;
+    if (int rc = row_map<DK, tc::kFwdRows>(&tq, q, B, S, H, dtk)) return rc;
+    if (int rc = row_map<DK, tc::kFwdBK>(&tk, k, B, S, KVH, dtk)) return rc;
+    if (int rc = row_map<DV, tc::kFwdBK>(&tv, v, B, S, KVH, dtv)) return rc;
     const dim3 grid((S + 2 * tc::kFwdRows - 1) / (2 * tc::kFwdRows) * H, B);
     kern<<<grid, tc::kFwdThreads, bytes, st>>>(
         tq, tk, tv, (bf16*)out, lse, S, H, KVH, causal, window,
-        scale * tc::kLog2e, dt);
+        scale * tc::kLog2e, dtk, dtv);
     return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DK, int DV>
 int bwd_bf16(const void* q, const void* k, const void* v, const void* out,
              const void* dout, const float* lse, float* dl, void* dq,
              void* dk, void* dv, int B, int S, int H, int KVH, int causal,
-             int window, float scale, int dt, cudaStream_t st) {
+             int window, float scale, int dtk, int dtv, cudaStream_t st) {
     using bf16 = __nv_bfloat16;
     constexpr int BT = tc::kBwdB;
-    if (int rc = delta<bf16>(out, dout, dl, (long)B * S * H, dt, st))
+    if (int rc = delta<bf16>(out, dout, dl, (long)B * S * H, dtv, st))
         return rc;
-    const size_t bytes = tc::BwdSmem<D>::kAlloc;
-    auto kkv = tc::attn_bwd_dkdv_kernel<D>;
+    const size_t bytes = tc::BwdSmem<DK, DV>::kAlloc;
+    auto kkv = tc::attn_bwd_dkdv_kernel<DK, DV>;
     if (int rc = set_smem(kkv, bytes)) return rc;
     kkv<<<dim3((S + BT - 1) / BT * KVH, B), tc::kBwdThreads, bytes, st>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        lse, dl, (bf16*)dk, (bf16*)dv, S, H, KVH, causal, window, scale, dt);
+        lse, dl, (bf16*)dk, (bf16*)dv, S, H, KVH, causal, window, scale, dtk,
+        dtv);
     if (int rc = (int)cudaGetLastError()) return rc;
-    auto kq = tc::attn_bwd_dq_kernel<D>;
-    const size_t q_bytes = tc::DqSmem<D>::kAlloc;
+    auto kq = tc::attn_bwd_dq_kernel<DK, DV>;
+    const size_t q_bytes = tc::DqSmem<DK, DV>::kAlloc;
     if (int rc = set_smem(kq, q_bytes)) return rc;
-    if (int rc = regs_moved<D>(kq)) return rc;
+    if (int rc = regs_moved<DK>(kq)) return rc;
     CUtensorMap tq, to, tk, tv;
-    if (int rc = row_map<D, tc::kFwdRows>(&tq, q, B, S, H, dt)) return rc;
-    if (int rc = row_map<D, tc::kFwdRows>(&to, dout, B, S, H, dt)) return rc;
-    if (int rc = row_map<D, tc::kDqBK>(&tk, k, B, S, KVH, dt)) return rc;
-    if (int rc = row_map<D, tc::kDqBK>(&tv, v, B, S, KVH, dt)) return rc;
+    if (int rc = row_map<DK, tc::kFwdRows>(&tq, q, B, S, H, dtk)) return rc;
+    if (int rc = row_map<DV, tc::kFwdRows>(&to, dout, B, S, H, dtv))
+        return rc;
+    if (int rc = row_map<DK, tc::kDqBK>(&tk, k, B, S, KVH, dtk)) return rc;
+    if (int rc = row_map<DV, tc::kDqBK>(&tv, v, B, S, KVH, dtv)) return rc;
     kq<<<dim3((S + 2 * tc::kFwdRows - 1) / (2 * tc::kFwdRows) * H, B),
          tc::kFwdThreads, q_bytes, st>>>(tq, to, tk, tv, lse, dl, (bf16*)dq,
                                          S, H, KVH, causal, window, scale,
-                                         dt);
+                                         dtk, dtv);
     return (int)cudaGetLastError();
 }
 
-// D picks the tile width: 16, 32, 64, 128 and 256 are their own; 24 runs
-// on the 32-column tiles and 96 on the 128-column ones (the launchers take
-// the true D as dt: the loads zero the columns at dt and past it, the
-// stores skip them, and zero columns leave every product as it is)
-#define REPRO_BY_HEAD_DIM(FN, ...)                           \
-    switch (D) {                                             \
-        case 16: return FN<16>(__VA_ARGS__);                 \
-        case 24: return FN<32>(__VA_ARGS__);                 \
-        case 32: return FN<32>(__VA_ARGS__);                 \
-        case 64: return FN<64>(__VA_ARGS__);                 \
-        case 96: return FN<128>(__VA_ARGS__);                \
-        case 128: return FN<128>(__VA_ARGS__);               \
-        case 256: return FN<256>(__VA_ARGS__);               \
-        default: return (int)cudaErrorInvalidValue;          \
-    }
+// (D, Dv) picks the tile widths. Equal pairs: 16, 32, 64, 128 and 256 are
+// their own; 24 runs on the 32-column tiles and 96 on the 128-column ones
+// (the launchers take the true D as dt: the loads zero the columns at dt
+// and past it, the stores skip them, and zero columns leave every product
+// as it is). MLA's pairs: D 192 / Dv 128 on the 256- and 128-column tiles,
+// D 24 / Dv 16 on the 32- and 16-column ones. Any other pair is refused.
+#define REPRO_BY_HEAD_DIMS(FN, ...)                              \
+    if (D == Dv) {                                               \
+        switch (D) {                                             \
+            case 16: return FN<16, 16>(__VA_ARGS__);             \
+            case 24: return FN<32, 32>(__VA_ARGS__);             \
+            case 32: return FN<32, 32>(__VA_ARGS__);             \
+            case 64: return FN<64, 64>(__VA_ARGS__);             \
+            case 96: return FN<128, 128>(__VA_ARGS__);           \
+            case 128: return FN<128, 128>(__VA_ARGS__);          \
+            case 256: return FN<256, 256>(__VA_ARGS__);          \
+            default: return (int)cudaErrorInvalidValue;          \
+        }                                                        \
+    }                                                            \
+    if (D == 192 && Dv == 128) return FN<256, 128>(__VA_ARGS__); \
+    if (D == 24 && Dv == 16) return FN<32, 16>(__VA_ARGS__);     \
+    return (int)cudaErrorInvalidValue;
 
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
-// D in {16, 24, 32, 64, 96, 128, 256}.
+// (D, Dv): D == Dv in {16, 24, 32, 64, 96, 128, 256}, or (192, 128), or
+// (24, 16).
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* out, float* lse, int B, int S, int H,
-                               int KVH, int D, int causal, int window,
-                               float scale, int dtype, void* stream) {
+                               int KVH, int D, int Dv, int causal,
+                               int window, float scale, int dtype,
+                               void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (dtype == 0) {
-        REPRO_BY_HEAD_DIM(fwd_f32, q, k, v, out, lse, B, S, H, KVH, causal,
-                          window, scale, D, st)
+        REPRO_BY_HEAD_DIMS(fwd_f32, q, k, v, out, lse, B, S, H, KVH, causal,
+                           window, scale, D, Dv, st)
     }
-    REPRO_BY_HEAD_DIM(fwd_bf16, q, k, v, out, lse, B, S, H, KVH, causal,
-                      window, scale, D, st)
+    REPRO_BY_HEAD_DIMS(fwd_bf16, q, k, v, out, lse, B, S, H, KVH, causal,
+                       window, scale, D, Dv, st)
 }
 
 // delta is a (B, S, H) f32 scratch buffer the caller allocates.
@@ -1446,13 +1637,14 @@ extern "C" int repro_flash_bwd(const void* q, const void* k, const void* v,
                                const void* out, const void* dout,
                                const float* lse, float* delta, void* dq,
                                void* dk, void* dv, int B, int S, int H,
-                               int KVH, int D, int causal, int window,
-                               float scale, int dtype, void* stream) {
+                               int KVH, int D, int Dv, int causal,
+                               int window, float scale, int dtype,
+                               void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (dtype == 0) {
-        REPRO_BY_HEAD_DIM(bwd_f32, q, k, v, out, dout, lse, delta, dq, dk,
-                          dv, B, S, H, KVH, causal, window, scale, D, st)
+        REPRO_BY_HEAD_DIMS(bwd_f32, q, k, v, out, dout, lse, delta, dq, dk,
+                           dv, B, S, H, KVH, causal, window, scale, D, Dv, st)
     }
-    REPRO_BY_HEAD_DIM(bwd_bf16, q, k, v, out, dout, lse, delta, dq, dk, dv,
-                      B, S, H, KVH, causal, window, scale, D, st)
+    REPRO_BY_HEAD_DIMS(bwd_bf16, q, k, v, out, dout, lse, delta, dq, dk, dv,
+                       B, S, H, KVH, causal, window, scale, D, Dv, st)
 }

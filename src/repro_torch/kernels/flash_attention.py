@@ -7,8 +7,10 @@ and of the training path's ``_flash_fwd_impl`` / ``_flash_bwd_impl`` in
     flash_attention_fwd(q, k, v)                 -> out, lse
     flash_attention_bwd(q, k, v, out, lse, dout) -> dq, dk, dv
 
-q is ``(B, S, H, D)``; k and v are ``(B, S, KVH, D)``; head h reads KV head
-``h // (H / KVH)``. Masks: ``causal`` and a sliding ``window`` (0 = none).
+q is ``(B, S, H, D)``, k ``(B, S, KVH, D)`` and v ``(B, S, KVH, Dv)``, where
+Dv may differ from D (MLA: D 192, Dv 128); out and dout are ``(B, S, H,
+Dv)``, and the scale is ``1/√D``. Head h reads KV head ``h // (H /
+KVH)``. Masks: ``causal`` and a sliding ``window`` (0 = none).
 Scores, softmax statistics and accumulators are f32; ``p`` is rounded to
 v's dtype before ``p·V`` and ``ds`` to k's / q's dtype before ``ds·K`` /
 ``dsᵀ·Q``, as the reference's training path rounds them. ``lse`` is
@@ -20,11 +22,12 @@ current stream or raises: there is no fallback. The route follows the
 dtype alone, never a failure: bf16 runs on the tensor cores (``wgmma`` for
 the forward and the backward's dQ pass, fed by TMA rings of K / V tiles;
 ``mma.sync`` for the dK/dV pass, fed by a ``cp.async`` ring), which need
-every bf16 base address 16-byte aligned; f32 runs on the CUDA cores. Head
-dims 24 and 96 run on the 32- and 128-column tiles (the ``.cu``
-dispatch's choice): the kernels take the true D, read zeros past it and write nothing there; no
-tensor is padded. Each wrapper call that launches adds one to the
-wrapper's ``launches``.
+every bf16 base address 16-byte aligned; f32 runs on the CUDA cores. The
+kernels take the ``(D, Dv)`` pairs of ``HEAD_DIM_PAIRS`` and raise on any
+other. Head dims 24, 96 and 192 run on the 32-, 128- and 256-column tiles
+(the ``.cu`` dispatch's choice): the kernels take the true D and Dv, read
+zeros past them and write nothing there; no tensor is padded. Each
+wrapper call that launches adds one to the wrapper's ``launches``.
 
 The plain versions are eager ports of the reference's tiled loops (q tiles
 of ``q_block``, kv tiles of ``kv_block``, padded to tile multiples), so on
@@ -42,10 +45,14 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-# the head dims the kernels take: 24 and 96 run on the next instantiation
-# up, the kernels zeroing the columns past D in every load and skipping
-# them in every store
+# the head dims the kernels take with Dv == D: 24 and 96 run on the next
+# instantiation up, the kernels zeroing the columns past D in every load
+# and skipping them in every store
 HEAD_DIMS = (16, 24, 32, 64, 96, 128, 256)
+# the (D, Dv) pairs: every D of HEAD_DIMS with itself, and MLA's D 192 /
+# Dv 128 (full width, on the 256- and 128-column tiles) and 24 / 16 (the
+# reduced deepseek-v2, on the 32- and 16-column tiles)
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (24, 16))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -54,10 +61,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if lib.repro_flash_fwd.argtypes is None:
         lib.repro_flash_fwd.argtypes = (
-            [_c_ptr] * 5 + [_c_int] * 7 + [_c_float, _c_int, _c_ptr])
+            [_c_ptr] * 5 + [_c_int] * 8 + [_c_float, _c_int, _c_ptr])
         lib.repro_flash_fwd.restype = ctypes.c_int
         lib.repro_flash_bwd.argtypes = (
-            [_c_ptr] * 10 + [_c_int] * 7 + [_c_float, _c_int, _c_ptr])
+            [_c_ptr] * 10 + [_c_int] * 8 + [_c_float, _c_int, _c_ptr])
         lib.repro_flash_bwd.restype = ctypes.c_int
     return lib
 
@@ -74,10 +81,11 @@ def _tile_mask(q_pos, kv_pos, causal: bool, window: int):
 
 
 def _check(q, k, v, *more) -> None:
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"expected q (B,S,H,D) and k, v (B,S,KVH,D); got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"expected q (B,S,H,D), k (B,S,KVH,D) and v "
+                         f"(B,S,KVH,Dv); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, S, H, D = q.shape
     if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
@@ -89,20 +97,21 @@ def _check(q, k, v, *more) -> None:
         raise ValueError(f"unsupported device {q.device}")
 
 
-def _check_cuda(q, k, *tensors) -> int:
-    """What the kernels take: S of q equal to S of k, D in HEAD_DIMS, one
-    dtype (f32 or bf16) for q/k/v/out/dout, contiguous, and for bf16 (the
-    tensor cores' 16-byte copies and ``ldmatrix``) 16-byte-aligned base
-    addresses. Returns the code."""
+def _check_cuda(q, k, v, *tensors) -> int:
+    """What the kernels take: S of q equal to S of k, ``(D, Dv)`` in
+    HEAD_DIM_PAIRS, one dtype (f32 or bf16) for q/k/v/out/dout,
+    contiguous, and for bf16 (the tensor cores' 16-byte copies and
+    ``ldmatrix``) 16-byte-aligned base addresses. Returns the code."""
     B, S, H, D = q.shape
     if k.shape[1] != S:
         raise ValueError(f"the kernels need Sq == Skv, got {S} and "
                          f"{k.shape[1]}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if (D, v.shape[-1]) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"head_dim pair (D, Dv) = {(D, v.shape[-1])} not "
+                         f"in {HEAD_DIM_PAIRS}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"dtype {q.dtype} (float32 or bfloat16)")
-    for t in (q, k) + tensors:
+    for t in (q, k, v) + tensors:
         if t.dtype != q.dtype:
             raise TypeError(f"mixed dtypes {q.dtype} and {t.dtype}")
         if not t.is_contiguous():
@@ -177,14 +186,15 @@ def flash_attention_fwd(q, k, v, causal=True, window=0, q_block=512,
                                        kv_block)
     dt = _check_cuda(q, k, v)
     B, S, H, D = q.shape
-    out = torch.empty_like(q)
+    Dv = v.shape[-1]
+    out = q.new_empty((B, S, H, Dv))
     lse = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
     with torch.cuda.device(q.device):
         rc = _lib().repro_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, S, H, k.shape[2], D, int(bool(causal)),
+            lse.data_ptr(), B, S, H, k.shape[2], D, Dv, int(bool(causal)),
             int(window), 1.0 / math.sqrt(D), dt, _build.stream_of(q))
     _build.check_rc(rc, "flash_attention_fwd")
     _build.count_launch(flash_attention_fwd)
@@ -261,6 +271,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=0,
                                        window, q_block, kv_block)
     dt = _check_cuda(q, k, v, out, dout)
     B, S, H, D = q.shape
+    Dv = v.shape[-1]
+    if out.shape != (B, S, H, Dv) or dout.shape != out.shape:
+        raise ValueError(f"out and dout must be {(B, S, H, Dv)}, got "
+                         f"{tuple(out.shape)} and {tuple(dout.shape)}")
     if lse.shape != (B, S, H) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous f32 {(B, S, H)}")
@@ -272,7 +286,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=0,
         rc = _lib().repro_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], D,
+            dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], D, Dv,
             int(bool(causal)), int(window), 1.0 / math.sqrt(D), dt,
             _build.stream_of(q))
     _build.check_rc(rc, "flash_attention_bwd")

@@ -64,8 +64,10 @@ def apply_mrope(x, positions, theta: float, sections):
 
 def flash_attention_train(q, k, v, *, causal=True, window=0, q_block=512,
                           kv_block=1024):
-    """Training-path attention with the flash backward. q: (B, S, H, D);
-    k, v: (B, S, KVH, D). ``q_block`` / ``kv_block`` are the plain
+    """Training-path attention with the flash backward. q: (B, S, H, Dqk);
+    k: (B, S, KVH, Dqk); v: (B, S, KVH, Dv), where Dv may differ from Dqk
+    (MLA); the output is (B, S, H, Dv) and the scale ``1/√Dqk``. ``q_block``
+    / ``kv_block`` are the plain
     version's tiles; the kernels tile on their own and mask ragged tails,
     so, unlike the reference, a non-causal call needs no padding rule."""
     return FlashAttention.apply(q.contiguous(), k.contiguous(),

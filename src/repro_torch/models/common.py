@@ -19,6 +19,29 @@ import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    n_shared: int = 0
+    d_expert: int = 0            # per-expert FFN width
+    capacity_factor: float = 1.25
+    dispatch_groups: int = 16    # grouped dispatch: the routing cumsum (a
+                                 # slot's rank within its expert) runs per
+                                 # group, which fixes each group's capacity
+    aux_loss_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 Multi-head Latent Attention."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
     """Mamba-2 SSD."""
     d_state: int = 128
@@ -48,8 +71,9 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0            # 0 -> d_model // n_heads
     # layer pattern, cycled over n_layers: "attn" (global), "local"
-    # (sliding window), "ssm" (Mamba-2), "rglru" (Griffin's RG-LRU block);
-    # the reference's "mla" and "moe" kinds are not ported
+    # (sliding window), "mla" (DeepSeek-V2's latent attention), "ssm"
+    # (Mamba-2), "rglru" (Griffin's RG-LRU block). There is no MoE kind:
+    # with ``moe`` set every non-SSM layer's FFN is the MoE FFN
     pattern: tuple = ("attn",)
     window: int = 1024           # sliding window for "local" layers
     rope_theta: float = 10_000.0
@@ -62,9 +86,8 @@ class ModelConfig:
     logit_softcap: float = 0.0
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
-    # sub-configs of the unported families (MoE, MLA)
-    moe: Optional[Any] = None
-    mla: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     # precisions
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16

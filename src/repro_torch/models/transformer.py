@@ -1,5 +1,7 @@
-"""Decoder LM: the dense, Mamba-2 and RG-LRU layer kinds of the reference's
-pattern-cycled stack, its forward and its loss (the port of ``repro/models/
+"""Decoder LM: every layer kind of the reference's pattern-cycled stack
+(dense ``attn`` / ``local``, DeepSeek-V2's ``mla``, Mamba-2's ``ssm``,
+Griffin's ``rglru``; with ``cfg.moe`` set every non-SSM layer's FFN is
+the MoE FFN), its forward and its loss (the port of ``repro/models/
 transformer.py``: ``model_defs``, ``forward`` without caches,
 ``_unembed_weight``, ``_divisor_chunk`` and ``lm_loss``).
 
@@ -26,10 +28,17 @@ q_norm, wk, wo, wq, wv}, ``ffn`` {w_down, w_gate, w_up}, ``norm1``,
 conv_w, dt_bias, norm, w_in, w_out}}, capitals first, as ``sorted`` and
 ``ravel_pytree`` order them; an ``rglru`` block is {``ffn``, ``norm1``,
 ``norm2``, ``rec`` {ba, bi, conv_b, conv_w, lam, w_out, w_x, w_y, wa,
-wi}}), and ``params_from_jax`` carries the reference's params across.
+wi}}; an ``mla`` block's ``attn`` is {kv_norm, q_norm, w_dkv, w_dq, w_uk,
+w_uq, w_uv, wo}; with ``cfg.moe`` a block's ``moe`` {router, we_down,
+we_gate, we_up, ws_down, ws_gate, ws_up} stands where ``ffn`` would,
+before ``norm1``, ``norm2``), and ``params_from_jax`` carries the
+reference's params across.
 
-Not ported yet (see ROADMAP.md): the ``mla`` and ``moe`` kinds, caches,
-``prefill`` / ``decode_step``.
+The aux loss: each MoE layer returns its load-balance loss, and
+``forward`` sums them over the periods' slots and then the remainder
+layers, the reference's order; without MoE it is 0.
+
+Not ported yet (see ROADMAP.md): caches, ``prefill`` / ``decode_step``.
 """
 from __future__ import annotations
 
@@ -42,6 +51,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.fused_ce import FusedCrossEntropy
 from repro_torch.models import attention
 from repro_torch.models import ffn as ffn_lib
+from repro_torch.models import mla as mla_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (ModelConfig, ParamDef, rms_norm,
@@ -50,13 +61,7 @@ from repro_torch.models.common import (ModelConfig, ParamDef, rms_norm,
 from repro_torch.utils.device import resolve_device
 
 DENSE_KINDS = ("attn", "local")
-PORTED_KINDS = DENSE_KINDS + ("ssm", "rglru")
-
-
-def _unported(kind):
-    return NotImplementedError(
-        f"layer kind '{kind}' is not ported to repro_torch yet (ported: "
-        f"{PORTED_KINDS}); see ROADMAP.md, queue 1")
+PORTED_KINDS = DENSE_KINDS + ("mla", "ssm", "rglru")
 
 
 # ---------------------------------------------------------------------------
@@ -65,20 +70,24 @@ def _unported(kind):
 
 def _block_defs(cfg: ModelConfig, kind: str) -> dict:
     if kind not in PORTED_KINDS:
-        if kind == "mla" or kind.startswith("moe"):
-            raise _unported(kind)
         raise ValueError(f"unknown layer kind {kind}")
     d = cfg.d_model
-    if kind == "ssm":                       # mamba: no separate FFN
-        return {"norm1": ParamDef((d,), ("embed",), init="zeros"),
-                "ssm": ssm_lib.ssm_defs(cfg)}
+    out = {"norm1": ParamDef((d,), ("embed",), init="zeros")}
+    if kind in DENSE_KINDS:
+        out["attn"] = attention.attention_defs(cfg)
+    elif kind == "mla":
+        out["attn"] = mla_lib.mla_defs(cfg)
+    elif kind == "ssm":
+        out["ssm"] = ssm_lib.ssm_defs(cfg)
+        return out                          # mamba: no separate FFN
+    else:
+        out["rec"] = rglru_lib.rglru_defs(cfg)
+    out["norm2"] = ParamDef((d,), ("embed",), init="zeros")
     if cfg.moe is not None:
-        raise _unported("moe")
-    mixer = ({"rec": rglru_lib.rglru_defs(cfg)} if kind == "rglru"
-             else {"attn": attention.attention_defs(cfg)})
-    return {"norm1": ParamDef((d,), ("embed",), init="zeros"), **mixer,
-            "norm2": ParamDef((d,), ("embed",), init="zeros"),
-            "ffn": ffn_lib.ffn_defs(cfg)}
+        out["moe"] = moe_lib.moe_defs(cfg)
+    else:
+        out["ffn"] = ffn_lib.ffn_defs(cfg)
+    return out
 
 
 def _stack_defs(defs, n: int):
@@ -177,19 +186,28 @@ def params_from_jax(params_or_flat_row, cfg: ModelConfig, device=None):
 
 def _apply_block(cfg: ModelConfig, kind: str, p, x, positions,
                  mrope_positions=None):
+    """One layer: ``(x, aux)``, aux the MoE FFN's load-balance loss (0
+    without one)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm1"])
     if kind == "ssm":
         y, _ = ssm_lib.ssm_block(cfg, p["ssm"], h, positions)
-        return x + y
+        return x + y, aux
     if kind == "rglru":
         y, _ = rglru_lib.rglru_block(cfg, p["rec"], h, positions)
+    elif kind == "mla":
+        y, _ = mla_lib.mla_block(cfg, p["attn"], h, positions)
     else:
         y, _ = attention.attention_block(cfg, p["attn"], h, positions,
                                          kind=kind,
                                          mrope_positions=mrope_positions)
     x = x + y
     h2 = rms_norm(x, p["norm2"])
-    return x + ffn_lib.ffn_block(cfg, p["ffn"], h2)
+    if cfg.moe is not None:
+        y2, aux = moe_lib.moe_block(cfg, p["moe"], h2)
+    else:
+        y2 = ffn_lib.ffn_block(cfg, p["ffn"], h2)
+    return x + y2, aux
 
 
 def _unstack(tree, n: int) -> list:
@@ -205,7 +223,8 @@ def _unstack(tree, n: int) -> list:
 def _slot_fn(cfg: ModelConfig, kind: str, structure):
     """One period slot's layer as a function of tensors alone: the hidden
     state, the positions and the layer's parameter views (``_unstack``'s
-    list) as arguments, so a checkpoint sees them as its inputs."""
+    list) as arguments, so a checkpoint sees them as its inputs. Returns
+    ``(h, aux)``."""
     def fn(x, positions, mrope_positions, *leaves):
         p = tree_unflatten(structure, list(leaves))
         return _apply_block(cfg, kind, p, x, positions, mrope_positions)
@@ -215,7 +234,8 @@ def _slot_fn(cfg: ModelConfig, kind: str, structure):
 def forward(cfg: ModelConfig, params, tokens, *, positions=None,
             mrope_positions=None, patch_embeds=None):
     """tokens: (B, S) int64. Returns ``(hidden (B, S, d), None, aux)`` like
-    the reference's training forward (no caches; aux is 0 for dense).
+    the reference's training forward (no caches; aux the MoE layers'
+    load-balance losses summed in the reference's order, 0 without MoE).
     ``patch_embeds`` (B, P, d) replace the embeddings of the first P
     positions (the vision stub); ``mrope_positions`` (3, B, S) drive
     M-RoPE where the config has ``mrope_sections``."""
@@ -232,18 +252,22 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
     remat = cfg.remat != "none" and torch.is_grad_enabled()
     slots = [_slot_fn(cfg, kind, params["blocks"][s])
              for s, kind in enumerate(cfg.pattern)]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_periods):
         for s in range(len(cfg.pattern)):
             if remat:
-                h = checkpoint(slots[s], h, positions, mrope_positions,
-                               *layers[s][i], use_reentrant=False)
+                h, a = checkpoint(slots[s], h, positions, mrope_positions,
+                                  *layers[s][i], use_reentrant=False)
             else:
-                h = slots[s](h, positions, mrope_positions, *layers[s][i])
+                h, a = slots[s](h, positions, mrope_positions,
+                                *layers[s][i])
+            aux = aux + a
     for i, kind in enumerate(cfg.remainder_kinds):
-        h = _apply_block(cfg, kind, params["rem"][i], h, positions,
-                         mrope_positions)
+        h, a = _apply_block(cfg, kind, params["rem"][i], h, positions,
+                            mrope_positions)
+        aux = aux + a
     h = rms_norm(h, params["final_norm"])
-    return h, None, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, None, aux
 
 
 # ---------------------------------------------------------------------------

@@ -151,16 +151,14 @@ def make_zoo_cnn(model: str = "lenet", seed: int = 0, n_train: int = 512,
 
 def names() -> list[str]:
     """The names ``--model`` knows, as the reference's ``zoo_names`` lists
-    them (its arch ids included; ``resolve`` raises for those not ported
-    yet)."""
+    them (its arch ids included)."""
     return (["tiny-mlp", "mlp-large", "jax-mlp", "lenet", "alexnet"]
             + sorted(configs.ARCH_IDS))
 
 
 def resolve(name: str) -> ProblemSpec:
-    """``--model`` name -> ProblemSpec. Ported arch ids map to
-    ``make_zoo_lm``; the reference's other arch ids (the MoE / MLA ones)
-    raise ``NotImplementedError``."""
+    """``--model`` name -> ProblemSpec. Every arch id of the registry
+    maps to ``make_zoo_lm``."""
     fixed = {"tiny-mlp": NUMPY_MLP_MED, "mlp": NUMPY_MLP,
              "mlp-large": NUMPY_MLP_LARGE, "jax-mlp": JAX_MLP}
     if name in fixed:
@@ -169,9 +167,4 @@ def resolve(name: str) -> ProblemSpec:
         return spec("repro_torch.ps.zoo:make_zoo_cnn", model=name)
     if name in configs.ARCHS:
         return spec("repro_torch.ps.zoo:make_zoo_lm", arch=name)
-    if name in configs.ARCH_IDS:
-        raise NotImplementedError(
-            f"model '{name}' is not ported to repro_torch yet (this slice "
-            f"has {sorted(fixed) + sorted(_CNNS) + sorted(configs.ARCHS)}); "
-            f"see ROADMAP.md, queue 1")
     raise ValueError(f"unknown model '{name}'; have: {names()}")

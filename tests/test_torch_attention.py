@@ -212,9 +212,13 @@ def test_wrapper_checks():
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(q, torch.zeros(1, 8, 3, 16),
                                torch.zeros(1, 8, 3, 16))
+    # v may take its own head dim (MLA), not its own leading dims
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(q, torch.zeros(1, 8, 2, 16),
-                               torch.zeros(1, 8, 2, 8))
+                               torch.zeros(1, 8, 1, 8))
+    out, _ = fa.flash_attention_fwd(q, torch.zeros(1, 8, 2, 16),
+                                    torch.zeros(1, 8, 2, 8))
+    assert out.shape == (1, 8, 4, 8)
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(q, torch.zeros(1, 8, 2, 16,
                                               device="meta"),
@@ -227,11 +231,11 @@ def test_kernel_checks_take_the_padded_head_dims():
     for D, dt in ((24, torch.bfloat16), (96, torch.bfloat16),
                   (24, torch.float32), (96, torch.float32)):
         k = torch.zeros(1, 8, 2, D, dtype=dt)
-        assert fa._check_cuda(k, k) == (dt == torch.bfloat16)
+        assert fa._check_cuda(k, k, k) == (dt == torch.bfloat16)
     for D in (8, 48, 80, 192):
         k = torch.zeros(1, 8, 2, D)
         with pytest.raises(ValueError, match="head_dim"):
-            fa._check_cuda(k, k)
+            fa._check_cuda(k, k, k)
 
 
 def test_kernel_checks_route_by_dtype_and_refuse_unaligned_bf16():
@@ -239,15 +243,15 @@ def test_kernel_checks_route_by_dtype_and_refuse_unaligned_bf16():
     tensor cores only from 16-byte-aligned addresses; f32 needs no more
     than its own alignment."""
     k = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)
-    assert fa._check_cuda(k, k) == 1
+    assert fa._check_cuda(k, k, k) == 1
     off = torch.zeros(8 * 2 * 16 + 8, dtype=torch.bfloat16)
     off = off[1 + (-off.data_ptr() // 2) % 8:][:8 * 2 * 16].view(1, 8, 2, 16)
     assert off.data_ptr() % 16 == 2
     with pytest.raises(ValueError, match="tensor cores"):
-        fa._check_cuda(off, k)
+        fa._check_cuda(off, k, k)
     with pytest.raises(ValueError, match="tensor cores"):
         fa._check_cuda(k, k, k, off)
     f = torch.zeros(8 * 2 * 16 + 4)
     f = f[1 + (-f.data_ptr() // 4) % 4:][:8 * 2 * 16].view(1, 8, 2, 16)
     assert f.data_ptr() % 16 == 4
-    assert fa._check_cuda(f, f) == 0
+    assert fa._check_cuda(f, f, f) == 0

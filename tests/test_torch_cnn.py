@@ -127,8 +127,11 @@ def test_zoo_resolve_names():
         "repro_torch.ps.problems:make_jax_mlp"
     assert ref_zoo.resolve("jax-mlp").factory == \
         "repro.ps.problems:make_jax_mlp"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.resolve("deepseek-v2-236b")
+    # every arch id resolves as the reference's does, the MoE ones too
+    for arch in ("deepseek-v2-236b", "grok-1-314b"):
+        assert zoo.resolve(arch).kwargs == ref_zoo.resolve(arch).kwargs
+    with pytest.raises(ValueError):
+        zoo.resolve("no-such-model")
     with pytest.raises(ValueError):
         zoo.make_zoo_cnn("resnet", device="cpu")
 

@@ -188,6 +188,62 @@ def test_padded_head_dims_read_only_their_own_columns(cuda, D, dtype):
         assert torch.equal(a, b)
 
 
+# MLA's head-dim pairs: q / k at D, v / out / dout at Dv. (192, 128) is
+# deepseek-v2-236b at full width (on the 256- and 128-column tiles), (24,
+# 16) the reduced deepseek-v2 (on the 32- and 16-column ones)
+MLA_CASES = [(b, s, h, kvh, d, dv, causal, window, dtype)
+             for b, s, h, kvh, d, dv in ((1, 300, 4, 4, 192, 128),
+                                         (2, 130, 4, 2, 24, 16))
+             for causal, window in ((True, 0), (True, 48), (False, 0))
+             for dtype in (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KVH,D,Dv,causal,window,dtype", MLA_CASES)
+def test_attention_kernels_at_a_v_head_dim_apart(cuda, B, S, H, KVH, D, Dv,
+                                                 causal, window, dtype):
+    """Dv != D: out and dv come back at Dv, dq and dk at D, each held to
+    its plain version; the backward twice gives the same bits."""
+    rng = np.random.RandomState(S + D + Dv)
+    q, k, v, do = (torch.from_numpy(rng.randn(B, S, h, w).astype(
+        np.float32)).to(cuda, dtype)
+        for h, w in ((H, D), (KVH, D), (KVH, Dv), (H, Dv)))
+    kernels.reset_launch_counts()
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, window)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == _counts(flash_attention_fwd=1,
+                                              flash_attention_bwd=2)
+    assert out.shape == (B, S, H, Dv)
+    p_out, p_lse = fa.flash_attention_fwd_ref(q, k, v, causal, window)
+    _close(out, p_out, "fwd")
+    _close(lse, p_lse, "fwd")
+    p_grads = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                         window)
+    for g, a, w, x in zip(grads, again, p_grads, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape
+        _close(g, w, "bwd")
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Dv", [(192, 64), (128, 192), (96, 64)])
+def test_attention_refuses_an_uninstantiated_pair(cuda, D, Dv):
+    """A pair outside HEAD_DIM_PAIRS raises on the card: no plain
+    version runs in its place."""
+    q, k = (torch.zeros(1, 64, 2, D, dtype=torch.bfloat16, device=cuda)
+            for _ in range(2))
+    v = torch.zeros(1, 64, 2, Dv, dtype=torch.bfloat16, device=cuda)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="head_dim pair"):
+        fa.flash_attention_fwd(q, k, v)
+    lse = torch.zeros(1, 64, 2, device=cuda)
+    with pytest.raises(ValueError, match="head_dim pair"):
+        fa.flash_attention_bwd(q, k, v, v, lse, v)
+    assert kernels.launch_counts() == _counts()
+
+
 @pytest.mark.cuda
 def test_attention_refuses_unaligned_bf16(cuda):
     B, S, H, D = 1, 32, 2, 64
@@ -283,13 +339,14 @@ def test_cross_entropy_refuses_rows_the_tensor_cores_cannot_take(cuda, bad):
 def test_lm_gradient_on_the_card_matches_the_cpu(cuda):
     """Reduced gemma3-4b, bf16 compute: the gradient through the kernels
     against the CPU's plain path, and the kernels' launches per gradient
-    (one attention forward and backward per layer, one CE each)."""
+    (per layer one attention backward and two forwards, remat's recompute
+    the second; one CE each)."""
     w0, g_cpu, _ = zoo.make_zoo_lm("gemma3-4b", device="cpu")
     w_gpu, g_gpu, _ = zoo.make_zoo_lm("gemma3-4b", w0=w0, device=cuda)
     kernels.reset_launch_counts()
     got = g_gpu(w_gpu, 0, 0).cpu()
     assert kernels.launch_counts() == _counts(
-        flash_attention_fwd=6, flash_attention_bwd=6, fused_ce_fwd=1,
+        flash_attention_fwd=2 * 6, flash_attention_bwd=6, fused_ce_fwd=1,
         fused_ce_bwd=1)
     want = g_cpu(w0, 0, 0)
     rel = float(torch.linalg.vector_norm(got - want)
@@ -349,7 +406,8 @@ def test_multi_pod_step_on_the_card_matches_the_cpu(cuda, compression):
     state after 4 steps against the CPU's from the same state (loss 1e-3
     relative, params by relative norm 2e-2, the limits of the LM's
     gradient), the same bits with overlap on and off, and one
-    fused_elastic_update per exchange step."""
+    fused_elastic_update per exchange step (each layer's attention
+    forward twice per gradient: remat's recompute)."""
     cfg = configs.get("gemma3-4b").reduced
     rng = np.random.RandomState(0)
     batches = [{"tokens": rng.randint(0, 512, (4, 2, 24)),
@@ -373,7 +431,7 @@ def test_multi_pod_step_on_the_card_matches_the_cpu(cuda, compression):
         counts = kernels.launch_counts()
         if dev != "cpu":
             assert counts == _counts(fused_elastic_update=2,
-                                     flash_attention_fwd=6 * 4 * 2 * 4,
+                                     flash_attention_fwd=2 * 6 * 4 * 2 * 4,
                                      flash_attention_bwd=6 * 4 * 2 * 4,
                                      fused_ce_fwd=4 * 2 * 4,
                                      fused_ce_bwd=4 * 2 * 4)
@@ -457,14 +515,16 @@ def test_ssd_kernels_refuse_long_chunks_and_wide_heads(cuda):
 @pytest.mark.cuda
 def test_mamba2_gradient_on_the_card_matches_the_cpu(cuda):
     """Reduced mamba2-780m, bf16 compute: the gradient through the kernels
-    against the CPU's plain path, and one SSD forward and backward per
-    layer and one CE each per gradient."""
+    against the CPU's plain path, and per layer one SSD backward and two
+    forwards (remat's recompute the second), one CE each, per
+    gradient."""
     w0, g_cpu, _ = zoo.make_zoo_lm("mamba2-780m", device="cpu")
     w_gpu, g_gpu, _ = zoo.make_zoo_lm("mamba2-780m", w0=w0, device=cuda)
     kernels.reset_launch_counts()
     got = g_gpu(w_gpu, 0, 0).cpu()
     assert kernels.launch_counts() == _counts(
-        ssd_intra_fwd=4, ssd_intra_bwd=4, fused_ce_fwd=1, fused_ce_bwd=1)
+        ssd_intra_fwd=2 * 4, ssd_intra_bwd=4, fused_ce_fwd=1,
+        fused_ce_bwd=1)
     want = g_cpu(w0, 0, 0)
     rel = float(torch.linalg.vector_norm(got - want)
                 / torch.linalg.vector_norm(want))

@@ -22,7 +22,10 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
 assert not bad, bad
-assert len(names) >= 68, names
+assert len(names) >= 72, names
+assert {"repro_torch.models.moe", "repro_torch.models.mla",
+        "repro_torch.configs.grok1_314b",
+        "repro_torch.configs.deepseek_v2_236b"} <= set(names), names
 print("IMPORTS-OK", len(names))
 """
 

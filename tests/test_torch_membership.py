@@ -19,6 +19,7 @@ the RECONFIGURE plane of ``repro_torch.net``), against the reference
     ``elastic``.
 """
 import dataclasses
+import signal
 import socket
 import time
 
@@ -585,9 +586,22 @@ def test_chaos_dial_refuse_absorbed_bitwise():
 # (3) elastic off keeps failures fatal
 # ---------------------------------------------------------------------------
 
-def test_kill_without_elastic_stays_fatal():
+def test_kill_without_elastic_stays_fatal(monkeypatch):
+    """The run fails naming a worker, as the reference's test asks: which
+    one the master hears of first is a race (the killed worker's dropped
+    socket or the survivor's ConnectionResetError). The kill itself
+    landed on wid 1: its interpreter ended by SIGKILL."""
+    spawned = []
+    real = net_server.spawn_local_workers
+
+    def spawn(*args, **kw):
+        spawned.extend(real(*args, **kw))
+        return spawned
+    monkeypatch.setattr(net_server, "spawn_local_workers", spawn)
     cfg = dataclasses.replace(
         _ecfg(P=2, iters=200, chaos={"wid": 1, "kill_at_iter": 10,
                                      "signal": "kill"}), elastic=False)
-    with pytest.raises(RuntimeError, match="worker 1"):
+    with pytest.raises(RuntimeError, match=r"worker \d+"):
         _run(cfg)
+    assert len(spawned) == 2
+    assert spawned[1].wait(timeout=30) == -signal.SIGKILL

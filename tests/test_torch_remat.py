@@ -4,7 +4,9 @@ with ``cfg.remat`` other than "none" each period slot's layer runs under
 checkpoints each slot of its period scan; "dots" is "full"; the remainder
 layers and a forward under ``no_grad`` are not checkpointed. On the CPU
 the recompute gives the forward's values again, so loss and gradient are
-those of remat "none" bit for bit.
+those of remat "none" bit for bit; for the MoE families (grok-1-314b,
+deepseek-v2-236b with MLA) the aux loss each slot returns through the
+checkpoint too.
 """
 import dataclasses
 
@@ -17,7 +19,8 @@ from repro_torch.kernels import ssd_chunk as sc
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import init_params
 
-ARCHS = ("gemma3-27b", "recurrentgemma-2b", "mamba2-780m")
+ARCHS = ("gemma3-27b", "recurrentgemma-2b", "mamba2-780m", "grok-1-314b",
+         "deepseek-v2-236b")
 
 
 def _setup(arch, S=20, B=2):
@@ -49,6 +52,8 @@ def test_remat_gives_the_same_bits(arch):
         assert torch.equal(loss, loss0), r
         assert torch.equal(grad, grad0), r
         assert torch.equal(m["accuracy"], m0["accuracy"]), r
+        assert torch.equal(m["aux"], m0["aux"]), r
+    assert (m0["aux"] > 0) == (configs.get(arch).reduced.moe is not None)
 
 
 @pytest.fixture

@@ -6,7 +6,8 @@ through the port with those params carried across by ``params_from_jax``.
 The tolerances are those of tests/test_torch_lm.py: f32 compute on both
 sides, loss 1e-5 relative and gradient 1e-4 relative norm (only the order
 of f32 sums differs); the config's bf16 compute, 1e-3 and 5e-2 (bf16
-rounds at other places in the two frameworks).
+rounds at other places in the two frameworks). A MoE config's aux loss is
+held to the loss's tolerance; without MoE it is 0 on both sides.
 
 Where a reduced config has no qk-norm, the reference's init (``wq`` and
 ``wk`` drawn with fan-in H, the stacked shape's second-to-last dim) gives
@@ -16,7 +17,9 @@ lies farther from its f64-compute one than the bf16 limit: no two bf16
 evaluations meet a limit there. ``conditioned=True`` feeds both sides
 the reference's params with ``wq`` / ``wk`` rescaled to fan-in d_model
 (as chip_smoke.py's ``lm_params`` draws them at full width) and holds
-them at the same limits.
+them at the same limits. MLA's ``w_uq`` / ``w_uk`` are drawn the same way
+(fan-in H where they contract over q_lora_rank / kv_lora_rank) and are
+rescaled to their contraction dim alike.
 """
 import dataclasses
 import math
@@ -34,6 +37,9 @@ from repro_torch import configs
 from repro_torch.models import transformer as tfm
 
 TOLS = {"f32": (1e-5, 1e-4), "bf16": (1e-3, 5e-2)}
+# the query and key projections whose init the conditioned draw rescales
+QK_LEAVES = (("attn", "wq"), ("attn", "wk"), ("attn", "w_uq"),
+             ("attn", "w_uk"))
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -57,9 +63,10 @@ def ref_params(arch: str, conditioned=False):
         return params
 
     def scale(path, a):
-        if tuple(key(k) for k in path)[-2:] in (("attn", "wq"),
-                                                ("attn", "wk")):
-            return a * math.sqrt(a.shape[-2] / cfg.d_model)
+        # the contraction dim: d_model for wq / wk, MLA's q_lora_rank for
+        # w_uq and kv_lora_rank for w_uk
+        if tuple(key(k) for k in path)[-2:] in QK_LEAVES:
+            return a * math.sqrt(a.shape[-2] / a.shape[-3])
         return a
     return jax.tree_util.tree_map_with_path(scale, params)
 
@@ -133,7 +140,10 @@ def assert_parity(arch: str, dt: str, extras=False,
     assert np.isfinite(loss) and np.isfinite(grad).all()
     assert r_loss <= tol_loss, (arch, dt, r_loss)
     assert m["tokens"] == want_m["tokens"]
-    assert m["aux"] == want_m["aux"] == 0.0
+    if want_m["aux"] == 0.0:                 # no MoE layer
+        assert m["aux"] == 0.0
+    else:                                    # the MoE load-balance loss
+        assert abs(m["aux"] - want_m["aux"]) <= tol_loss * want_m["aux"]
     assert abs(m["accuracy"] - want_m["accuracy"]) <= 1.0 / want_m["tokens"]
     assert r_grad <= tol_grad, (arch, dt, r_grad)
     return r_loss, r_grad
