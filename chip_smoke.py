@@ -212,7 +212,29 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    deepseek-v2's gradient with remat full == none bit for bit; (c) both reduced ids on the multi-pod step (P = 2)
    against the CPU, ``launch.train --mode sync --arch <id> --reduced``
    and ``launch.train --mode ps --model <id>``, each with exact
-   launches.
+   launches;
+22. serving, under ``torch.inference_mode()`` with the leaves cast once
+   (``transformer.cast_for_serving``): (a) gemma3-4b at full width and
+   depth (34 layers: 25 local and 5 global in the periods, 4 local in the
+   remainder), bf16, B 8 prompts of 4096, ``max_len`` 4224: one prefill
+   with its launches counted (34 attention forwards, nothing else), its
+   last-position logits held against the plain path's at the bf16 limit,
+   a second prefill timed, then 128 greedy decode steps: prefill ms and
+   tokens/s, the median decode ms a step, decoded tokens/s and the peak;
+   (b) one decode step of gemma3-4b against caches of decode_32k's
+   length 32,768 drawn at random, B cut from 128 to 32 to fit one card,
+   every row at position 32,767: ms by the host clock and by CUDA events
+   beside the bytes bound (weights, the f32 unembedding and every cache
+   at the card's memory rate); (c) mamba2-780m at full width and depth
+   (48 layers) as (a), 48 SSD forwards a prefill, the final SSM states
+   held too; (d) deepseek-v2-236b at 1 layer (MLA's absorbed decode, the
+   (192, 128) attention forward in the prefill, the MoE FFN at decode)
+   and recurrentgemma-2b at all 26 layers (RG-LRU steps, local attention
+   in its 2048-slot ring buffer), B 4, prompt 2048, 32 steps, held as (a);
+   (e) at f32 compute, gemma3-4b at full width cut to 6 layers:
+   ``prefill(1020)`` and 8 decode steps across the 1024-slot wrap equal
+   ``forward(1028)``'s last logits to 1e-4, and the ten reduced configs'
+   prefill and 8 decode steps on the card equal the CPU's to 1e-4.
 
 Each phase prints its seconds (and each sub-phase's from 16 on). Phase
 17a's sync runs share their worker start-ups with the thread ↔ master ↔
@@ -3523,6 +3545,394 @@ def phase_moe_families(torch, np, configs, tfm, common, fa, ce, kernels,
     print(f"phase 21b remat: {time.perf_counter() - t:.1f} s", flush=True)
     return out
 
+# phase 22: serving. (arch, layers or None for all, B, prompt, max_len,
+# decode steps): 22a gemma3-4b and 22c mamba2-780m at full width and depth,
+# 22d deepseek-v2-236b at 1 layer and recurrentgemma-2b at all 26
+SERVE_CASES = (("gemma3-4b", None, 8, 4096, 4224, 128),
+               ("mamba2-780m", None, 8, 4096, 4224, 128),
+               ("deepseek-v2-236b", 1, 4, 2048, 2080, 32),
+               ("recurrentgemma-2b", None, 4, 2048, 2080, 32))
+N_SERVE = {"gemma3-4b": 3_879_925_248, "mamba2-780m": N_MAMBA2,
+           "deepseek-v2-236b": 5_020_697_600,
+           "recurrentgemma-2b": 2_894_574_080}
+# 22b: one decode step of gemma3-4b at decode_32k's cache length, the batch
+# cut from the shape's 128 to 32 so that the caches fit one card
+DECODE_32K = ("gemma3-4b", 32, 32768)
+
+
+def serve_counts(cfg) -> dict:
+    """The launches of one prefill: one attention forward per ``attn`` /
+    ``local`` / ``mla`` layer, one SSD forward per ``ssm`` layer, nothing
+    else (no loss; decode launches no kernel of the port)."""
+    return dict(lm_counts(cfg, 0, evals=1), fused_ce_fwd=0)
+
+
+def serve_params(torch, tfm, common, cfg, dev):
+    """``lm_params`` (q / k at fan-in their contraction dim where the
+    config has no qk-norm) cast once for serving; the f32 masters freed."""
+    qk = not cfg.qk_norm and any(
+        k in ("attn", "local", "mla") for k in cfg.layer_kinds())
+    with torch.inference_mode():
+        served = tfm.cast_for_serving(
+            cfg, lm_params(torch, tfm, common, cfg, dev, qk))
+    torch.cuda.empty_cache()
+    return served, qk
+
+
+def tree_bytes(common, tree, skip=()) -> int:
+    return sum(t.numel() * t.element_size()
+               for path, t in common.tree_leaves_with_path(tree)
+               if path[0] not in skip)
+
+
+class FirstCall:
+    """A kernel wrapper that records its first call's arguments and
+    result under ``key(args)`` in ``seen``; its ``launches`` are the
+    wrapper's, so the wrapper's own count (which reads the module's name)
+    goes on counting."""
+
+    def __init__(self, fn, seen: dict, key):
+        self.fn, self.seen, self.key = fn, seen, key
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+    def __call__(self, *args):
+        out = self.fn(*args)
+        self.seen.setdefault(self.key(args), (args, out))
+        return out
+
+
+@contextlib.contextmanager
+def first_calls(fa, sc, seen: dict):
+    """Record the first call of each kernel wrapper (attention per
+    window) in ``seen``; the calls launch and count as before."""
+    saved = fa.flash_attention_fwd, sc.ssd_intra_fwd
+    fa.flash_attention_fwd = FirstCall(
+        saved[0], seen, lambda a: ("flash_attention_fwd", a[4]))
+    sc.ssd_intra_fwd = FirstCall(saved[1], seen,
+                                 lambda a: ("ssd_intra_fwd", 0))
+    try:
+        yield
+    finally:
+        fa.flash_attention_fwd, sc.ssd_intra_fwd = saved
+
+
+def hold_first_calls(fa, sc, seen: dict, what: str) -> dict:
+    """Each recorded kernel call against its plain version on the same
+    inputs (``hold``: bf16 outputs 1e-2, f32 1e-5); returns the rows."""
+    rows = {}
+    for (name, window), (args, out) in seen.items():
+        row = rows.setdefault(name, {})
+        tag = f"{what} {name} {tuple(args[0].shape)}" + (
+            f" window {window}" if name == "flash_attention_fwd" else "")
+        if name == "flash_attention_fwd":
+            want = fa.flash_attention_fwd_ref(*args)
+            hold(row, tag, "fwd", [("out", out[0], want[0]),
+                                   ("lse", out[1], want[1])])
+        else:
+            hold(row, tag, "fwd", [("y", out, sc.ssd_intra_fwd_ref(*args))])
+    seen.clear()
+    return rows
+
+
+def phase_serve(torch, np, cfg, B, S, max_len, steps, tfm, common, fa, sc,
+                kernels, dev, held_dtype=None, variant=None) -> dict:
+    """(22a, c, d) Serving at full width under ``torch.inference_mode()``:
+    B prompts of S tokens (numpy seed 7), one prefill through the kernels
+    with its launches counted (the attention or SSD forward once a layer,
+    nothing else), the first call of each kernel (attention per window)
+    held against its plain version on the same inputs, and the prefill's
+    last-position logits (and for SSM layers the final states) held
+    against the plain path's at the bf16 limit; a second prefill timed;
+    then ``steps`` greedy decode steps, each timed by the host clock
+    around a synchronised step. With ``held_dtype`` the config's own
+    logits and states are read, not held, beside the plain path against
+    itself with ``variant`` (a more exact plain version), and held at
+    ``held_dtype`` compute instead, as phase 13 holds mamba2's gradient.
+    Returns the readings, the first prefill's launches and the kernels'
+    rows."""
+    torch.cuda.empty_cache()
+    served, qk = serve_params(torch, tfm, common, cfg, dev)
+    prompt = torch.from_numpy(np.random.RandomState(7).randint(
+        0, cfg.vocab_size, size=(B, S))).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def prefill(c=cfg, params=served):
+        caches = tfm.init_caches(c, B, max_len, device=dev)
+        t0 = time.perf_counter()
+        logits, caches = tfm.prefill(c, params, prompt, caches)
+        torch.cuda.synchronize()
+        return logits, caches, 1e3 * (time.perf_counter() - t0)
+
+    def rel_states(got, want):
+        pairs = [(g["state"], w["state"]) for g, w, kind in zip(
+            got["stacked"], want["stacked"], cfg.pattern) if kind == "ssm"]
+        return math.sqrt(sum(float(((a - b) ** 2).sum()) for a, b in pairs)
+                         / sum(float((b ** 2).sum()) for _, b in pairs))
+
+    def against_plain(c=cfg, params=served, more=None):
+        """Kernels vs the plain path (and the plain path against itself
+        under ``more``): relative norms of the logits and SSM states."""
+        logits, caches, _ = prefill(c, params)
+        with plain_versions(fa, sc):
+            logits_p, caches_p, plain_ms = prefill(c, params)
+        got = {"logits": rel_norm(logits, logits_p), "plain_ms": plain_ms}
+        if "ssm" in cfg.pattern:
+            got["states"] = rel_states(caches, caches_p)
+        if more is not None:
+            with plain_versions(fa, sc), more():
+                logits_v, caches_v, _ = prefill(c, params)
+            got["variant"] = rel_norm(logits_v, logits_p)
+            if "ssm" in cfg.pattern:
+                got["variant_states"] = rel_states(caches_v, caches_p)
+        return got
+
+    seen: dict = {}
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        with first_calls(fa, sc, seen):
+            logits, caches, first_ms = prefill()
+        counts = kernels.launch_counts()
+        check(counts == serve_counts(cfg), f"{cfg.name} launches per "
+              f"prefill {counts}")
+        check(bool(torch.isfinite(logits).all()), "prefill logits finite")
+        del logits, caches
+        rows = hold_first_calls(fa, sc, seen, f"serve {cfg.name} prefill")
+        read = against_plain(more=variant if held_dtype else None)
+        torch.cuda.empty_cache()
+        parts = [f"logits rel norm {read['logits']:.3e}"] + (
+            [f"final SSM states {read['states']:.3e}"] if "states" in read
+            else [])
+        if held_dtype is None:
+            for k in ("logits", "states"):
+                check(read.get(k, 0.0) <= LIMIT_BF16, f"{cfg.name} prefill "
+                      f"{k} kernels vs plain {read.get(k, 0.0):.3e}")
+            held = f"{', '.join(parts)} kernels vs plain (limit {LIMIT_BF16:g})"
+        else:
+            c32 = dataclasses.replace(cfg, compute_dtype=held_dtype)
+            exact = against_plain(c32, tfm.cast_for_serving(c32, served))
+            for k in ("logits", "states"):
+                check(exact.get(k, 0.0) <= LIMIT_BF16, f"{cfg.name} prefill "
+                      f"{k} at {held_dtype} kernels vs plain "
+                      f"{exact.get(k, 0.0):.3e}")
+            read["held"] = exact
+            held = (f"{', '.join(parts)} kernels vs plain (read, not held; "
+                    f"the plain path against its more exact variant reads "
+                    f"logits {read['variant']:.3e}, states "
+                    f"{read.get('variant_states', 0.0):.3e}); at "
+                    f"{str(held_dtype)[6:]} compute logits "
+                    f"{exact['logits']:.3e}, states "
+                    f"{exact.get('states', 0.0):.3e} (limit {LIMIT_BF16:g})")
+            torch.cuda.empty_cache()
+        logits, caches, ms = prefill()
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        step_ms = []
+        for i in range(steps):
+            pos = torch.full((B,), S + i, dtype=torch.int64, device=dev)
+            t0 = time.perf_counter()
+            logits, caches = tfm.decode_step(cfg, served, tok, caches, pos)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        check(bool(torch.isfinite(logits).all()), "decode logits finite")
+    peak = torch.cuda.max_memory_allocated()
+    out = {"prefill_ms": ms, "prefill_first_ms": first_ms,
+           "prefill_plain_ms": read["plain_ms"],
+           "prefill_tok_s": B * S / (ms / 1e3),
+           "decode_ms": statistics.median(step_ms),
+           "decode_tok_s": B * steps / (sum(step_ms) / 1e3),
+           "peak_bytes": peak, "read": read, "launches": counts,
+           "rows": rows}
+    kinds = cfg.layer_kinds()
+    print(f"serve {cfg.name} {cfg.n_layers} layers "
+          f"({', '.join(f'{kinds.count(k)} {k}' for k in sorted(set(kinds)))}"
+          f") n={tfm.n_params(cfg)} {str(cfg.compute_dtype)[6:]} compute, "
+          f"leaves cast once"
+          f"{', q / k at fan-in of their contraction dim' if qk else ''}: "
+          f"B={B} prompt={S} max_len={max_len}; prefill {ms:.1f} ms "
+          f"({out['prefill_tok_s']:.0f} tokens/s; the first {first_ms:.1f} "
+          f"ms, the plain path's {read['plain_ms']:.1f} ms), {held}; "
+          f"{steps} greedy decode steps: median {out['decode_ms']:.2f} ms a "
+          f"step (min {min(step_ms):.2f}, max {max(step_ms):.2f}), "
+          f"{out['decode_tok_s']:.0f} decoded tokens/s; peak "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated); launches per "
+          f"prefill {({k: v for k, v in counts.items() if v})}", flush=True)
+    del served, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_decode_32k(torch, np, cfg, B, Sc, tfm, common, timing, dev,
+                     bw) -> dict:
+    """(22b) One decode step against caches of length ``Sc`` (drawn at
+    random: a step's cost does not depend on the values), every row at
+    position Sc − 1: the median host-clock ms of 5 synchronised steps and
+    the median device time of 5 (CUDA events), beside the bytes bound (the
+    block weights, B embedding rows, the f32 unembedding and every cache,
+    each read once, at the card's memory rate), and one step's device
+    time by kernel (torch.profiler)."""
+    torch.cuda.empty_cache()
+    served, _ = serve_params(torch, tfm, common, cfg, dev)
+    with torch.inference_mode():
+        caches = tfm.init_caches(cfg, B, Sc, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        for _, t in common.tree_leaves_with_path(caches):
+            t.normal_(generator=gen)
+        tok = torch.from_numpy(np.random.RandomState(5).randint(
+            0, cfg.vocab_size, size=(B, 1))).to(dev)
+        pos = torch.full((B,), Sc - 1, dtype=torch.int64, device=dev)
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def step():
+            return tfm.decode_step(cfg, served, tok, caches, pos)[0]
+        host = []
+        for _ in range(6):
+            with timing.Timer("cuda") as tm:
+                logits = step()
+            host.append(1e3 * tm.elapsed)
+        check(bool(torch.isfinite(logits).all()), "32k decode logits finite")
+        dev_ms = timing.cuda_time_ms(step, reps=5, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        by_kernel = kernel_times(torch, step, dev_ms)
+    cache_bytes = tree_bytes(common, caches)
+    n_bytes = (tree_bytes(common, served, skip=("embed",))
+               + B * cfg.d_model * served["embed"].element_size()
+               + cache_bytes)
+    bound_ms = 1e3 * n_bytes / bw
+    ms = statistics.median(host[1:])
+    print(f"decode_32k {cfg.name} {cfg.n_layers} layers B={B} (decode_32k's "
+          f"128 cut to {B} to fit one card) cache length {Sc}, position "
+          f"{Sc - 1}: {ms:.2f} ms a step by the host clock (median of "
+          f"{[round(v, 2) for v in host[1:]]}), {dev_ms:.2f} ms by CUDA "
+          f"events (median of 5); bytes bound {bound_ms:.2f} ms "
+          f"({n_bytes / 1e9:.2f} GB at {bw / 1e12:g} TB/s: caches "
+          f"{cache_bytes / 1e9:.2f} GB, weights and the f32 unembedding "
+          f"{(n_bytes - cache_bytes) / 1e9:.2f} GB), {bound_ms / dev_ms:.0%} "
+          f"of it by device time; resident {resident / 2**30:.2f} GiB, a "
+          f"step's peak {peak / 2**30:.2f} GiB (max_memory_allocated); by "
+          f"kernel: {by_kernel}", flush=True)
+    del served, caches
+    torch.cuda.empty_cache()
+    return {"ms": ms, "device_ms": dev_ms, "bound_ms": bound_ms,
+            "bytes": n_bytes, "resident_bytes": resident, "peak_bytes": peak}
+
+
+def phase_serve_identity(torch, np, configs, tfm, common, dev) -> None:
+    """(22e) At f32 compute. The identity on the card: gemma3-4b at full
+    width cut to 6 layers, B 1, ``prefill(1020)`` and 8 decode steps
+    across the local layers' 1024-slot wrap give ``forward(1028)``'s last
+    logits to 1e-4 (allclose, rtol = atol, as the reference's test); then
+    the ten reduced configs (MoE at capacity factor 8) prefill 7 tokens of
+    2 rows and decode 8 more on the card and on the CPU from the same
+    params, every call's logits held at 1e-4."""
+    def walk(cfg, params, tokens, n_prefill, max_len, d):
+        with torch.inference_mode():
+            caches = tfm.init_caches(cfg, tokens.shape[0], max_len, device=d)
+            lg, caches = tfm.prefill(cfg, params, tokens[:, :n_prefill],
+                                     caches)
+            out = [lg]
+            for t in range(n_prefill, tokens.shape[1]):
+                pos = torch.full((tokens.shape[0],), t, device=d)
+                lg, caches = tfm.decode_step(cfg, params,
+                                             tokens[:, t:t + 1], caches, pos)
+                out.append(lg)
+        return out
+
+    def close(a, b, tol=1e-4):
+        """The largest |a − b| − tol·|b| (allclose holds where ≤ tol)."""
+        a, b = a.double().cpu(), b.double().cpu()
+        return float(((a - b).abs() - tol * b.abs()).max())
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(configs.get("gemma3-4b").config, n_layers=6,
+                              compute_dtype=torch.float32)
+    params = lm_params(torch, tfm, common, cfg, dev)
+    tokens = torch.from_numpy(np.random.RandomState(9).randint(
+        0, cfg.vocab_size, size=(1, 1028))).to(dev)
+    with torch.inference_mode():
+        h, _, _ = tfm.forward(cfg, params, tokens)
+        want = tfm.logits_at(cfg, params, h[:, -1])
+    got = walk(cfg, params, tokens, 1020, 1028, dev)[-1]
+    err = close(got, want)
+    check(err <= 1e-4, f"identity prefill(1020) + 8 decode steps vs "
+          f"forward(1028): {err:.3e}")
+    print(f"identity {cfg.name} 6 layers f32 compute B=1: prefill(1020) + "
+          f"8 decode steps across the 1024-slot wrap == forward(1028)'s "
+          f"last logits: max(|a - b| - 1e-4 |b|) {err:.3e} (allclose at "
+          f"rtol = atol = 1e-4), max |a - b| "
+          f"{float((got - want).abs().max()):.3e}", flush=True)
+    del params, h
+    torch.cuda.empty_cache()
+    worst = {}
+    for arch in sorted(configs.ARCHS):
+        cfg = dataclasses.replace(configs.get(arch).reduced,
+                                  compute_dtype=torch.float32)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=8.0))
+        cpu = common.init_params(tfm.model_defs(cfg),
+                                 torch.Generator().manual_seed(0))
+        card = common.tree_map(lambda t: t.to(dev), cpu)
+        tokens = torch.from_numpy(np.random.RandomState(1).randint(
+            0, cfg.vocab_size, size=(2, 15)))
+        a = walk(cfg, card, tokens.to(dev), 7, 15, dev)
+        b = walk(cfg, cpu, tokens, 7, 15, torch.device("cpu"))
+        worst[arch] = max(close(x, y) for x, y in zip(a, b))
+        check(worst[arch] <= 1e-4, f"{arch} reduced serving card vs CPU "
+              f"{worst[arch]:.3e}")
+    print(f"serving card vs CPU, ten reduced configs f32 compute, prefill 7 "
+          f"+ 8 decode steps (across the window of 8): max(|card - cpu| - "
+          f"1e-4 |cpu|) per arch {worst} (allclose at rtol = atol = 1e-4)",
+          flush=True)
+
+
+def phase_serving(torch, np, configs, tfm, common, fa, sc, kernels, timing,
+                  dev, bw) -> dict:
+    """Phase 22: 22a-d, then 22e; returns the prefills' launches and the
+    kernels' rows from the holds at the prefills' shapes."""
+    from repro_torch.utils.device import fp32_products
+    fp32_products()
+    launches, rows = {}, {}
+    for i, (arch, layers, B, S, max_len, steps) in enumerate(SERVE_CASES):
+        cfg = configs.get(arch).config
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        check(tfm.n_params(cfg) == N_SERVE[arch], f"{arch} params")
+        t = time.perf_counter()
+        ssm = "ssm" in cfg.pattern
+        out = phase_serve(torch, np, cfg, B, S, max_len, steps, tfm, common,
+                          fa, sc, kernels, dev,
+                          held_dtype=torch.float32 if ssm else None,
+                          variant=(lambda: f64_plain_ssd(sc)) if ssm
+                          else None)
+        for k, v in out["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for k, row in out["rows"].items():
+            if k in rows:
+                merge_rows(rows, {k: row})
+            else:
+                rows[k] = row
+        print(f"phase 22{'acdd'[i]} {arch}: {time.perf_counter() - t:.1f} s",
+              flush=True)
+        if i == 0:
+            t = time.perf_counter()
+            arch32, B32, Sc = DECODE_32K
+            phase_decode_32k(torch, np, configs.get(arch32).config, B32, Sc,
+                             tfm, common, timing, dev, bw)
+            print(f"phase 22b: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    phase_serve_identity(torch, np, configs, tfm, common, dev)
+    print(f"phase 22e: {time.perf_counter() - t:.1f} s", flush=True)
+    return launches, rows
+
 
 SOURCES = {"fused_sync_easgd_update": "elastic_update.cu",
            "fused_sync_sgd_update": "elastic_update.cu",
@@ -3832,6 +4242,15 @@ def main() -> int:
     print(f"phase 21c: {time.perf_counter() - t21:.1f} s", flush=True)
     print(f"phase moe families (21): {time.perf_counter() - t:.1f} s",
           flush=True)
+
+    # serving: prefill and decode with caches (phase 22)
+    release_card(torch, "before phase 22")
+    t = time.perf_counter()
+    counts, serve_rows = phase_serving(torch, np, configs, tfm, common, fa,
+                                       sc, kernels, timing, dev, bw)
+    add_counts(launches, counts)
+    merge_rows(rows, serve_rows)
+    print(f"phase serving (22): {time.perf_counter() - t:.1f} s", flush=True)
 
     check("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),

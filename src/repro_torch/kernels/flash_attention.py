@@ -131,10 +131,15 @@ def _pad_seq(t, n):
 # ---------------------------------------------------------------------------
 
 def flash_attention_fwd_ref(q, k, v, causal=True, window=0, q_block=512,
-                            kv_block=1024):
+                            kv_block=1024, *, q_offset=0, kv_valid_len=None,
+                            cap=0.0):
     """Plain version of ``flash_attention_fwd``: ``_flash_fwd_impl``'s
     online softmax over (q_block × kv_block) tiles, with the tails padded
-    and the padded keys masked. Returns ``out`` (q's dtype) and ``lse``."""
+    and the padded keys masked. Returns ``out`` (q's dtype) and ``lse``.
+    The keywords are the serving path's (``blocked_attention``), which
+    the kernel does not take: ``q_offset`` the position of q[0], keys at
+    or past ``kv_valid_len`` (default Skv) masked, scores soft-capped by
+    ``cap``."""
     B, Sq, H, D = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     Dv, G = v.shape[-1], H // KVH
@@ -146,20 +151,23 @@ def flash_attention_fwd_ref(q, k, v, causal=True, window=0, q_block=512,
     vp = _pad_seq(v, nk * kb - Skv)
     dev = q.device
     kv_pos = torch.arange(nk * kb, device=dev)
+    kv_lim = Skv if kv_valid_len is None else kv_valid_len
     out = torch.empty((B, nq * qb, H, Dv), dtype=q.dtype, device=dev)
     lse = torch.empty((B, nq * qb, H), dtype=torch.float32, device=dev)
     for i in range(nq):
         rows = slice(i * qb, (i + 1) * qb)
         q_t = qf[:, rows].reshape(B, qb, KVH, G, D)
-        q_pos = torch.arange(i * qb, (i + 1) * qb, device=dev)
+        q_pos = q_offset + torch.arange(i * qb, (i + 1) * qb, device=dev)
         m = torch.full((B, KVH, G, qb), NEG_INF, device=dev)
         l_run = torch.zeros((B, KVH, G, qb), device=dev)
         acc = torch.zeros((B, KVH, G, qb, Dv), device=dev)
         for j in range(nk):
             cols = slice(j * kb, (j + 1) * kb)
             s = torch.einsum("bqhgd,bkhd->bhgqk", q_t, kf[:, cols]) * scale
+            if cap:
+                s = torch.tanh(s / cap) * cap
             mask = (_tile_mask(q_pos, kv_pos[cols], causal, window)
-                    & (kv_pos[cols] < Skv)[None, :])
+                    & (kv_pos[cols] < kv_lim)[None, :])
             s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])

@@ -133,6 +133,14 @@ class ParamDef:
             raise ValueError(f"shape {self.shape} vs axes {self.logical}")
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeDtype:
+    """A tensor's shape and dtype without its storage (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: Any
+
+
 # ---------------------------------------------------------------------------
 # pytrees of dicts and tuples
 # ---------------------------------------------------------------------------
@@ -188,6 +196,11 @@ def init_params(defs, generator: torch.Generator, dtype=torch.float32,
     for path, d in tree_leaves_with_path(defs):
         out[path] = one(d)
     return _rebuild(defs, out)
+
+
+def abstract_params(defs, dtype):
+    """The ParamDef pytree as ``ShapeDtype`` records (no storage)."""
+    return tree_map(lambda d: ShapeDtype(tuple(d.shape), dtype), defs)
 
 
 def tree_unflatten(structure, leaves):

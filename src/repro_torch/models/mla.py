@@ -1,6 +1,6 @@
-"""Multi-head Latent Attention (DeepSeek-V2, arXiv:2405.04434), the
-training path (the port of ``repro/models/mla.py``: ``mla_defs``,
-``_q_proj``, ``_kv_compress`` and ``mla_block`` without a cache).
+"""Multi-head Latent Attention (DeepSeek-V2, arXiv:2405.04434) (the port
+of ``repro/models/mla.py``: ``mla_defs``, ``_q_proj``, ``_kv_compress``
+and ``mla_block`` with and without a cache).
 
 Queries and keys / values are low-rank compressed:
   c_q  = RMSNorm(x · W_dq)            (q_lora_rank)
@@ -16,15 +16,31 @@ the reference takes it from q's last dim. ``k_pe`` is RoPE'd once at
 ``(B, S, 1, rope)`` and broadcast over the H heads into one contiguous
 ``(B, S, H, Dqk)`` key tensor.
 
-Not ported yet (see ROADMAP.md, queue 1): the compressed ``(ckv, kpe)``
-cache and the absorbed decode. ``sctx.shard`` has no counterpart on one
-device.
+Serving keeps only the compressed ``(ckv, kpe)`` cache, ``kv_lora +
+rope`` values a token (576 at full width) instead of ``2·H·D``. The
+prefill expands the latent as training does and runs the attention
+forward kernel directly, outside autograd, at (Dqk, Dv) = (192, 128), then
+writes ``c_kv[:, :Sc]`` / ``k_pe[:, :Sc]`` into the cache's first S slots
+(the reference's fill, with its reach: S ≤ Sc). Decode is the absorbed
+form::
+
+    score_t = (q_nope · W_ukᵀ) · c_kv_t + q_pe · k_pe_t
+    out     = (Σ p_t c_kv_t) · W_uv
+
+so a step never expands the cache into per-head keys; its score and
+context products keep the cache's dtype with an f32 result
+(``attention.product_f32``). Both branches write the cache in place and
+return it. ``sctx.shard`` has no counterpart on one device.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.models.attention import apply_rope, flash_attention_train
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models.attention import (NEG_INF, apply_rope,
+                                          flash_attention_train, product_f32)
 from repro_torch.models.common import ModelConfig, ParamDef, rms_norm
 
 
@@ -72,26 +88,52 @@ def _kv_compress(cfg: ModelConfig, p, x, positions):
 
 def mla_block(cfg: ModelConfig, p, x, positions, *, cache=None,
               cache_pos=None, **_unused):
-    """One MLA block, training / teacher-forced forward only (``cache is
-    None``). Returns ``(y, None)`` like the reference."""
-    if cache is not None:
-        raise NotImplementedError(
-            "MLA with a cache (the compressed (ckv, kpe) cache and the "
-            "absorbed decode) is not ported to repro_torch yet; see "
-            "ROADMAP.md, queue 1")
+    """One MLA block -> ``(y, cache)``, with ``attention_block``'s modes.
+    cache: ``{ckv: (B, Sc, kv_lora_rank), kpe: (B, Sc, rope)}``."""
     a = cfg.mla
     cd = cfg.compute_dtype
     B, S, _ = x.shape
     H = cfg.n_heads
     q_nope, q_pe = _q_proj(cfg, p, x, positions)
     c_kv, k_pe = _kv_compress(cfg, p, x, positions)
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"].to(cd))
-    v = torch.einsum("bsr,rhv->bshv", c_kv, p["w_uv"].to(cd))
-    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(
-        B, S, H, a.qk_rope_head_dim)], dim=-1)
-    q = torch.cat([q_nope, q_pe], dim=-1)
-    out = flash_attention_train(q, k, v, causal=True,
-                                q_block=cfg.attn_q_block,
-                                kv_block=cfg.attn_kv_block)
+    if cache is not None and S == 1:
+        # ---- absorbed decode ---------------------------------------------
+        ckv, kpe = cache["ckv"], cache["kpe"]
+        pos = cache_pos.to(torch.int64)
+        bidx = torch.arange(B, device=x.device)
+        ckv[bidx, pos] = c_kv[:, 0].to(ckv.dtype)
+        kpe[bidx, pos] = k_pe[:, 0].to(kpe.dtype)
+        Sc = ckv.shape[1]
+        valid = torch.arange(Sc, device=x.device)[None, :] <= pos[:, None]
+        # absorb W_uk into q: (B,1,H,nope) x (rank,H,nope) -> (B,H,rank)
+        q_abs = torch.einsum("bshk,rhk->bhr", q_nope, p["w_uk"].to(cd))
+        scale = 1.0 / math.sqrt(a.qk_nope_head_dim + a.qk_rope_head_dim)
+        s = (product_f32(q_abs.to(ckv.dtype), ckv.transpose(1, 2))
+             + product_f32(q_pe[:, 0].to(kpe.dtype), kpe.transpose(1, 2))
+             ) * scale                                       # (B, H, Sc)
+        s = torch.where(valid[:, None, :], s, NEG_INF)
+        prob = torch.softmax(s, dim=-1)
+        ctx = product_f32(prob.to(ckv.dtype), ckv)            # (B, H, rank)
+        out = torch.einsum("bhr,rhv->bhv", ctx.to(cd),
+                           p["w_uv"].to(cd))[:, None]        # (B,1,H,v)
+        cache = {"ckv": ckv, "kpe": kpe}
+    else:
+        # ---- training / prefill: expand the latent, the attention kernel
+        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"].to(cd))
+        v = torch.einsum("bsr,rhv->bshv", c_kv, p["w_uv"].to(cd))
+        k = torch.cat([k_nope, k_pe[:, :, None, :].expand(
+            B, S, H, a.qk_rope_head_dim)], dim=-1)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        if cache is None:
+            out = flash_attention_train(q, k, v, causal=True,
+                                        q_block=cfg.attn_q_block,
+                                        kv_block=cfg.attn_kv_block)
+        else:
+            out, _ = fa.flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), True, 0)
+            Sc = cache["ckv"].shape[1]
+            cache["ckv"][:, :S] = c_kv[:, :Sc]
+            cache["kpe"][:, :S] = k_pe[:, :Sc]
+            cache = {"ckv": cache["ckv"], "kpe": cache["kpe"]}
     y = torch.einsum("bshv,hvd->bsd", out.to(cd), p["wo"].to(cd))
-    return y, None
+    return y, cache

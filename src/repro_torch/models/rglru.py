@@ -1,7 +1,6 @@
-"""RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427), the
-training path (the port of ``repro/models/rglru.py``: ``rglru_defs``,
-``_causal_conv``, ``_rglru_gates``, ``rglru_scan`` and the non-cache branch
-of ``rglru_block``).
+"""RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427)
+(the port of ``repro/models/rglru.py``: ``rglru_defs``, ``_causal_conv``,
+``_rglru_gates``, ``rglru_scan``, ``rglru_step`` and ``rglru_block``).
 
 Real-Gated Linear Recurrent Unit::
 
@@ -19,8 +18,10 @@ follows Griffin: two branches (GeLU gate ∥ conv1d → RG-LRU), multiplied,
 projected. The reference has no Pallas kernel here, and the port has no
 CUDA kernel: the scan is plain torch on either device.
 
-Not ported yet (see ROADMAP.md, queue 1, serving): decode with a cache
-(``rglru_step``, ``rglru_block``'s cache branch).
+Serving (``rglru_block`` with a cache ``{conv: (B, K−1, w), state: (B, w)
+f32}``): the prefill keeps the last K−1 conv inputs and ``h[:, -1]``;
+decode slides the conv history by one and takes the O(1) step
+``rglru_step``. Both write the cache in place and return it.
 """
 from __future__ import annotations
 
@@ -29,13 +30,6 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig, ParamDef, _gelu_tanh
 from repro_torch.models.ssm import _causal_conv  # noqa: F401  (the same)
-
-
-def _serving():
-    return NotImplementedError(
-        "RG-LRU decode with a cache (rglru_step, rglru_block's cache "
-        "branch) is not ported to repro_torch yet; see ROADMAP.md, queue 1 "
-        "(serving)")
 
 
 def rglru_defs(cfg: ModelConfig) -> dict:
@@ -92,20 +86,36 @@ def rglru_scan(cfg: ModelConfig, p, x):
 
 
 def rglru_step(cfg: ModelConfig, p, x_t, h_prev):
-    raise _serving()
+    """x_t: (B, w); h_prev: (B, w) f32 -> ``(y_t, h_t)``, both the new
+    state (f32)."""
+    a, b = _rglru_gates(cfg, p, x_t[:, None])
+    h = a[:, 0] * h_prev + b[:, 0]
+    return h, h
 
 
 def rglru_block(cfg: ModelConfig, p, x, positions=None, *, cache=None,
                 cache_pos=None, **_unused):
-    """Griffin recurrent block, training / teacher-forced forward only
-    (``cache is None``). Returns ``(y, None)`` like the reference."""
-    if cache is not None:
-        raise _serving()
+    """Griffin recurrent block -> ``(y, cache)``: the scan over the
+    sequence, or with a cache and S 1 the decode step."""
     cd = cfg.compute_dtype
     y_gate = _gelu_tanh(torch.matmul(x, p["w_y"].to(cd)))
     xr = torch.matmul(x, p["w_x"].to(cd))
-    conv_out = _causal_conv(xr.to(cd), p["conv_w"].to(cd),
-                            p["conv_b"].to(cd))
-    h = rglru_scan(cfg, p, conv_out)
+    if cache is not None and x.shape[1] == 1:
+        conv_hist = torch.cat([cache["conv"], xr], dim=1)       # (B, K, w)
+        conv_out = torch.einsum("bkw,kw->bw", conv_hist.to(cd),
+                                p["conv_w"].to(cd)) + p["conv_b"].to(cd)
+        h, state = rglru_step(cfg, p, conv_out, cache["state"])
+        h = h[:, None]
+        cache["conv"].copy_(conv_hist[:, 1:])
+        cache["state"].copy_(state)
+    else:
+        conv_out = _causal_conv(xr.to(cd), p["conv_w"].to(cd),
+                                p["conv_b"].to(cd))
+        h = rglru_scan(cfg, p, conv_out)
+        if cache is not None:
+            cache["conv"].copy_(xr[:, -(cfg.rglru.d_conv - 1):])
+            cache["state"].copy_(h[:, -1])
+    if cache is not None:
+        cache = {"conv": cache["conv"], "state": cache["state"]}
     out = h.to(cd) * y_gate
-    return torch.matmul(out, p["w_out"].to(cd)), None
+    return torch.matmul(out, p["w_out"].to(cd)), cache

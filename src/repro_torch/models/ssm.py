@@ -1,7 +1,6 @@
-"""Mamba-2 (SSD, state-space duality, arXiv:2405.21060), the training path
-(the port of ``repro/models/ssm.py``: ``_dims``, ``ssm_defs``,
-``_split_in``, ``_causal_conv``, ``_ssd_chunked`` and the non-cache branch
-of ``ssm_block``).
+"""Mamba-2 (SSD, state-space duality, arXiv:2405.21060) (the port of
+``repro/models/ssm.py``: ``_dims``, ``ssm_defs``, ``_split_in``,
+``_causal_conv``, ``_ssd_chunked``, ``ssd_step`` and ``ssm_block``).
 
 The SSD layer computes, per head h with scalar decay ``a_t = exp(Δt·A_h)``::
 
@@ -17,25 +16,24 @@ plain torch, vectorised over chunks, with only the short recurrence of the
 
 The kernels take ``(B·H, S, ·)`` rows, so ``_ssd_chunked`` makes
 contiguous copies of ``a`` and ``Δt·x`` in that layout (and of the output
-back), while B and C stay ``(B, S, N)``, shared by the heads.
+back), while B and C stay ``(B, S, N)``, shared by the heads. Without
+autograd (serving's prefill) it calls the forward kernel's wrapper
+directly, so nothing is saved for a backward.
 
-Not ported yet (see ROADMAP.md, queue 1 item 4, serving): decode with a
-cache (``ssd_step``, the cache branch of ``ssm_block``). ``sctx.shard``
-has no counterpart on one device.
+Serving (``ssm_block`` with a cache ``{conv: (B, K−1, conv_dim), state:
+(B, H, P, N) f32}``): the prefill is the chunked form, keeping the last
+K−1 conv inputs and the final state; decode slides the conv history by
+one and takes the O(1) recurrence ``ssd_step``. Both write the cache in
+place and return it. ``sctx.shard`` has no counterpart on one device.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ssd_chunk
 from repro_torch.kernels.ssd_chunk import SSDIntraChunk, chunk_len
 from repro_torch.models.common import ModelConfig, ParamDef, rms_norm
-
-
-def _serving():
-    return NotImplementedError(
-        "Mamba-2 decode with a cache (ssd_step, ssm_block's cache branch) "
-        "is not ported to repro_torch yet; see ROADMAP.md, queue 1 item 4")
 
 
 def _dims(cfg: ModelConfig):
@@ -111,7 +109,10 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, state0=None):
     # intra-chunk: the kernel, on (B·H, S, ·) rows
     a_bh = a.permute(0, 2, 1).reshape(Bsz * H, S).contiguous()
     x_bh = xbar.permute(0, 2, 1, 3).reshape(Bsz * H, S, P).contiguous()
-    y_intra = SSDIntraChunk.apply(a_bh, x_bh, Bf, Cf, L)
+    if torch.is_grad_enabled():
+        y_intra = SSDIntraChunk.apply(a_bh, x_bh, Bf, Cf, L)
+    else:
+        y_intra = ssd_chunk.ssd_intra_fwd(a_bh, x_bh, Bf, Cf, L)
     y_intra = y_intra.reshape(Bsz, H, nc, L, P).permute(0, 2, 3, 1, 4)
 
     # inter-chunk, vectorised over chunks: cum (B,nc,L,H) from chunk start
@@ -141,15 +142,21 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, state0=None):
 
 
 def ssd_step(state, x_t, dt_t, A, B_t, C_t):
-    raise _serving()
+    """The O(1) decode recurrence. state: (B, H, P, N) f32; x_t: (B, H, P);
+    dt_t: (B, H); B_t, C_t: (B, N). Returns ``(state, y)``, y (B, H, P)
+    f32."""
+    a = torch.exp(dt_t * A[None, :])[..., None, None]          # (B,H,1,1)
+    upd = torch.einsum("bn,bhp->bhpn", B_t.float(),
+                       (x_t * dt_t[..., None]).float())
+    state = state * a + upd
+    y = torch.einsum("bn,bhpn->bhp", C_t.float(), state)
+    return state, y
 
 
 def ssm_block(cfg: ModelConfig, p, x, positions=None, *, cache=None,
               cache_pos=None, **_unused):
-    """Mamba-2 block, training / teacher-forced forward only
-    (``cache is None``). Returns ``(y, None)`` like the reference."""
-    if cache is not None:
-        raise _serving()
+    """Mamba-2 block -> ``(y, cache)``: the training / prefill chunked form,
+    or with a cache and S 1 the decode step."""
     s = cfg.ssm
     cd = cfg.compute_dtype
     d_inner, n_heads, _ = _dims(cfg)
@@ -158,18 +165,38 @@ def ssm_block(cfg: ModelConfig, p, x, positions=None, *, cache=None,
     h = torch.einsum("bsd,de->bse", x, p["w_in"].to(cd))
     z, xi, Bm, Cm, dt = _split_in(cfg, h)
     xbc = torch.cat([xi, Bm, Cm], dim=-1)
-    conv_out = F.silu(_causal_conv(xbc.to(cd), p["conv_w"].to(cd),
-                                   p["conv_b"].to(cd)))
-    xi, Bm, Cm = torch.split(conv_out, [d_inner, s.d_state, s.d_state],
-                             dim=-1)
-    dt_sp = F.softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
-    xh = xi.reshape(B_, S, n_heads, s.head_dim)
-    y, _ = _ssd_chunked(xh.float(), dt_sp, A, Bm, Cm, s.chunk)
-    y = y + p["D"].float()[None, None, :, None] * xh
-    y = y.reshape(B_, S, d_inner)
+    if cache is not None and S == 1:
+        # decode: the sliding conv history, then the recurrent SSD step
+        conv_hist = torch.cat([cache["conv"], xbc], dim=1)     # (B, K, ·)
+        conv_out = torch.einsum("bkc,kc->bc", conv_hist.to(cd),
+                                p["conv_w"].to(cd)) + p["conv_b"].to(cd)
+        xi, Bm, Cm = torch.split(F.silu(conv_out),
+                                 [d_inner, s.d_state, s.d_state], dim=-1)
+        dt_t = F.softplus(dt[:, 0] + p["dt_bias"].float())
+        xh = xi.reshape(B_, n_heads, s.head_dim)
+        state, y = ssd_step(cache["state"], xh, dt_t, A, Bm, Cm)
+        y = y + p["D"].float()[None, :, None] * xh
+        y = y.reshape(B_, 1, d_inner)
+        cache["conv"].copy_(conv_hist[:, 1:])
+        cache["state"].copy_(state)
+    else:
+        conv_out = F.silu(_causal_conv(xbc.to(cd), p["conv_w"].to(cd),
+                                       p["conv_b"].to(cd)))
+        xi, Bm, Cm = torch.split(conv_out, [d_inner, s.d_state, s.d_state],
+                                 dim=-1)
+        dt_sp = F.softplus(dt.float() + p["dt_bias"].float())
+        xh = xi.reshape(B_, S, n_heads, s.head_dim)
+        y, state = _ssd_chunked(xh.float(), dt_sp, A, Bm, Cm, s.chunk)
+        y = y + p["D"].float()[None, None, :, None] * xh
+        y = y.reshape(B_, S, d_inner)
+        if cache is not None:
+            cache["conv"].copy_(xbc[:, -(s.d_conv - 1):])
+            cache["state"].copy_(state)
+    if cache is not None:
+        cache = {"conv": cache["conv"], "state": cache["state"]}
 
     # gated RMSNorm (Mamba-2) + out proj
     y = y.to(cd) * F.silu(z)
     y = rms_norm(y, p["norm"])
-    return torch.einsum("bse,ed->bsd", y, p["w_out"].to(cd)), None
+    return torch.einsum("bse,ed->bsd", y, p["w_out"].to(cd)), cache

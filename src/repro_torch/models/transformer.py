@@ -2,8 +2,9 @@
 (dense ``attn`` / ``local``, DeepSeek-V2's ``mla``, Mamba-2's ``ssm``,
 Griffin's ``rglru``; with ``cfg.moe`` set every non-SSM layer's FFN is
 the MoE FFN), its forward and its loss (the port of ``repro/models/
-transformer.py``: ``model_defs``, ``forward`` without caches,
-``_unembed_weight``, ``_divisor_chunk`` and ``lm_loss``).
+transformer.py``: ``model_defs``, the caches, ``forward``,
+``_unembed_weight``, ``logits_at``, ``_divisor_chunk``, ``lm_loss``,
+``prefill`` and ``decode_step``).
 
 Per pattern slot the layer params are stacked on a leading ``n_periods``
 dim, as in the reference; the forward walks the periods in a Python loop
@@ -38,7 +39,30 @@ The aux loss: each MoE layer returns its load-balance loss, and
 ``forward`` sums them over the periods' slots and then the remainder
 layers, the reference's order; without MoE it is 0.
 
-Not ported yet (see ROADMAP.md): caches, ``prefill`` / ``decode_step``.
+Serving. A cache tree has the reference's layout and dtypes:
+``{"stacked": per-slot dicts with a leading n_periods dim, "rem": one dict
+per remainder layer}``; attention ``k`` / ``v`` (a ``local`` layer's
+ring buffer holds ``min(window, max_len)`` slots), MLA's compressed
+``ckv`` / ``kpe``, the SSM and RG-LRU ``conv`` history in the compute
+dtype and their ``state`` in f32. ``forward`` with caches walks the
+periods and slots as the reference's ``scan`` does, handing each layer
+its views of the stacked caches; every layer writes its cache in place
+(the reference donates its caches), so ``prefill`` and ``decode_step``
+return the tree they were given, filled. Decode positions come from
+``cache_pos`` when S is 1. Serving runs with autograd off
+(``torch.inference_mode()`` in ``runtime.serve``), where no layer is
+checkpointed and the prefill's attention and SSD forward kernels are
+called directly.
+
+``cast_for_serving`` makes, once, each leaf in the dtype the reference
+casts it to at its every use (``p["wq"].astype(cd)``): the blocks'
+weights and the embedding (for the lookup) in the compute dtype, the
+norms, gates, SSM scalars and router in f32, and the unembedding (the
+tied ``embed.T`` too) in f32 for ``logits_at``. A cast is deterministic,
+so this is bit for bit the per-use cast; eager torch would otherwise
+copy every weight on every decode step, and the f32 master leaves can be
+freed. ``caches_from_jax`` / ``caches_to_numpy`` carry cache trees across
+from and to the reference's layout.
 """
 from __future__ import annotations
 
@@ -55,7 +79,8 @@ from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.common import (ModelConfig, ParamDef, rms_norm,
+from repro_torch.models.common import (ModelConfig, ParamDef, ShapeDtype,
+                                       rms_norm, softcap,
                                        tree_leaves_with_path, tree_map,
                                        tree_unflatten)
 from repro_torch.utils.device import resolve_device
@@ -107,6 +132,75 @@ def model_defs(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         defs["unembed"] = ParamDef((d, V), ("embed", "vocab"))
     return defs
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def _cache_def_one(cfg: ModelConfig, kind: str, B: int, max_len: int):
+    cd = cfg.compute_dtype
+    D = cfg.resolved_head_dim
+    if kind in DENSE_KINDS:
+        S = max_len if kind == "attn" else min(cfg.window, max_len)
+        kv = ShapeDtype((B, S, cfg.n_kv_heads, D), cd)
+        return {"k": kv, "v": kv}
+    if kind == "mla":
+        a = cfg.mla
+        return {"ckv": ShapeDtype((B, max_len, a.kv_lora_rank), cd),
+                "kpe": ShapeDtype((B, max_len, a.qk_rope_head_dim), cd)}
+    if kind == "ssm":
+        s = cfg.ssm
+        d_inner, H, conv_dim = ssm_lib._dims(cfg)
+        return {"conv": ShapeDtype((B, s.d_conv - 1, conv_dim), cd),
+                "state": ShapeDtype((B, H, s.head_dim, s.d_state),
+                                    torch.float32)}
+    if kind == "rglru":
+        g = cfg.rglru
+        return {"conv": ShapeDtype((B, g.d_conv - 1, g.width), cd),
+                "state": ShapeDtype((B, g.width), torch.float32)}
+    raise ValueError(f"unknown layer kind {kind}")
+
+
+def init_cache_defs(cfg: ModelConfig, B: int, max_len: int):
+    """The cache tree as ``ShapeDtype`` records: ``{"stacked": one dict per
+    pattern slot with a leading n_periods dim, "rem": one per remainder
+    layer}``."""
+    def stack(tree):
+        return tree_map(lambda d: ShapeDtype((cfg.n_periods,) + d.shape,
+                                             d.dtype), tree)
+    return {"stacked": tuple(stack(_cache_def_one(cfg, kind, B, max_len))
+                             for kind in cfg.pattern),
+            "rem": tuple(_cache_def_one(cfg, kind, B, max_len)
+                         for kind in cfg.remainder_kinds)}
+
+
+def init_caches(cfg: ModelConfig, B: int, max_len: int, device=None):
+    """Zero caches on ``device`` (None: the card)."""
+    dev = resolve_device(device)
+    return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
+                                          device=dev),
+                    init_cache_defs(cfg, B, max_len))
+
+
+def caches_from_jax(caches, cfg: ModelConfig, device=None):
+    """The reference's cache tree (arrays in its layout) as the port's, in
+    the port's cache dtypes: ``state`` f32, the rest the compute dtype (a
+    bf16 array passes through f32 exactly)."""
+    dev = resolve_device(device)
+
+    def layer(c):
+        return {k: torch.from_numpy(np.array(a, np.float32)).to(
+            device=dev, dtype=torch.float32 if k == "state"
+            else cfg.compute_dtype) for k, a in c.items()}
+    return {"stacked": tuple(layer(c) for c in caches["stacked"]),
+            "rem": tuple(layer(c) for c in caches["rem"])}
+
+
+def caches_to_numpy(caches):
+    """A cache tree as f32 numpy arrays, in the same layout."""
+    return tree_map(lambda t: t.detach().to("cpu", torch.float32).numpy(),
+                    caches)
 
 
 # ---------------------------------------------------------------------------
@@ -185,29 +279,31 @@ def params_from_jax(params_or_flat_row, cfg: ModelConfig, device=None):
 # ---------------------------------------------------------------------------
 
 def _apply_block(cfg: ModelConfig, kind: str, p, x, positions,
-                 mrope_positions=None):
-    """One layer: ``(x, aux)``, aux the MoE FFN's load-balance loss (0
+                 mrope_positions=None, cache=None, cache_pos=None):
+    """One layer: ``(x, aux, cache)``, aux the MoE FFN's load-balance loss
+    (0 without one), cache the layer's cache written in place (None
     without one)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm1"])
+    kw = {"cache": cache, "cache_pos": cache_pos}
     if kind == "ssm":
-        y, _ = ssm_lib.ssm_block(cfg, p["ssm"], h, positions)
-        return x + y, aux
+        y, cache = ssm_lib.ssm_block(cfg, p["ssm"], h, positions, **kw)
+        return x + y, aux, cache
     if kind == "rglru":
-        y, _ = rglru_lib.rglru_block(cfg, p["rec"], h, positions)
+        y, cache = rglru_lib.rglru_block(cfg, p["rec"], h, positions, **kw)
     elif kind == "mla":
-        y, _ = mla_lib.mla_block(cfg, p["attn"], h, positions)
+        y, cache = mla_lib.mla_block(cfg, p["attn"], h, positions, **kw)
     else:
-        y, _ = attention.attention_block(cfg, p["attn"], h, positions,
-                                         kind=kind,
-                                         mrope_positions=mrope_positions)
+        y, cache = attention.attention_block(
+            cfg, p["attn"], h, positions, kind=kind,
+            mrope_positions=mrope_positions, **kw)
     x = x + y
     h2 = rms_norm(x, p["norm2"])
     if cfg.moe is not None:
         y2, aux = moe_lib.moe_block(cfg, p["moe"], h2)
     else:
         y2 = ffn_lib.ffn_block(cfg, p["ffn"], h2)
-    return x + y2, aux
+    return x + y2, aux, cache
 
 
 def _unstack(tree, n: int) -> list:
@@ -227,18 +323,20 @@ def _slot_fn(cfg: ModelConfig, kind: str, structure):
     ``(h, aux)``."""
     def fn(x, positions, mrope_positions, *leaves):
         p = tree_unflatten(structure, list(leaves))
-        return _apply_block(cfg, kind, p, x, positions, mrope_positions)
+        return _apply_block(cfg, kind, p, x, positions, mrope_positions)[:2]
     return fn
 
 
 def forward(cfg: ModelConfig, params, tokens, *, positions=None,
-            mrope_positions=None, patch_embeds=None):
-    """tokens: (B, S) int64. Returns ``(hidden (B, S, d), None, aux)`` like
-    the reference's training forward (no caches; aux the MoE layers'
-    load-balance losses summed in the reference's order, 0 without MoE).
-    ``patch_embeds`` (B, P, d) replace the embeddings of the first P
-    positions (the vision stub); ``mrope_positions`` (3, B, S) drive
-    M-RoPE where the config has ``mrope_sections``."""
+            caches=None, cache_pos=None, mrope_positions=None,
+            patch_embeds=None):
+    """tokens: (B, S) int64. Returns ``(hidden (B, S, d), caches, aux)``
+    like the reference: aux the MoE layers' load-balance losses summed in
+    the reference's order (0 without MoE); with ``caches`` (a prefill, or
+    with S 1 and ``cache_pos`` (B,) a decode step) the tree written in
+    place, else None. ``patch_embeds`` (B, P, d) replace the embeddings of
+    the first P positions (the vision stub); ``mrope_positions`` (3, B, S)
+    drive M-RoPE where the config has ``mrope_sections``."""
     cd = cfg.compute_dtype
     B, S = tokens.shape
     h = params["embed"][tokens].to(cd)
@@ -246,16 +344,26 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
         P_ = patch_embeds.shape[1]
         h = torch.cat([patch_embeds.to(cd), h[:, P_:]], dim=1)
     if positions is None:
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        if cache_pos is not None and S == 1:
+            positions = cache_pos[:, None]
+        else:
+            positions = torch.arange(S, device=tokens.device)[None].expand(
+                B, S)
     layers = [_unstack(params["blocks"][s], cfg.n_periods)
               for s in range(len(cfg.pattern))]
-    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    remat = cfg.remat != "none" and torch.is_grad_enabled() \
+        and caches is None
     slots = [_slot_fn(cfg, kind, params["blocks"][s])
              for s, kind in enumerate(cfg.pattern)]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_periods):
-        for s in range(len(cfg.pattern)):
-            if remat:
+        for s, kind in enumerate(cfg.pattern):
+            if caches is not None:
+                p = tree_unflatten(params["blocks"][s], layers[s][i])
+                c = {k: t[i] for k, t in caches["stacked"][s].items()}
+                h, a, _ = _apply_block(cfg, kind, p, h, positions,
+                                       mrope_positions, c, cache_pos)
+            elif remat:
                 h, a = checkpoint(slots[s], h, positions, mrope_positions,
                                   *layers[s][i], use_reentrant=False)
             else:
@@ -263,11 +371,12 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
                                 *layers[s][i])
             aux = aux + a
     for i, kind in enumerate(cfg.remainder_kinds):
-        h, a = _apply_block(cfg, kind, params["rem"][i], h, positions,
-                            mrope_positions)
+        c = caches["rem"][i] if caches is not None else None
+        h, a, _ = _apply_block(cfg, kind, params["rem"][i], h, positions,
+                               mrope_positions, c, cache_pos)
         aux = aux + a
     h = rms_norm(h, params["final_norm"])
-    return h, None, aux
+    return h, caches, aux
 
 
 # ---------------------------------------------------------------------------
@@ -275,9 +384,19 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
 # ---------------------------------------------------------------------------
 
 def _unembed_weight(cfg: ModelConfig, params):
-    if cfg.tie_embeddings:
-        return params["embed"].T                      # (d, V)
+    """(d, V): ``unembed``, or for a tied config ``embed.T``; a tree from
+    ``cast_for_serving`` carries it under ``unembed`` either way."""
+    if cfg.tie_embeddings and "unembed" not in params:
+        return params["embed"].T
     return params["unembed"]
+
+
+def logits_at(cfg: ModelConfig, params, h):
+    """f32 logits of the given hidden states (a few positions only),
+    soft-capped by ``cfg.logit_softcap``."""
+    w = _unembed_weight(cfg, params)
+    out = torch.matmul(h.to(torch.float32), w.to(torch.float32))
+    return softcap(out, cfg.logit_softcap)
 
 
 def _divisor_chunk(T: int, want: int) -> int:
@@ -314,3 +433,51 @@ def lm_loss(cfg: ModelConfig, params, batch):
     loss = ce + aux
     return loss, {"ce": ce, "aux": aux, "accuracy": correct / denom,
                   "tokens": n_tok}
+
+
+# ---------------------------------------------------------------------------
+# serving entry points
+# ---------------------------------------------------------------------------
+
+# the leaves the reference reads in f32 (norm scales, the RG-LRU gates, the
+# SSM's scalars, the MoE router); every other block leaf it casts to the
+# compute dtype at each use
+F32_LEAVES = frozenset({"norm1", "norm2", "final_norm", "q_norm", "k_norm",
+                        "kv_norm", "norm", "A_log", "D", "dt_bias", "wa",
+                        "ba", "wi", "bi", "lam", "router"})
+
+
+def cast_for_serving(cfg: ModelConfig, params):
+    """The params as serving reads them, each leaf cast once to the dtype
+    the reference casts it to at every use (module docstring): the
+    ``embed`` lookup table in the compute dtype and ``unembed`` ((d, V),
+    for a tied config ``embed.T``) in f32. Leaves already in their dtype
+    are shared, not copied."""
+    cd = cfg.compute_dtype
+    rest = {k: v for k, v in params.items() if k not in ("embed", "unembed")}
+    out = tree_unflatten(rest, [
+        t.to(torch.float32 if path[-1] in F32_LEAVES else cd)
+        for path, t in tree_leaves_with_path(rest)])
+    out["embed"] = params["embed"].to(cd)
+    out["unembed"] = _unembed_weight(cfg, params).to(torch.float32)
+    return out
+
+
+def prefill(cfg: ModelConfig, params, tokens, caches, *,
+            mrope_positions=None, patch_embeds=None):
+    """A teacher-forced pass that fills ``caches`` (in place); returns the
+    last position's logits (B, V) f32 and the caches."""
+    h, caches, _ = forward(cfg, params, tokens, caches=caches,
+                           mrope_positions=mrope_positions,
+                           patch_embeds=patch_embeds)
+    return logits_at(cfg, params, h[:, -1]), caches
+
+
+def decode_step(cfg: ModelConfig, params, token, caches, cache_pos, *,
+                mrope_positions=None):
+    """token: (B, 1); cache_pos: (B,) each row's position. Returns the next
+    token's logits (B, V) f32 and the caches, written in place."""
+    h, caches, _ = forward(cfg, params, token, caches=caches,
+                           cache_pos=cache_pos,
+                           mrope_positions=mrope_positions)
+    return logits_at(cfg, params, h[:, -1]), caches

@@ -1,1 +1,1 @@
-"""The multi-pod training step."""
+"""The multi-pod training step and the serving steps."""

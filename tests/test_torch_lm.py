@@ -28,7 +28,6 @@ from repro.models.common import init_params as ref_init
 from repro.ps import zoo as ref_zoo
 from repro_torch import configs, kernels
 from repro_torch.core.easgd import EASGDConfig
-from repro_torch.models import mla
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import init_params, tree_leaves_with_path
 from repro_torch.ps import runtime, zoo
@@ -157,17 +156,12 @@ def test_own_init_is_seeded_with_the_reference_std():
 
 def test_unported_kinds_and_arch_ids_raise():
     """Every arch id and layer kind of the reference is ported: an
-    unknown id or kind raises ValueError, as the reference does, and the
-    one unported path on an MLA layer, a cache, names ROADMAP."""
+    unknown id or kind raises ValueError, as the reference does."""
     with pytest.raises(ValueError):
         configs.get("no-such-arch")
     cfg = dataclasses.replace(configs.get(ARCH).reduced, pattern=("moe",))
     with pytest.raises(ValueError, match="unknown layer kind"):
         tfm.model_defs(cfg)
-    ds = configs.get("deepseek-v2-236b").reduced
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mla.mla_block(ds, {}, torch.zeros(1, 2, ds.d_model),
-                      torch.arange(2)[None], cache={})
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ out and lse ≤ 2.1e-7, gradients ≤ 2.9e-7; deepseek's LM f32 loss 7.3e-8,
 gradient 3.1e-6, bf16 (conditioned) loss 4.8e-5, gradient 1.1e-2.
 """
 import dataclasses
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,7 @@ from repro_torch import configs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import mla
 from torch_lm_parity import assert_parity
+from torch_serve_parity import decode_rows, walk_block
 
 ARCH = "deepseek-v2-236b"
 
@@ -87,13 +89,31 @@ def test_mla_block_and_gradients_match_reference(B, S):
         assert _rel(pt[name].grad.numpy(), want_p[name]) <= 1e-4, name
 
 
-def test_mla_with_a_cache_is_not_ported():
-    cfg = configs.get(ARCH).reduced
-    x, p, _ = _inputs(cfg, 1, 4, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mla.mla_block(cfg, {k: torch.from_numpy(v) for k, v in p.items()},
-                      torch.from_numpy(x), torch.arange(4)[None],
-                      cache={"ckv": None})
+@pytest.mark.parametrize("n_prefill,S,Sc,rows", [
+    (6, 11, 11, None), (3, 9, 12, None), (12, 12, 10, None),
+    (None, 1, 10, [0, 9, 4])])
+def test_mla_block_serving_matches_reference(n_prefill, S, Sc, rows):
+    """The prefill's compressed (ckv, kpe) fill, the reach past the cache
+    (S 12 into Sc 10 writes the first Sc tokens, as the reference does),
+    and the absorbed decode: each call's output and cache leaves, f32
+    1e-5; one decode step from a random cache at per-row positions."""
+    rcfg = dataclasses.replace(ref_configs.get(ARCH).reduced,
+                               compute_dtype=jnp.float32)
+    pcfg = dataclasses.replace(configs.get(ARCH).reduced,
+                               compute_dtype=torch.float32)
+    a = pcfg.mla
+    B = len(rows) if rows else 2
+    x, p, _ = _inputs(pcfg, B, S, seed=S + Sc)
+    fns = (partial(ref_mla.mla_block, rcfg), partial(mla.mla_block, pcfg))
+    shapes = {"ckv": (B, Sc, a.kv_lora_rank),
+              "kpe": (B, Sc, a.qk_rope_head_dim)}
+    if rows is None:
+        walk_block(*fns, p, x, {k: np.zeros(sh, np.float32)
+                                for k, sh in shapes.items()}, n_prefill)
+    else:
+        rng = np.random.RandomState(2)
+        decode_rows(*fns, p, x, {k: rng.randn(*sh).astype(np.float32)
+                                 for k, sh in shapes.items()}, rows)
 
 
 @pytest.mark.parametrize("causal,S,qb,kb", [(True, 24, 8, 8),

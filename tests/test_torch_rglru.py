@@ -16,6 +16,7 @@ gradient 5e-2 (2.7e-2).
 """
 import dataclasses
 import math
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,7 @@ from repro_torch.models import rglru
 from repro_torch.models import transformer as tfm
 from repro_torch.ps import runtime, zoo
 from torch_lm_parity import assert_parity, rel
+from torch_serve_parity import decode_rows, walk_block
 
 ARCH = "recurrentgemma-2b"
 
@@ -135,12 +137,44 @@ def test_block_and_its_gradients_match_reference():
         assert rel(tp[k].grad.numpy(), want_g[0][k]) <= 1e-4, k
 
 
-def test_serving_paths_raise():
-    _, port = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rglru.rglru_step(port, {}, torch.zeros(1, 32), torch.zeros(1, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rglru.rglru_block(port, {}, torch.zeros(1, 1, 32), cache={})
+def test_rglru_step_matches_reference():
+    ref, port = _cfgs()
+    p = _params(32, seed=3)
+    rng = np.random.RandomState(6)
+    x_t = rng.randn(3, 32).astype(np.float32)
+    h0 = rng.randn(3, 32).astype(np.float32)
+    want_y, want_h = ref_rglru.rglru_step(
+        ref, {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x_t),
+        jnp.asarray(h0))
+    got_y, got_h = rglru.rglru_step(
+        port, {k: torch.from_numpy(v) for k, v in p.items()},
+        torch.from_numpy(x_t), torch.from_numpy(h0))
+    assert got_h.dtype == torch.float32
+    assert rel(got_y.numpy(), want_y) <= 1e-5
+    assert rel(got_h.numpy(), want_h) <= 1e-5
+
+
+@pytest.mark.parametrize("n_prefill,S,rows", [(9, 13, None), (4, 6, None),
+                                              (None, 1, [3, 17])])
+def test_rglru_block_prefill_and_decode_match_reference(n_prefill, S, rows):
+    """The prefill's conv history and ``h[:, -1]`` in f32, then each decode
+    step's output, conv history and state; and one decode step from a
+    random cache at per-row positions. f32 1e-5."""
+    ref, port = _cfgs()
+    p = _params(32, seed=4)
+    rng = np.random.RandomState(S)
+    B = 2
+    x = rng.randn(B, S, 32).astype(np.float32)
+    fns = (partial(ref_rglru.rglru_block, ref),
+           partial(rglru.rglru_block, port))
+    if rows is None:
+        cache = {"conv": np.zeros((B, 3, 32), np.float32),
+                 "state": np.zeros((B, 32), np.float32)}
+        walk_block(*fns, p, x, cache, n_prefill)
+    else:
+        cache = {"conv": rng.randn(B, 3, 32).astype(np.float32),
+                 "state": rng.randn(B, 32).astype(np.float32)}
+        decode_rows(*fns, p, x, cache, rows)
 
 
 @pytest.mark.parametrize("dt,conditioned", [("f32", False),

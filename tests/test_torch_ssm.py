@@ -20,6 +20,7 @@ which shares that file's reference subprocess.
 """
 import dataclasses
 import math
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +40,7 @@ from repro_torch.launch import train as launcher
 from repro_torch.models import ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.ps import zoo
+from torch_serve_parity import decode_rows, walk_block
 
 ARCH = "mamba2-780m"
 TOLS = {"f32": (1e-5, 1e-4), "bf16": (1e-3, 5e-2)}
@@ -110,15 +112,52 @@ def test_ssm_block_matches_reference(dt):
     assert _rel(got.float().numpy(), np.asarray(want, np.float32)) <= tol
 
 
-def test_cache_and_decode_raise():
-    _, pcfg = _cfgs("f32")
-    layer = {k: v[0] for k, v in
-             _port_params(pcfg)["blocks"][0]["ssm"].items()}
-    x = torch.zeros(1, 1, pcfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssm.ssm_block(pcfg, layer, x, cache={})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssm.ssd_step(None, None, None, None, None, None)
+def _ssm_layer(pcfg):
+    return {k: v[0].numpy() for k, v in
+            _port_params(pcfg)["blocks"][0]["ssm"].items()}
+
+
+def _ssm_cache(pcfg, B, rng=None):
+    s = pcfg.ssm
+    d_inner, H, conv_dim = ssm._dims(pcfg)
+    shapes = {"conv": (B, s.d_conv - 1, conv_dim),
+              "state": (B, H, s.head_dim, s.d_state)}
+    draw = (lambda sh: np.zeros(sh, np.float32)) if rng is None else (
+        lambda sh: rng.randn(*sh).astype(np.float32))
+    return {k: draw(sh) for k, sh in shapes.items()}
+
+
+def test_ssd_step_matches_reference():
+    rng = np.random.RandomState(5)
+    B, H, P, N = 3, 8, 16, 16
+    args = (rng.randn(B, H, P, N), rng.randn(B, H, P),
+            np.log1p(np.exp(rng.randn(B, H))),
+            -np.exp(0.3 * rng.randn(H)), rng.randn(B, N), rng.randn(B, N))
+    args = [a.astype(np.float32) for a in args]
+    want_s, want_y = ref_ssm.ssd_step(*map(jnp.asarray, args))
+    got_s, got_y = ssm.ssd_step(*map(torch.from_numpy, args))
+    assert got_s.dtype == torch.float32 and got_y.shape == (B, H, P)
+    assert _rel(got_s.numpy(), want_s) <= TOLS["f32"][0]
+    assert _rel(got_y.numpy(), want_y) <= TOLS["f32"][0]
+
+
+@pytest.mark.parametrize("n_prefill,S,rows", [(10, 14, None),
+                                              (20, 23, None),
+                                              (None, 1, [5, 40])])
+def test_ssm_block_prefill_and_decode_match_reference(n_prefill, S, rows):
+    """The prefill's conv history and final state (one chunk padded, two
+    chunks), then each decode step's output, conv history and state; and
+    one decode step from a random cache at per-row positions. f32 1e-5."""
+    rcfg, pcfg = _cfgs("f32")
+    x = np.random.RandomState(S).randn(2, S, pcfg.d_model).astype(
+        np.float32)
+    fns = (partial(ref_ssm.ssm_block, rcfg), partial(ssm.ssm_block, pcfg))
+    if rows is None:
+        walk_block(*fns, _ssm_layer(pcfg), x, _ssm_cache(pcfg, 2),
+                   n_prefill)
+    else:
+        decode_rows(*fns, _ssm_layer(pcfg), x,
+                    _ssm_cache(pcfg, 2, np.random.RandomState(1)), rows)
 
 
 def _port_params(cfg):
