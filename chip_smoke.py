@@ -122,7 +122,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    thread ↔ tcp master ↔ tcp p2p triangle (sync_easgd tree 2 and ring 3,
    sync_sgd butterfly 4) on the card, with the update kernels' launches
    counted exactly in the master or in the workers (BYE); (b) full-width
-   AlexNet, P = 4, ring, 4 MiB buckets, 16 rounds, Sync EASGD on the
+   AlexNet, P = 4, ring, 4 MiB buckets, 4 rounds, Sync EASGD on the
    thread plane, the tcp master plane and the tcp p2p plane with overlap
    on, off and with sign_ef: µs/iter traced (the thread plane untraced
    too), the Table-3 shares, master / peer / wire bytes, exact update
@@ -161,7 +161,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    P = 4 under ``emulated_topology(2, 2)``, hierarchical, 8 iterations,
    both sync algorithms: per-link bytes == ``predicted_link_bytes``, the
    intra / cross totals its ``host_of`` partition, card == CPU bit for
-   bit; (d) full-width AlexNet on tcp p2p, P = 4, 4 MiB buckets, 8 rounds
+   bit; (d) full-width AlexNet on tcp p2p, P = 4, 4 MiB buckets, 2 rounds
    a schedule, the intra class the loopback α–β and the cross class 20x
    its α and 4x its β: ring, hierarchical and "auto" from a tcp
    ``calibrate`` profile (``--burn`` interpreters), traced: µs/iter,
@@ -234,7 +234,24 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    (e) at f32 compute, gemma3-4b at full width cut to 6 layers:
    ``prefill(1020)`` and 8 decode steps across the 1024-slot wrap equal
    ``forward(1028)``'s last logits to 1e-4, and the ten reduced configs'
-   prefill and 8 decode steps on the card equal the CPU's to 1e-4.
+   prefill and 8 decode steps on the card equal the CPU's to 1e-4;
+23. multi-device placement (``launch.mesh``, ``runtime.sharding``,
+   ``models.tp``) on the one card: the multi-pod step of phase 10
+   (gemma3-4b at 6 layers, P = 2, B 1 per pod, S 4096, psum, overlap on)
+   built with a ``(pod 1, data 1, model 1)`` mesh over a world of one
+   NCCL process and without one, 2 steps each from the same seeded
+   state, counters 0 before each step and read after: the meshed state
+   equals the un-meshed one bit for bit after each step; ms per step of
+   both (the mesh path's host cost), launches and peak; then two
+   processes on the one card over gloo (NCCL takes one rank a card),
+   meshed as ``model`` 2 (attention on half the heads, the loss head on
+   131,072-column vocab shards) and as ``pod`` 2 (the packed exchange an
+   all-reduce between the processes): the same 2 steps held against the
+   world of one, the loss to 1e-3 and what the steps moved (the params'
+   and the center's moves from the start, the momentum) by the relative
+   norm of the error, to 5e-2, far below the 0.7 that a skipped pod sum
+   reads (read in each run); exact launches, ms per step and the peak
+   per rank.
 
 Each phase prints its seconds (and each sub-phase's from 16 on). Phase
 17a's sync runs share their worker start-ups with the thread ↔ master ↔
@@ -1946,7 +1963,7 @@ def phase_async_lm(torch, runtime, zoo, kernels, configs, EASGDConfig,
     EASGD and Hogwild then compute exactly the quota, the async family
     under the turnstile one gradient more per worker (computed ahead of a
     turn that never comes); one final eval."""
-    p, iters = 4, 32
+    p, iters = 4, 16
     easgd = EASGDConfig(eta=0.05, rho=0.05, mu=MU)
     totals = {k.__name__: 0 for k in kernels.KERNELS}
     for arch, algo, det in (("gemma3-4b", "original_easgd", False),
@@ -2044,7 +2061,7 @@ def phase_ps_launcher(launcher, kernels, device="cuda") -> dict:
     launcher sets the counts to 0 before each algorithm; after it returns
     they hold the last one's, sync_easgd: its update once per worker and
     round (the DES launches nothing)."""
-    p, iters = 2, 80
+    p, iters = 2, 40
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         results = launcher.main(["--mode", "ps", "--algorithm", "all",
@@ -2155,14 +2172,14 @@ def shares(res) -> str:
 
 def phase_tcp_alexnet(torch, runtime, zoo, kernels, comm_rounds, wire,
                       EASGDConfig, device="cuda", notes=None) -> dict:
-    """(17b) Full-width AlexNet, P = 4, ring, 4 MiB buckets, 16 rounds,
+    """(17b) Full-width AlexNet, P = 4, ring, 4 MiB buckets, 4 rounds,
     Sync EASGD five ways: thread, tcp master plane, tcp p2p with overlap on
     and off, tcp p2p with sign_ef. The thread plane untraced (µs/iter) and
     traced (the Table-3 shares), the tcp ways traced only (17c reads what
     tracing costs; phase 18b runs the p2p-overlap cell untraced as its
     telemetry-off run); the bytes on the master's links, on each peer
     link and in all; kernel 1's launches, exact; the loopback α–β."""
-    p, rounds = 4, 16
+    p, rounds = 4, 4
     easgd = EASGDConfig(eta=0.005, rho=0.01, mu=MU)
     problem = zoo.resolve("alexnet")
     alpha, beta = wire.measure_link()
@@ -2481,7 +2498,7 @@ def phase_live(torch, runtime, zoo, problems, kernels, costmodel,
     port = free_port()
     net = costmodel.Network("tiny-emu", 5e-3, 1e-9)
     cfg = runtime.PSConfig(algorithm="hogwild_easgd", n_workers=3,
-                           total_iters=480, transport="tcp", schedule="ring",
+                           total_iters=240, transport="tcp", schedule="ring",
                            eval_every_iters=10**9, emulate_net=net,
                            link_slow=(1.0, 1.0, 8.0), hb_interval_s=0.2,
                            telemetry=True, tcp_port=port)
@@ -2627,7 +2644,7 @@ def run_with_respawn(runtime, server, kernels, problem, easgd, cfg, jsonl,
 
 def phase_elastic(torch, runtime, zoo, problems, kernels, comm_rounds, eu,
                   server, costmodel, EASGDConfig, device="cuda",
-                  model="alexnet", rounds=200) -> dict:
+                  model="alexnet", rounds=110) -> dict:
     """(18c) Elastic membership at full width: AlexNet, P = 4, ring, p2p,
     4 MiB buckets, Sync EASGD, ``elastic=True``, wid 2 SIGKILLed by chaos;
     a respawn started when the reconfigure event reaches the JSONL stream
@@ -3000,7 +3017,7 @@ def phase_topology_tcp(torch, runtime, problems, kernels, costmodel,
 def phase_topology_alexnet(torch, runtime, zoo, kernels, costmodel,
                            comm_rounds, comm_schedules, peer, wire,
                            EASGDConfig, device="cuda") -> dict:
-    """(19d) Full-width AlexNet on tcp p2p, P = 4, 4 MiB buckets, 8 rounds
+    """(19d) Full-width AlexNet on tcp p2p, P = 4, 4 MiB buckets, 2 rounds
     a schedule, under ``emulated_topology(2, 2)`` whose intra class is the
     loopback α–β ``wire.measure_link`` reads and whose cross class is 20x
     its α and 4x its β: ring, hierarchical and "auto" (resolved from a tcp
@@ -3008,7 +3025,7 @@ def phase_topology_alexnet(torch, runtime, zoo, kernels, costmodel,
     traced: µs/iter, the Table-3 shares, peer / intra / cross bytes
     against the prediction, each wid's paced exchange time against the
     exchange time it measured, and kernel 1's launches, exact."""
-    p, rounds = 4, 8
+    p, rounds = 4, 2
     easgd = EASGDConfig(eta=0.005, rho=0.01, mu=MU)
     problem = zoo.resolve("alexnet")
     alpha, beta = wire.measure_link()
@@ -3934,6 +3951,421 @@ def phase_serving(torch, np, configs, tfm, common, fa, sc, kernels, timing,
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 23: multi-device placement
+# ---------------------------------------------------------------------------
+
+PHASE23_DIR = Path(__file__).resolve().parent / "build" / "phase23"
+MESH_WORLDS = (("model 2", (1, 1, 2)), ("pod 2", (2, 1, 1)))
+
+
+def mesh_easgd(elastic, EASGDConfig):
+    """Phase 23's exchange: phase 10's (psum, overlap on)."""
+    return elastic.ElasticConfig(easgd=EASGDConfig(eta=ETA, rho=RHO, mu=MU),
+                                 schedule="psum", overlap=True)
+
+
+HELD = ("params", "momentum", "center")
+# relative norms of the error in what (a)'s steps moved: the params and
+# the center from the center they started at, the momentum from 0. model
+# 2 reads about 2e-2 in each (bf16 partial sums rounded before their
+# all-reduce); the same hold of a reduced gemma3-4b on the CPU reads
+# 1.3e-2 at bf16, and 0.84-0.86 with the model-parallel gradient's
+# all-reduce left out; a pod sum skipped reads about 0.7 in the center's
+# move (read in (a) on every run)
+HELD_TOL = {"params": 5e-2, "momentum": 5e-2, "center": 5e-2}
+
+
+def held_sums(torch, state, refs, cfg, mesh, pspecs) -> dict:
+    """``{quantity: (||got - want||^2, ||want - start||^2)}`` for the
+    params, momentum and center over this rank's block: ``refs`` is
+    (a)'s ``(P, n)`` params and momentum and ``(n,)`` center after its
+    steps and its center before them (CUDA IPC views of another process's
+    tensors), cut to the rank's pods and shard leaf by leaf. ``start`` is
+    where the steps began (every pod's params at the center, the momentum
+    0), so each quantity is held against what the steps moved. A leaf
+    that ``model`` does not split counts on model rank 0 alone."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import spec_leaves
+    from repro_torch.runtime import sharding as shd
+    w_ref, v_ref, c_ref, c0 = refs
+    sizes = shd.mesh_axis_sizes(mesh)
+    pl = state.params.shape[0]
+    pod0 = mesh.get_local_rank("pod") * pl if sizes["pod"] > 1 else 0
+    first = sizes["model"] == 1 or mesh.get_local_rank("model") == 0
+    sums = {k: [0.0, 0.0] for k in HELD}
+
+    def add(key, got, want, start):
+        sums[key][0] += float(torch.linalg.vector_norm(got - want)) ** 2
+        moved = want if start is None else want - start
+        sums[key][1] += float(torch.linalg.vector_norm(moved)) ** 2
+
+    off_l = off_f = 0
+    for (_, lshape), (_, fshape), spec in zip(
+            shd.local_layout(cfg, mesh), tfm.ravel_layout(cfg),
+            spec_leaves(pspecs)):
+        nl, nf = math.prod(lshape), math.prod(fshape)
+        if first or "model" in shd.spec_axes(spec):
+            cut = shd.local_slices(mesh, fshape, spec)
+            full = slice(off_f, off_f + nf)
+            start = c0[full].view(fshape)[cut]
+            add("center", state.center[off_l:off_l + nl].view(lshape),
+                c_ref[full].view(fshape)[cut], start)
+            for i in range(pl):
+                add("params", state.params[i, off_l:off_l + nl].view(lshape),
+                    w_ref[pod0 + i, full].view(fshape)[cut], start)
+                add("momentum",
+                    state.momentum[i, off_l:off_l + nl].view(lshape),
+                    v_ref[pod0 + i, full].view(fshape)[cut], None)
+        off_l, off_f = off_l + nl, off_f + nf
+    return {k: tuple(v) for k, v in sums.items()}
+
+
+def mesh_rank(rank: int, store: str, cfg, S: int, batches, up, refs,
+              out: str) -> None:
+    """One of the two processes of phase 23 (b) and (c), on the one card:
+    a gloo world of two (NCCL takes one rank a card), meshed first as
+    ``model`` 2 and then as ``pod`` 2. Started while the parent stages
+    (a)'s state, it joins its world and waits on ``refs`` for the
+    parent's go; then,
+    from phase 10's seeded state, the steps of (a), each timed and
+    counted. Then it tells the parent on
+    ``up`` that it has stepped, takes (a)'s state from ``refs`` (CUDA IPC
+    views, which the parent uploads only now, beside the ranks' states
+    and not beside their steps' peaks), holds its block against it, says
+    so on ``up`` and waits on ``refs`` until the parent has freed them.
+    Writes what it read to ``out``."""
+    import datetime
+    import traceback
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.core import elastic
+    from repro_torch.core.easgd import EASGDConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime import train
+    from repro_torch.utils import timing
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    result = {}
+    try:
+        refs.get()      # the parent's go: (a) has left the card
+        for name, (pods, data, model) in MESH_WORLDS:
+            t0 = time.perf_counter()
+            mesh = mesh_lib.make_host_mesh(data, model, n_pods=pods,
+                                           device=dev)
+            build = train.build_train_step(
+                cfg, mesh_easgd(elastic, EASGDConfig), n_pods=2,
+                per_pod_batch=1, seq=S, device=dev, mesh=mesh)
+            torch.cuda.reset_peak_memory_stats()
+            state = build.init_state()
+            torch.cuda.empty_cache()
+            r = result[name] = {"ms": [], "losses": [], "counts": [],
+                                "local": list(state.params.shape)}
+            for batch in batches:
+                kernels.reset_launch_counts()
+                with timing.Timer(dev) as tm:
+                    state, metrics = build.step(state, batch)
+                r["counts"].append(kernels.launch_counts())
+                r["ms"].append(1e3 * tm.elapsed)
+                r["losses"].append(metrics["loss"].item())
+            r["peak"] = torch.cuda.max_memory_allocated()
+            pspecs = build.param_specs
+            del build, metrics
+            torch.cuda.empty_cache()
+            up.put((rank, "stepped"))
+            t = time.perf_counter()
+            views = refs.get()
+            r["sums"] = held_sums(torch, state, views, cfg, mesh, pspecs)
+            torch.cuda.synchronize()
+            del views
+            up.put((rank, "held"))
+            refs.get()
+            r["held_s"] = time.perf_counter() - t
+            r["s"] = time.perf_counter() - t0
+            del state
+            torch.cuda.empty_cache()
+    except BaseException:
+        result["error"] = traceback.format_exc()
+        up.put((rank, "error"))
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(result))
+
+
+def start_mesh_ranks(cfg, S: int, batches) -> tuple:
+    """Spawn the two processes of phase 23 (b) and (c), which import and
+    join their world while this process stages (a)'s state (after (a)'s
+    timed steps, which their imports would slow). Returns ``(procs, up,
+    refs, outs)``."""
+    shutil.rmtree(PHASE23_DIR, ignore_errors=True)
+    PHASE23_DIR.mkdir(parents=True)
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    outs = [PHASE23_DIR / f"rank{r}.json" for r in range(2)]
+    up, refs = ctx.Queue(), ctx.Queue()
+    procs = [ctx.Process(target=mesh_rank, args=(
+        r, str(PHASE23_DIR / "store"), cfg, S, batches, up, refs,
+        str(outs[r]))) for r in range(2)]
+    # two processes share the card beside this one: no segment reserved
+    # and left unused (read when their CUDA starts)
+    before = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        for pr in procs:
+            pr.start()
+    finally:
+        if before is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = before
+    return procs, up, refs, outs
+
+
+def stop(procs, deadline: float) -> None:
+    """Join ``procs`` until ``deadline``, then kill what still runs."""
+    for pr in procs:
+        pr.join(max(deadline - time.monotonic(), 0.1))
+    for pr in procs:
+        if pr.is_alive():
+            pr.kill()
+            pr.join()
+
+
+def pinned(torch, t):
+    """A copy of the card tensor ``t`` in page-locked host memory, which
+    the link fills and drains faster than pageable memory."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+
+def await_ranks(up, procs, what: str, deadline: float) -> bool:
+    """Whether every rank of ``procs`` said ``what`` on ``up`` before
+    ``deadline`` (False at once when one says ``error`` or dies)."""
+    import queue
+    heard = set()
+    while len(heard) < len(procs):
+        try:
+            rank, said = up.get(timeout=1)
+        except queue.Empty:
+            if time.monotonic() > deadline or any(
+                    pr.exitcode not in (None, 0) for pr in procs):
+                return False
+            continue
+        if said != what:
+            return False
+        heard.add(rank)
+    return True
+
+
+def phase_mesh(torch, cfg, S, elastic, EASGDConfig, train, synthetic,
+               kernels, timing, dev) -> dict:
+    """(23) The multi-pod step of phase 10 on meshes. (a) A ``(pod 1,
+    data 1, model 1)`` mesh over a world of one process (NCCL on the
+    card, gloo on the CPU) against the same step without a mesh: 2 steps
+    each in turns from the same seeded state, counters 0 before each step
+    and read after; the states equal bit for bit after each step. (b, c)
+    On the card, two processes over gloo (NCCL takes one rank a card):
+    ``model`` 2 (attention on 4 of the 8 heads and 2 of the 4 kv heads a
+    rank, the loss head on 131,072-column vocab shards) and ``pod`` 2
+    (the packed exchange a real all-reduce between the processes), the
+    same 2 steps each, held against (a): the losses to 1e-3 relative;
+    the params, the momentum (``-eta`` times the gradients, after the
+    first step) and the center's move (the second step's pod mean: the
+    first exchange carries zero deltas, every pod starting at the center)
+    by the relative norm of their error (``HELD_TOL``); exact launches per
+    rank. (a) also reads how far a pod sum skipped on one rank would move
+    the center's error, which the center's limit must stay far below.
+    Returns the launches."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    p, steps = 2, 2
+    ecfg = mesh_easgd(elastic, EASGDConfig)
+    streams = [synthetic.SyntheticLMStream(cfg.vocab_size, S, 1, seed=13,
+                                           shard=i, n_shards=p)
+               for i in range(p)]
+    batches = []
+    for s in range(steps):
+        shards = [st.batch_at(s) for st in streams]
+        batches.append({k: np.stack([sh[k] for sh in shards])
+                        for k in shards[0]})
+    cuda = dev.type == "cuda"
+    procs, up, refs, outs = [], None, None, []
+    owned = not dist.is_initialized()
+    backend = mesh_lib.backend_for(dev)
+    if owned:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+    names = ("un-meshed", "meshed")
+    ms = {k: [] for k in names}
+    losses = {k: [] for k in names}
+    try:
+        mesh = mesh_lib.make_host_mesh(1, 1, n_pods=1, device=dev)
+        check(dist.get_backend() == backend and dist.get_world_size() == 1,
+              f"a world of one over {backend}")
+        builds = {name: train.build_train_step(
+            cfg, ecfg, n_pods=p, per_pod_batch=1, seq=S, device=dev,
+            mesh=mesh if name == "meshed" else None) for name in names}
+        check(builds["meshed"].param_specs is not None, "meshed specs")
+        timing.synchronize(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        states = {name: builds[name].init_state() for name in names}
+        if dev.type == "cuda":
+            # the draws' transients back to the card: cuBLAS allocates its
+            # workspace outside the caching allocator
+            torch.cuda.empty_cache()
+        # where every pod starts (W = C), for what (b) and (c) moved
+        stage_s = time.perf_counter()
+        c0 = pinned(torch, states["meshed"].center) if cuda else None
+        stage_s = time.perf_counter() - stage_s
+        want = lm_counts(cfg, p, updates=1)
+        for s in range(steps + 1):
+            a, b = (states[name] for name in names)
+            check(all(torch.equal(x, y) for x, y in (
+                (a.params, b.params), (a.momentum, b.momentum),
+                (a.center, b.center))),
+                f"meshed state == un-meshed after {s} steps, bit for bit")
+            if s == steps:
+                break
+            for name in names:
+                kernels.reset_launch_counts()
+                with timing.Timer(dev) as tm:
+                    states[name], metrics = builds[name].step(states[name],
+                                                              batches[s])
+                counts = kernels.launch_counts()
+                check(counts == want, f"{name} step {s} launched {counts}, "
+                      f"expected {want}")
+                for k, v in counts.items():
+                    totals[k] += v
+                ms[name].append(1e3 * tm.elapsed)
+                losses[name].append(metrics["loss"].item())
+            check(math.isfinite(losses["meshed"][-1])
+                  and losses["meshed"][-1] == losses["un-meshed"][-1],
+                  f"meshed loss == un-meshed at step {s + 1}")
+            if s == 0:
+                # the second exchange's pod mean is the mean of the first
+                # momenta (W1 - C1 = V1): a rank that skipped the pod sum
+                # would take its own V1 alone, an error of the other's
+                v1 = states["meshed"].momentum
+                skip = min(float(torch.linalg.vector_norm(v1[1 - r]))
+                           for r in range(p)) / float(
+                               torch.linalg.vector_norm(v1.sum(0)))
+        check(HELD_TOL["center"] * 10 <= skip,
+              f"the center's limit {HELD_TOL['center']} is not far below "
+              f"a skipped pod sum's error {skip:.3e}")
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        if cuda:
+            t0 = time.perf_counter()
+            procs, up, refs, outs = start_mesh_ranks(cfg, S, batches)
+        # (a)'s state after the last step: what (b) and (c) are held
+        # against, in host memory while their ranks step
+        final = states["meshed"]
+        t = time.perf_counter()
+        host = [pinned(torch, x) for x in (
+            final.params, final.momentum, final.center)] + [c0] if cuda \
+            else None
+        stage_s += time.perf_counter() - t
+        del states, builds, a, b, final, v1
+    except BaseException:
+        stop(procs, 0)
+        raise
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    print(f"mesh world of 1 over {backend}: {cfg.name} {cfg.n_layers} "
+          f"layers P={p} B=1 S={S} psum overlap, {steps} steps in turns "
+          f"from one seeded state: the meshed state == the un-meshed one, "
+          f"bit for bit, after every step; ms per step un-meshed "
+          f"{[round(x, 1) for x in ms['un-meshed']]}, meshed "
+          f"{[round(x, 1) for x in ms['meshed']]}; losses "
+          f"{[round(x, 6) for x in losses['meshed']]}; peak "
+          f"{peak / 2**30:.2f} GiB (both states resident); launches per "
+          f"step {want}; a pod sum skipped on one rank would read "
+          f"{skip:.3e} in the center's move; its state to pinned host "
+          f"memory {stage_s:.1f} s", flush=True)
+    if dev.type != "cuda":
+        return totals
+
+    # (b), (c): the two processes on the one card, started before the
+    # staging
+    release_card(torch, "before phase 23b-c")
+    t_go = time.perf_counter()
+    for _ in procs:
+        refs.put(None)
+    deadline = time.monotonic() + 300
+    upload_s = []
+    for name, _ in MESH_WORLDS:
+        if not await_ranks(up, procs, "stepped", deadline):
+            break
+        t = time.perf_counter()
+        views = tuple(x.to(dev) for x in host)
+        torch.cuda.synchronize()
+        upload_s.append(time.perf_counter() - t)
+        for _ in procs:
+            refs.put(views)
+        held = await_ranks(up, procs, "held", deadline)
+        del views
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+        if not held:
+            break
+        for _ in procs:
+            refs.put(None)
+    stop(procs, deadline)
+    wall, after_go = time.perf_counter() - t0, time.perf_counter() - t_go
+    del host
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    check([pr.exitcode for pr in procs] == [0, 0],
+          f"phase 23 ranks exit codes {[pr.exitcode for pr in procs]}")
+    res = [json.loads(o.read_text()) for o in outs]
+    for r, out in enumerate(res):
+        check("error" not in out, f"phase 23 rank {r}: {out.get('error')}")
+    for name, (pods, _, _) in MESH_WORLDS:
+        rows = [out[name] for out in res]
+        local_pods = p // pods
+        want_rank = lm_counts(cfg, local_pods, updates=1)
+        for r, row in enumerate(rows):
+            for s, counts in enumerate(row["counts"]):
+                check(counts == want_rank, f"{name} rank {r} step {s} "
+                      f"launched {counts}, expected {want_rank}")
+                for k, v in counts.items():
+                    totals[k] += v
+        rel_loss = max(abs(x - y) / abs(y) for row in rows
+                       for x, y in zip(row["losses"], losses["meshed"]))
+        rel = {k: math.sqrt(sum(row["sums"][k][0] for row in rows)
+                            / sum(row["sums"][k][1] for row in rows))
+               for k in HELD}
+        print(f"mesh world {name} (gloo, 2 processes on one card): "
+              f"{cfg.name} {cfg.n_layers} layers P={p} B=1 S={S} psum "
+              f"overlap: vs (a) loss rel {rel_loss:.3e} (limit 1e-3); "
+              f"relative error in what the steps moved: "
+              + ", ".join(f"{k} {rel[k]:.3e} (limit {HELD_TOL[k]})"
+                          for k in HELD)
+              + f"; ms per step "
+              f"{[[round(x, 1) for x in row['ms']] for row in rows]} "
+              f"(rank 0, rank 1); local rows {rows[0]['local']}; peak per "
+              f"rank {[round(row['peak'] / 2**30, 2) for row in rows]} "
+              f"GiB; launches per rank and step {want_rank}; "
+              f"{max(row['s'] for row in rows):.1f} s with the build, init "
+              f"and the hold ({max(row['held_s'] for row in rows):.1f} s)",
+              flush=True)
+        check(rel_loss <= 1e-3, f"{name}: loss vs (a) {rel_loss:.3e}")
+        for k in HELD:
+            check(rel[k] <= HELD_TOL[k], f"{name}: {k} vs (a) "
+                  f"{rel[k]:.3e}, limit {HELD_TOL[k]}")
+    print(f"phase 23b-c: {after_go:.1f} s for both worlds after the go "
+          f"({wall:.1f} s from the spawn, beside the staging); (a)'s "
+          f"state to the card {[round(x, 1) for x in upload_s]} s",
+          flush=True)
+    return totals
+
+
 SOURCES = {"fused_sync_easgd_update": "elastic_update.cu",
            "fused_sync_sgd_update": "elastic_update.cu",
            "flash_attention_fwd": "flash_attention.cu",
@@ -4251,6 +4683,13 @@ def main() -> int:
     add_counts(launches, counts)
     merge_rows(rows, serve_rows)
     print(f"phase serving (22): {time.perf_counter() - t:.1f} s", flush=True)
+
+    # multi-device placement on a world of one (phase 23)
+    release_card(torch, "before phase 23")
+    t = time.perf_counter()
+    add_counts(launches, phase_mesh(torch, full, 4096, elastic, EASGDConfig,
+                                    train, synthetic, kernels, timing, dev))
+    print(f"phase mesh (23): {time.perf_counter() - t:.1f} s", flush=True)
 
     check("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),

@@ -23,4 +23,8 @@ Ported so far (see ROADMAP.md for what is still to come):
   (``comm.plan``), compressions, data pipeline, checkpoints and watchdog,
   and the fused momentum-EASGD update ``fused_elastic_update`` in CUDA
   (``kernels/csrc/elastic_update.cu``).
+* placement on a ``(pod, data, model)`` mesh of processes over
+  ``torch.distributed`` (``launch.mesh``, ``runtime.sharding``,
+  ``models.tp``): the multi-pod step, serving and the launcher, with the
+  kernels on each rank's local shards; and ``optim``.
 """

@@ -27,14 +27,23 @@ f32 (compression only), ``step`` as a host integer (τ's branch never
 synchronises), and the leaf ``shapes`` that cut the rows into the
 reference's leaves (checkpoints, ``state_from_jax``).
 
-What has no counterpart on one device: ``state_specs`` (PartitionSpecs)
-and the ``shard_map`` placement of the packed body; every pod row is local.
+On a mesh (``runtime.train.build_train_step(mesh=)``) each rank's state
+holds its local pods' rows of its local shards, packed as the reference's
+``_pack_local`` packs them (leaves in tree order, the pod dim outer), and
+``shapes`` are the local leaf shapes. The plan then carries the ``pod``
+axis's group: the local rows are summed and ONE collective runs over the
+group (``comm.plan``), issued before the gradients with ``overlap`` and
+waited on before the update, and the update runs unchanged on the local
+rows with the total pod count. ``state_specs`` gives the reference's
+PartitionSpecs; ``state_from_jax(..., mesh=, param_specs=)`` cuts a
+reference state into the rank's shards and ``gather_state`` puts them
+back together.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -84,13 +93,15 @@ class ElasticConfig:
         return comm_schedules.choose(wire, n_total,
                                      costmodel.POD_EXCHANGE_NET)
 
-    def exchange_plan(self, n_total: int, n_elements: int | None = None
-                      ) -> comm_plan.ExchangePlan:
-        """The fully-composed cross-pod exchange this config describes."""
+    def exchange_plan(self, n_total: int, n_elements: int | None = None,
+                      group=None) -> comm_plan.ExchangePlan:
+        """The fully-composed cross-pod exchange this config describes;
+        ``group`` is the mesh's ``pod`` process group (None: every pod row
+        local)."""
         return comm_plan.make_plan(
             schedule=self.resolve_schedule(n_total, n_elements),
             compression=self.compression, overlap=self.overlap,
-            n_total=n_total)
+            n_total=n_total, group=group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,10 +130,35 @@ def n_pods_of(state: ElasticState) -> int:
 class PendingExchange:
     """The exchange of one step's start-of-step weights: the pod mean of W
     and the new error feedback, and the event the update waits on when the
-    exchange ran on a second stream."""
-    mean_w: torch.Tensor
+    exchange ran on a second stream. On a pod group, ``finish`` waits on
+    the collective and returns the two."""
+    mean_w: Optional[torch.Tensor]
     ef_error: Optional[torch.Tensor]
     event: Optional[torch.cuda.Event] = None
+    finish: Optional[Callable] = None
+
+
+class StateSpecs(NamedTuple):
+    """PartitionSpecs of an ``ElasticState``'s leaves, the reference's
+    ``ElasticState`` of specs."""
+    step: Any
+    params: Any
+    momentum: Any
+    center: Any
+    ef_error: Any
+
+
+def state_specs(param_specs, cfg: ElasticConfig, pod_axis: str | None):
+    """PartitionSpecs for the state given per-param specs (no pod dim):
+    local (per-pod) tensors get a leading pod-axis entry; the center is
+    replicated across pods."""
+    from repro_torch.models.common import PartitionSpec, spec_tree_map
+    params = spec_tree_map(lambda s: PartitionSpec(pod_axis, *s),
+                           param_specs)
+    center = None if cfg.mode == "msgd" else param_specs
+    ef = params if (cfg.compression != "none" and cfg.mode != "msgd") \
+        else None
+    return StateSpecs(PartitionSpec(), params, params, center, ef)
 
 
 # ---------------------------------------------------------------------------
@@ -162,31 +198,106 @@ def _as_tensor(a, device) -> torch.Tensor:
     raise TypeError(f"unsupported dtype {a.dtype}")
 
 
-def state_from_jax(ref_state, device=None) -> ElasticState:
+def state_from_jax(ref_state, device=None, *, mesh=None,
+                   param_specs=None) -> ElasticState:
     """Carry a reference ``ElasticState`` across: its ``step`` and its
     pytrees of (numpy or JAX) arrays, params, momentum and error feedback
     with a leading pod dim, packed into the port's rows (leaves in
-    ``jax.tree_util`` order, pods outer). The reverse goes through a
-    checkpoint (``checkpoint.CheckpointManager``)."""
+    ``jax.tree_util`` order, pods outer). On a ``mesh`` each leaf is first
+    cut to this rank's block: its pods by the ``pod`` axis, its dims by
+    ``param_specs`` (``runtime.sharding.param_specs``). The reverse goes
+    through a checkpoint (``checkpoint.CheckpointManager``)."""
     dev = resolve_device(device)
+    n_leaves = len(tree_leaves_with_path(ref_state.params))
+    specs, pod = [None] * n_leaves, None
+    if mesh is not None:
+        from repro_torch.models.common import spec_leaves
+        from repro_torch.runtime import sharding
+        specs = spec_leaves(param_specs)
+        pod = "pod" if "pod" in sharding.mesh_axis_sizes(mesh) else None
+
+    def cut(a, spec, pods: bool):
+        a = np.asarray(a)
+        if mesh is None:
+            return a
+        full = ((pod,) if pods else ()) + tuple(spec)
+        return a[sharding.local_slices(mesh, a.shape, full)]
+
+    def leaves_of(tree, pods: bool):
+        return [cut(leaf, spec, pods) for (_, leaf), spec in
+                zip(tree_leaves_with_path(tree), specs)]
 
     def rows(tree, pods: bool):
         if tree is None:
             return None
-        leaves = [_as_tensor(leaf, dev) for _, leaf in
-                  tree_leaves_with_path(tree)]
+        leaves = [_as_tensor(a, dev) for a in leaves_of(tree, pods)]
         if pods:
             p = leaves[0].shape[0]
             return torch.cat([t.reshape(p, -1) for t in leaves], dim=1)
         return torch.cat([t.reshape(-1) for t in leaves])
 
-    shapes = tuple(tuple(np.shape(leaf))[1:] for _, leaf in
-                   tree_leaves_with_path(ref_state.params))
+    shapes = tuple(a.shape[1:] for a in leaves_of(ref_state.params, True))
     return ElasticState(int(np.asarray(ref_state.step)),
                         rows(ref_state.params, True),
                         rows(ref_state.momentum, True),
                         rows(ref_state.center, False),
                         rows(ref_state.ef_error, True), shapes)
+
+
+def _leaf_views(t: torch.Tensor, shapes, pods: bool) -> list:
+    """A packed row's leaves (``pods``: pod rows', each ``(P, *shape)``)
+    as views."""
+    out, off = [], 0
+    for shape in shapes:
+        size = math.prod(shape)
+        out.append(t[:, off:off + size].reshape((t.shape[0],) + shape)
+                   if pods else t[off:off + size].reshape(shape))
+        off += size
+    return out
+
+
+def _relayout(state: ElasticState, mesh, param_specs, fn) -> ElasticState:
+    """The state with ``fn(leaf, spec)`` applied to every leaf of every
+    row (the pod rows' specs lead with the ``pod`` axis), packed again."""
+    from repro_torch.models.common import PartitionSpec, spec_leaves
+    from repro_torch.runtime import sharding
+    specs = spec_leaves(param_specs)
+    pod = "pod" if "pod" in sharding.mesh_axis_sizes(mesh) else None
+
+    def leaves(t, pods: bool) -> list:
+        return [fn(x, PartitionSpec(pod, *spec) if pods else spec)
+                for x, spec in zip(_leaf_views(t, state.shapes, pods), specs)]
+
+    def pack(xs, pods: bool):
+        if pods:
+            return torch.cat([x.reshape(x.shape[0], -1) for x in xs], dim=1)
+        return torch.cat([x.reshape(-1) for x in xs])
+
+    def one(t, pods: bool):
+        return None if t is None else pack(leaves(t, pods), pods)
+
+    params = leaves(state.params, True)
+    return dataclasses.replace(
+        state, params=pack(params, True), momentum=one(state.momentum, True),
+        center=one(state.center, False), ef_error=one(state.ef_error, True),
+        shapes=tuple(tuple(x.shape[1:]) for x in params))
+
+
+def gather_state(state: ElasticState, mesh, param_specs) -> ElasticState:
+    """The whole state from the ranks' shards, on every rank: every pod's
+    rows of every leaf whole, in the one-device layout (each leaf gathered
+    as a DTensor, ``runtime.sharding.gather_full``)."""
+    from repro_torch.runtime import sharding
+    return _relayout(state, mesh, param_specs, lambda x, spec: (
+        sharding.gather_full(x.contiguous(), mesh, spec)))
+
+
+def shard_state(full: ElasticState, mesh, param_specs) -> ElasticState:
+    """This rank's block of a whole state (the inverse of
+    ``gather_state``): its pods' rows of its shard of every leaf."""
+    from repro_torch.runtime import sharding
+    return _relayout(full, mesh, param_specs, lambda x, spec: (
+        x[sharding.local_slices(mesh, x.shape, spec)]))
 
 
 def state_leaves(state: ElasticState) -> list:
@@ -280,12 +391,31 @@ def _momentum_only(state: ElasticState, grads, cfg: ElasticConfig):
     return dataclasses.replace(state, step=state.step + 1)
 
 
-def _elastic_tensors(state, grads, cfg, mean_w):
+def _n_total(state: ElasticState, plan) -> int:
+    """The pod count of the whole run: the plan's on a pod group, else
+    the state's rows."""
+    if plan is not None and plan.group is not None:
+        return plan.n_total
+    return n_pods_of(state)
+
+
+def _pod_mean(rows: torch.Tensor, plan) -> torch.Tensor:
+    """The f32 mean over every pod of ``(P_local, n)`` rows: the local
+    rows' mean on one device, their sum all-reduced over the plan's pod
+    group on a mesh."""
+    if plan is None or plan.group is None:
+        return rows.float().mean(0)
+    total = rows.float().sum(0)
+    torch.distributed.all_reduce(total, group=plan.group)
+    return total.div_(float(plan.n_total))
+
+
+def _elastic_tensors(state, grads, cfg, mean_w, plan=None):
     """Per-tensor eqs 5–6 + eq 2 given the cross-pod mean of W_t, in plain
     torch (the reference's unpacked form: W' reads V' after its cast to
     the momentum dtype)."""
     e = cfg.easgd
-    n_pods = n_pods_of(state)
+    n_pods = _n_total(state, plan)
     w32, c32 = state.params.float(), state.center.float()
     v_new = (e.mu * state.momentum.float()
              - e.eta * grads.float()).to(state.momentum.dtype)
@@ -298,11 +428,12 @@ def _elastic_tensors(state, grads, cfg, mean_w):
     return dataclasses.replace(state, step=state.step + 1)
 
 
-def _exchange_unpacked(state, grads, cfg):
+def _exchange_unpacked(state, grads, cfg, plan=None):
     """Per-tensor cross-pod mean (the paper's one-collective-per-layer
-    baseline); on pod rows the per-tensor means are the row mean."""
-    mean_w = state.params.float().mean(0)
-    return _elastic_tensors(state, grads, cfg, mean_w)
+    baseline); on pod rows the per-tensor means are the row mean (on a
+    pod group one all-reduce of it)."""
+    mean_w = _pod_mean(state.params, plan)
+    return _elastic_tensors(state, grads, cfg, mean_w, plan)
 
 
 def _exchange_mean(state: ElasticState, plan: comm_plan.ExchangePlan):
@@ -327,6 +458,17 @@ def start_exchange(state: ElasticState, cfg: ElasticConfig,
     already queued on the current one; the update waits on its event."""
     if plan is None:
         plan = cfg.exchange_plan(n_pods_of(state), state.params.shape[1])
+    if plan.group is not None:
+        # the collective itself runs async (NCCL's own stream): W − C and
+        # the local pod sum stay on the main stream
+        c32 = state.center.float()
+        finish = plan.start_reduce_mean_flat(state.params.float() - c32,
+                                             state.ef_error)
+
+        def done():
+            mean_delta, ef_new = finish()
+            return mean_delta.add_(c32), ef_new
+        return PendingExchange(None, None, finish=done)
     dev = state.params.device
     if not (overlap and dev.type == "cuda"):
         return PendingExchange(*_exchange_mean(state, plan))
@@ -345,16 +487,19 @@ def start_exchange(state: ElasticState, cfg: ElasticConfig,
     return PendingExchange(mean_w, ef_new, event)
 
 
-def _exchange_packed(state, grads, cfg, pending: PendingExchange):
+def _exchange_packed(state, grads, cfg, pending: PendingExchange,
+                     n_workers: int):
     """The fused elementwise update of W, V and W̄ (eqs 5–6 + 2) through
     the kernel, after the exchange."""
     e = cfg.easgd
+    if pending.finish is not None:
+        pending.mean_w, pending.ef_error = pending.finish()
     if pending.event is not None:
         torch.cuda.current_stream(state.params.device).wait_event(
             pending.event)
     eu.fused_elastic_update(state.params, state.momentum, grads, state.center,
                             pending.mean_w, eta=e.eta, rho=e.rho, mu=e.mu,
-                            n_workers=n_pods_of(state))
+                            n_workers=n_workers)
     return dataclasses.replace(state, step=state.step + 1,
                                ef_error=pending.ef_error)
 
@@ -371,14 +516,15 @@ def apply_gradients(state: ElasticState, grads: torch.Tensor,
     if cfg.mode == "msgd":
         # plain synchronous momentum SGD: grads are averaged over pods too,
         # so all pods stay identical (pure DP baseline)
-        if n_pods_of(state) > 1:
-            grads = (grads.float().mean(0, keepdim=True)
+        if _n_total(state, plan) > 1:
+            grads = (_pod_mean(grads, plan)[None]
                      .expand_as(grads).to(grads.dtype))
         return _momentum_only(state, grads, cfg)
     if not exchanges_at(state, cfg):
         return _momentum_only(state, grads, cfg)
     if not cfg.packed:
-        return _exchange_unpacked(state, grads, cfg)
+        return _exchange_unpacked(state, grads, cfg, plan)
     if pending is None:
         pending = start_exchange(state, cfg, plan)
-    return _exchange_packed(state, grads, cfg, pending)
+    return _exchange_packed(state, grads, cfg, pending,
+                            _n_total(state, plan))

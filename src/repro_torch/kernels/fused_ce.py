@@ -26,6 +26,17 @@ tile inside the kernel that consumes it. The kernels read w as its
 transpose ``(V, d)``, which is how the tied embedding already lies in
 memory (``w = embed.T``).
 
+A target of −1 takes part in no target logit and no one-hot: its loss is
+``lse`` and its ``dlogits`` the softmax alone (the kernels already mark
+their padding rows so). ``vocab_parallel_cross_entropy`` runs the loss
+head on a vocabulary split over a ``model`` group: each rank's kernels see
+its columns, with −1 for the targets other ranks hold; the global ``lse``
+is the logsumexp of the ranks' (``all_reduce`` max, then sum), the target
+logit and the argmax come from the rank that holds them, and the backward
+kernel takes the global ``lse``, so its ``dh`` is the rank's part of the
+sum over the vocabulary (the caller sums it over ``model``) and its ``dw``
+the rank's columns whole.
+
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernels of ``csrc/fused_ce.cu`` or raises. bf16
 rows run on the tensor cores, which need d a multiple of 16 and h at a
@@ -38,6 +49,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import _build
 
@@ -140,10 +152,12 @@ def _logits(h, w):
 
 def fused_ce_fwd_ref(h, w, targets):
     """Plain version of ``fused_ce_fwd``: dense logits, ``logsumexp`` and
-    the target gather (``kernels/ref.py`` ``fused_ce_ref``)."""
+    the target gather (``kernels/ref.py`` ``fused_ce_ref``); a −1 target's
+    logit is 0."""
     logits = _logits(h, w)
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(1, targets[:, None])[:, 0]
+    tgt = logits.gather(1, targets.clamp_min(0)[:, None])[:, 0]
+    tgt = torch.where(targets >= 0, tgt, 0.0)
     return lse - tgt, lse, logits.argmax(dim=-1)
 
 
@@ -189,7 +203,9 @@ def fused_ce_bwd_ref(h, w, targets, lse, g):
     """Plain version of ``fused_ce_bwd``: the analytic gradient of the dense
     loss, ``dlogits = (softmax − onehot)·g``."""
     p = torch.exp(_logits(h, w) - lse[:, None])
-    p[torch.arange(h.shape[0], device=h.device), targets] -= 1.0
+    rows = torch.arange(h.shape[0], device=h.device)
+    held = targets >= 0
+    p[rows[held], targets[held]] -= 1.0
     dl = p * g[:, None].float()
     return (dl @ w.float().t()).to(h.dtype), (h.float().t() @ dl).to(w.dtype)
 
@@ -249,3 +265,46 @@ class FusedCrossEntropy(torch.autograd.Function):
         h, w, targets, lse = ctx.saved_tensors
         dh, dw = fused_ce_bwd(h, w, targets, lse, dloss.float().contiguous())
         return dh, dw, None
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """``(loss, pred)`` over a vocabulary split over ``group``: ``w`` holds
+    the columns ``[v0, v0 + w.shape[1])``; ``h`` and ``targets`` are the
+    same on every rank of the group."""
+
+    @staticmethod
+    def forward(ctx, h, w, targets, v0, group):
+        local = targets - v0
+        local = torch.where((local >= 0) & (local < w.shape[1]), local, -1)
+        loss, lse, pred = fused_ce_fwd(h, w, local)
+        # the best logit of this rank's columns, for the global argmax
+        best = (h.float() * w[:, pred].t().float()).sum(-1)
+        m = torch.stack([lse, best])
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        # lse − loss is the target logit where this rank holds it, else 0
+        s = torch.stack([torch.exp(lse - m[0]), lse - loss])
+        dist.all_reduce(s, group=group)
+        lse_g = m[0] + torch.log(s[0])
+        # the first global index of the largest logit: max of V − index
+        V = w.shape[1] * dist.get_world_size(group)
+        cand = torch.where(best == m[1], V - (pred + v0), 0)
+        dist.all_reduce(cand, op=dist.ReduceOp.MAX, group=group)
+        ctx.save_for_backward(h, w, local, lse_g)
+        ctx.mark_non_differentiable(cand)
+        return lse_g - s[1], V - cand
+
+    @staticmethod
+    def backward(ctx, dloss, _dpred):
+        h, w, local, lse_g = ctx.saved_tensors
+        dh, dw = fused_ce_bwd(h, w, local, lse_g.contiguous(),
+                              dloss.float().contiguous())
+        return dh, dw, None, None, None
+
+
+def vocab_parallel_cross_entropy(h, w, targets, v0: int, group):
+    """Per-token ``(loss, pred)`` of ``h`` against the vocabulary whose
+    columns ``[v0, v0 + w.shape[1])`` this rank's ``w`` holds, the rest on
+    the other ranks of ``group``; ``targets`` and ``pred`` are global
+    indices. The gradient of ``h`` is this rank's part: sum it over
+    ``group`` (``models.tp.copy_in``)."""
+    return _VocabParallelCE.apply(h, w, targets, v0, group)

@@ -7,6 +7,20 @@ checkpoints and the preemption watchdog:
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-4b \\
         --reduced --n-pods 2 --steps 12 --batch 8 --seq 32 --device cpu
 
+It places the step on a mesh of the world it was launched in: one process
+(a world of one), or ``torchrun``'s (``--nproc-per-node N``, one card a
+process over NCCL, or ``--device cpu`` over gloo):
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch gemma3-4b --reduced --n-pods 2 --steps 12 --batch 8 --seq 32
+
+with the reference's rule: ``(pod, data, model) = (n_pods, world /
+n_pods, 1)`` when ``n_pods`` divides the world, else ``(world, 1, 1)``
+with ``n_pods / world`` pods on each rank. Rank 0 prints, and writes the
+checkpoints (whole tensors gathered from the ranks, as the reference's
+manager writes whole arrays); every rank restores them and keeps its
+block.
+
 It prints the reference's lines (the ``exchange:`` banner, ``step N loss
 … acc …`` every ``--log-every`` steps, the final ``loss a -> b``) and the
 launch counts of the port's kernels for the run. The reference prints the
@@ -68,6 +82,7 @@ import time
 from pathlib import Path
 
 import numpy as np
+import torch.distributed as dist
 
 if __package__ in (None, ""):     # run as a file: put src on the path
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
@@ -79,10 +94,12 @@ from repro_torch.core import compression, costmodel  # noqa: E402
 from repro_torch.core.async_engine import ALGORITHMS  # noqa: E402
 from repro_torch.core.easgd import EASGDConfig  # noqa: E402
 from repro_torch.core.easgd_flat import SYNC_FAMILY  # noqa: E402
+from repro_torch.core import elastic  # noqa: E402
 from repro_torch.core.elastic import ElasticConfig  # noqa: E402
 from repro_torch.data.pipeline import ShardedPipeline  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLMStream  # noqa: E402
 from repro_torch.ft.watchdog import Watchdog  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.obs import report as obs_report  # noqa: E402
 from repro_torch.ps import runtime, zoo  # noqa: E402
 from repro_torch.runtime.train import build_train_step  # noqa: E402
@@ -169,26 +186,60 @@ def report_trace(res, algo: str, trace_dir) -> str:
     return path
 
 
+def host_mesh_for(world: int, n_pods: int, device=None):
+    """The launcher's mesh of ``world`` processes for ``n_pods`` pods."""
+    if world % n_pods == 0:
+        pod = n_pods
+    elif n_pods % world == 0:
+        pod = world
+    else:
+        raise ValueError(f"--n-pods {n_pods} and a world of {world}: one "
+                         f"must divide the other")
+    return mesh_lib.make_host_mesh(n_data=world // pod, n_model=1,
+                                   n_pods=pod if n_pods > 1 else 0,
+                                   device=device)
+
+
 def run_sync_mode(args) -> list:
     """--mode sync: the packed multi-pod Sync EASGD step on the pipeline,
     with checkpoints and the watchdog, as the reference's sync mode."""
+    owned = not dist.is_initialized()
+    world = mesh_lib.init_world(args.device)
+    try:
+        return _run_sync(args, host_mesh_for(world, max(args.n_pods, 1),
+                                             args.device))
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _run_sync(args, mesh) -> list:
     args.schedule = args.schedule or "psum"
     spec = configs.get(args.arch)
     cfg = spec.reduced if args.reduced else spec.config
     n_pods = max(args.n_pods, 1)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    say = print if rank == 0 else (lambda *a, **k: None)
     ecfg = ElasticConfig(
         easgd=EASGDConfig(eta=args.eta, rho=args.rho, mu=0.9, tau=args.tau),
         schedule=args.schedule, overlap=not args.no_overlap,
         compression=args.compression, momentum_dtype=spec.momentum_dtype,
         center_dtype=spec.center_dtype)
-    print(f"exchange: schedule={args.schedule} "
-          f"compression={args.compression} "
-          f"overlap={not args.no_overlap} n_pods={n_pods}", flush=True)
+    say(f"exchange: schedule={args.schedule} "
+        f"compression={args.compression} "
+        f"overlap={not args.no_overlap} n_pods={n_pods}", flush=True)
+    if world > 1:
+        say(f"mesh: {mesh_lib.axis_sizes(mesh)} over {world} processes",
+            flush=True)
     per_pod = args.batch // n_pods
     build = build_train_step(cfg, ecfg, n_pods=n_pods, per_pod_batch=per_pod,
                              seq=args.seq, microbatches=args.microbatches,
-                             device=args.device)
+                             device=args.device, mesh=mesh)
     state = build.init_state()
+
+    def whole(st):
+        return st if world == 1 else elastic.gather_state(
+            st, mesh, build.param_specs)
 
     pipe = ShardedPipeline(
         lambda shard, n: SyntheticLMStream(cfg.vocab_size, args.seq, per_pod,
@@ -198,10 +249,12 @@ def run_sync_mode(args) -> list:
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start_step = 0
     if ckpt and ckpt.latest_step() is not None:
-        state, meta = ckpt.restore(state)
+        state, meta = ckpt.restore(whole(state))
+        if world > 1:
+            state = elastic.shard_state(state, mesh, build.param_specs)
         start_step = meta["extra"]["data_step"]
         pipe.restore(start_step)
-        print(f"resumed from step {start_step}")
+        say(f"resumed from step {start_step}")
 
     kernels.reset_launch_counts()
     wd = Watchdog().start_heartbeat()
@@ -211,29 +264,34 @@ def run_sync_mode(args) -> list:
     try:
         for step in range(start_step, args.steps):
             if wd.should_stop.is_set():
-                print("preemption signal — checkpoint + clean exit")
+                say("preemption signal — checkpoint + clean exit")
                 break
             state, metrics = build.step(state, pipe.next())
             losses.append(float(metrics["loss"]))
             if step % args.log_every == 0:
-                print(f"step {step:5d} loss {losses[-1]:.4f} "
-                      f"acc {float(metrics['accuracy']):.3f} "
-                      f"({time.time()-t0:.1f}s)", flush=True)
+                say(f"step {step:5d} loss {losses[-1]:.4f} "
+                    f"acc {float(metrics['accuracy']):.3f} "
+                    f"({time.time()-t0:.1f}s)", flush=True)
             if ckpt and step and step % args.ckpt_every == 0:
-                ckpt.save_async(step, state, extra={"data_step": step + 1})
+                full = whole(state)
+                if rank == 0:
+                    ckpt.save_async(step, full,
+                                    extra={"data_step": step + 1})
     finally:
         pipe.stop()
         if ckpt:
-            ckpt.wait()
-            ckpt.save(step, state, extra={"data_step": step + 1})
+            full = whole(state)
+            if rank == 0:
+                ckpt.wait()
+                ckpt.save(step, full, extra={"data_step": step + 1})
         wd.close()
     if len(losses) >= 2:
         k = min(5, len(losses) // 2)
         first = np.mean(losses[:k])
         last = np.mean(losses[-k:])
-        print(f"loss {first:.4f} -> {last:.4f} "
-              f"({'improved' if last < first else 'NOT improved'})")
-    print(f"launches={kernels.launch_counts()}", flush=True)
+        say(f"loss {first:.4f} -> {last:.4f} "
+            f"({'improved' if last < first else 'NOT improved'})")
+    say(f"launches={kernels.launch_counts()}", flush=True)
     return losses
 
 

@@ -35,7 +35,15 @@ products on every route.
 
 ``blocked_attention`` is the reference's full-signature plain attention
 (``q_offset``, ``kv_valid_len``, ``cap``), the serving oracle.
-``sctx.shard`` has no counterpart on one device.
+
+On a mesh (``models.tp``) whose ``model`` axis splits the q heads, the
+block is a model-parallel region: the input enters through ``copy_in``,
+each rank projects, attends and caches its own heads, and the output
+projection's partial sum leaves through ``reduce_out``. Where ``model``
+splits the q heads but not the kv heads (GQA with ``n_kv_heads`` not a
+multiple of it), the rank takes the kv heads its q heads read
+(``Layout.kv_index``) from the replicated projection. ``sctx.shard``
+stands at the reference's points.
 """
 from __future__ import annotations
 
@@ -46,6 +54,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import (  # noqa: F401
     NEG_INF, FlashAttention, _tile_mask)
+from repro_torch.models import sctx, tp
 from repro_torch.models.common import ModelConfig, ParamDef, rms_norm, softcap
 
 
@@ -180,12 +189,40 @@ def attention_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
+def _tp_inputs(cfg: ModelConfig, p):
+    """The params a model-parallel attention block reads: the replicated
+    ones (qk-norm scales; kv projections and biases that ``model`` does not
+    split, cut to the kv heads this rank's q heads read) through
+    ``copy_in``, whose backward sums their partial gradients over the
+    ranks' heads. Unchanged without such a layout."""
+    lay = tp.current()
+    if lay is None or not lay.heads:
+        return p
+    p = dict(p)
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            p[name] = tp.copy_in(p[name])
+    if not lay.kv_heads:
+        idx = lay.kv_index()
+        for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+            if name in p:
+                p[name] = tp.copy_in(p[name]).index_select(
+                    dim, torch.tensor(idx, device=p[name].device))
+    return p
+
+
 def _project_qkv(cfg: ModelConfig, p, x, positions, *, theta,
                  mrope_positions=None):
     cd = cfg.compute_dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cd))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cd))
+    p = _tp_inputs(cfg, p)
+    if tp.current() is not None and tp.current().heads:
+        x = tp.copy_in(x)
+    q = sctx.shard(torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd)),
+                   "batch", "seq", "heads", "head_dim")
+    k = sctx.shard(torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cd)),
+                   "batch", "seq", "kv_heads", "head_dim")
+    v = sctx.shard(torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cd)),
+                   "batch", "seq", "kv_heads", "head_dim")
     if cfg.qkv_bias:
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
@@ -258,5 +295,8 @@ def attention_block(cfg: ModelConfig, p, x, positions, *, kind="attn",
             v_c[:, :S] = v
     if cache is not None:
         cache = {"k": k_c, "v": v_c}
-    y = torch.einsum("bshk,hkd->bsd", out.to(cd), p["wo"].to(cd))
-    return y, cache
+    out = sctx.shard(out.to(cd), "batch", "seq", "heads", "head_dim")
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd))
+    if tp.current() is not None and tp.current().heads:
+        y = tp.reduce_out(y)
+    return sctx.shard(y, "batch", "seq", "embed"), cache

@@ -5,8 +5,9 @@ Parameters are nested dicts and tuples of tensors, the reference's pytree
 layout. ``tree_leaves_with_path`` walks them in ``jax.tree_util``'s order
 (dict keys sorted, tuples in order), which is the order of the flat
 ``ravel_pytree`` row, so bucket cuts and parity tests line up with the
-reference. The mesh helpers (``partition_specs``, ``make_rules``) belong to
-the multi-pod slice and are not ported yet.
+reference. ``make_rules`` and ``partition_specs`` map each parameter's
+logical axes to mesh axes (``PartitionSpec``, the port's own tuple of mesh
+axis names per dim), as the reference's do.
 """
 from __future__ import annotations
 
@@ -219,6 +220,132 @@ def _rebuild(tree, by_path, path=()):
         return tuple(_rebuild(v, by_path, path + (i,))
                      for i, v in enumerate(tree))
     return by_path[path]
+
+
+class PartitionSpec(tuple):
+    """A mesh axis name (or a tuple of them, or None) per tensor dim: the
+    port's counterpart of ``jax.sharding.PartitionSpec``. It compares equal
+    to a tuple (and to the reference's spec) of the same entries."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+    def __reduce__(self):
+        return (PartitionSpec, tuple(self))
+
+
+P = PartitionSpec
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, PartitionSpec)
+
+
+def spec_tree_map(fn, tree):
+    """``fn`` over the ``PartitionSpec`` leaves of a dict / tuple tree."""
+    if is_spec(tree) or tree is None:
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: spec_tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(spec_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def spec_leaves(tree) -> list:
+    """The ``PartitionSpec`` leaves in ``jax.tree_util`` order (dict keys
+    sorted, tuples in order)."""
+    if is_spec(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in spec_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in spec_leaves(v)]
+    return [tree]
+
+
+def partition_specs(defs, rules: dict):
+    """Map each ParamDef's logical axes to mesh axes via ``rules``.
+
+    ``rules`` maps a logical axis name to a mesh axis name (or None). A
+    mesh axis is used at most once per param (the first logical dim wins)
+    and only where the dim divides the axis size (``make_rules`` puts the
+    sizes into the rules).
+
+    Selective FSDP (``rules["_fsdp_axis"]``): after the TP assignment, the
+    largest still-unsharded eligible dim also shards over the data axis,
+    except on vocab-carrying params (the embedding's token gather stays on
+    a table sharded one way only).
+    """
+    fsdp_axis = rules.get("_fsdp_axis")
+
+    def spec(d: ParamDef) -> PartitionSpec:
+        used = set()
+        axes = []
+        for dim, logical in zip(d.shape, d.logical):
+            ax = rules.get(logical)
+            if ax is None or ax in used:
+                axes.append(None)
+                continue
+            size = rules.get(("_axis_size", ax), 0)
+            if size and dim % size != 0:
+                axes.append(None)
+                continue
+            axes.append(ax)
+            used.add(ax)
+        if fsdp_axis and fsdp_axis not in used \
+                and "vocab" not in d.logical:
+            dsize = rules.get(("_axis_size", fsdp_axis), 0)
+            cands = [
+                (dim, i) for i, (dim, logical)
+                in enumerate(zip(d.shape, d.logical))
+                if axes[i] is None and logical not in ("layers", "conv")
+                and dsize and dim % dsize == 0
+            ]
+            if cands:
+                _, i = max(cands)
+                axes[i] = fsdp_axis
+        return PartitionSpec(*axes)
+
+    return tree_map(spec, defs)
+
+
+def make_rules(cfg: ModelConfig, mesh_axes: dict) -> dict:
+    """Logical-axis -> mesh-axis rules for a model on a mesh.
+
+    mesh_axes: ``{"data": size, "model": size}`` (the pod axis is handled
+    outside). TP axes go on ``model``; with ``cfg.fsdp`` the ``_fsdp_axis``
+    post-pass of ``partition_specs`` also shards over ``data``. Experts go
+    on ``data`` (EP) when their count divides it.
+    """
+    model_size = mesh_axes.get("model", 1)
+    data_size = mesh_axes.get("data", 1)
+    rules = {
+        "vocab": "model",
+        "ff": "model",
+        "expert_ff": "model",
+        "experts": "data" if (cfg.moe and cfg.moe_ep and cfg.moe.n_experts
+                              % max(data_size, 1) == 0) else None,
+        "q_heads": "model",
+        "kv_heads": "model",
+        "heads_x_dim": "model",
+        "inner": "model",        # ssm / rglru inner channels
+        "embed": None,           # fsdp: the _fsdp_axis post-pass
+        "embed_out": None,
+        "layers": None,
+        "head_dim": None,
+        "state": None,
+        "conv": None,
+        "lora": None,
+        ("_axis_size", "model"): model_size,
+        ("_axis_size", "data"): data_size,
+    }
+    if cfg.fsdp:
+        rules["_fsdp_axis"] = "data"
+    return rules
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,9 @@ form::
 so a step never expands the cache into per-head keys; its score and
 context products keep the cache's dtype with an f32 result
 (``attention.product_f32``). Both branches write the cache in place and
-return it. ``sctx.shard`` has no counterpart on one device.
+return it. ``sctx.shard`` stands at the reference's points (a no-op without a
+mesh); on a mesh whose ``data`` or ``model`` size is above 1 this kind
+raises (``runtime.train`` / ``runtime.serve``).
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.attention import (NEG_INF, apply_rope,
                                           flash_attention_train, product_f32)
+from repro_torch.models import sctx
 from repro_torch.models.common import ModelConfig, ParamDef, rms_norm
 
 
@@ -70,7 +73,8 @@ def _q_proj(cfg: ModelConfig, p, x, positions):
     cd = cfg.compute_dtype
     cq = rms_norm(torch.einsum("bsd,dr->bsr", x, p["w_dq"].to(cd)),
                   p["q_norm"])
-    q = torch.einsum("bsr,rhk->bshk", cq, p["w_uq"].to(cd))
+    q = sctx.shard(torch.einsum("bsr,rhk->bshk", cq, p["w_uq"].to(cd)),
+                   "batch", "seq", "heads", "head_dim")
     q_nope = q[..., :a.qk_nope_head_dim]
     q_pe = apply_rope(q[..., a.qk_nope_head_dim:], positions, cfg.rope_theta)
     return q_nope, q_pe
@@ -119,8 +123,12 @@ def mla_block(cfg: ModelConfig, p, x, positions, *, cache=None,
         cache = {"ckv": ckv, "kpe": kpe}
     else:
         # ---- training / prefill: expand the latent, the attention kernel
-        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"].to(cd))
-        v = torch.einsum("bsr,rhv->bshv", c_kv, p["w_uv"].to(cd))
+        k_nope = sctx.shard(
+            torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"].to(cd)),
+            "batch", "seq", "heads", "head_dim")
+        v = sctx.shard(torch.einsum("bsr,rhv->bshv", c_kv,
+                                    p["w_uv"].to(cd)),
+                       "batch", "seq", "heads", "head_dim")
         k = torch.cat([k_nope, k_pe[:, :, None, :].expand(
             B, S, H, a.qk_rope_head_dim)], dim=-1)
         q = torch.cat([q_nope, q_pe], dim=-1)
@@ -135,5 +143,7 @@ def mla_block(cfg: ModelConfig, p, x, positions, *, cache=None,
             cache["ckv"][:, :S] = c_kv[:, :Sc]
             cache["kpe"][:, :S] = k_pe[:, :Sc]
             cache = {"ckv": cache["ckv"], "kpe": cache["kpe"]}
-    y = torch.einsum("bshv,hvd->bsd", out.to(cd), p["wo"].to(cd))
+    out = sctx.shard(out.to(cd), "batch", "seq", "heads", "head_dim")
+    y = sctx.shard(torch.einsum("bshv,hvd->bsd", out, p["wo"].to(cd)),
+                   "batch", "seq", "embed")
     return y, cache

@@ -11,7 +11,9 @@ capacity_factor / E)`` slots per expert; slots run token-major with the k
 choices inner, a slot's rank within its expert is the cumsum over that
 order, and a slot is kept when its rank is below C. The expert products
 are plain batched matmuls in the compute dtype (the reference leaves them
-to XLA too); ``sctx.shard`` has no counterpart on one device.
+to XLA too). ``sctx.shard`` stands at the reference's points (a no-op
+without a mesh); on a mesh whose ``data`` or ``model`` size is above 1 a
+MoE config raises (``runtime.train`` / ``runtime.serve``).
 
 Dispatch and combine are gathers, never scatter-adds, so no sum depends on
 the order in which atomics land: the kept slots fill distinct buffer rows
@@ -29,6 +31,7 @@ import math
 
 import torch
 
+from repro_torch.models import sctx
 from repro_torch.models.common import ModelConfig, ParamDef, act_fn
 
 
@@ -140,15 +143,20 @@ def moe_block(cfg: ModelConfig, p, x):
     fill = torch.full((G, E * C + 1), n, dtype=torch.int64, device=x.device)
     fill.scatter_(1, torch.where(r.keep, r.slot, E * C),
                   torch.arange(n, device=x.device).expand(G, n))
-    buf = _rows(x_slots, fill[:, :E * C]).reshape(G, E, C, d)
+    ex = "experts_dp" if cfg.moe_ep else "experts_off"
+    buf = sctx.shard(_rows(x_slots, fill[:, :E * C]).reshape(G, E, C, d),
+                     "groups", ex, "cap", "embed")
 
     # ---- expert FFN ---------------------------------------------------------
-    h = act(torch.einsum("gecd,edf->gecf", buf, p["we_gate"].to(cd))) * \
+    h = act(sctx.shard(
+        torch.einsum("gecd,edf->gecf", buf, p["we_gate"].to(cd)),
+        "groups", ex, "cap", "ff")) * \
         torch.einsum("gecd,edf->gecf", buf, p["we_up"].to(cd))
     out = torch.einsum("gecf,efd->gecd", h, p["we_down"].to(cd))
 
     # ---- combine: a dropped slot reads the zero row E C ---------------------
-    out = torch.cat([out.reshape(G, E * C, d), out.new_zeros((G, 1, d))], 1)
+    out = sctx.shard(out.reshape(G, E * C, d), "groups", "cap", "embed")
+    out = torch.cat([out, out.new_zeros((G, 1, d))], 1)
     y_slots = _rows(out, torch.where(r.keep, r.slot, E * C))
     w = (r.top_p.reshape(G, n) * r.keep.to(torch.float32)).to(cd)
     y = (y_slots * w[..., None]).reshape(G, Tg, k, d).sum(dim=2)
@@ -156,7 +164,10 @@ def moe_block(cfg: ModelConfig, p, x):
 
     # ---- shared experts (always-on dense path) ------------------------------
     if m.n_shared:
-        g = act(torch.einsum("bsd,df->bsf", x, p["ws_gate"].to(cd)))
-        u = torch.einsum("bsd,df->bsf", x, p["ws_up"].to(cd))
+        g = act(sctx.shard(
+            torch.einsum("bsd,df->bsf", x, p["ws_gate"].to(cd)),
+            "batch", "seq", "ff"))
+        u = sctx.shard(torch.einsum("bsd,df->bsf", x, p["ws_up"].to(cd)),
+                       "batch", "seq", "ff")
         y = y + torch.einsum("bsf,fd->bsd", g * u, p["ws_down"].to(cd))
-    return y, r.aux
+    return sctx.shard(y, "batch", "seq", "embed"), r.aux

@@ -22,12 +22,16 @@ Serving (``rglru_block`` with a cache ``{conv: (B, K−1, w), state: (B, w)
 f32}``): the prefill keeps the last K−1 conv inputs and ``h[:, -1]``;
 decode slides the conv history by one and takes the O(1) step
 ``rglru_step``. Both write the cache in place and return it.
+``sctx.shard`` stands at the reference's points (a no-op without a
+mesh); on a mesh whose ``data`` or ``model`` size is above 1 this kind
+raises (``runtime.train`` / ``runtime.serve``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sctx
 from repro_torch.models.common import ModelConfig, ParamDef, _gelu_tanh
 from repro_torch.models.ssm import _causal_conv  # noqa: F401  (the same)
 
@@ -98,8 +102,10 @@ def rglru_block(cfg: ModelConfig, p, x, positions=None, *, cache=None,
     """Griffin recurrent block -> ``(y, cache)``: the scan over the
     sequence, or with a cache and S 1 the decode step."""
     cd = cfg.compute_dtype
-    y_gate = _gelu_tanh(torch.matmul(x, p["w_y"].to(cd)))
-    xr = torch.matmul(x, p["w_x"].to(cd))
+    y_gate = _gelu_tanh(sctx.shard(torch.matmul(x, p["w_y"].to(cd)),
+                                   "batch", "seq", "inner"))
+    xr = sctx.shard(torch.matmul(x, p["w_x"].to(cd)),
+                    "batch", "seq", "inner")
     if cache is not None and x.shape[1] == 1:
         conv_hist = torch.cat([cache["conv"], xr], dim=1)       # (B, K, w)
         conv_out = torch.einsum("bkw,kw->bw", conv_hist.to(cd),

@@ -24,7 +24,9 @@ Serving (``ssm_block`` with a cache ``{conv: (B, K−1, conv_dim), state:
 (B, H, P, N) f32}``): the prefill is the chunked form, keeping the last
 K−1 conv inputs and the final state; decode slides the conv history by
 one and takes the O(1) recurrence ``ssd_step``. Both write the cache in
-place and return it. ``sctx.shard`` has no counterpart on one device.
+place and return it. ``sctx.shard`` stands at the reference's points (a no-op without a
+mesh); on a mesh whose ``data`` or ``model`` size is above 1 this kind
+raises (``runtime.train`` / ``runtime.serve``).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ssd_chunk
 from repro_torch.kernels.ssd_chunk import SSDIntraChunk, chunk_len
+from repro_torch.models import sctx
 from repro_torch.models.common import ModelConfig, ParamDef, rms_norm
 
 
@@ -164,7 +167,9 @@ def ssm_block(cfg: ModelConfig, p, x, positions=None, *, cache=None,
 
     h = torch.einsum("bsd,de->bse", x, p["w_in"].to(cd))
     z, xi, Bm, Cm, dt = _split_in(cfg, h)
-    xbc = torch.cat([xi, Bm, Cm], dim=-1)
+    z = sctx.shard(z, "batch", "seq", "inner")
+    xbc = sctx.shard(torch.cat([xi, Bm, Cm], dim=-1),
+                     "batch", "seq", "inner")
     A = -torch.exp(p["A_log"].float())
     if cache is not None and S == 1:
         # decode: the sliding conv history, then the recurrent SSD step
@@ -186,7 +191,8 @@ def ssm_block(cfg: ModelConfig, p, x, positions=None, *, cache=None,
         xi, Bm, Cm = torch.split(conv_out, [d_inner, s.d_state, s.d_state],
                                  dim=-1)
         dt_sp = F.softplus(dt.float() + p["dt_bias"].float())
-        xh = xi.reshape(B_, S, n_heads, s.head_dim)
+        xh = sctx.shard(xi.reshape(B_, S, n_heads, s.head_dim),
+                        "batch", "seq", "heads", "head_dim")
         y, state = _ssd_chunked(xh.float(), dt_sp, A, Bm, Cm, s.chunk)
         y = y + p["D"].float()[None, None, :, None] * xh
         y = y.reshape(B_, S, d_inner)
@@ -197,6 +203,6 @@ def ssm_block(cfg: ModelConfig, p, x, positions=None, *, cache=None,
         cache = {"conv": cache["conv"], "state": cache["state"]}
 
     # gated RMSNorm (Mamba-2) + out proj
-    y = y.to(cd) * F.silu(z)
+    y = sctx.shard(y.to(cd), "batch", "seq", "inner") * F.silu(z)
     y = rms_norm(y, p["norm"])
     return torch.einsum("bse,ed->bsd", y, p["w_out"].to(cd)), cache

@@ -72,12 +72,14 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.fused_ce import FusedCrossEntropy
+from repro_torch.kernels.fused_ce import (FusedCrossEntropy,
+                                          vocab_parallel_cross_entropy)
 from repro_torch.models import attention
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import sctx, tp
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (ModelConfig, ParamDef, ShapeDtype,
                                        rms_norm, softcap,
@@ -223,13 +225,14 @@ def flatten_params(params) -> torch.Tensor:
                       for _, leaf in tree_leaves_with_path(params)])
 
 
-def unflatten(row: torch.Tensor, cfg: ModelConfig):
+def unflatten(row: torch.Tensor, cfg: ModelConfig, layout=None):
     """Views of ``row`` as the parameter pytree (no copy). One ``split``:
     its backward writes the flat gradient in one concatenation, where a
     slice per leaf would each write a zero-filled gradient of the whole
     row (a 4 B-parameter row: 16 GB a leaf, beside the row and its
-    gradient)."""
-    layout = ravel_layout(cfg)
+    gradient). ``layout`` (``[(path, shape)]`` in row order) gives a
+    rank's local shapes on a mesh (``runtime.sharding.local_layout``)."""
+    layout = layout or ravel_layout(cfg)
     sizes = [math.prod(s) for _, s in layout]
     if row.dim() != 1 or row.numel() != sum(sizes):
         raise ValueError(f"row has {row.numel()} elements, {cfg.name} needs "
@@ -316,30 +319,61 @@ def _unstack(tree, n: int) -> list:
     return [[ts[i] for ts in leaves] for i in range(n)]
 
 
-def _slot_fn(cfg: ModelConfig, kind: str, structure):
+def _slot_fn(cfg: ModelConfig, kind: str, structure, constrain=None):
     """One period slot's layer as a function of tensors alone: the hidden
     state, the positions and the layer's parameter views (``_unstack``'s
-    list) as arguments, so a checkpoint sees them as its inputs. Returns
-    ``(h, aux)``."""
+    list) as arguments, so a checkpoint sees them as its inputs (and a
+    ``constrain`` gather inside it runs again in the recompute, as the
+    reference's inside ``jax.checkpoint``). Returns ``(h, aux)``. The
+    mesh layout installed now is installed again around each call: a
+    checkpoint's recompute runs in the backward, on the card in the
+    autograd engine's own thread, where the forward's context variables
+    are not set."""
+    layout = tp.current()
+
     def fn(x, positions, mrope_positions, *leaves):
-        p = tree_unflatten(structure, list(leaves))
-        return _apply_block(cfg, kind, p, x, positions, mrope_positions)[:2]
+        with tp.use(layout):
+            p = tree_unflatten(structure, list(leaves))
+            if constrain is not None:
+                p = constrain(kind, p)
+            x, aux, _ = _apply_block(cfg, kind, p, x, positions,
+                                     mrope_positions)
+            return sctx.shard(x, "batch", "seq", "embed"), aux
     return fn
+
+
+def _embed(cfg: ModelConfig, table, tokens):
+    """The embedding lookup in the compute dtype. On a mesh whose
+    ``model`` axis splits the vocabulary, each rank looks up the tokens its
+    rows hold (zeros for the rest) and the partial rows are summed over
+    ``model`` (one rank contributes each row, so the sum is exact)."""
+    lay = tp.current()
+    if lay is None or not lay.vocab:
+        return table[tokens].to(cfg.compute_dtype)
+    local = tokens - lay.vocab_start
+    held = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(held, local, 0)]
+    rows = torch.where(held[..., None], rows, 0).to(cfg.compute_dtype)
+    return tp.reduce_out(rows)
 
 
 def forward(cfg: ModelConfig, params, tokens, *, positions=None,
             caches=None, cache_pos=None, mrope_positions=None,
-            patch_embeds=None):
+            patch_embeds=None, constrain=None):
     """tokens: (B, S) int64. Returns ``(hidden (B, S, d), caches, aux)``
     like the reference: aux the MoE layers' load-balance losses summed in
     the reference's order (0 without MoE); with ``caches`` (a prefill, or
     with S 1 and ``cache_pos`` (B,) a decode step) the tree written in
     place, else None. ``patch_embeds`` (B, P, d) replace the embeddings of
     the first P positions (the vision stub); ``mrope_positions`` (3, B, S)
-    drive M-RoPE where the config has ``mrope_sections``."""
+    drive M-RoPE where the config has ``mrope_sections``.
+    ``constrain(kind, params_subtree)`` (optional) re-lays one layer's
+    params out before use: on a mesh, ``runtime.sharding.
+    block_constrainer``'s streaming-FSDP gather (for ``final_norm`` too)."""
     cd = cfg.compute_dtype
     B, S = tokens.shape
-    h = params["embed"][tokens].to(cd)
+    h = sctx.shard(_embed(cfg, params["embed"], tokens),
+                   "batch", "seq", "embed")
     if patch_embeds is not None:
         P_ = patch_embeds.shape[1]
         h = torch.cat([patch_embeds.to(cd), h[:, P_:]], dim=1)
@@ -353,16 +387,19 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
               for s in range(len(cfg.pattern))]
     remat = cfg.remat != "none" and torch.is_grad_enabled() \
         and caches is None
-    slots = [_slot_fn(cfg, kind, params["blocks"][s])
+    slots = [_slot_fn(cfg, kind, params["blocks"][s], constrain)
              for s, kind in enumerate(cfg.pattern)]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_periods):
         for s, kind in enumerate(cfg.pattern):
             if caches is not None:
                 p = tree_unflatten(params["blocks"][s], layers[s][i])
+                if constrain is not None:
+                    p = constrain(kind, p)
                 c = {k: t[i] for k, t in caches["stacked"][s].items()}
                 h, a, _ = _apply_block(cfg, kind, p, h, positions,
                                        mrope_positions, c, cache_pos)
+                h = sctx.shard(h, "batch", "seq", "embed")
             elif remat:
                 h, a = checkpoint(slots[s], h, positions, mrope_positions,
                                   *layers[s][i], use_reentrant=False)
@@ -372,10 +409,16 @@ def forward(cfg: ModelConfig, params, tokens, *, positions=None,
             aux = aux + a
     for i, kind in enumerate(cfg.remainder_kinds):
         c = caches["rem"][i] if caches is not None else None
-        h, a, _ = _apply_block(cfg, kind, params["rem"][i], h, positions,
-                               mrope_positions, c, cache_pos)
+        p = params["rem"][i]
+        if constrain is not None:
+            p = constrain(kind, p)
+        h, a, _ = _apply_block(cfg, kind, p, h, positions, mrope_positions,
+                               c, cache_pos)
         aux = aux + a
-    h = rms_norm(h, params["final_norm"])
+    final_norm = params["final_norm"]
+    if constrain is not None:
+        final_norm = constrain("final_norm", final_norm)
+    h = rms_norm(h, final_norm)
     return h, caches, aux
 
 
@@ -406,27 +449,43 @@ def _divisor_chunk(T: int, want: int) -> int:
     return max(c, 1)
 
 
-def lm_loss(cfg: ModelConfig, params, batch):
+def lm_loss(cfg: ModelConfig, params, batch, extra_fwd_kwargs=None):
     """Next-token cross-entropy. batch: {tokens (B,S), targets (B,S),
     mask (B,S)} + the modality extras ``mrope_positions`` and
-    ``patch_embeds``, passed on to ``forward``. Returns ``(loss, {ce, aux,
-    accuracy, tokens})`` like the reference. The reference chunks the
-    sequence to bound its logits memory; the fused kernels never hold the
-    logits, so the port runs the whole batch through one call (only the
-    order of the final sums differs)."""
+    ``patch_embeds``, passed on to ``forward`` with ``extra_fwd_kwargs``
+    (the runtime's ``constrain``). Returns ``(loss, {ce, aux, accuracy,
+    tokens})`` like the reference. The reference chunks the sequence to
+    bound its logits memory; the fused kernels never hold the logits, so
+    the port runs the whole batch through one call (only the order of the
+    final sums differs).
+
+    On a mesh (``models.tp``) the batch holds this rank's rows of the
+    pod's batch: ``tokens`` is the pod's count (summed over ``data``), and
+    the loss, ``ce`` and ``accuracy`` are this rank's shares of the pod's,
+    which sum over ``data`` to them (the gradient's sum over ``data`` is
+    the pod's). Where ``model`` splits the vocabulary the loss head runs
+    vocab-parallel (``kernels.fused_ce.vocab_parallel_cross_entropy``)."""
     if cfg.logit_softcap:
         raise NotImplementedError(
             "logit_softcap is not supported by the fused cross-entropy; see "
             "ROADMAP.md")
-    extra = {k: batch[k] for k in ("mrope_positions", "patch_embeds")
-             if k in batch}
+    extra = dict(extra_fwd_kwargs or {})
+    extra.update({k: batch[k] for k in ("mrope_positions", "patch_embeds")
+                  if k in batch})
     h, _, aux = forward(cfg, params, batch["tokens"], **extra)
     B, S, d = h.shape
     w = _unembed_weight(cfg, params).to(h.dtype)
     mask = batch["mask"].to(torch.float32).reshape(-1)
     targets = batch["targets"].reshape(-1).to(torch.int64)
-    loss_t, pred = FusedCrossEntropy.apply(h.reshape(B * S, d), w, targets)
-    n_tok = mask.sum()
+    lay = tp.current()
+    if lay is not None and lay.vocab:
+        loss_t, pred = vocab_parallel_cross_entropy(
+            tp.copy_in(h.reshape(B * S, d)), w, targets, lay.vocab_start,
+            lay.model_group)
+    else:
+        loss_t, pred = FusedCrossEntropy.apply(h.reshape(B * S, d), w,
+                                               targets)
+    n_tok = tp.data_sum(mask.sum())
     denom = torch.clamp_min(n_tok, 1.0)
     ce = (loss_t * mask).sum() / denom
     correct = ((pred == targets).to(torch.float32) * mask).sum()
@@ -464,20 +523,21 @@ def cast_for_serving(cfg: ModelConfig, params):
 
 
 def prefill(cfg: ModelConfig, params, tokens, caches, *,
-            mrope_positions=None, patch_embeds=None):
+            mrope_positions=None, patch_embeds=None, constrain=None):
     """A teacher-forced pass that fills ``caches`` (in place); returns the
     last position's logits (B, V) f32 and the caches."""
     h, caches, _ = forward(cfg, params, tokens, caches=caches,
                            mrope_positions=mrope_positions,
-                           patch_embeds=patch_embeds)
+                           patch_embeds=patch_embeds, constrain=constrain)
     return logits_at(cfg, params, h[:, -1]), caches
 
 
 def decode_step(cfg: ModelConfig, params, token, caches, cache_pos, *,
-                mrope_positions=None):
+                mrope_positions=None, constrain=None):
     """token: (B, 1); cache_pos: (B,) each row's position. Returns the next
     token's logits (B, V) f32 and the caches, written in place."""
     h, caches, _ = forward(cfg, params, token, caches=caches,
                            cache_pos=cache_pos,
-                           mrope_positions=mrope_positions)
+                           mrope_positions=mrope_positions,
+                           constrain=constrain)
     return logits_at(cfg, params, h[:, -1]), caches

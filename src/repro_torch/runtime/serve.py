@@ -14,9 +14,17 @@ it is given in place and returns them, as the reference donates them
 (``donate_argnums=(1,)``): no caller may use a cache tree it has passed
 on.
 
-The reference's sharding fields (``param_specs``, ``cache_spec_tree``,
-``token_spec``) need ``runtime/sharding.py``'s mesh, which the port has
-not yet (ROADMAP.md, queue 1): on one device they are None.
+With a ``mesh`` (``launch.mesh``) the steps run on every rank of it and
+the sharding fields are filled: ``cast_params`` keeps this rank's shards
+of the params (``param_specs``), the caches are the rank's blocks
+(``cache_specs``: batch over ``data``, kv heads over ``model``), each rank
+takes its rows of the tokens (``token_spec``), the model runs on local
+shards (``models.tp``) and the logits come back whole on every rank,
+gathered over ``model`` (vocab) and ``data`` (batch). A cache whose time
+dim the specs split (flash-decoding: B not a multiple of ``data``, or kv
+heads that ``model`` does not divide) raises ``NotImplementedError``, as
+does a layer kind outside ``sharding.MESH_KINDS``. On one device the
+sharding fields are None.
 """
 from __future__ import annotations
 
@@ -25,8 +33,12 @@ from typing import Any
 
 import torch
 
+from repro_torch.models import tp
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import ModelConfig, ShapeDtype, abstract_params
+from repro_torch.models.common import (ModelConfig, ShapeDtype,
+                                       abstract_params, spec_leaves,
+                                       tree_leaves_with_path, tree_unflatten)
+from repro_torch.runtime import sharding as shd
 from repro_torch.utils.device import fp32_products, resolve_device
 
 
@@ -55,24 +67,87 @@ def _extra_kwargs(cfg: ModelConfig, B: int, S: int) -> dict:
     return extras
 
 
+def _seq_split(cspecs) -> bool:
+    """True when a cache spec splits a time dim (stacked: dim 2; a
+    remainder layer's: dim 1)."""
+    stacked = spec_leaves(cspecs["stacked"])
+    rem = spec_leaves(cspecs["rem"])
+    return any(len(s) > 3 and s[2] is not None for s in stacked) or any(
+        len(s) > 2 and s[1] is not None for s in rem)
+
+
 def build_serve_steps(cfg: ModelConfig, *, batch: int, max_len: int,
-                      device=None) -> ServeBuild:
+                      device=None, mesh=None) -> ServeBuild:
     """The prefill and decode steps for ``batch`` rows of at most
-    ``max_len`` positions on ``device`` (None: the card)."""
+    ``max_len`` positions on ``device`` (None: the card), placed on
+    ``mesh`` when one is given (module docstring)."""
     dev = resolve_device(device)
     fp32_products()
+    layout = constrain = None
+    rows = slice(0, batch)
+    specs = {}
+    cache_defs = tfm.init_cache_defs(cfg, batch, max_len)
+    if mesh is not None:
+        shd.require_mesh_kinds(cfg, mesh)
+        sizes = shd.mesh_axis_sizes(mesh)
+        pspecs = shd.param_specs(cfg, mesh)
+        cspecs = shd.cache_specs(cfg, mesh, batch, max_len)
+        tspec = shd.serve_token_specs(cfg, mesh, batch)
+        specs = dict(param_specs=pspecs, cache_spec_tree=cspecs,
+                     token_spec=tspec)
+        if _seq_split(cspecs):
+            raise NotImplementedError(
+                f"{cfg.name} at B {batch} on {sizes}: the cache specs split "
+                f"a time dim (flash-decoding), which the port does not run "
+                f"(ROADMAP.md)")
+        layout = tp.layout_for(cfg, mesh)
+        if layout is not None:
+            constrain = shd.block_constrainer(cfg, mesh)
+        if tspec[0] == "data":
+            n = batch // sizes["data"]
+            rows = slice(mesh.get_local_rank("data") * n,
+                         (mesh.get_local_rank("data") + 1) * n)
+        cache_defs = tree_unflatten(cache_defs, [
+            ShapeDtype(shd.local_shape(d.shape, s, sizes), d.dtype)
+            for (_, d), s in zip(tree_leaves_with_path(cache_defs),
+                                 spec_leaves(cspecs))])
+
+    def local(extras: dict) -> dict:
+        # mrope_positions (3, B, S) carries the batch at dim 1
+        return {k: (v[:, rows] if k == "mrope_positions" else v[rows])
+                for k, v in extras.items()}
+
+    def gathered(logits):
+        if layout is not None and layout.vocab:
+            logits = tp.gather_dim(logits, 1, layout.model_group)
+        if rows.stop - rows.start < batch:
+            logits = tp.gather_dim(logits, 0, layout.data_group)
+        return logits
 
     def prefill_fn(params, tokens, extras):
-        with torch.inference_mode():
-            caches = tfm.init_caches(cfg, batch, max_len, device=dev)
-            return tfm.prefill(cfg, params, tokens, caches, **extras)
+        with torch.inference_mode(), tp.use(layout):
+            caches = tree_unflatten(cache_defs, [
+                torch.zeros(d.shape, dtype=d.dtype, device=dev)
+                for _, d in tree_leaves_with_path(cache_defs)])
+            logits, caches = tfm.prefill(cfg, params, tokens[rows], caches,
+                                         constrain=constrain, **local(extras))
+            return gathered(logits), caches
 
     def decode_fn(params, caches, token, pos, extras):
-        with torch.inference_mode():
-            return tfm.decode_step(cfg, params, token, caches, pos, **extras)
+        with torch.inference_mode(), tp.use(layout):
+            logits, caches = tfm.decode_step(cfg, params, token[rows],
+                                             caches, pos[rows],
+                                             constrain=constrain,
+                                             **local(extras))
+            return gathered(logits), caches
 
     def cast_params(params):
         with torch.inference_mode():
+            if mesh is not None:
+                params = tree_unflatten(params, [
+                    shd.local_shard(t, mesh, s) for (_, t), s in
+                    zip(tree_leaves_with_path(params),
+                        spec_leaves(specs["param_specs"]))])
             return tfm.cast_for_serving(cfg, params)
 
     return ServeBuild(
@@ -82,6 +157,7 @@ def build_serve_steps(cfg: ModelConfig, *, batch: int, max_len: int,
                                         cfg.param_dtype),
         abstract_caches=tfm.init_cache_defs(cfg, batch, max_len),
         cast_params=cast_params,
+        **specs,
     )
 
 
