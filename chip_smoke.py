@@ -251,7 +251,23 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    and the center's moves from the start, the momentum) by the relative
    norm of the error, to 5e-2, far below the 0.7 that a skipped pod sum
    reads (read in each run); exact launches, ms per step and the peak
-   per rank.
+   per rank;
+24. the tooling (``core.costmodel``, ``launch.opcount``,
+   ``launch.dryrun``): (a) phase 10's cell, one warm step counted by the
+   op counter on the card path (each kernel wrapper a region counted by
+   its formula), its FLOPs, bytes and roofline terms on the card's own
+   data-sheet row beside the measured warm step (CUDA events and
+   ``time_fn``): the step's roofline fraction; the dry run's peak
+   estimate (fake tensors on the CPU) held to ``PEAK_LIMIT`` of
+   ``max_memory_allocated``; the counter's kernel calls equal to the
+   launch counters and phase 10's counts; (b) two production cells
+   through ``launch.dryrun.run_cell`` (gemma3-4b ``train_4k`` on the
+   ``(16, 16)`` mesh, gemma3-27b ``train_4k`` on ``(2, 16, 16)``), each
+   on a fake world in a process of its own that starts with the script
+   and runs on the host's CPU beside the card's phases (with (a)'s
+   estimate): each record ok and fitting the device, its roofline terms
+   printed as counts priced on the H100's data sheet; (c)
+   ``examples/elastic_restart_torch.py --device cuda`` exits 0.
 
 Each phase prints its seconds (and each sub-phase's from 16 on). Phase
 17a's sync runs share their worker start-ups with the thread ↔ master ↔
@@ -266,6 +282,7 @@ sources beside this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import io
@@ -334,10 +351,17 @@ def peaks_for(name: str) -> tuple:
     raise RuntimeError(f"no data-sheet peaks for card '{name}'")
 
 
-def bound(n_bytes: float, n_ops: float, bw: float, f64: float) -> tuple:
-    t_bytes, t_ops = n_bytes / bw, n_ops / f64
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+def bound(n_bytes: float, n_ops: float, bw: float, rate: float) -> tuple:
+    """``costmodel.bound_ms``: the package's one definition of a bound."""
+    from repro_torch.core import costmodel
+    return costmodel.bound_ms(n_bytes, n_ops, bw, rate)
+
+
+def work_bound(work: tuple, bw: float, rate: float, products=1) -> tuple:
+    """The bound of a kernel's ``(bytes, operations)`` from the package's
+    ``costmodel.*_work``, its operations run ``products`` times."""
+    n_bytes, n_ops = work
+    return bound(n_bytes, products * n_ops, bw, rate)
 
 
 def phase_kernels(torch, eu, timing, dev, bw, f64) -> dict:
@@ -398,11 +422,10 @@ def phase_kernels(torch, eu, timing, dev, bw, f64) -> dict:
             lambda: eu.fused_sync_sgd_update_ref(c, v, r, p, ETA, MU),
             reps=30),
     }
-    # bytes: each input read once, each output written once; operations:
-    # easgd 5 for W' + 4 for C' per element, sgd 5 per element
-    b_easgd, by_easgd = bound(6 * 8 * n, 9 * n, bw, f64)
-    b_solo, _ = bound(4 * 8 * n, 5 * n, bw, f64)
-    b_sgd, by_sgd = bound(5 * 8 * n, 5 * n, bw, f64)
+    from repro_torch.core import costmodel as cm
+    b_easgd, by_easgd = work_bound(cm.sync_easgd_work(n), bw, f64)
+    b_solo, _ = work_bound(cm.sync_easgd_solo_work(n), bw, f64)
+    b_sgd, by_sgd = work_bound(cm.sync_sgd_work(n), bw, f64)
     print(f"fused_sync_easgd_update n={n}: kernel {t['easgd']:.4f} ms, "
           f"plain {t['easgd_plain']:.4f} ms, bound {b_easgd:.4f} ms "
           f"({by_easgd}); without center {t['easgd_solo']:.4f} ms, bound "
@@ -544,17 +567,6 @@ def hold(row: dict, what: str, kind: str, outs) -> None:
             row.update(rel_err=rel, tol=limit, err_to_tol=rel / limit)
         print(f"{what} {label}: kernel vs plain relative norm {rel:.3e} "
               f"(limit {limit:g}), max |err| {abs_err:.3e}", flush=True)
-
-
-def attn_pairs(S: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the masks leave in one head: the work this run's
-    masks need, not the S² a dense product would do."""
-    total = 0
-    for q in range(S):
-        lo = max(0, q - window + 1) if window else 0
-        hi = q + 1 if causal else S
-        total += max(0, hi - lo)
-    return total
 
 
 # B, S, H, KVH, D, causal, window, dtype, timed: gemma3-4b's local and
@@ -733,19 +745,10 @@ def phase_attention(torch, F, fa, timing, dev, bw, bf16,
               f"flash_attention_bwd {tag}: two calls, the same bits")
         print(f"flash_attention_bwd {tag}: two calls give the same bits",
               flush=True)
-        es = q.element_size()
-        pairs = B * H * attn_pairs(S, causal, window)
-        q_b, o_b = B * S * H * D * es, B * S * H * Dv * es
-        k_b, v_b = B * S * KVH * D * es, B * S * KVH * Dv * es
-        lse_b = B * S * H * 4
-        # forward: s = q·kᵀ (over D) and p·v (over Dv) on the unmasked
-        # pairs, reading q, k, v and writing out and lse; backward: s and
-        # dq, dk over D, dp and dv over Dv (the flash backward's five
-        # products), reading q, k, v, out, dout, lse and writing dq, dk, dv
-        b_fwd = bound(q_b + k_b + v_b + o_b + lse_b, 2 * pairs * (D + Dv),
-                      bw, bf16)
-        b_bwd = bound(2 * (q_b + k_b + v_b + o_b) + lse_b,
-                      2 * pairs * (3 * D + 2 * Dv), bw, bf16)
+        from repro_torch.core import costmodel as cm
+        shape = (B, S, H, KVH, D, Dv, causal, window, q.element_size())
+        b_fwd = work_bound(cm.attention_fwd_work(*shape), bw, bf16)
+        b_bwd = work_bound(cm.attention_bwd_work(*shape), bw, bf16)
         # the library's same function: the (B, H, S, D) layout, GQA by
         # enable_gqa, the window as a boolean mask
         qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
@@ -916,13 +919,10 @@ def phase_cross_entropy(torch, F, ce, timing, dev, bw, bf16,
             print(f"fused_ce {tag}: {what} would read {reading:.3e} "
                   f"(limit {limit:g})", flush=True)
         del hot_dh, hot_dw, soft_dh, soft_dw
+        from repro_torch.core import costmodel as cm
         es = h.element_size()
-        flop = 2.0 * T * d * V
-        b_fwd = bound(T * d * es + d * V * es + T * 8 + T * (4 + 4 + 8),
-                      flop, bw, bf16)
-        # backward: logits again, dh = dlogits·wᵀ, dw = hᵀ·dlogits
-        b_bwd = bound(2 * (T * d * es + d * V * es) + T * (8 + 4 + 4),
-                      3 * flop, bw, bf16)
+        b_fwd = work_bound(cm.ce_fwd_work(T, d, V, es), bw, bf16)
+        b_bwd = work_bound(cm.ce_bwd_work(T, d, V, es), bw, bf16)
         t = {
             "fwd": timing.cuda_time_ms(lambda: ce.fused_ce_fwd(h, w, y),
                                        reps=5, warmup=1),
@@ -1413,12 +1413,10 @@ ELASTIC_MIXES = (("all f32", ("float32",) * 5),
 
 def elastic_bound(p: int, n: int, sizes, bw, f32) -> tuple:
     """Bound of one fused_elastic_update on P pod rows of n elements whose
-    (W, V, G, C, M) are stored in ``sizes`` bytes per element: W, V and C
-    read and written, G and M read; per element index 7 operations for
-    each pod (V' 3, W' 4) and 3 for C'."""
-    w, v, g, c, m = sizes
-    n_bytes = p * n * (2 * w + 2 * v + g) + n * (2 * c + m)
-    return bound(n_bytes, (7 * p + 3) * n, bw, f32)
+    (W, V, G, C, M) are stored in ``sizes`` bytes per element
+    (``costmodel.elastic_update_work``)."""
+    from repro_torch.core import costmodel
+    return work_bound(costmodel.elastic_update_work(p, n, sizes), bw, f32)
 
 
 def phase_elastic_kernel(torch, eu, timing, dev, bw, f32,
@@ -1714,22 +1712,13 @@ CE_MAMBA2_CASES = ((4096, 1536, 50280, "bfloat16", True),)
 
 
 def ssd_bound(B, H, S, P, N, L, bw, rate, products=1) -> tuple:
-    """Bounds of ``ssd_intra_fwd`` and ``ssd_intra_bwd`` on these shapes:
-    each input read once and each output written once, in f32; over the
-    L (L + 1) / 2 causal pairs of each chunk, 2 operations per product
-    term: G = C·Bᵀ once per (batch row, chunk) and M·X per head forward
-    (N + H·P per pair); G again, dC, dB and, per head, dX and dM backward
-    (3 N + 2 H·P); each product ``products`` times at ``rate`` (3 at the
-    TF32 rate for the kernels' 3xTF32 route, 1 at the CUDA cores' f32
-    rate)."""
-    nc, pairs = S // L, L * (L + 1) // 2
-    a, x, bc = 4 * B * H * S, 4 * B * H * S * P, 4 * B * S * N
-    fwd = bound(a + 2 * x + 2 * bc,
-                products * 2 * B * nc * pairs * (N + H * P), bw, rate)
-    bwd = bound(2 * a + 3 * x + 4 * bc,
-                products * 2 * B * nc * pairs * (3 * N + 2 * H * P), bw,
-                rate)
-    return fwd, bwd
+    """Bounds of ``ssd_intra_fwd`` and ``ssd_intra_bwd`` on these shapes
+    (``costmodel.ssd_fwd_work`` / ``ssd_bwd_work``), each product
+    ``products`` times at ``rate`` (3 at the TF32 rate for the kernels'
+    3xTF32 route, 1 at the CUDA cores' f32 rate)."""
+    from repro_torch.core import costmodel as cm
+    return (work_bound(cm.ssd_fwd_work(B, H, S, P, N, L), bw, rate, products),
+            work_bound(cm.ssd_bwd_work(B, H, S, P, N, L), bw, rate, products))
 
 
 def phase_ssd(torch, sc, timing, dev, bw, f32, tf32,
@@ -4383,6 +4372,219 @@ def add_counts(totals: dict, counts: dict) -> None:
         totals[k] += v
 
 
+# phase 24: the dry run's counts on the host's CPU, in a process of its
+# own started with the script (``--dryrun-cells``; the fake world of 256
+# or 512 ranks must not meet this process's groups): phase 10's cell's
+# peak estimate first (24a), then two production cells (24b)
+DRYRUN_CELLS = (("gemma3-4b", "train_4k", "pod"),
+                ("gemma3-27b", "train_4k", "multipod"))
+DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun_cells"
+# phase 24a: |estimated / measured peak - 1| of the step's device memory.
+# The probe read 0.9995 (46.525 of 46.548 GiB); 2 % is 40 times that and
+# holds the cuBLAS workspaces and kernel scratch an earlier phase may
+# already hold (PERF.md §6, PR 26)
+PEAK_LIMIT = 0.02
+
+
+def phase10_cell(configs, elastic, EASGDConfig) -> tuple:
+    """Phase 10's cell: gemma3-4b at 6 layers, P = 2, B 1 per pod, S 4096,
+    psum, overlap on; ``(cfg, ecfg, P, S)``."""
+    cfg = dataclasses.replace(configs.get("gemma3-4b").config, n_layers=6)
+    ecfg = elastic.ElasticConfig(easgd=EASGDConfig(eta=ETA, rho=RHO, mu=MU),
+                                 schedule="psum", overlap=True)
+    return cfg, ecfg, 2, 4096
+
+
+def dryrun_child() -> int:
+    """``chip_smoke.py --dryrun-cells``: the CPU's part of phase 24, on
+    fake tensors (no device): the peak estimate and counts of phase 10's
+    cell, then ``launch.dryrun.run_cell`` on ``DRYRUN_CELLS``."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch import configs
+    from repro_torch.core import elastic
+    from repro_torch.core.easgd import EASGDConfig
+    from repro_torch.launch import dryrun
+    cfg, ecfg, p, S = phase10_cell(configs, elastic, EASGDConfig)
+    t = time.perf_counter()
+    est, peak = dryrun.count_step(lambda: dryrun.train_step(
+        cfg, ecfg, n_pods=p, per_pod_batch=1, seq=S))
+    DRYRUN_OUT.with_suffix(".estimate.json").write_text(json.dumps({
+        "peak": peak, "flops": est.flops, "bytes": est.bytes,
+        "launches": est.launches, "s": time.perf_counter() - t}))
+    for cell in DRYRUN_CELLS:
+        dryrun.run_cell(*cell, str(DRYRUN_OUT.with_suffix(".jsonl")))
+    return 0
+
+
+def start_dryrun_cells() -> subprocess.Popen:
+    """Start phase 24's CPU counts at once, beside the card's phases: one
+    niced single-threaded process (fake tensors do no arithmetic), its
+    output under ``DRYRUN_OUT``; stopped at exit if still running."""
+    DRYRUN_OUT.parent.mkdir(parents=True, exist_ok=True)
+    for ext in (".jsonl", ".err", ".estimate.json"):
+        DRYRUN_OUT.with_suffix(ext).unlink(missing_ok=True)
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    err = open(DRYRUN_OUT.with_suffix(".err"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dryrun-cells"],
+        env=env, stdout=err, stderr=err, preexec_fn=lambda: os.nice(10))
+    err.close()
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    return proc
+
+
+def phase_step_roofline(torch, np, configs, elastic, EASGDConfig, train,
+                        synthetic, kernels, timing, costmodel, opcount, dev,
+                        card, bw, bf16, est: dict) -> dict:
+    """Phase 24a: phase 10's cell counted by ``launch.opcount`` on the
+    card path, priced on the card's own data-sheet row beside its measured
+    warm step; the dry run's peak estimate ``est`` (``dryrun_child``:
+    fake tensors on the CPU) against ``max_memory_allocated``; the
+    counter's kernel calls against the launch counters and phase 10's
+    counts."""
+    cfg, ecfg, p, S = phase10_cell(configs, elastic, EASGDConfig)
+    est_peak = est["peak"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    build = train.build_train_step(cfg, ecfg, n_pods=p, per_pod_batch=1,
+                                   seq=S, device=dev)
+    state = build.init_state()
+    shards = [synthetic.SyntheticLMStream(cfg.vocab_size, S, 1, seed=13,
+                                          shard=i, n_shards=p).batch_at(0)
+              for i in range(p)]
+    batch = {k: np.stack([sh[k] for sh in shards]) for k in shards[0]}
+
+    def step():
+        # the step updates the state's tensors in place
+        return build.step(state, batch)
+    step()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with opcount.OpCounter() as counter:
+        _, metrics = step()
+        torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    costs = counter.costs()
+    want = lm_counts(cfg, p, updates=1)
+    check(launched == want, f"counted step launched {launched}, phase 10 "
+          f"counts {want}")
+    check(costs.launches == {k: v for k, v in want.items() if v},
+          f"the counter's kernel calls {costs.launches} != the launch "
+          f"counters {want}")
+    check(math.isfinite(metrics["loss"].item()), "counted step loss finite")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = timing.cuda_time_ms(step, reps=3, warmup=0)
+    peak = torch.cuda.max_memory_allocated() - base
+    best_s = timing.time_fn(step, iters=3, warmup=0)
+    chip = costmodel.Chip(card, bf16, bw, float(
+        torch.cuda.get_device_properties(dev).total_memory),
+        costmodel.H100_SXM.link_bandwidth)
+    rl = costmodel.roofline(costs.flops, costs.bytes, costs.collective_bytes,
+                            1, chip)
+    n = state.params.shape[1]
+    model_flops = costmodel.model_flops_train(n, p * S)
+    frac = 1e3 * rl.bound_s / step_ms
+    ratio = est_peak / peak
+    kernel_flops = sum(r["operations"] for r in costs.regions.values())
+    kernel_bytes = sum(r["bytes"] for r in costs.regions.values())
+    print(f"step roofline {cfg.name} {cfg.n_layers} layers n={n} P={p} B=1 "
+          f"S={S}: counted on the card path {costs.flops:.6e} FLOPs "
+          f"({kernel_flops / costs.flops:.1%} in kernel regions), "
+          f"{costs.bytes:.6e} bytes ({kernel_bytes / costs.bytes:.1%} in "
+          f"kernel regions), {costs.collective_bytes:.0f} collective bytes; "
+          f"on {card}'s data sheet (bf16 {bf16 / 1e12:g} TFLOP/s, "
+          f"{bw / 1e12:g} TB/s): compute {1e3 * rl.compute_s:.3f} ms, "
+          f"memory {1e3 * rl.memory_s:.3f} ms, collective "
+          f"{1e3 * rl.collective_s:.3f} ms, dominant {rl.dominant}, bound "
+          f"{1e3 * rl.bound_s:.3f} ms", flush=True)
+    print(f"step roofline {cfg.name}: warm step {step_ms:.3f} ms (CUDA "
+          f"events, median of 3), {1e3 * best_s:.3f} ms (time_fn, best of "
+          f"3); roofline fraction bound / step {frac:.4f}; 6·N·D model "
+          f"FLOPs {model_flops:.6e} at the bf16 peak "
+          f"{model_flops / bf16 / (step_ms / 1e3):.4f} of the step",
+          flush=True)
+    print(f"step roofline {cfg.name}: peak estimate {est_peak / 2**30:.3f} "
+          f"GiB (fake tensors on the CPU, {est['s']:.1f} s) vs measured "
+          f"{peak / 2**30:.3f} GiB (max_memory_allocated above the "
+          f"{base / 2**30:.3f} GiB held before the build): estimate / "
+          f"measured {ratio:.4f} (limit {PEAK_LIMIT:g}); the CPU count "
+          f"{est['flops']:.6e} FLOPs, {est['bytes']:.6e} bytes "
+          f"({est['flops'] / costs.flops:.6f}, "
+          f"{est['bytes'] / costs.bytes:.6f} of the card path's)",
+          flush=True)
+    print(f"step roofline {cfg.name}: counter kernel calls {costs.launches} "
+          f"== launch counters == phase 10's counts", flush=True)
+    check(abs(ratio - 1) <= PEAK_LIMIT,
+          f"peak estimate / measured {ratio:.4f} outside {PEAK_LIMIT:g}")
+    del state, build
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_dryrun_cells(proc, wait_s: float = 900.0) -> dict:
+    """Phase 24b: the records of ``DRYRUN_CELLS``, counted on this host's
+    CPU since the script started; returns phase 24a's estimate."""
+    t = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=wait_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise RuntimeError(f"dry-run cells not done after {wait_s:g} s more")
+    waited = time.perf_counter() - t
+    err = DRYRUN_OUT.with_suffix(".err").read_text()
+    check(rc == 0, f"dry-run cells exit {rc}: {err[-2000:]}")
+    recs = [json.loads(line) for line in
+            DRYRUN_OUT.with_suffix(".jsonl").read_text().splitlines()]
+    check([(r["arch"], r["shape"], r["mesh_kind"]) for r in recs]
+          == list(DRYRUN_CELLS), "one record a dry-run cell")
+    for r in recs:
+        tag = f"dry run {r['arch']} {r['shape']} {r['mesh_kind']}"
+        check(r["ok"], f"{tag}: {r.get('error')}")
+        rl = r["roofline"]
+        mb = r.get("microbatches", 1)
+        print(f"{tag} ({r['mesh']}, {mb} microbatches, "
+              f"traced in {r['trace_s']:.1f} s on this host's CPU): "
+              f"counts priced on {r['chip']}'s data sheet, not times: "
+              f"compute {rl['compute_s']:.6f} s, memory "
+              f"{rl['memory_s']:.6f} s, collective {rl['collective_s']:.6f} "
+              f"s, cross-pod {rl['cross_pod_s']:.6f} s, dominant "
+              f"{rl['dominant']}, bound {rl['bound_s']:.6f} s; "
+              f"{r['flops_per_device']:.6e} FLOPs, "
+              f"{r['bytes_per_device']:.6e} bytes, "
+              f"{r['collective_bytes_per_device']} collective bytes a "
+              f"device; peak {r['peak_bytes_per_device'] / 2**30:.3f} GiB "
+              f"a device (fits: {r['fits_device']}); useful FLOPs "
+              f"{r['useful_flops_ratio']:.4f}, roofline fraction "
+              f"{r['roofline_fraction']:.4f}", flush=True)
+        check(r["fits_device"], f"{tag} fits the device")
+    print(f"dry-run cells: waited {waited:.1f} s for them here", flush=True)
+    return json.loads(DRYRUN_OUT.with_suffix(".estimate.json").read_text())
+
+
+def phase_elastic_restart(device="cuda") -> None:
+    """Phase 24c: ``examples/elastic_restart_torch.py`` on the card."""
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, str(SRC.parent / "examples" /
+                             "elastic_restart_torch.py"),
+         "--device", device],
+        env=dict(os.environ, PYTHONPATH=str(SRC)), capture_output=True,
+        text=True, timeout=600)
+    for line in out.stdout.strip().splitlines():
+        print(f"  elastic_restart_torch: {line}")
+    check(out.returncode == 0, f"elastic_restart_torch.py --device {device} "
+          f"exit {out.returncode}: {out.stderr[-2000:]}")
+    print(f"examples/elastic_restart_torch.py --device {device}: exit 0 in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+
+
 def kernel_rows(rows: dict, launches: dict) -> list:
     """The ``kernels`` JSON line: one entry per kernel of the port, the
     contract's keys first, then what else the phases measured."""
@@ -4423,6 +4625,7 @@ def main() -> int:
     from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.models import common
     from repro_torch.models import transformer as tfm
+    from repro_torch.launch import opcount
     from repro_torch.launch import train as launcher
     from repro_torch.net import peer, server, wire
     from repro_torch.ps import problems, runtime, zoo
@@ -4439,6 +4642,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
+    dry = start_dryrun_cells()
     built = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)}",
           flush=True)
@@ -4691,6 +4895,22 @@ def main() -> int:
                                     train, synthetic, kernels, timing, dev))
     print(f"phase mesh (23): {time.perf_counter() - t:.1f} s", flush=True)
 
+    # the tooling: the whole step counted and priced (phase 24); the CPU's
+    # counts (24b and 24a's estimate) have run since the script started
+    release_card(torch, "before phase 24")
+    t = time.perf_counter()
+    est = phase_dryrun_cells(dry)
+    print(f"phase 24b: {time.perf_counter() - t:.1f} s", flush=True)
+    t24 = time.perf_counter()
+    add_counts(launches, phase_step_roofline(
+        torch, np, configs, elastic, EASGDConfig, train, synthetic, kernels,
+        timing, costmodel, opcount, dev, card, bw, bf16, est))
+    print(f"phase 24a: {time.perf_counter() - t24:.1f} s", flush=True)
+    t24 = time.perf_counter()
+    phase_elastic_restart()
+    print(f"phase 24c: {time.perf_counter() - t24:.1f} s", flush=True)
+    print(f"phase tooling (24): {time.perf_counter() - t:.1f} s", flush=True)
+
     check("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),
         "no jax and no reference module imported")
@@ -4705,4 +4925,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dryrun_child() if sys.argv[1:] == ["--dryrun-cells"]
+             else main())

@@ -37,6 +37,7 @@ from repro_torch.core import compression as compression_lib
 from repro_torch.core import costmodel
 from repro_torch.core import packing as packing_lib
 from repro_torch.models.common import tree_leaves_with_path, tree_unflatten
+from repro_torch.utils import opcount_hook
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +83,7 @@ class ExchangePlan:
         local = rows[0] if rows.shape[0] == 1 else rows.sum(0,
                                                             dtype=rows.dtype)
         if self.schedule.name == "psum":
+            opcount_hook.collective("all-reduce", local, self.group)
             return local, dist.all_reduce(local, group=self.group,
                                           async_op=True)
         _ring_allreduce(local, self.group)
@@ -179,6 +181,8 @@ def _ring_allreduce(x: torch.Tensor, group) -> None:
         for msg in rnd:
             a, b = msg.span(buf.numel())
             if msg.src == me:
+                opcount_hook.collective("collective-permute", buf[a:b],
+                                        group)
                 ops.append(dist.P2POp(dist.isend, buf[a:b], ranks[msg.dst],
                                       group))
             if msg.dst == me:

@@ -24,10 +24,17 @@ ARCHS = {spec.arch_id: spec
                       grok1_314b.SPEC, deepseek_v2_236b.SPEC)}
 
 __all__ = ["ALL_SHAPES", "ARCHS", "ARCH_IDS", "ArchSpec", "QUADRATIC_SHAPES",
-           "SHAPES", "get"]
+           "SHAPES", "cells", "get"]
 
 
 def get(arch_id: str) -> ArchSpec:
     if arch_id in ARCHS:
         return ARCHS[arch_id]
     raise ValueError(f"unknown arch '{arch_id}'; have: {sorted(ARCH_IDS)}")
+
+
+def cells() -> list:
+    """Every ``(arch, shape, supported)`` dry-run cell: the ten archs by
+    the four shapes, in the registry's order."""
+    return [(aid, shape_id, spec.supports(shape_id))
+            for aid, spec in ARCHS.items() for shape_id in ALL_SHAPES]

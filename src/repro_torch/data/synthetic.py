@@ -1,5 +1,6 @@
 """Synthetic datasets (the port of ``repro/data/synthetic.py``:
-``make_classification_dataset`` and ``SyntheticLMStream``). The bodies are
+``make_classification_dataset``, ``teacher_dataset`` and
+``SyntheticLMStream``). The bodies are
 numpy copies of the reference's, so they draw the same bits from the same
 seed."""
 from __future__ import annotations
@@ -17,6 +18,20 @@ def make_classification_dataset(n: int, shape=(28, 28, 1), n_classes: int = 10,
     # normalize like the paper (Alg 1 line 1): zero mean, unit variance
     x = (x - x.mean()) / (x.std() + 1e-8)
     return x.astype(np.float32), y.astype(np.int32)
+
+
+def teacher_dataset(n: int, d_in: int = 64, n_classes: int = 10,
+                    seed: int = 0, temperature: float = 2.0):
+    """Labels from a fixed random teacher MLP (harder than the mixture,
+    non-linear). Returns (x (n, d_in) f32, y (n,) int32)."""
+    rng = np.random.RandomState(seed)
+    w1 = rng.randn(d_in, 128).astype(np.float32) / np.sqrt(d_in)
+    w2 = rng.randn(128, n_classes).astype(np.float32) / np.sqrt(128)
+    x = rng.randn(n, d_in).astype(np.float32)
+    h = np.maximum(x @ w1, 0.0)
+    logits = h @ w2 * temperature
+    y = logits.argmax(-1)
+    return x, y.astype(np.int32)
 
 
 class SyntheticLMStream:

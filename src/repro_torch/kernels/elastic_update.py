@@ -40,7 +40,9 @@ import ctypes
 
 import torch
 
+from repro_torch.core import costmodel
 from repro_torch.kernels import _build
+from repro_torch.utils import opcount_hook
 
 _c_ptr, _c_long, _c_double, _c_int = (ctypes.c_void_p, ctypes.c_long,
                                       ctypes.c_double, ctypes.c_int)
@@ -101,6 +103,13 @@ def fused_sync_easgd_update_ref(w, grad, center, row, p: int, eta: float,
         center_out.copy_(center + ((eta * rho) * p) * (mean - center))
 
 
+def _sync_easgd_work(w, grad, center, row, p, eta, rho,
+                     center_out=None) -> tuple:
+    return (costmodel.sync_easgd_solo_work if center_out is None
+            else costmodel.sync_easgd_work)(w.numel())
+
+
+@opcount_hook.kernel_region(_sync_easgd_work)
 def fused_sync_easgd_update(w, grad, center, row, p: int, eta: float,
                             rho: float, center_out=None) -> None:
     """One fused Sync EASGD update over a row (or a bucket of it), in place:
@@ -143,6 +152,8 @@ def fused_sync_sgd_update_ref(center, vel, row, p: int, eta: float,
     center.add_(vel)
 
 
+@opcount_hook.kernel_region(
+    lambda center, *_, **__: costmodel.sync_sgd_work(center.numel()))
 def fused_sync_sgd_update(center, vel, row, p: int, eta: float,
                           mu: float) -> None:
     """One fused synchronous momentum-SGD master update, in place on
@@ -207,6 +218,13 @@ def fused_elastic_update_ref(w, v, g, c, mean_w, *, eta: float, rho: float,
     c.copy_(c_new)
 
 
+def _elastic_work(w, v, g, c, mean_w, **_) -> tuple:
+    p = w.shape[0] if w.dim() == 2 else 1
+    return costmodel.elastic_update_work(
+        p, w.shape[-1], [t.element_size() for t in (w, v, g, c, mean_w)])
+
+
+@opcount_hook.kernel_region(_elastic_work)
 def fused_elastic_update(w, v, g, c, mean_w, *, eta: float, rho: float,
                          mu: float, n_workers: int) -> None:
     """One fused momentum-EASGD update over the packed pod rows, in place

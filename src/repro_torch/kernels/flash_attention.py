@@ -42,7 +42,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import costmodel
 from repro_torch.kernels import _build
+from repro_torch.utils import opcount_hook
 
 NEG_INF = -1e30
 # the head dims the kernels take with Dv == D: 24 and 96 run on the next
@@ -184,6 +186,32 @@ def flash_attention_fwd_ref(q, k, v, causal=True, window=0, q_block=512,
     return out[:, :Sq], lse[:, :Sq]
 
 
+def _shapes(q, k, v, causal, window) -> tuple:
+    B, S, H, D = q.shape
+    return (B, S, H, k.shape[2], D, v.shape[-1], bool(causal), int(window),
+            q.element_size())
+
+
+def _fwd_work(q, k, v, causal=True, window=0, *_, **__) -> tuple:
+    return costmodel.attention_fwd_work(*_shapes(q, k, v, causal, window))
+
+
+def _bwd_work(q, k, v, out, lse, dout, causal=True, window=0, *_,
+              **__) -> tuple:
+    return costmodel.attention_bwd_work(*_shapes(q, k, v, causal, window))
+
+
+def _fwd_outputs(q, k, v, *_, **__) -> tuple:
+    B, S, H, _d = q.shape
+    return (q.new_empty((B, S, H, v.shape[-1])),
+            q.new_empty((B, S, H), dtype=torch.float32))
+
+
+def _bwd_outputs(q, k, v, *_, **__) -> tuple:
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@opcount_hook.kernel_region(_fwd_work, _fwd_outputs)
 def flash_attention_fwd(q, k, v, causal=True, window=0, q_block=512,
                         kv_block=1024):
     """Attention forward -> ``(out, lse)``. ``q_block`` / ``kv_block`` set
@@ -269,6 +297,7 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True, window=0,
     return dq, dk[:, :Skv].to(k.dtype), dv[:, :Skv].to(v.dtype)
 
 
+@opcount_hook.kernel_region(_bwd_work, _bwd_outputs)
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=0,
                         q_block=512, kv_block=1024):
     """Attention backward -> ``(dq, dk, dv)``. dk and dv sum the G query

@@ -51,7 +51,9 @@ import ctypes
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import costmodel
 from repro_torch.kernels import _build
+from repro_torch.utils import opcount_hook
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _c_ptr, _c_int = ctypes.c_void_p, ctypes.c_int
@@ -161,6 +163,34 @@ def fused_ce_fwd_ref(h, w, targets):
     return lse - tgt, lse, logits.argmax(dim=-1)
 
 
+def _fwd_work(h, w, *_, **__) -> tuple:
+    return costmodel.ce_fwd_work(h.shape[0], h.shape[1], w.shape[1],
+                                 h.element_size())
+
+
+def _bwd_work(h, w, *_, **__) -> tuple:
+    return costmodel.ce_bwd_work(h.shape[0], h.shape[1], w.shape[1],
+                                 h.element_size())
+
+
+def _fwd_outputs(h, *_, **__) -> tuple:
+    T = h.shape[0]
+    return (h.new_empty(T, dtype=torch.float32),
+            h.new_empty(T, dtype=torch.float32),
+            h.new_empty(T, dtype=torch.int64))
+
+
+def _bwd_outputs(h, w, *_, **__) -> tuple:
+    # dw as the kernel returns it: the transpose of a (V, d) buffer
+    out = torch.empty_like(h), w.new_empty((w.shape[1], w.shape[0])).t()
+    # the bf16 route's dlogits chunk buffers, held while the kernel runs
+    if h.dtype == torch.bfloat16:
+        T, d = h.shape
+        h.new_empty(bwd_scratch_bytes(T, w.shape[1], d), dtype=torch.uint8)
+    return out
+
+
+@opcount_hook.kernel_region(_fwd_work, _fwd_outputs)
 def fused_ce_fwd(h, w, targets, logit_softcap: float = 0.0):
     """Per-token cross-entropy -> ``(loss, lse, pred)``: f32, f32, int64."""
     _check(h, w, targets, logit_softcap)
@@ -210,6 +240,7 @@ def fused_ce_bwd_ref(h, w, targets, lse, g):
     return (dl @ w.float().t()).to(h.dtype), (h.float().t() @ dl).to(w.dtype)
 
 
+@opcount_hook.kernel_region(_bwd_work, _bwd_outputs)
 def fused_ce_bwd(h, w, targets, lse, g, logit_softcap: float = 0.0):
     """Gradients of ``Σ_t g_t·loss_t`` -> ``(dh, dw)``."""
     _check(h, w, targets, logit_softcap)
@@ -280,14 +311,17 @@ class _VocabParallelCE(torch.autograd.Function):
         # the best logit of this rank's columns, for the global argmax
         best = (h.float() * w[:, pred].t().float()).sum(-1)
         m = torch.stack([lse, best])
+        opcount_hook.collective("all-reduce", m, group)
         dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
         # lse − loss is the target logit where this rank holds it, else 0
         s = torch.stack([torch.exp(lse - m[0]), lse - loss])
+        opcount_hook.collective("all-reduce", s, group)
         dist.all_reduce(s, group=group)
         lse_g = m[0] + torch.log(s[0])
         # the first global index of the largest logit: max of V − index
         V = w.shape[1] * dist.get_world_size(group)
         cand = torch.where(best == m[1], V - (pred + v0), 0)
+        opcount_hook.collective("all-reduce", cand, group)
         dist.all_reduce(cand, op=dist.ReduceOp.MAX, group=group)
         ctx.save_for_backward(h, w, local, lse_g)
         ctx.mark_non_differentiable(cand)

@@ -31,7 +31,9 @@ import ctypes
 
 import torch
 
+from repro_torch.core import costmodel
 from repro_torch.kernels import _build
+from repro_torch.utils import opcount_hook
 
 TILE = 64                       # the kernels' tile edge (csrc/ssd_chunk.cu)
 MAX_CHUNK, MAX_HEAD_DIM, MAX_HEADS_A_BLOCK = 4 * TILE, TILE, 32
@@ -177,6 +179,30 @@ def ssd_intra_bwd_ref(a, x, b, c, dy, chunk: int):
 # the wrappers
 # ---------------------------------------------------------------------------
 
+def _sizes(a, x, b, chunk) -> tuple:
+    """(B, H, S, P, N, L) of a call, for ``costmodel.ssd_*_work``."""
+    BH, S = a.shape
+    B = b.shape[0]
+    return B, BH // B, S, x.shape[2], b.shape[2], min(chunk, S)
+
+
+def _fwd_work(a, x, b, c, chunk) -> tuple:
+    return costmodel.ssd_fwd_work(*_sizes(a, x, b, chunk))
+
+
+def _bwd_work(a, x, b, c, dy, chunk) -> tuple:
+    return costmodel.ssd_bwd_work(*_sizes(a, x, b, chunk))
+
+
+def _fwd_outputs(a, x, *_, **__):
+    return torch.empty_like(x)
+
+
+def _bwd_outputs(a, x, b, c, *_, **__) -> tuple:
+    return tuple(torch.empty_like(t) for t in (x, b, c, a))
+
+
+@opcount_hook.kernel_region(_fwd_work, _fwd_outputs)
 def ssd_intra_fwd(a, x, b, c, chunk: int):
     """Intra-chunk output ``y`` (B·H, S, P)."""
     B, H, S, L, P, N = _dims(a, x, b, c, chunk)
@@ -200,6 +226,7 @@ def ssd_intra_fwd(a, x, b, c, chunk: int):
 ssd_intra_fwd.launches = 0
 
 
+@opcount_hook.kernel_region(_bwd_work, _bwd_outputs)
 def ssd_intra_bwd(a, x, b, c, dy, chunk: int):
     """Gradients of ``Σ dy·y`` -> ``(dx, db, dc, da)``; db and dc sum the
     H heads in a fixed order, without atomics."""

@@ -88,9 +88,10 @@ def apply_mrope(x, positions, theta: float, sections):
         raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
                          f"half the head dim, {half}")
     inv = _rope_inv_freq(x.shape[-1], theta, x.device)      # (half,)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(list(sections), device=x.device))      # (half,)
+    # each channel's stream, made on the host: repeat_interleave with a
+    # tensor of counts reads them back from the device
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)  # (half,)
     pos = positions[sec_id].movedim(0, -1)                  # (..., S, half)
     ang = pos.to(torch.float32) * inv
     sin = torch.sin(ang)[..., None, :]

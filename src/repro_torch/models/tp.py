@@ -35,6 +35,8 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from repro_torch.utils import opcount_hook
+
 _ctx = contextvars.ContextVar("tensor_parallel", default=None)
 
 
@@ -114,6 +116,7 @@ def use(layout: Layout | None):
 
 def _all_reduce(x: torch.Tensor, group):
     out = torch.clone(x, memory_format=torch.contiguous_format)
+    opcount_hook.collective("all-reduce", out, group)
     dist.all_reduce(out, group=group)
     return out
 
@@ -176,6 +179,7 @@ def gather_dim(x, dim: int, group):
     xm = x.movedim(dim, 0).contiguous()
     out = torch.empty((n * xm.shape[0],) + tuple(xm.shape[1:]),
                       dtype=x.dtype, device=x.device)
+    opcount_hook.collective("all-gather", out, group)
     _gather_single(out, xm, group=group)
     return out.movedim(0, dim)
 
@@ -192,6 +196,7 @@ class _AllGather(torch.autograd.Function):
         gm = g.movedim(ctx.dim, 0).contiguous()
         out = torch.empty((gm.shape[0] // n,) + tuple(gm.shape[1:]),
                           dtype=g.dtype, device=g.device)
+        opcount_hook.collective("reduce-scatter", out, ctx.group)
         _scatter_single(out, gm, group=ctx.group)
         return out.movedim(0, ctx.dim), None, None
 

@@ -149,7 +149,7 @@ def make_zoo_cnn(model: str = "lenet", seed: int = 0, n_train: int = 512,
     return row, grad_fn, eval_fn
 
 
-def names() -> list[str]:
+def zoo_names() -> list[str]:
     """The names ``--model`` knows, as the reference's ``zoo_names`` lists
     them (its arch ids included)."""
     return (["tiny-mlp", "mlp-large", "jax-mlp", "lenet", "alexnet"]
@@ -167,4 +167,4 @@ def resolve(name: str) -> ProblemSpec:
         return spec("repro_torch.ps.zoo:make_zoo_cnn", model=name)
     if name in configs.ARCHS:
         return spec("repro_torch.ps.zoo:make_zoo_lm", arch=name)
-    raise ValueError(f"unknown model '{name}'; have: {names()}")
+    raise ValueError(f"unknown model '{name}'; have: {zoo_names()}")

@@ -43,6 +43,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (ModelConfig, init_params, spec_leaves,
                                        tree_leaves_with_path, tree_unflatten)
 from repro_torch.runtime import sharding as shd
+from repro_torch.utils import opcount_hook
 from repro_torch.utils.device import fp32_products, resolve_device
 
 METRICS = ("ce", "aux", "accuracy", "tokens")
@@ -113,9 +114,11 @@ def _sum_spans(row: torch.Tensor, spans: tuple, group) -> None:
     """All-reduce the ``[a, b)`` spans of ``row`` over ``group`` in place,
     as one collective."""
     if len(spans) == 1 and spans[0] == (0, row.numel()):
+        opcount_hook.collective("all-reduce", row, group)
         dist.all_reduce(row, group=group)
         return
     buf = torch.cat([row[a:b] for a, b in spans])
+    opcount_hook.collective("all-reduce", buf, group)
     dist.all_reduce(buf, group=group)
     off = 0
     for a, b in spans:
@@ -271,6 +274,7 @@ def build_train_step(cfg: ModelConfig, ecfg: ElasticConfig, *, n_pods: int,
         keys = ("loss",) + METRICS
         sums = torch.stack([torch.stack(losses).sum()] + [
             torch.stack(metrics[k]).sum() for k in METRICS])
+        opcount_hook.collective("all-reduce", sums, group)
         dist.all_reduce(sums, group=group)
         return new_state, dict(zip(keys, (sums / n_pods).unbind()))
 

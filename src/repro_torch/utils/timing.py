@@ -62,3 +62,31 @@ def cuda_time_ms(fn, *args, reps: int = 20, warmup: int = 3) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def _device_of(out):
+    """The device of the first tensor in ``out`` (a tensor, or a tuple,
+    list or dict of them), or None."""
+    if isinstance(out, torch.Tensor):
+        return out.device
+    items = out.values() if isinstance(out, dict) else \
+        out if isinstance(out, (tuple, list)) else ()
+    for x in items:
+        dev = _device_of(x)
+        if dev is not None:
+            return dev
+    return None
+
+
+def time_fn(fn, *args, iters: int = 3, warmup: int = 1) -> float:
+    """Best of ``iters`` host-clock seconds of ``fn(*args)``, each call
+    followed by a synchronise of the device its first output tensor lies
+    on (the reference's ``block_until_ready``)."""
+    for _ in range(warmup):
+        synchronize(_device_of(fn(*args)))
+    best = float("inf")
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        synchronize(_device_of(fn(*args)))
+        best = min(best, time.perf_counter() - t0)
+    return best

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import faulthandler
 import multiprocessing as mp
 import os
 import traceback
@@ -28,9 +29,19 @@ from repro_torch.models import transformer as tfm
 from repro_torch.runtime import serve, train
 
 JOIN_S = 240
+_FAULTS = None    # the rank's faulthandler file, open until it exits
+
+
+def _fault_log(out_dir, name, rank) -> str:
+    return os.path.join(out_dir, f"{name}-{rank}.faults")
 
 
 def _run(rank, world, store, name, payload, out_dir):
+    # a native crash writes the Python frames of every thread here, which
+    # World.results prints beside the rank's exit code
+    global _FAULTS
+    _FAULTS = open(_fault_log(out_dir, name, rank), "w")
+    faulthandler.enable(_FAULTS, all_threads=True)
     torch.set_num_threads(1)
     dist.init_process_group(
         "gloo", store=dist.FileStore(store, world), rank=rank,
@@ -39,9 +50,10 @@ def _run(rank, world, store, name, payload, out_dir):
         out = globals()[name](payload)
     except BaseException:
         out = {"error": traceback.format_exc()}
-    finally:
-        dist.destroy_process_group()
     torch.save(out, os.path.join(out_dir, f"{name}-{rank}.pt"))
+    # no rank tears its gloo pairs down while another still sends on them
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 class World:
@@ -64,7 +76,13 @@ class World:
                 p.join(JOIN_S)
             self.close()
             codes = [p.exitcode for p in self.procs]
-            assert codes == [0] * self.n, f"{self.name} exit codes {codes}"
+            faults = ""
+            for r, code in enumerate(codes):
+                if code != 0:
+                    with open(_fault_log(self.dir, self.name, r)) as f:
+                        faults += f"--- rank {r} exit {code}:\n{f.read()}"
+            assert codes == [0] * self.n, \
+                f"{self.name} exit codes {codes}\n{faults}"
             self._out = [torch.load(os.path.join(self.dir,
                                                  f"{self.name}-{r}.pt"),
                                     weights_only=False)

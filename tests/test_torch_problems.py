@@ -106,7 +106,7 @@ def test_layer_sizes_and_zoo_names_equal(ref_mlp):
     _, ref_grad, _ = ref_mlp
     _, grad_fn, _ = problems.make_jax_mlp(device="cpu")
     assert grad_fn.layer_sizes == ref_grad.layer_sizes
-    assert zoo.names() == ref_zoo.zoo_names()
+    assert zoo.zoo_names() == ref_zoo.zoo_names()
     spec = zoo.resolve("jax-mlp")
     assert spec == problems.JAX_MLP
     assert spec.factory.split(":")[1] == \
