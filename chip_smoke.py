@@ -44,9 +44,9 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    paths hold them, timed at remat "none" too;
 8. the second main path: ``run_ps`` on ``--model gemma3-4b`` (the reduced
    decoder, as the reference's PS trainer runs it), P = 4, ring, 64 KiB
-   buckets, 16 rounds, Sync EASGD and then Sync SGD, counters 0 before each
-   run and read after: every kernel must have launched exactly as often as
-   the warm-up, the rounds and the evals imply;
+   buckets, Sync EASGD for 16 rounds and then Sync SGD for 4, counters 0
+   before each run and read after: every kernel must have launched
+   exactly as often as the warm-up, the rounds and the evals imply;
 9. hold ``fused_elastic_update`` against its plain version on the card, bit
    for bit, at n ∈ {1188, 131072+777, 6,976,842} × P ∈ {1, 2, 4} over the
    storage dtypes (all f32; params f32 with momentum and center bf16; all
@@ -130,7 +130,8 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    α–β, and whether each tcp run equals the thread run bit for bit
    (reported); (c) tracing's cost on the thread plane (AlexNet, traced
    and untraced in turns); (d) ``launch.train --transport tcp
-   --sync-plane p2p --trace`` and ``launch.cluster`` as subprocesses;
+   --sync-plane p2p --trace`` and ``launch.cluster`` as subprocesses
+   (started beside 19e's);
    (e) reduced gemma3-4b over tcp p2p, P = 2, 16 rounds, attention and
    cross-entropy launched in the workers and counted exactly;
 18. the live telemetry plane and elastic membership over tcp: (a) on the
@@ -267,11 +268,34 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    and runs on the host's CPU beside the card's phases (with (a)'s
    estimate): each record ok and fitting the device, its roofline terms
    printed as counts priced on the H100's data sheet; (c)
-   ``examples/elastic_restart_torch.py --device cuda`` exits 0.
+   ``examples/elastic_restart_torch.py --device cuda`` exits 0 (started
+   beside 19e's entry points);
+25. the MoE, MLA, SSM and RG-LRU layer kinds on meshes (``models.tp``):
+   (a) the kernels at the ranks' local shapes against their plain
+   versions: the SSD at 24 heads, MLA's attention at 64, the
+   cross-entropy on grok-1-314b's and deepseek-v2-236b's vocab shards;
+   (b) two processes on the one card over gloo (NCCL takes one rank a
+   card), each job's un-meshed result computed first in this process and shared
+   with them (CUDA IPC): mamba2-780m at 2 layers and recurrentgemma-2b at
+   one period (3 layers), ``model`` 2 (24 SSD heads a rank; RG-LRU width
+   1280), phase 23's 2 steps of P = 2 pods, B 1 a pod, held by what the
+   steps moved (mamba2-780m at bf16 compute and again at f32);
+   deepseek-v2-236b and grok-1-314b at 1 layer, bf16
+   params, the gradient of B 2 at S 4096, ``model`` 2 (MLA's 64 heads a
+   rank, ``expert_ff`` halved) and ``data`` 2 (one row a rank; the
+   experts 80 / 4 a rank with the dispatch all-to-all), held by the
+   gradient's relative norm and the pod's aux loss; exact launches per
+   rank, ms and the peak per rank, the routing decisions that flip
+   against the un-meshed run. Each limit (``KIND_TOL``, from the card's
+   readings) is shown to reject a planted fault ten times over: at f32
+   the gated norm's variance without its sum and with its sum in the
+   forward only, the RG-LRU gate partials all-reduced with the identity
+   backward, the dispatch all-to-all skipped, a local aux loss.
 
 Each phase prints its seconds (and each sub-phase's from 16 on). Phase
 17a's sync runs share their worker start-ups with the thread ↔ master ↔
-p2p triangle, 17d starts its two entry points at once, and a gradient
+p2p triangle, 17d's two entry points and 24c's example start beside
+19e's two (all checked for their paths, not timed), and a gradient
 above 4.5 B parameters is compared over two leaf groups (phase 20b's
 gemma3-27b, 21b) rather than parked in host memory.
 
@@ -1346,13 +1370,14 @@ def f64_plain_ssd(sc):
 
 def phase_lm_main_path(torch, runtime, zoo, kernels, comm_rounds,
                        EASGDConfig, timing, cfg, arch="gemma3-4b",
-                       algos=("sync_easgd", "sync_sgd"),
+                       algos=(("sync_easgd", 16), ("sync_sgd", 4)),
                        device="cuda") -> dict:
     """``--model <arch>`` (the reduced config ``cfg``) on the PS trainer,
-    P = 4, ring, 64 KiB buckets, 16 rounds; counters 0 before each run and
-    read just after. First the time of one gradient alone, on a private
-    minibatch stream, to set a round's four gradients against the round."""
-    p, rounds = 4, 16
+    P = 4, ring, 64 KiB buckets, each algorithm of ``algos`` for its
+    rounds; counters 0 before each run and read just after. First the
+    time of one gradient alone, on a private minibatch stream, to set a
+    round's four gradients against the round."""
+    p = 4
     easgd = EASGDConfig(eta=0.05, rho=0.05, mu=MU)
     problem = zoo.resolve(arch)
     w0, grad_fn, _ = problem.build(device)
@@ -1365,14 +1390,14 @@ def phase_lm_main_path(torch, runtime, zoo, kernels, comm_rounds,
           f"{1e3 * tm.elapsed / 10:.2f} ms per gradient", flush=True)
     bounds = comm_rounds.default_bucket_boundaries(
         grad_fn.layer_sizes, n + (-n) % p, 64 << 10)
-    # every worker warms up on 2 gradients, then takes one per round; the
-    # run ends with one eval (a forward without backward)
-    grads, evals = 2 * p + rounds * p, 1
     totals = {k.__name__: 0 for k in kernels.KERNELS}
-    updates = {"sync_easgd": ("fused_sync_easgd_update", p * rounds),
-               "sync_sgd": ("fused_sync_sgd_update", rounds)}
-    for algo in algos:
-        update, n_update = updates[algo]
+    for algo, rounds in algos:
+        # every worker warms up on 2 gradients, then takes one per round;
+        # the run ends with one eval (a forward without backward)
+        grads, evals = 2 * p + rounds * p, 1
+        update, n_update = {
+            "sync_easgd": ("fused_sync_easgd_update", p * rounds),
+            "sync_sgd": ("fused_sync_sgd_update", rounds)}[algo]
         ps_cfg = runtime.PSConfig(algorithm=algo, n_workers=p,
                                   total_iters=p * rounds, schedule="ring",
                                   eval_every_iters=10**9,
@@ -2280,10 +2305,10 @@ def phase_trace_cost(torch, runtime, zoo, kernels, EASGDConfig,
     return totals
 
 
-def phase_tcp_entry_points(device="cuda") -> None:
-    """(17d) The entry points as subprocesses on the card, both at once:
-    ``launch.train --transport tcp --sync-plane p2p --trace`` and
-    ``launch.cluster``."""
+def start_tcp_entry_points(device="cuda") -> tuple:
+    """(17d) Start the entry points as subprocesses on the card, both at
+    once: ``launch.train --transport tcp --sync-plane p2p --trace`` and
+    ``launch.cluster``. Returns what ``phase_tcp_entry_points`` checks."""
     out_dir = Path(__file__).resolve().parent / "build" / "tcp_trace"
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
@@ -2300,6 +2325,13 @@ def phase_tcp_entry_points(device="cuda") -> None:
     procs = [subprocess.Popen([sys.executable, *args], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for args in cmds]
+    return cmds, procs, t
+
+
+def phase_tcp_entry_points(started, device="cuda") -> None:
+    """(17d) The two entry points that ``start_tcp_entry_points`` started:
+    each exits 0 with its result lines on the card."""
+    cmds, procs, t = started
     for proc, args in zip(procs, cmds):
         out, err_out = proc.communicate(timeout=600)
         lines = [ln for ln in out.splitlines() if " err=" in ln]
@@ -3965,7 +3997,7 @@ HELD = ("params", "momentum", "center")
 HELD_TOL = {"params": 5e-2, "momentum": 5e-2, "center": 5e-2}
 
 
-def held_sums(torch, state, refs, cfg, mesh, pspecs) -> dict:
+def held_sums(torch, state, refs, cfg, mesh, pspecs, group=None) -> dict:
     """``{quantity: (||got - want||^2, ||want - start||^2)}`` for the
     params, momentum and center over this rank's block: ``refs`` is
     (a)'s ``(P, n)`` params and momentum and ``(n,)`` center after its
@@ -3973,7 +4005,12 @@ def held_sums(torch, state, refs, cfg, mesh, pspecs) -> dict:
     tensors), cut to the rank's pods and shard leaf by leaf. ``start`` is
     where the steps began (every pod's params at the center, the momentum
     0), so each quantity is held against what the steps moved. A leaf
-    that ``model`` does not split counts on model rank 0 alone."""
+    counts on the rank whose coordinate is 0 on every mesh axis but
+    ``pod`` that does not split it (model rank 0 alone, where ``model``
+    does not split it). With
+    ``group`` (names in the params' paths, e.g. ``("wa", "wi")``) the
+    momentum of the leaves whose path holds one is summed apart too, as
+    ``"momentum <names joined by +>"``."""
     from repro_torch.models import transformer as tfm
     from repro_torch.models.common import spec_leaves
     from repro_torch.runtime import sharding as shd
@@ -3981,8 +4018,10 @@ def held_sums(torch, state, refs, cfg, mesh, pspecs) -> dict:
     sizes = shd.mesh_axis_sizes(mesh)
     pl = state.params.shape[0]
     pod0 = mesh.get_local_rank("pod") * pl if sizes["pod"] > 1 else 0
-    first = sizes["model"] == 1 or mesh.get_local_rank("model") == 0
     sums = {k: [0.0, 0.0] for k in HELD}
+    part = f"momentum {'+'.join(group)}" if group else None
+    if part:
+        sums[part] = [0.0, 0.0]
 
     def add(key, got, want, start):
         sums[key][0] += float(torch.linalg.vector_norm(got - want)) ** 2
@@ -3990,11 +4029,13 @@ def held_sums(torch, state, refs, cfg, mesh, pspecs) -> dict:
         sums[key][1] += float(torch.linalg.vector_norm(moved)) ** 2
 
     off_l = off_f = 0
-    for (_, lshape), (_, fshape), spec in zip(
+    for (path, lshape), (_, fshape), spec in zip(
             shd.local_layout(cfg, mesh), tfm.ravel_layout(cfg),
             spec_leaves(pspecs)):
         nl, nf = math.prod(lshape), math.prod(fshape)
-        if first or "model" in shd.spec_axes(spec):
+        axes = shd.spec_axes(spec)
+        if all(a in axes or n == 1 or mesh.get_local_rank(a) == 0
+               for a, n in sizes.items() if a != "pod"):
             cut = shd.local_slices(mesh, fshape, spec)
             full = slice(off_f, off_f + nf)
             start = c0[full].view(fshape)[cut]
@@ -4003,9 +4044,11 @@ def held_sums(torch, state, refs, cfg, mesh, pspecs) -> dict:
             for i in range(pl):
                 add("params", state.params[i, off_l:off_l + nl].view(lshape),
                     w_ref[pod0 + i, full].view(fshape)[cut], start)
-                add("momentum",
-                    state.momentum[i, off_l:off_l + nl].view(lshape),
-                    v_ref[pod0 + i, full].view(fshape)[cut], None)
+                for key in ("momentum",) + (
+                        (part,) if part and set(group) & set(path) else ()):
+                    add(key,
+                        state.momentum[i, off_l:off_l + nl].view(lshape),
+                        v_ref[pod0 + i, full].view(fshape)[cut], None)
         off_l, off_f = off_l + nl, off_f + nf
     return {k: tuple(v) for k, v in sums.items()}
 
@@ -4036,11 +4079,11 @@ def mesh_rank(rank: int, store: str, cfg, S: int, batches, up, refs,
     from repro_torch.utils import timing
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
-                            rank=rank, world_size=2,
-                            timeout=datetime.timedelta(seconds=120))
     result = {}
     try:
+        dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                                rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=120))
         refs.get()      # the parent's go: (a) has left the card
         for name, (pods, data, model) in MESH_WORLDS:
             t0 = time.perf_counter()
@@ -4081,8 +4124,11 @@ def mesh_rank(rank: int, store: str, cfg, S: int, batches, up, refs,
         result["error"] = traceback.format_exc()
         up.put((rank, "error"))
     finally:
-        dist.destroy_process_group()
-    Path(out).write_text(json.dumps(result))
+        # what was read goes out first: a teardown that fails shows as
+        # the exit code beside it
+        Path(out).write_text(json.dumps(result))
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def start_mesh_ranks(cfg, S: int, batches) -> tuple:
@@ -4310,11 +4356,14 @@ def phase_mesh(torch, cfg, S, elastic, EASGDConfig, train, synthetic,
     del host
     torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
-    check([pr.exitcode for pr in procs] == [0, 0],
-          f"phase 23 ranks exit codes {[pr.exitcode for pr in procs]}")
-    res = [json.loads(o.read_text()) for o in outs]
+    codes = [pr.exitcode for pr in procs]
+    res = [json.loads(o.read_text()) if o.exists()
+           else {"error": f"no result (exit code {c})"}
+           for o, c in zip(outs, codes)]
     for r, out in enumerate(res):
         check("error" not in out, f"phase 23 rank {r}: {out.get('error')}")
+    check(codes == [0, 0], f"phase 23 ranks exit codes {codes} after "
+          f"writing their results (the teardown failed)")
     for name, (pods, _, _) in MESH_WORLDS:
         rows = [out[name] for out in res]
         local_pods = p // pods
@@ -4352,6 +4401,482 @@ def phase_mesh(torch, cfg, S, elastic, EASGDConfig, train, synthetic,
           f"({wall:.1f} s from the spawn, beside the staging); (a)'s "
           f"state to the card {[round(x, 1) for x in upload_s]} s",
           flush=True)
+    return totals
+
+
+# phase 25: the MoE, MLA, SSM and RG-LRU layer kinds on a mesh. Jobs: (arch,
+# layers, hold, meshes as (data, model), planted faults as (mesh index,
+# fault), compute dtype or None for the config's): "step" holds phase
+# 23's moves after 2 steps of P = 2 pods (B 1 a pod), "gradient" the
+# gradient of B 2 (one row a rank over data 2). The gated norm's faults
+# are planted at f32 compute, whose floor lies far below them (at bf16
+# the floor, 1.5e-2, is within 20x of the variance left unsummed)
+KIND_JOBS = (("mamba2-780m", 2, "step", ((1, 2),), (), None),
+             ("mamba2-780m", 2, "step", ((1, 2),),
+              ((0, "norm_local"), (0, "norm_sum")), "float32"),
+             ("recurrentgemma-2b", 3, "step", ((1, 2),),
+              ((0, "gate_identity"),), None),
+             ("deepseek-v2-236b", 1, "gradient", ((1, 2), (2, 1)),
+              ((1, "all_to_all"), (1, "local_aux")), None),
+             ("grok-1-314b", 1, "gradient", ((1, 2), (2, 1)), (), None))
+PHASE25_DIR = Path(__file__).resolve().parent / "build" / "phase25"
+# the kernels at the local shapes of phase 25's ranks, held once: the SSD
+# at 24 of mamba2's 48 heads, MLA's attention at 64 of 128 heads, the
+# cross-entropy on a vocab shard (grok-1-314b's and deepseek-v2-236b's at
+# model 2)
+SSD_LOCAL_CASES = ((1, 24, 4096, 64, 128, 256, 1.0, False),)
+ATTN_LOCAL_CASES = ((1, 4096, 64, 64, (192, 128), True, 0, "bfloat16",
+                     False),)
+CE_LOCAL_CASES = ((4096, 6144, 65536, "bfloat16", False),
+                  (4096, 5120, 51200, "bfloat16", False))
+# relative norms of the error, from the card's readings (PERF.md):
+# the moves of a step job (as HELD_TOL; mamba2-780m read 1.4e-2-1.5e-2,
+# recurrentgemma-2b 2.6e-2); the momentum of its SSM leaves (1.52e-2)
+# and of its RG-LRU gate weights (2.6e-2; the gates' identity backward
+# reads 0.708); a gradient job's gradient at model 2 (bf16 partial sums
+# before their all-reduce and the routing flips they cause:
+# deepseek-v2-236b 2.1e-2, grok-1-314b 9.7e-3) and at data 2 (3.8e-3 /
+# 3.0e-3; the all-to-all skipped reads 0.208); the pod's aux loss (3.9e-5
+# at most; a local aux loss reads 0.171)
+KIND_TOL = {"params": 5e-2, "momentum": 5e-2, "center": 5e-2,
+            "momentum ssm": 5e-2, "momentum wa+wi": 5e-2,
+            "gradient model": 5e-2, "gradient data": 1e-2, "aux": 1e-3}
+# the same at f32 compute (mamba2-780m read 5.4e-6, 2.7e-6, 1.1e-4 and
+# 2.8e-6 in its SSM leaves: the limits about ten times that, for another
+# card's choice of GEMM algorithms; the variance left unsummed reads
+# 0.263 there, its sum in the forward only 0.178)
+KIND_TOL_F32 = {"params": 5e-5, "momentum": 3e-5, "center": 1e-3,
+                "momentum ssm": 3e-5}
+# a step job's leaves whose momentum is also held apart: the SSM blocks
+# (the norm's variance feeds them all) and the RG-LRU gates' weights
+KIND_GROUP = {"mamba2-780m": ("ssm",), "recurrentgemma-2b": ("wa", "wi")}
+# what each planted fault must read at least ten times the limit of
+FAULT_READS = {"norm_local": "momentum ssm", "norm_sum": "momentum ssm",
+               "gate_identity": "momentum wa+wi",
+               "all_to_all": "gradient data", "local_aux": "aux"}
+
+
+def kind_cfg(configs, arch: str, layers: int, reduced: bool = False,
+             compute=None):
+    """The published config cut to ``layers`` (the reduced one, whole, for
+    a rehearsal on the CPU), at ``compute`` (a dtype's name) if given."""
+    import torch
+    cfg = configs.get(arch).reduced if reduced else dataclasses.replace(
+        configs.get(arch).config, n_layers=layers)
+    if compute is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype=getattr(torch, compute))
+    return cfg
+
+
+def kind_label(arch: str, compute) -> str:
+    return arch if compute is None else f"{arch} {compute}"
+
+
+def kind_tol(compute) -> dict:
+    return KIND_TOL_F32 if compute == "float32" else KIND_TOL
+
+
+def seeded_row(torch, tfm, common, cfg, dev, mesh=None, pspecs=None):
+    """``lm_params``' values (seed 0, the query and key projections at the
+    fan-in of their contraction where the config has no qk-norm) as one
+    flat row in the config's param dtype: this rank's blocks on ``mesh``.
+    Drawn leaf by leaf into the row, so no whole f32 tree is ever held."""
+    from repro_torch.runtime import sharding as shd
+    gen = torch.Generator(device=dev).manual_seed(0)
+    layout = tfm.ravel_layout(cfg) if mesh is None \
+        else shd.local_layout(cfg, mesh)
+    specs = common.spec_leaves(pspecs) if mesh is not None else None
+    row = torch.empty(sum(math.prod(s) for _, s in layout),
+                      dtype=cfg.param_dtype, device=dev)
+    off = 0
+    for i, (path, d) in enumerate(common.tree_leaves_with_path(
+            tfm.model_defs(cfg))):
+        t = common.init_params(d, gen, device=dev)
+        if not cfg.qk_norm and path[-2:] in QK_LEAVES:
+            t.mul_(math.sqrt(t.shape[-2] / t.shape[-3]))
+        if mesh is not None:
+            t = shd.local_shard(t, mesh, specs[i])
+        row[off:off + t.numel()].copy_(t.reshape(-1))
+        off += t.numel()
+        del t
+    return row
+
+
+def condition_qk(torch, state, cfg, mesh=None):
+    """``state`` (its params and center, from ``init_state``) with the
+    query and key projections scaled as ``lm_params(qk_fan_in_d=True)``
+    scales them, where the config has no qk-norm: the reference's init
+    leaves those families' scores ill-conditioned at full width, where
+    no two bf16 evaluations agree (``phase_qk_conditioning``). On a mesh
+    the rank's blocks, each scaled by its whole leaf's ratio."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import sharding as shd
+    if cfg.qk_norm:
+        return state
+    full = tfm.ravel_layout(cfg)
+    local = full if mesh is None else shd.local_layout(cfg, mesh)
+    off = 0
+    for (path, fshape), (_, lshape) in zip(full, local):
+        n = math.prod(lshape)
+        if path[-2:] in QK_LEAVES:
+            k = math.sqrt(fshape[-2] / fshape[-3])
+            state.params[:, off:off + n].mul_(k)
+            state.center[off:off + n].mul_(k)
+        off += n
+    return state
+
+
+def kind_batch(torch, np, cfg, S, dev, rows: int) -> dict:
+    """``rows`` rows of ``lm_batch`` (seeds 7, 8, ...)."""
+    parts = [lm_batch(torch, np, cfg, S, dev, seed=7 + r)
+             for r in range(rows)]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def held_grad_sums(torch, grad, ref, cfg, mesh, pspecs) -> tuple:
+    """``(||got - want||^2, ||want||^2)`` of a meshed gradient row over
+    this rank's blocks, against the un-meshed gradient row ``ref`` (a
+    CUDA IPC view): a leaf counts on the rank whose coordinate is 0 on
+    every mesh axis that does not split it."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import spec_leaves
+    from repro_torch.runtime import sharding as shd
+    sizes = shd.mesh_axis_sizes(mesh)
+    num = den = 0.0
+    off_l = off_f = 0
+    for (_, lshape), (_, fshape), spec in zip(
+            shd.local_layout(cfg, mesh), tfm.ravel_layout(cfg),
+            spec_leaves(pspecs)):
+        nl, nf = math.prod(lshape), math.prod(fshape)
+        axes = shd.spec_axes(spec)
+        if all(a in axes or n == 1 or mesh.get_local_rank(a) == 0
+               for a, n in sizes.items()):
+            want = ref[off_f:off_f + nf].view(fshape)[
+                shd.local_slices(mesh, fshape, spec)].float()
+            got = grad[off_l:off_l + nl].view(lshape).float()
+            num += float(torch.linalg.vector_norm(got - want)) ** 2
+            den += float(torch.linalg.vector_norm(want)) ** 2
+        off_l, off_f = off_l + nl, off_f + nf
+    return num, den
+
+
+def first_routing(moe, fn):
+    """``fn()`` with ``moe.route`` watched: its result and the first
+    routing (top-k experts and kept slots, on the host)."""
+    real, seen = moe.route, []
+
+    def watch(*args, **kw):
+        r = real(*args, **kw)
+        if not seen:
+            seen.append((r.top_e.cpu(), r.keep.cpu()))
+        return r
+    moe.route = watch
+    try:
+        return fn(), (seen[0] if seen else None)
+    finally:
+        moe.route = real
+
+
+def kinds_rank(rank: int, store: str, jobs, S: int, reduced: bool,
+               device: str, up, refs, out: str) -> None:
+    """One of phase 25's two processes on the one card, in a gloo world of
+    two. Per job it waits on ``refs`` for the parent's un-meshed result
+    (CUDA IPC views), runs each mesh of the job (and each planted fault)
+    from the seeded state, timed and counted, holds its blocks against the
+    views and reports on ``up``; then waits for the parent's release."""
+    import datetime
+    import traceback
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch import configs, kernels
+    from repro_torch.core import elastic
+    from repro_torch.core.easgd import EASGDConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import common, moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import train
+    from repro_torch.utils import faults, timing
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    result = {}
+    try:
+        dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                                rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=300))
+        for arch, layers, hold, meshes, planted, compute in jobs:
+            cfg = kind_cfg(configs, arch, layers, reduced, compute)
+            views, ref_route = refs.get()
+            runs = [(m, None) for m in range(len(meshes))] + list(planted)
+            for m, fault in runs:
+                data, model = meshes[m]
+                name = f"{kind_label(arch, compute)} data {data} model " \
+                    f"{model}" + (f" fault {fault}" if fault else "")
+                mesh = mesh_lib.make_host_mesh(data, model, n_pods=1,
+                                               device=dev)
+                restore = faults.plant(fault)
+                r = result[name] = {}
+                try:
+                    peak_reset(torch, dev)
+                    if hold == "step":
+                        build = train.build_train_step(
+                            cfg, mesh_easgd(elastic, EASGDConfig), n_pods=2,
+                            per_pod_batch=1, seq=S, device=dev, mesh=mesh)
+                        state = condition_qk(torch, build.init_state(),
+                                             cfg, mesh)
+                        streams = kind_streams(cfg, S)
+                        r["ms"], r["counts"] = [], []
+                        for s in range(2):
+                            kernels.reset_launch_counts()
+                            with timing.Timer(dev) as tm:
+                                state, mets = build.step(
+                                    state, kind_step_batch(np, streams, s))
+                            r["counts"].append(kernels.launch_counts())
+                            r["ms"].append(1e3 * tm.elapsed)
+                        r["peak"] = peak_of(torch, dev)
+                        r["loss"] = mets["loss"].item()
+                        r["sums"] = held_sums(torch, state, views, cfg, mesh,
+                                              build.param_specs,
+                                              group=KIND_GROUP[arch])
+                        del build, state
+                    else:
+                        pspecs = shd.param_specs(cfg, mesh)
+                        pl = train._placement(cfg, mesh, pspecs)
+                        row = seeded_row(torch, tfm, common, cfg, dev, mesh,
+                                         pspecs)
+                        batch = kind_batch(torch, np, cfg, S, dev, 2)
+                        if data > 1:
+                            i = mesh.get_local_rank("data")
+                            batch = {k: v[i:i + 1] for k, v in batch.items()}
+                        timing.synchronize(dev)
+                        peak_reset(torch, dev)
+                        kernels.reset_launch_counts()
+                        with timing.Timer(dev) as tm:
+                            (loss, mets, grad), route = first_routing(
+                                moe, lambda: train._pod_gradient(
+                                    cfg, row, batch, pl))
+                        r["counts"] = [kernels.launch_counts()]
+                        r["ms"] = [1e3 * tm.elapsed]
+                        r["peak"] = peak_of(torch, dev)
+                        r["loss"], r["aux"] = loss.item(), mets["aux"].item()
+                        key = "gradient data" if data > 1 \
+                            else "gradient model"
+                        r["sums"] = {key: held_grad_sums(
+                            torch, grad, views[0], cfg, mesh, pspecs)}
+                        r["flips"] = routing_flipped(torch, route, ref_route,
+                                                     mesh, data)
+                        del row, grad, batch, mets, loss
+                finally:
+                    restore()
+                if cuda:
+                    torch.cuda.empty_cache()
+                print(f"phase 25 rank {rank}: {name} ran", flush=True)
+            up.put((rank, "held"))
+            del views
+            refs.get()          # the parent has freed them
+    except BaseException:
+        result["error"] = traceback.format_exc()
+        up.put((rank, "error"))
+    finally:
+        Path(out).write_text(json.dumps(result))
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def peak_reset(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_of(torch, dev) -> int:
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+
+
+def routing_flipped(torch, route, ref_route, mesh, data: int):
+    """``(tokens, slots, of)``: of this rank's routed groups, how many
+    tokens route to another expert set than the un-meshed run's first MoE
+    layer sends them to, and how many slots one keeps and the other
+    drops (None without a MoE layer)."""
+    if route is None or ref_route is None:
+        return None
+    (e, keep), (e0, keep0) = route, ref_route
+    G = e.shape[0]
+    if G < e0.shape[0]:                # the rank's own groups over data
+        g0 = mesh.get_local_rank("data") * G
+        e0, keep0 = e0[g0:g0 + G], keep0[g0:g0 + G]
+    tokens = int((e.sort(-1).values != e0.sort(-1).values).any(-1).sum())
+    return tokens, int((keep != keep0).sum()), int(e.shape[0] * e.shape[1])
+
+
+def kind_streams(cfg, S: int, rows: int = 1):
+    from repro_torch.data import synthetic
+    return [synthetic.SyntheticLMStream(cfg.vocab_size, S, rows, seed=13,
+                                        shard=i, n_shards=2)
+            for i in range(2)]
+
+
+def kind_step_batch(np, streams, step: int) -> dict:
+    shards = [st.batch_at(step) for st in streams]
+    return {k: np.stack([sh[k] for sh in shards]) for k in shards[0]}
+
+
+def phase_mesh_kinds(torch, np, configs, tfm, common, elastic, EASGDConfig,
+                     train, kernels, timing, dev, S=4096,
+                     reduced=False, jobs=KIND_JOBS) -> dict:
+    """(25) The MoE, MLA, SSM and RG-LRU kinds on meshes: two processes on
+    the one card over gloo (NCCL takes one rank a card), held against the
+    same work without a mesh in this process (module docstring). Returns
+    the launches of the un-meshed runs and of the ranks' clean runs.
+    ``reduced`` (with ``dev`` the CPU and a short ``S``) rehearses it on
+    the reduced configs."""
+    cuda = dev.type == "cuda"
+    from repro_torch.models import moe
+    totals = {k.__name__: 0 for k in kernels.KERNELS}
+    shutil.rmtree(PHASE25_DIR, ignore_errors=True)
+    PHASE25_DIR.mkdir(parents=True)
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    outs = [PHASE25_DIR / f"rank{r}.json" for r in range(2)]
+    # a queue to each rank: a rank that takes its release early must not
+    # take the other's
+    up, refs = ctx.Queue(), [ctx.Queue() for _ in range(2)]
+    before = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        procs = [ctx.Process(target=kinds_rank, args=(
+            r, str(PHASE25_DIR / "store"), jobs, S, reduced, str(dev), up,
+            refs[r], str(outs[r])))
+            for r in range(2)]
+        for pr in procs:
+            pr.start()
+    finally:
+        if before is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = before
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + 900
+    un = {}
+    try:
+        for arch, layers, hold, meshes, planted, compute in jobs:
+            cfg = kind_cfg(configs, arch, layers, reduced, compute)
+            t = time.perf_counter()
+            peak_reset(torch, dev)
+            kernels.reset_launch_counts()
+            route = None
+            if hold == "step":
+                build = train.build_train_step(
+                    cfg, mesh_easgd(elastic, EASGDConfig), n_pods=2,
+                    per_pod_batch=1, seq=S, device=dev)
+                state = condition_qk(torch, build.init_state(), cfg)
+                c0 = state.center.clone()
+                streams = kind_streams(cfg, S)
+                for s in range(2):
+                    state, mets = build.step(state, kind_step_batch(
+                        np, streams, s))
+                views = (state.params, state.momentum, state.center, c0)
+                aux = None
+                del build
+            else:
+                row = seeded_row(torch, tfm, common, cfg, dev)
+                batch = kind_batch(torch, np, cfg, S, dev, 2)
+                (loss, mets, grad), route = first_routing(
+                    moe, lambda: train._pod_gradient(cfg, row, batch))
+                views, aux = (grad,), mets["aux"].item()
+                del row, batch, loss
+            counts = kernels.launch_counts()
+            timing.synchronize(dev)
+            un[kind_label(arch, compute)] = {
+                "s": time.perf_counter() - t, "aux": aux,
+                        "peak": peak_of(torch, dev)}
+            add_counts(totals, counts)
+            del mets
+            if cuda:
+                torch.cuda.empty_cache()
+            for q in refs:
+                q.put((views, route))
+            ok = await_ranks(up, procs, "held", deadline)
+            del views
+            if hold == "step":
+                del state, c0
+            else:
+                del grad
+            if cuda:
+                torch.cuda.ipc_collect()
+                torch.cuda.empty_cache()
+            if not ok:
+                deadline = min(deadline, time.monotonic() + 60)
+                break
+            for q in refs:
+                q.put(None)
+    finally:
+        stop(procs, deadline)
+    codes = [pr.exitcode for pr in procs]
+    res = [json.loads(o.read_text()) if o.exists()
+           else {"error": f"no result (exit code {c})"}
+           for o, c in zip(outs, codes)]
+    for r, out in enumerate(res):
+        check("error" not in out, f"phase 25 rank {r}: {out.get('error')}")
+    check(codes == [0, 0], f"phase 25 ranks exit codes {codes} after "
+          f"writing their results (the teardown failed)")
+    for arch, layers, hold, meshes, planted, compute in jobs:
+        cfg = kind_cfg(configs, arch, layers, reduced, compute)
+        label, tol = kind_label(arch, compute), kind_tol(compute)
+        runs = [(m, None) for m in range(len(meshes))] + list(planted)
+        for m, fault in runs:
+            data, model = meshes[m]
+            name = f"{label} data {data} model {model}" + (
+                f" fault {fault}" if fault else "")
+            rows = [out[name] for out in res]
+            rel = {k: math.sqrt(sum(row["sums"][k][0] for row in rows)
+                                / sum(row["sums"][k][1] for row in rows))
+                   for k in rows[0]["sums"]}
+            if hold == "gradient":
+                rel["aux"] = abs(rows[0]["aux"] - un[label]["aux"]) / abs(
+                    un[label]["aux"])
+            want = lm_counts(cfg, 2, updates=1) if hold == "step" \
+                else lm_counts(cfg, 1)
+            flips = [row.get("flips") for row in rows]
+            print(f"mesh kinds {name} (gloo, 2 processes on one card): "
+                  f"{cfg.name} {layers} layer(s) S={S} "
+                  f"{str(cfg.compute_dtype).split('.')[-1]} compute "
+                  + ("P=2 B=1 a pod, 2 steps" if hold == "step"
+                     else f"B 2 ({'1 a rank' if data > 1 else 'whole'})")
+                  + ": relative error vs no mesh "
+                  + ", ".join(f"{k} {v:.3e} (limit {tol[k]})"
+                              for k, v in rel.items())
+                  + f"; ms per {'step' if hold == 'step' else 'gradient'} "
+                  f"{[[round(x, 1) for x in row['ms']] for row in rows]} "
+                  f"(rank 0, rank 1); peak per rank "
+                  f"{[round(row['peak'] / 2**30, 2) for row in rows]} GiB"
+                  + (f"; routing flips (tokens, slots, of tokens) per rank "
+                     f"{flips}" if flips[0] is not None else "")
+                  + f"; launches per rank {rows[0]['counts'][0]}",
+                  flush=True)
+            if fault is None:
+                for r_, row in enumerate(rows):
+                    for s, counts in enumerate(row["counts"]):
+                        check(counts == want, f"{name} rank {r_} run {s} "
+                              f"launched {counts}, expected {want}")
+                        add_counts(totals, counts)
+                for k, v in rel.items():
+                    check(v <= tol[k], f"{name}: {k} vs no mesh "
+                          f"{v:.3e}, limit {tol[k]}")
+            else:
+                k = FAULT_READS[fault]
+                check(rel[k] >= 10 * tol[k], f"{name}: the planted "
+                      f"fault reads {rel[k]:.3e} in {k}, under ten times "
+                      f"its limit {tol[k]}")
+        print(f"mesh kinds {label} un-meshed: {un[label]['s']:.1f} s, peak "
+              f"{un[label]['peak'] / 2**30:.2f} GiB", flush=True)
+    print(f"phase 25: {time.perf_counter() - t0:.1f} s from the spawn"
+          + (f" ({card_line()})" if cuda else ""), flush=True)
     return totals
 
 
@@ -4568,19 +5093,27 @@ def phase_dryrun_cells(proc, wait_s: float = 900.0) -> dict:
     return json.loads(DRYRUN_OUT.with_suffix(".estimate.json").read_text())
 
 
-def phase_elastic_restart(device="cuda") -> None:
-    """Phase 24c: ``examples/elastic_restart_torch.py`` on the card."""
-    t = time.perf_counter()
-    out = subprocess.run(
+def start_elastic_restart(device="cuda") -> tuple:
+    """Phase 24c: start ``examples/elastic_restart_torch.py`` on the
+    card."""
+    proc = subprocess.Popen(
         [sys.executable, str(SRC.parent / "examples" /
                              "elastic_restart_torch.py"),
          "--device", device],
-        env=dict(os.environ, PYTHONPATH=str(SRC)), capture_output=True,
-        text=True, timeout=600)
-    for line in out.stdout.strip().splitlines():
+        env=dict(os.environ, PYTHONPATH=str(SRC)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def phase_elastic_restart(started, device="cuda") -> None:
+    """Phase 24c: the example that ``start_elastic_restart`` started exits
+    0."""
+    proc, t = started
+    stdout, stderr = proc.communicate(timeout=600)
+    for line in stdout.strip().splitlines():
         print(f"  elastic_restart_torch: {line}")
-    check(out.returncode == 0, f"elastic_restart_torch.py --device {device} "
-          f"exit {out.returncode}: {out.stderr[-2000:]}")
+    check(proc.returncode == 0, f"elastic_restart_torch.py --device "
+          f"{device} exit {proc.returncode}: {stderr[-2000:]}")
     print(f"examples/elastic_restart_torch.py --device {device}: exit 0 in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
 
@@ -4734,7 +5267,7 @@ def main() -> int:
     add_counts(launches, phase_lm_main_path(
         torch, runtime, zoo, kernels, comm_rounds, EASGDConfig, timing,
         configs.get("mamba2-780m").reduced, arch="mamba2-780m",
-        algos=("sync_easgd",)))
+        algos=(("sync_easgd", 16),)))
     print(f"phase mamba2 launcher path: {time.perf_counter() - t:.1f} s",
           flush=True)
 
@@ -4768,9 +5301,6 @@ def main() -> int:
     add_counts(launches, phase_trace_cost(torch, runtime, zoo, kernels,
                                           EASGDConfig))
     print(f"phase 17c: {time.perf_counter() - t17:.1f} s", flush=True)
-    t17 = time.perf_counter()
-    phase_tcp_entry_points()
-    print(f"phase 17d: {time.perf_counter() - t17:.1f} s", flush=True)
     t17 = time.perf_counter()
     add_counts(launches, phase_tcp_lm(torch, runtime, zoo, kernels, configs,
                                       EASGDConfig))
@@ -4813,9 +5343,16 @@ def main() -> int:
         peer, wire, EASGDConfig))
     print(f"phase 19d: {time.perf_counter() - t19:.1f} s", flush=True)
     t19 = time.perf_counter()
+    # 17d's entry points and 24c's example start beside 19e's entry
+    # points: all are checked for their paths, not timed
+    tcp_entry = start_tcp_entry_points()
+    restart = start_elastic_restart()
     add_counts(launches, phase_topology_entry_points(
         torch, runtime, problems, zoo, kernels, EASGDConfig))
-    print(f"phase 19e: {time.perf_counter() - t19:.1f} s", flush=True)
+    phase_tcp_entry_points(tcp_entry)
+    phase_elastic_restart(restart)
+    print(f"phase 19e, with 17d and 24c: {time.perf_counter() - t19:.1f} s",
+          flush=True)
     print(f"phase topology (19): {time.perf_counter() - t:.1f} s", flush=True)
 
     # per-slot remat and six more model families (phase 20)
@@ -4906,10 +5443,23 @@ def main() -> int:
         torch, np, configs, elastic, EASGDConfig, train, synthetic, kernels,
         timing, costmodel, opcount, dev, card, bw, bf16, est))
     print(f"phase 24a: {time.perf_counter() - t24:.1f} s", flush=True)
-    t24 = time.perf_counter()
-    phase_elastic_restart()
-    print(f"phase 24c: {time.perf_counter() - t24:.1f} s", flush=True)
     print(f"phase tooling (24): {time.perf_counter() - t:.1f} s", flush=True)
+
+    # the MoE, MLA, SSM and RG-LRU kinds on meshes (phase 25)
+    release_card(torch, "before phase 25")
+    t = time.perf_counter()
+    merge_rows(rows, phase_ssd(torch, sc, timing, dev, bw, f32, tf32,
+                               cases=SSD_LOCAL_CASES))
+    merge_rows(rows, phase_attention(torch, F, fa, timing, dev, bw, bf16,
+                                     cases=ATTN_LOCAL_CASES))
+    phase_cross_entropy(torch, F, ce, timing, dev, bw, bf16,
+                        cases=CE_LOCAL_CASES, rows=rows, suffix="_shard")
+    print(f"phase 25a: {time.perf_counter() - t:.1f} s", flush=True)
+    add_counts(launches, phase_mesh_kinds(
+        torch, np, configs, tfm, common, elastic, EASGDConfig, train,
+        kernels, timing, dev))
+    print(f"phase mesh kinds (25): {time.perf_counter() - t:.1f} s",
+          flush=True)
 
     check("jax" not in sys.modules and not any(
         m == "repro" or m.startswith("repro.") for m in sys.modules),

@@ -23,8 +23,10 @@ fake tensors (``FakeTensorMode``: shapes and dtypes, no storage) under
 
 Every number in a record is a count of rank 0's step priced on
 ``costmodel.H100_SXM``, not a time taken. A cell the port cannot place
-(a layer kind ``runtime.sharding`` does not place, a cache split over
-its time dim) is recorded ``ok: false`` with its error.
+(a layer kind that serving does not place on a mesh,
+``runtime.sharding.require_serve_kinds``; a cache split over its time
+dim) is recorded ``ok: false`` with its error. Training places every
+kind; the MoE dispatch's all-to-all counts under ``"all-to-all"``.
 """
 from __future__ import annotations
 

@@ -40,8 +40,8 @@ def variants() -> list:
                                             attn_kv_block=4096,
                                             remat="none"), 8))
 
-    # cell B: deepseek-v2-236b × train_4k × pod (MoE and MLA: the port
-    # records its NotImplementedError until the placement of those kinds)
+    # cell B: deepseek-v2-236b × train_4k × pod (MoE and MLA: experts over
+    # data with the dispatch all-to-all, heads and expert_ff over model)
     B = ("deepseek-v2-236b", "train_4k", "pod")
     v.append((B, "B1_no_ep_expert_tp", None,
               lambda c: dataclasses.replace(c, moe_ep=False)))

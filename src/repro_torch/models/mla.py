@@ -31,8 +31,17 @@ so a step never expands the cache into per-head keys; its score and
 context products keep the cache's dtype with an f32 result
 (``attention.product_f32``). Both branches write the cache in place and
 return it. ``sctx.shard`` stands at the reference's points (a no-op without a
-mesh); on a mesh whose ``data`` or ``model`` size is above 1 this kind
-raises (``runtime.train`` / ``runtime.serve``).
+mesh).
+
+On a mesh whose ``model`` axis splits the heads (``models.tp``) the block
+is a model-parallel region over them: ``w_uq``, ``w_uk``, ``w_uv`` and
+``wo`` hold the rank's heads, the attention kernel runs at the local head
+count, and ``wo``'s contraction over them leaves through ``reduce_out``.
+The latents ``c_q``, ``c_kv`` and ``k_pe`` come from leaves that
+``model`` does not split (``w_dq``, ``w_dkv`` and the norms), so they
+enter the region through ``copy_in``, whose backward sums their partial
+gradients over the ranks' heads. Serving on such a mesh raises
+(``runtime.serve``).
 """
 from __future__ import annotations
 
@@ -43,7 +52,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.attention import (NEG_INF, apply_rope,
                                           flash_attention_train, product_f32)
-from repro_torch.models import sctx
+from repro_torch.models import sctx, tp
 from repro_torch.models.common import ModelConfig, ParamDef, rms_norm
 
 
@@ -68,11 +77,18 @@ def mla_defs(cfg: ModelConfig) -> dict:
     }
 
 
+def _region() -> bool:
+    lay = tp.current()
+    return lay is not None and lay.heads
+
+
 def _q_proj(cfg: ModelConfig, p, x, positions):
     a = cfg.mla
     cd = cfg.compute_dtype
     cq = rms_norm(torch.einsum("bsd,dr->bsr", x, p["w_dq"].to(cd)),
                   p["q_norm"])
+    if _region():
+        cq = tp.copy_in(cq)
     q = sctx.shard(torch.einsum("bsr,rhk->bshk", cq, p["w_uq"].to(cd)),
                    "batch", "seq", "heads", "head_dim")
     q_nope = q[..., :a.qk_nope_head_dim]
@@ -87,6 +103,8 @@ def _kv_compress(cfg: ModelConfig, p, x, positions):
     c_kv = rms_norm(ckv_full[..., :a.kv_lora_rank], p["kv_norm"])
     k_pe = ckv_full[..., a.kv_lora_rank:][:, :, None, :]    # (B, S, 1, rope)
     k_pe = apply_rope(k_pe, positions, cfg.rope_theta)[:, :, 0]
+    if _region():
+        c_kv, k_pe = tp.copy_in(c_kv), tp.copy_in(k_pe)
     return c_kv, k_pe
 
 
@@ -97,7 +115,7 @@ def mla_block(cfg: ModelConfig, p, x, positions, *, cache=None,
     a = cfg.mla
     cd = cfg.compute_dtype
     B, S, _ = x.shape
-    H = cfg.n_heads
+    H = p["w_uk"].shape[1]               # the rank's heads on a mesh
     q_nope, q_pe = _q_proj(cfg, p, x, positions)
     c_kv, k_pe = _kv_compress(cfg, p, x, positions)
     if cache is not None and S == 1:
@@ -144,6 +162,7 @@ def mla_block(cfg: ModelConfig, p, x, positions, *, cache=None,
             cache["kpe"][:, :S] = k_pe[:, :Sc]
             cache = {"ckv": cache["ckv"], "kpe": cache["kpe"]}
     out = sctx.shard(out.to(cd), "batch", "seq", "heads", "head_dim")
-    y = sctx.shard(torch.einsum("bshv,hvd->bsd", out, p["wo"].to(cd)),
-                   "batch", "seq", "embed")
-    return y, cache
+    y = torch.einsum("bshv,hvd->bsd", out, p["wo"].to(cd))
+    if _region():
+        y = tp.reduce_out(y)
+    return sctx.shard(y, "batch", "seq", "embed"), cache

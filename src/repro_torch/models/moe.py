@@ -12,8 +12,29 @@ choices inner, a slot's rank within its expert is the cumsum over that
 order, and a slot is kept when its rank is below C. The expert products
 are plain batched matmuls in the compute dtype (the reference leaves them
 to XLA too). ``sctx.shard`` stands at the reference's points (a no-op
-without a mesh); on a mesh whose ``data`` or ``model`` size is above 1 a
-MoE config raises (``runtime.train`` / ``runtime.serve``).
+without a mesh).
+
+On a mesh (``models.tp``) a rank holds its rows of the microbatch, and the
+reference routes the whole microbatch: ``G`` and ``C`` come from every
+token of it, group g holding tokens ``[g Tg, (g +
+1) Tg)`` in row-major ``(B, S)`` order. Where ``G`` splits over ``data``
+the rank routes its own groups; else it all-gathers the microbatch's
+tokens over ``data`` (the backward a reduce-scatter), routes and
+dispatches every group, and keeps its own rows of the combine. With the
+experts over ``data`` (EP) the ``(G_local, E, C, d)`` buffer goes to
+``(G, E / data, C, d)`` by one ``tp.all_to_all`` (the reference's
+``"groups" -> "experts_dp"`` reshard), the rank's experts run, and a
+second all-to-all brings the slots back token-major (with the groups
+whole on every rank, the rank takes its experts' slice of the buffer and
+all-gathers their outputs instead). Experts that ``data`` does not split
+run whole on each rank (FSDP gathers their ``embed`` dim). ``expert_ff``
+over ``model`` makes the expert FFN a model-parallel region (``copy_in``
+on the buffer, ``reduce_out`` on ``we_down``'s contraction), as the
+shared experts' ``ff`` does. The aux loss is ``E Σ_e me_e ce_e`` over the
+whole microbatch: each rank's is its share, ``E Σ_e (its probabilities'
+sum_e / T) ce_e`` with the choice counts ``ce`` (no gradient) summed over
+``data``, so the shares sum over ``data`` to the reference's aux and its
+gradient.
 
 Dispatch and combine are gathers, never scatter-adds, so no sum depends on
 the order in which atomics land: the kept slots fill distinct buffer rows
@@ -31,7 +52,7 @@ import math
 
 import torch
 
-from repro_torch.models import sctx
+from repro_torch.models import sctx, tp
 from repro_torch.models.common import ModelConfig, ParamDef, act_fn
 
 
@@ -85,15 +106,26 @@ def top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def route(cfg: ModelConfig, router, x) -> Routing:
-    """The routing of x (B, S, d) by the (d, E) router weights."""
+def capacity(m, Tg: int) -> int:
+    return max(1, math.ceil(Tg * m.top_k * m.capacity_factor
+                            / m.n_experts))
+
+
+def route(cfg: ModelConfig, router, x, G: int | None = None,
+          C: int | None = None, aux_share=None) -> Routing:
+    """The routing of x (..., d) by the (d, E) router weights, in ``G``
+    groups of capacity ``C`` (by default those of x's own tokens).
+    ``aux_share(probs, counts)`` (a mesh) returns the aux loss's ``(me,
+    ce)`` in place of the means over x."""
     m = cfg.moe
-    B, S, d = x.shape
-    T = B * S
+    d = x.shape[-1]
+    T = x.numel() // d
     E, k = m.n_experts, m.top_k
-    G = _effective_groups(T, m.dispatch_groups)
+    if G is None:
+        G = _effective_groups(T, m.dispatch_groups)
     Tg = T // G
-    C = max(1, math.ceil(Tg * k * m.capacity_factor / E))
+    if C is None:
+        C = capacity(m, Tg)
 
     logits = torch.einsum("gtd,de->gte", x.reshape(G, Tg, d).float(),
                           router.float())
@@ -101,15 +133,17 @@ def route(cfg: ModelConfig, router, x) -> Routing:
     top_p, top_e = top_k(probs, k)                          # (G, Tg, k)
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
 
-    # load-balance aux loss (Switch): E · Σ_e f_e · p̄_e, f counting each
-    # (token, choice) as 1 / (T k)
-    me = probs.mean(dim=(0, 1))                             # (E,)
-    ce = torch.bincount(top_e.reshape(-1), minlength=E).float() * (
-        1.0 / (T * k))
-    aux = E * torch.sum(me * ce) * m.aux_loss_weight
-
     ids = top_e.reshape(G, Tg * k)                          # slot -> expert
     oh = torch.nn.functional.one_hot(ids, E)                # (G, Tg k, E)
+    # load-balance aux loss (Switch): E · Σ_e f_e · p̄_e, f counting each
+    # (token, choice) as 1 / (T k)
+    counts = oh.sum(dim=(0, 1)).float()
+    if aux_share is None:
+        me, ce = probs.mean(dim=(0, 1)), counts * (1.0 / (T * k))
+    else:
+        me, ce = aux_share(probs, counts)
+    aux = E * torch.sum(me * ce) * m.aux_loss_weight
+
     pos = torch.gather(torch.cumsum(oh, dim=1) - 1, 2, ids[..., None])[..., 0]
     keep = pos < C
     slot = torch.where(keep, ids * C + pos, torch.zeros_like(pos))
@@ -125,6 +159,52 @@ def _rows(src, idx):
         G, idx.shape[1], d)
 
 
+def _mesh_route(cfg: ModelConfig, router, x, lay):
+    """``(x_routed, routing, rows)`` on a mesh: the tokens this rank routes
+    (its own groups, or every rank's tokens gathered over ``data``), their
+    routing at the microbatch's ``G`` and ``C`` with this rank's share of
+    the aux loss, and the slice of the routed rows that are its own (None:
+    all of them)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T, D = B * S, lay.data_size
+    # the reference counts the groups and their capacity from every token
+    # of the microbatch
+    G = _effective_groups(T * D, m.dispatch_groups)
+    split = G % D == 0
+    C = capacity(m, T * D // G)
+    if split:
+        gl, rows, mine = G // D, None, slice(None)
+    else:
+        x = tp.all_gather(x, 0, lay.data_group)
+        gl, rows = G, slice(lay.data_rank * B, (lay.data_rank + 1) * B)
+        mine = slice(lay.data_rank * T, (lay.data_rank + 1) * T)
+
+    def share(probs, counts):
+        counts = counts if not split else tp.data_sum(counts, lay)
+        own = probs.reshape(-1, m.n_experts)[mine].sum(0)
+        return own / (T * D), counts.detach() * (1.0 / (T * D * m.top_k))
+    r = route(cfg, router, x, gl, C, aux_share=share)
+    return x, r, rows
+
+
+def _experts(cfg: ModelConfig, p, buf, lay):
+    """The expert FFN on ``buf`` (G, E', C, d): E' the experts this rank
+    holds; a model-parallel region where ``model`` splits ``expert_ff``."""
+    cd = cfg.compute_dtype
+    act = act_fn(cfg.act)
+    region = lay is not None and lay.expert_ff
+    if region:
+        buf = tp.copy_in(buf)
+    ex = "experts_dp" if cfg.moe_ep else "experts_off"
+    h = act(sctx.shard(
+        torch.einsum("gecd,edf->gecf", buf, p["we_gate"].to(cd)),
+        "groups", ex, "cap", "ff")) * \
+        torch.einsum("gecd,edf->gecf", buf, p["we_up"].to(cd))
+    out = torch.einsum("gecf,efd->gecd", h, p["we_down"].to(cd))
+    return tp.reduce_out(out) if region else out
+
+
 def moe_block(cfg: ModelConfig, p, x):
     """x: (B, S, d) -> (y, aux_loss)."""
     m = cfg.moe
@@ -132,12 +212,17 @@ def moe_block(cfg: ModelConfig, p, x):
     act = act_fn(cfg.act)
     B, S, d = x.shape
     E, k = m.n_experts, m.top_k
-    r = route(cfg, p["router"], x)
+    lay = tp.current()
+    rows = None
+    if lay is None:
+        xr, r = x, route(cfg, p["router"], x)
+    else:
+        xr, r, rows = _mesh_route(cfg, p["router"], x, lay)
     G, Tg, C, n = r.G, r.Tg, r.C, r.Tg * k
 
     # ---- grouped dispatch: buffer row e C + c takes the slot ranked c for
     # expert e, or the zero row n past the slots ------------------------------
-    x_slots = x.to(cd).reshape(G, Tg, 1, d).expand(G, Tg, k, d)
+    x_slots = xr.to(cd).reshape(G, Tg, 1, d).expand(G, Tg, k, d)
     x_slots = torch.cat([x_slots.reshape(G, n, d),
                          x_slots.new_zeros((G, 1, d))], dim=1)
     fill = torch.full((G, E * C + 1), n, dtype=torch.int64, device=x.device)
@@ -147,12 +232,17 @@ def moe_block(cfg: ModelConfig, p, x):
     buf = sctx.shard(_rows(x_slots, fill[:, :E * C]).reshape(G, E, C, d),
                      "groups", ex, "cap", "embed")
 
-    # ---- expert FFN ---------------------------------------------------------
-    h = act(sctx.shard(
-        torch.einsum("gecd,edf->gecf", buf, p["we_gate"].to(cd)),
-        "groups", ex, "cap", "ff")) * \
-        torch.einsum("gecd,edf->gecf", buf, p["we_up"].to(cd))
-    out = torch.einsum("gecf,efd->gecd", h, p["we_down"].to(cd))
+    # ---- expert FFN, on the rank's experts under EP ------------------------
+    if lay is not None and lay.experts:
+        grp, el = lay.data_group, E // lay.data_size
+        if rows is None:
+            out = tp.all_to_all(_experts(cfg, p, tp.all_to_all(
+                buf, 1, 0, grp), lay), 0, 1, grp)
+        else:
+            mine = buf.narrow(1, lay.data_rank * el, el)
+            out = tp.all_gather(_experts(cfg, p, mine, lay), 1, grp)
+    else:
+        out = _experts(cfg, p, buf, lay)
 
     # ---- combine: a dropped slot reads the zero row E C ---------------------
     out = sctx.shard(out.reshape(G, E * C, d), "groups", "cap", "embed")
@@ -160,14 +250,19 @@ def moe_block(cfg: ModelConfig, p, x):
     y_slots = _rows(out, torch.where(r.keep, r.slot, E * C))
     w = (r.top_p.reshape(G, n) * r.keep.to(torch.float32)).to(cd)
     y = (y_slots * w[..., None]).reshape(G, Tg, k, d).sum(dim=2)
-    y = y.reshape(B, S, d)
+    y = y.reshape(-1, S, d)
+    if rows is not None:
+        y = y[rows]
 
     # ---- shared experts (always-on dense path) ------------------------------
     if m.n_shared:
+        region = lay is not None and lay.shared_ff
+        xs = tp.copy_in(x) if region else x
         g = act(sctx.shard(
-            torch.einsum("bsd,df->bsf", x, p["ws_gate"].to(cd)),
+            torch.einsum("bsd,df->bsf", xs, p["ws_gate"].to(cd)),
             "batch", "seq", "ff"))
-        u = sctx.shard(torch.einsum("bsd,df->bsf", x, p["ws_up"].to(cd)),
+        u = sctx.shard(torch.einsum("bsd,df->bsf", xs, p["ws_up"].to(cd)),
                        "batch", "seq", "ff")
-        y = y + torch.einsum("bsf,fd->bsd", g * u, p["ws_down"].to(cd))
+        ys = torch.einsum("bsf,fd->bsd", g * u, p["ws_down"].to(cd))
+        y = y + (tp.reduce_out(ys) if region else ys)
     return sctx.shard(y, "batch", "seq", "embed"), r.aux

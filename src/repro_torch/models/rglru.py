@@ -23,15 +23,26 @@ f32}``): the prefill keeps the last K−1 conv inputs and ``h[:, -1]``;
 decode slides the conv history by one and takes the O(1) step
 ``rglru_step``. Both write the cache in place and return it.
 ``sctx.shard`` stands at the reference's points (a no-op without a
-mesh); on a mesh whose ``data`` or ``model`` size is above 1 this kind
-raises (``runtime.train`` / ``runtime.serve``).
+mesh).
+
+On a mesh whose ``model`` axis splits the width (``models.tp``) the block
+is a model-parallel region over the channels: ``w_y``, ``w_x``, the conv,
+``ba``, ``bi`` and ``lam`` hold the rank's channels, and the scan, per
+channel, runs on them alone. ``wa`` and ``wi`` split their rows, so each
+gate product contracts over the rank's channels into a partial sum of
+the whole width: ``tp.reduce_scatter`` sums it and keeps the rank's
+channels, and its backward all-gathers the gradient (an all-reduce with
+the identity backward would drop the other ranks' parts of it).
+``w_out``'s contraction leaves through ``reduce_out``. Where ``model``
+does not split the width every leaf is whole and every rank runs the
+block. Serving on a mesh raises (``runtime.serve``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import sctx
+from repro_torch.models import sctx, tp
 from repro_torch.models.common import ModelConfig, ParamDef, _gelu_tanh
 from repro_torch.models.ssm import _causal_conv  # noqa: F401  (the same)
 
@@ -53,14 +64,26 @@ def rglru_defs(cfg: ModelConfig) -> dict:
     }
 
 
+def _region() -> bool:
+    lay = tp.current()
+    return lay is not None and lay.rglru
+
+
+def _gate(x32, w):
+    """``x32 @ w`` in f32; in a model-parallel region the rank's channels
+    of the sum of every rank's partial product."""
+    y = x32 @ w.to(torch.float32)
+    if _region():
+        y = tp.reduce_scatter(y, y.dim() - 1, tp.current().model_group)
+    return y
+
+
 def _rglru_gates(cfg: ModelConfig, p, x):
     """-> (a, gated input), both f32 (B, S, w)."""
     g = cfg.rglru
     x32 = x.to(torch.float32)
-    r = torch.sigmoid(x32 @ p["wa"].to(torch.float32)
-                      + p["ba"].to(torch.float32))
-    i = torch.sigmoid(x32 @ p["wi"].to(torch.float32)
-                      + p["bi"].to(torch.float32))
+    r = torch.sigmoid(_gate(x32, p["wa"]) + p["ba"].to(torch.float32))
+    i = torch.sigmoid(_gate(x32, p["wi"]) + p["bi"].to(torch.float32))
     log_a = -g.c * r * F.softplus(p["lam"].to(torch.float32))
     a = torch.exp(log_a)
     gated_in = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * x32)
@@ -102,6 +125,9 @@ def rglru_block(cfg: ModelConfig, p, x, positions=None, *, cache=None,
     """Griffin recurrent block -> ``(y, cache)``: the scan over the
     sequence, or with a cache and S 1 the decode step."""
     cd = cfg.compute_dtype
+    region = _region()
+    if region:
+        x = tp.copy_in(x)
     y_gate = _gelu_tanh(sctx.shard(torch.matmul(x, p["w_y"].to(cd)),
                                    "batch", "seq", "inner"))
     xr = sctx.shard(torch.matmul(x, p["w_x"].to(cd)),
@@ -124,4 +150,7 @@ def rglru_block(cfg: ModelConfig, p, x, positions=None, *, cache=None,
     if cache is not None:
         cache = {"conv": cache["conv"], "state": cache["state"]}
     out = h.to(cd) * y_gate
-    return torch.matmul(out, p["w_out"].to(cd)), cache
+    y = torch.matmul(out, p["w_out"].to(cd))
+    if region:
+        y = tp.reduce_out(y)
+    return y, cache

@@ -1,5 +1,6 @@
 """Mamba-2 (SSD, state-space duality, arXiv:2405.21060) (the port of
-``repro/models/ssm.py``: ``_dims``, ``ssm_defs``, ``_split_in``,
+``repro/models/ssm.py``: ``_dims``, ``ssm_defs``, ``_split_in`` (one
+``split`` of the input projection in ``ssm_block``),
 ``_causal_conv``, ``_ssd_chunked``, ``ssd_step`` and ``ssm_block``).
 
 The SSD layer computes, per head h with scalar decay ``a_t = exp(Δt·A_h)``::
@@ -24,9 +25,24 @@ Serving (``ssm_block`` with a cache ``{conv: (B, K−1, conv_dim), state:
 (B, H, P, N) f32}``): the prefill is the chunked form, keeping the last
 K−1 conv inputs and the final state; decode slides the conv history by
 one and takes the O(1) recurrence ``ssd_step``. Both write the cache in
-place and return it. ``sctx.shard`` stands at the reference's points (a no-op without a
-mesh); on a mesh whose ``data`` or ``model`` size is above 1 this kind
-raises (``runtime.train`` / ``runtime.serve``).
+place and return it. ``sctx.shard`` stands at the reference's points (a no-op
+without a mesh).
+
+On a mesh whose ``model`` axis splits the heads (``models.tp``) the block
+is a model-parallel region over them. The params keep the reference's
+specs, which split ``w_in``'s ``[z | x | B | C | dt]`` columns and the
+conv's ``[x | B | C]`` channels in contiguous blocks that are not the
+columns of any rank's heads, so the block reads those leaves whole
+(``tp.all_gather`` over ``model``, whose backward sums the ranks' partial
+gradients) and takes its heads' ``z``, ``x`` and ``dt`` columns with the
+whole of ``B`` and ``C``. ``A_log``, ``D`` and ``dt_bias`` are
+replicated and enter through ``copy_in``; the SSD kernels run on the
+rank's heads; the gated norm's variance over the split ``d_inner`` is a
+``tp.model_sum`` (forward and backward the all-reduce); ``norm`` and
+``w_out`` split as the heads do, and ``w_out``'s contraction leaves
+through ``reduce_out``. Where ``model`` does not split the heads every
+rank runs the block whole, reading each model-split leaf through
+``tp.gather_whole``. Serving on a mesh raises (``runtime.serve``).
 """
 from __future__ import annotations
 
@@ -35,7 +51,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ssd_chunk
 from repro_torch.kernels.ssd_chunk import SSDIntraChunk, chunk_len
-from repro_torch.models import sctx
+from repro_torch.models import sctx, tp
 from repro_torch.models.common import ModelConfig, ParamDef, rms_norm
 
 
@@ -63,15 +79,6 @@ def ssm_defs(cfg: ModelConfig) -> dict:
         "norm": ParamDef((d_inner,), ("inner",), init="zeros"),
         "w_out": ParamDef((d_inner, d), ("inner", "embed_out")),
     }
-
-
-def _split_in(cfg: ModelConfig, h):
-    """-> z, x, B, C, dt. One ``split`` (its backward is one concatenation,
-    where five slices would each write a zero-filled gradient of h)."""
-    s = cfg.ssm
-    d_inner, n_heads, _ = _dims(cfg)
-    return torch.split(h, [d_inner, d_inner, s.d_state, s.d_state,
-                           n_heads], dim=-1)
 
 
 def _causal_conv(x, w, b):
@@ -156,6 +163,65 @@ def ssd_step(state, x_t, dt_t, A, B_t, C_t):
     return state, y
 
 
+def _mesh_params(cfg: ModelConfig, p, lay):
+    """The leaves this rank's part of the block reads, and its heads'
+    share of ``d_inner`` and of the heads: the whole block's leaves when
+    ``model`` does not split the heads (gathered, each rank computing the
+    whole block), else the rank's heads' columns (module docstring)."""
+    s = cfg.ssm
+    d_inner, n_heads, conv_dim = _dims(cfg)
+    n_in = 2 * d_inner + 2 * s.d_state + n_heads
+    full = {"w_in": (1, n_in), "conv_w": (1, conv_dim),
+            "conv_b": (0, conv_dim), "norm": (0, d_inner),
+            "w_out": (0, d_inner)}
+    g = lay.model_group
+    if not lay.ssm_heads:
+        return {k: t if k not in full or t.shape[full[k][0]] == full[k][1]
+                else tp.gather_whole(t, full[k][0], g)
+                for k, t in p.items()}, d_inner, n_heads
+    m, r = lay.model_size, lay.model_rank
+    dl, hl = d_inner // m, n_heads // m
+
+    def whole(k):
+        t = p[k]
+        dim, n = full[k]
+        return tp.copy_in(t) if t.shape[dim] == n \
+            else tp.all_gather(t, dim, g)
+
+    def mine(t, dim, n, block):
+        # the rank's block of a leaf that model splits as the heads (or
+        # leaves whole)
+        if t.shape[dim] != n:
+            return t
+        return tp.copy_in(t).narrow(dim, r * block, block)
+
+    w_in, conv_w, conv_b = whole("w_in"), whole("conv_w"), whole("conv_b")
+    N = s.d_state
+    z, xw, bc, dt = torch.split(w_in, [d_inner, d_inner, 2 * N, n_heads], 1)
+    cx, cbc = torch.split(conv_w, [d_inner, 2 * N], 1)
+    bx, bbc = torch.split(conv_b, [d_inner, 2 * N], 0)
+    out = {
+        "w_in": torch.cat([z.narrow(1, r * dl, dl), xw.narrow(1, r * dl, dl),
+                           bc, dt.narrow(1, r * hl, hl)], 1),
+        "conv_w": torch.cat([cx.narrow(1, r * dl, dl), cbc], 1),
+        "conv_b": torch.cat([bx.narrow(0, r * dl, dl), bbc], 0),
+        "norm": mine(p["norm"], 0, d_inner, dl),
+        "w_out": mine(p["w_out"], 0, d_inner, dl)}
+    for k in ("A_log", "D", "dt_bias"):
+        out[k] = mine(p[k], 0, n_heads, hl)
+    return out, dl, hl
+
+
+def _gated_norm(y, gamma, d_inner: int, eps=1e-6):
+    """``rms_norm`` over a ``d_inner`` that ``model`` splits: the sum of
+    squares of the rank's channels summed over ``model`` both ways."""
+    y32 = y.to(torch.float32)
+    var = tp.model_sum(torch.sum(torch.square(y32), dim=-1,
+                                 keepdim=True)) / d_inner
+    out = y32 * torch.rsqrt(var + eps) * (1.0 + gamma.to(torch.float32))
+    return out.to(y.dtype)
+
+
 def ssm_block(cfg: ModelConfig, p, x, positions=None, *, cache=None,
               cache_pos=None, **_unused):
     """Mamba-2 block -> ``(y, cache)``: the training / prefill chunked form,
@@ -164,9 +230,19 @@ def ssm_block(cfg: ModelConfig, p, x, positions=None, *, cache=None,
     cd = cfg.compute_dtype
     d_inner, n_heads, _ = _dims(cfg)
     B_, S, _ = x.shape
+    lay = tp.current()
+    heads, dl = False, d_inner       # heads: a region over the rank's heads
+    if lay is not None and lay.model_group is not None:
+        p, dl, n_heads = _mesh_params(cfg, p, lay)
+        heads = lay.ssm_heads
+        if heads:
+            x = tp.copy_in(x)
 
+    # one split (its backward one concatenation, where five slices would
+    # each write a zero-filled gradient of h)
     h = torch.einsum("bsd,de->bse", x, p["w_in"].to(cd))
-    z, xi, Bm, Cm, dt = _split_in(cfg, h)
+    z, xi, Bm, Cm, dt = torch.split(h, [dl, dl, s.d_state, s.d_state,
+                                        n_heads], dim=-1)
     z = sctx.shard(z, "batch", "seq", "inner")
     xbc = sctx.shard(torch.cat([xi, Bm, Cm], dim=-1),
                      "batch", "seq", "inner")
@@ -177,25 +253,25 @@ def ssm_block(cfg: ModelConfig, p, x, positions=None, *, cache=None,
         conv_out = torch.einsum("bkc,kc->bc", conv_hist.to(cd),
                                 p["conv_w"].to(cd)) + p["conv_b"].to(cd)
         xi, Bm, Cm = torch.split(F.silu(conv_out),
-                                 [d_inner, s.d_state, s.d_state], dim=-1)
+                                 [dl, s.d_state, s.d_state], dim=-1)
         dt_t = F.softplus(dt[:, 0] + p["dt_bias"].float())
         xh = xi.reshape(B_, n_heads, s.head_dim)
         state, y = ssd_step(cache["state"], xh, dt_t, A, Bm, Cm)
         y = y + p["D"].float()[None, :, None] * xh
-        y = y.reshape(B_, 1, d_inner)
+        y = y.reshape(B_, 1, dl)
         cache["conv"].copy_(conv_hist[:, 1:])
         cache["state"].copy_(state)
     else:
         conv_out = F.silu(_causal_conv(xbc.to(cd), p["conv_w"].to(cd),
                                        p["conv_b"].to(cd)))
-        xi, Bm, Cm = torch.split(conv_out, [d_inner, s.d_state, s.d_state],
+        xi, Bm, Cm = torch.split(conv_out, [dl, s.d_state, s.d_state],
                                  dim=-1)
         dt_sp = F.softplus(dt.float() + p["dt_bias"].float())
         xh = sctx.shard(xi.reshape(B_, S, n_heads, s.head_dim),
                         "batch", "seq", "heads", "head_dim")
         y, state = _ssd_chunked(xh.float(), dt_sp, A, Bm, Cm, s.chunk)
         y = y + p["D"].float()[None, None, :, None] * xh
-        y = y.reshape(B_, S, d_inner)
+        y = y.reshape(B_, S, dl)
         if cache is not None:
             cache["conv"].copy_(xbc[:, -(s.d_conv - 1):])
             cache["state"].copy_(state)
@@ -204,5 +280,11 @@ def ssm_block(cfg: ModelConfig, p, x, positions=None, *, cache=None,
 
     # gated RMSNorm (Mamba-2) + out proj
     y = sctx.shard(y.to(cd), "batch", "seq", "inner") * F.silu(z)
-    y = rms_norm(y, p["norm"])
-    return torch.einsum("bse,ed->bsd", y, p["w_out"].to(cd)), cache
+    if heads:
+        y = _gated_norm(y, p["norm"], d_inner)
+    else:
+        y = rms_norm(y, p["norm"])
+    y = torch.einsum("bse,ed->bsd", y, p["w_out"].to(cd))
+    if heads:
+        y = tp.reduce_out(y)
+    return y, cache

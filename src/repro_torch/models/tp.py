@@ -3,8 +3,10 @@ runs on a ``(pod, data, model)`` mesh of processes.
 
 On a mesh the port's model runs on each rank's local shards, laid out by
 ``runtime.sharding.param_specs``: q heads (and kv heads, where their count
-divides it), the FFN's ``ff`` dim and the vocabulary over ``model``; the
-batch over ``data``. Every redistribution the reference leaves to GSPMD
+divides it; MLA's heads), the FFN's ``ff`` dim, the vocabulary, the SSM
+heads and ``d_inner``, the RG-LRU width and each expert's ``ff`` dim over
+``model``; the batch, and the MoE experts (EP, where their count divides
+it), over ``data``. Every redistribution the reference leaves to GSPMD
 is explicit here, at the points of the reference's ``sctx.shard`` calls:
 
 * ``copy_in(x)``: a replicated tensor entering a model-parallel region
@@ -17,7 +19,24 @@ is explicit here, at the points of the reference's ``sctx.shard`` calls:
   output projections' contraction over local heads or ``ff``, the masked
   embedding lookup): forward the all-reduce, backward the identity;
 * ``all_gather(x, dim, group)``: the streaming-FSDP gather of one layer's
-  weights over ``data``, whose backward is the reduce-scatter;
+  weights over ``data``, whose backward is the reduce-scatter; also a
+  model-split leaf that every rank reads whole for its own part (the
+  SSM's mixed ``w_in`` and conv columns), and the MoE buffers over
+  ``data`` where the dispatch groups do not split over it;
+* ``reduce_scatter(x, dim, group)``: partial sums of a full-width
+  activation, each rank keeping its block (the RG-LRU gates, whose
+  products contract over the rank's channels): the backward is the
+  all-gather;
+* ``all_to_all(x, split_dim, cat_dim, group)``: the expert-parallel
+  dispatch over ``data`` (``split_dim``'s blocks go to the ranks in order,
+  the received blocks join along ``cat_dim``); the backward is the
+  reverse all-to-all;
+* ``model_sum(x)``: a statistic that every rank's channels both feed and
+  read (the gated norm's variance over a split ``d_inner``): forward and
+  backward the all-reduce over ``model``;
+* ``gather_whole(x, dim, group)``: a model-split leaf of a block that every
+  rank computes whole (a kind whose heads do not split): the backward
+  keeps the rank's own block of the identical gradients;
 * ``data_sum``: a detached metric summed over ``data``.
 
 ``use(layout)`` installs the rank's ``Layout`` for a forward; without one
@@ -48,13 +67,19 @@ class Layout:
     model_rank: int
     data_group: Any
     data_size: int
-    heads: bool            # q heads over model (a TP attention block)
+    heads: bool            # q heads over model (a TP attention or MLA block)
     kv_heads: bool         # kv heads over model too
     ff: bool               # the FFN's ff dim over model
     vocab: bool            # the vocabulary over model
     n_heads: int
     n_kv_heads: int
     vocab_size: int
+    data_rank: int = 0
+    ssm_heads: bool = False    # the SSM heads (and d_inner) over model
+    rglru: bool = False        # the RG-LRU width over model
+    experts: bool = False      # the MoE experts over data (EP)
+    expert_ff: bool = False    # each expert's ff dim over model
+    shared_ff: bool = False    # the shared experts' ff dim over model
 
     @property
     def vocab_start(self) -> int:
@@ -82,6 +107,7 @@ def layout_for(cfg, mesh) -> Layout | None:
     """The rank's ``Layout`` on ``mesh`` for ``cfg``; None when the mesh's
     ``data`` and ``model`` sizes are 1 (nothing to split)."""
     from repro_torch.launch.mesh import axis_sizes
+    from repro_torch.models.common import make_rules
     sizes = axis_sizes(mesh)
     msz, dsz = sizes.get("model", 1), sizes.get("data", 1)
     if msz == 1 and dsz == 1:
@@ -89,6 +115,20 @@ def layout_for(cfg, mesh) -> Layout | None:
 
     def split(n):
         return msz > 1 and n % msz == 0
+    rules = make_rules(cfg, sizes)
+    kinds = set(cfg.pattern) | set(cfg.remainder_kinds)
+    extra = {}
+    if "ssm" in kinds:
+        s = cfg.ssm
+        extra["ssm_heads"] = split(s.expand * cfg.d_model // s.head_dim)
+    if "rglru" in kinds:
+        extra["rglru"] = split(cfg.rglru.width)
+    if cfg.moe is not None:
+        m = cfg.moe
+        extra.update(experts=dsz > 1 and rules["experts"] == "data",
+                     expert_ff=split(m.d_expert),
+                     shared_ff=bool(m.n_shared)
+                     and split(m.n_shared * m.d_expert))
     return Layout(
         model_group=mesh.get_group("model") if msz > 1 else None,
         model_size=msz,
@@ -98,7 +138,8 @@ def layout_for(cfg, mesh) -> Layout | None:
         heads=split(cfg.n_heads), kv_heads=split(cfg.n_kv_heads),
         ff=split(cfg.d_ff), vocab=split(cfg.vocab_size),
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        vocab_size=cfg.vocab_size)
+        vocab_size=cfg.vocab_size,
+        data_rank=mesh.get_local_rank("data") if dsz > 1 else 0, **extra)
 
 
 def current() -> Layout | None:
@@ -156,6 +197,26 @@ def reduce_out(x, layout: Layout | None = None):
     return _ReduceOut.apply(x, lay.model_group)
 
 
+class _ModelSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def model_sum(x, layout: Layout | None = None):
+    """The sum of ``x`` over ``model``, forward and backward: every rank
+    reads the sum, and each rank's part of it feeds every rank's loss."""
+    lay = layout or current()
+    if lay is None or lay.model_group is None:
+        return x
+    return _ModelSum.apply(x, lay.model_group)
+
+
 def data_sum(x, layout: Layout | None = None):
     """A detached sum over ``data`` (metrics)."""
     lay = layout or current()
@@ -205,3 +266,86 @@ def all_gather(x, dim: int, group):
     """All-gather ``x`` along ``dim`` over ``group``; the backward
     reduce-scatters the gradient (sums it over the group's ranks)."""
     return _AllGather.apply(x, dim, group)
+
+
+def scatter_dim(x, dim: int, group):
+    """The sum of ``x`` over the group's ranks, this rank's block along
+    ``dim`` (no autograd)."""
+    n = dist.get_world_size(group)
+    xm = x.movedim(dim, 0).contiguous()
+    out = torch.empty((xm.shape[0] // n,) + tuple(xm.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    opcount_hook.collective("reduce-scatter", out, group)
+    _scatter_single(out, xm, group=group)
+    return out.movedim(0, dim)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return scatter_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+def reduce_scatter(x, dim: int, group):
+    """Sum ``x`` over ``group`` and keep this rank's block along ``dim``;
+    the backward all-gathers the gradient."""
+    return _ReduceScatter.apply(x, dim, group)
+
+
+def _exchange(x, split_dim: int, cat_dim: int, group):
+    n = dist.get_world_size(group)
+    xm = x.movedim(split_dim, 0).contiguous()
+    out = torch.empty_like(xm)
+    opcount_hook.collective("all-to-all", out, group)
+    dist.all_to_all_single(out, xm, group=group)
+    # block i of out came from rank i: (n, c, rest) with x's dims back in
+    # place, then the n blocks joined along cat_dim
+    out = out.reshape((n, xm.shape[0] // n) + tuple(xm.shape[1:]))
+    out = out.movedim(1, split_dim + 1).movedim(0, cat_dim)
+    shape = list(out.shape)
+    shape[cat_dim:cat_dim + 2] = [shape[cat_dim] * shape[cat_dim + 1]]
+    return out.reshape(shape)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, cat_dim, group):
+        ctx.dims, ctx.group = (split_dim, cat_dim), group
+        return _exchange(x, split_dim, cat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, cat_dim = ctx.dims
+        return _exchange(g, cat_dim, split_dim, ctx.group), None, None, None
+
+
+def all_to_all(x, split_dim: int, cat_dim: int, group):
+    """Block ``j`` of ``x`` along ``split_dim`` goes to rank ``j`` of
+    ``group``; the blocks this rank receives join along ``cat_dim`` in rank
+    order. The backward is the reverse all-to-all."""
+    return _AllToAll.apply(x, split_dim, cat_dim, group)
+
+
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        ctx.block = x.shape[dim]
+        return gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.block, ctx.block), None, None
+
+
+def gather_whole(x, dim: int, group):
+    """All-gather ``x`` along ``dim`` for a computation that every rank of
+    ``group`` runs whole: each rank's gradient is already the whole one,
+    so the backward keeps this rank's block of it."""
+    return _GatherWhole.apply(x, dim, group)

@@ -284,8 +284,8 @@ def params_from_jax(params_or_flat_row, cfg: ModelConfig, device=None):
 def _apply_block(cfg: ModelConfig, kind: str, p, x, positions,
                  mrope_positions=None, cache=None, cache_pos=None):
     """One layer: ``(x, aux, cache)``, aux the MoE FFN's load-balance loss
-    (0 without one), cache the layer's cache written in place (None
-    without one)."""
+    (0 without one; on a mesh this rank's share), cache the layer's cache
+    written in place (None without one)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm1"])
     kw = {"cache": cache, "cache_pos": cache_pos}
@@ -461,9 +461,10 @@ def lm_loss(cfg: ModelConfig, params, batch, extra_fwd_kwargs=None):
 
     On a mesh (``models.tp``) the batch holds this rank's rows of the
     pod's batch: ``tokens`` is the pod's count (summed over ``data``), and
-    the loss, ``ce`` and ``accuracy`` are this rank's shares of the pod's,
-    which sum over ``data`` to them (the gradient's sum over ``data`` is
-    the pod's). Where ``model`` splits the vocabulary the loss head runs
+    the loss, ``ce``, ``aux`` (each MoE layer's share, ``models.moe``) and
+    ``accuracy`` are this rank's shares of the pod's, which sum over
+    ``data`` to them (the gradient's sum over ``data`` is the pod's).
+    Where ``model`` splits the vocabulary the loss head runs
     vocab-parallel (``kernels.fused_ce.vocab_parallel_cross_entropy``)."""
     if cfg.logit_softcap:
         raise NotImplementedError(

@@ -23,7 +23,8 @@ shards (``models.tp``) and the logits come back whole on every rank,
 gathered over ``model`` (vocab) and ``data`` (batch). A cache whose time
 dim the specs split (flash-decoding: B not a multiple of ``data``, or kv
 heads that ``model`` does not divide) raises ``NotImplementedError``, as
-does a layer kind outside ``sharding.MESH_KINDS``. On one device the
+does a layer kind outside ``sharding.SERVE_MESH_KINDS`` (training places
+every kind; serving them needs their caches placed). On one device the
 sharding fields are None.
 """
 from __future__ import annotations
@@ -88,7 +89,7 @@ def build_serve_steps(cfg: ModelConfig, *, batch: int, max_len: int,
     specs = {}
     cache_defs = tfm.init_cache_defs(cfg, batch, max_len)
     if mesh is not None:
-        shd.require_mesh_kinds(cfg, mesh)
+        shd.require_serve_kinds(cfg, mesh)
         sizes = shd.mesh_axis_sizes(mesh)
         pspecs = shd.param_specs(cfg, mesh)
         cspecs = shd.cache_specs(cfg, mesh, batch, max_len)

@@ -56,24 +56,27 @@ def local_layout(cfg: ModelConfig, mesh) -> list:
             in zip(tfm.ravel_layout(cfg), specs)]
 
 
-MESH_KINDS = ("attn", "local")
+SERVE_MESH_KINDS = ("attn", "local")
 
 
-def require_mesh_kinds(cfg: ModelConfig, mesh) -> None:
+def require_serve_kinds(cfg: ModelConfig, mesh) -> None:
     """Raise ``NotImplementedError`` naming the layer kinds of ``cfg``
-    that do not run on ``mesh``: on a mesh whose ``data`` or ``model``
-    size is above 1 only dense attention layers with a dense FFN do
-    (ROADMAP.md lists the rest)."""
+    that serving does not run on ``mesh``: on a mesh whose ``data`` or
+    ``model`` size is above 1 it serves dense attention layers with a
+    dense FFN only. Training places every kind; serving the others needs
+    each kind's cache split by ``cache_specs`` (ROADMAP.md queue 1)."""
     sizes = mesh_axis_sizes(mesh)
     if sizes.get("data", 1) == 1 and sizes.get("model", 1) == 1:
         return
     kinds = set(cfg.pattern) | set(cfg.remainder_kinds)
-    bad = sorted(kinds - set(MESH_KINDS)) + (["moe"] if cfg.moe else [])
+    bad = sorted(kinds - set(SERVE_MESH_KINDS)) + (
+        ["moe"] if cfg.moe else [])
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: layer kind(s) {bad} on a mesh of data "
-            f"{sizes.get('data', 1)} / model {sizes.get('model', 1)}: only "
-            f"{MESH_KINDS} with a dense FFN are placed (ROADMAP.md)")
+            f"{cfg.name}: serving layer kind(s) {bad} on a mesh of data "
+            f"{sizes.get('data', 1)} / model {sizes.get('model', 1)}: "
+            f"serving places only {SERVE_MESH_KINDS} with a dense FFN; "
+            f"their caches' placement is ROADMAP.md queue 1's next item")
 
 
 def _div(n: int, size: int) -> bool:

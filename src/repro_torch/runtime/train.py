@@ -16,7 +16,8 @@ The step is the paper's Algorithm 4 on P pods:
 
 On a ``(pod, data, model)`` mesh of processes (``launch.mesh``) each rank
 holds its pods' rows of its shards (``runtime.sharding.param_specs``:
-TP over ``model``, selective FSDP over ``data``) and runs the same step on
+TP over ``model``, selective FSDP over ``data``, the MoE experts over
+``data``) and runs the same step on
 them: its rows of each pod's batch (``batch_specs``: the batch over
 ``data``; with microbatches, its rows of each microbatch), the model on
 local shards with explicit collectives (``models.tp``, the FSDP gathers of
@@ -104,9 +105,9 @@ def _pod_gradient(cfg: ModelConfig, row: torch.Tensor, batch: dict,
     metrics = {k: metrics[k].detach() for k in METRICS}
     if pl.data_group is not None:
         _sum_spans(grad, pl.data_spans, pl.data_group)
-        v = tp.data_sum(torch.stack([loss, metrics["ce"],
+        v = tp.data_sum(torch.stack([loss, metrics["ce"], metrics["aux"],
                                      metrics["accuracy"]]), pl.layout)
-        loss, metrics["ce"], metrics["accuracy"] = v.unbind()
+        loss, metrics["ce"], metrics["aux"], metrics["accuracy"] = v.unbind()
     return loss, metrics, grad
 
 
@@ -171,8 +172,8 @@ def build_train_step(cfg: ModelConfig, ecfg: ElasticConfig, *, n_pods: int,
 
     ``mesh`` (``launch.mesh``; None: one device) places the step: every
     rank passes the same whole batch and takes its part; ``n_pods`` is a
-    multiple of the ``pod`` axis's size. A config whose layer kinds do not
-    run on the mesh raises ``NotImplementedError``."""
+    multiple of the ``pod`` axis's size. Every layer kind runs on a mesh
+    (``models.tp``)."""
     dev = resolve_device(device)
     fp32_products()
     if per_pod_batch % microbatches:
@@ -184,7 +185,6 @@ def build_train_step(cfg: ModelConfig, ecfg: ElasticConfig, *, n_pods: int,
     pods, pod0, rows, row0 = n_pods, 0, mb, 0
     if mesh is not None:
         sizes = shd.mesh_axis_sizes(mesh)
-        shd.require_mesh_kinds(cfg, mesh)
         psz, dsz = sizes.get("pod", 1), sizes.get("data", 1)
         if n_pods % psz:
             raise ValueError(f"n_pods {n_pods} is not a multiple of the "

@@ -57,7 +57,7 @@ def kernel_region(work, outputs=None):
 
 def collective(kind: str, tensor, group=None) -> None:
     """Report one collective of ``kind`` (the reference's HLO names:
-    ``all-reduce``, ``all-gather``, ``reduce-scatter``,
+    ``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``,
     ``collective-permute``) whose result, or sent buffer, is ``tensor``,
     over ``group`` (None: the world)."""
     counter = _active

@@ -20,6 +20,7 @@ are held within 5 %.
 """
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -117,16 +118,40 @@ def test_full_config_cell_on_a_fake_world(tmp_path):
 
 
 @pytest.mark.parametrize("arch,shape,mesh_kind,what", [
-    ("mamba2-780m", "train_4k", "pod", "['ssm']"),
-    ("deepseek-v2-236b", "train_4k", "multipod", "['mla', 'moe']"),
+    ("mamba2-780m", "prefill_32k", "pod", "['ssm']"),
+    ("deepseek-v2-236b", "decode_32k", "multipod", "['mla', 'moe']"),
     ("gemma3-4b", "long_500k", "pod", "flash-decoding"),
 ])
 def test_unplaced_cell_is_recorded_not_skipped(arch, shape, mesh_kind,
                                                what):
+    """Serving cells of the kinds that serving does not place on a mesh
+    (training places them: the next test), and a cache split over its
+    time dim."""
     rec = dryrun.run_cell(arch, shape, mesh_kind)
     assert rec["ok"] is False
     assert rec["error"].startswith("NotImplementedError") and \
         what in rec["error"]
+
+
+def test_placed_moe_cell_counts_its_all_to_all():
+    """deepseek-v2-236b ``train_4k`` on ``16x16`` at one layer and one
+    microbatch: the experts 10 a rank over ``data``, so each MoE layer's
+    dispatch and combine are one all-to-all of the rank's ``(G_local, E,
+    C, d)`` buffer each, in the compute dtype, in each of the step's
+    three passes (forward, the remat recompute, backward)."""
+    cfg = dataclasses.replace(configs.get("deepseek-v2-236b").config,
+                              n_layers=1)
+    rec = dryrun.run_cell("deepseek-v2-236b", "train_4k", "pod",
+                          cfg_override=cfg, microbatches_override=1)
+    assert rec["ok"], rec.get("traceback")
+    m, (data, model) = cfg.moe, (16, 16)
+    T = 256 * 4096                           # the microbatch's tokens
+    G = min(m.dispatch_groups, T)
+    C = math.ceil(T // G * m.top_k * m.capacity_factor / m.n_experts)
+    buf = (G // data) * m.n_experts * C * cfg.d_model * 2
+    assert rec["collective_counts"]["all-to-all"] == 2 * 3
+    assert rec["collective_bytes_by_type"]["all-to-all"] == 2 * 3 * buf
+    assert rec["fits_device"]
 
 
 _REF = r"""
@@ -205,16 +230,26 @@ def test_flops_against_hloparse(arch, reference_counts):
         (costs.cross_pod_bytes, ref["cross"])
 
 
-def test_perf_variants_run_through_run_cell(tmp_path):
+def test_perf_variants_run_through_run_cell(tmp_path, monkeypatch):
     """``launch.perf``: the reference's twelve variants of cells A, B and
-    C; cell B (deepseek-v2-236b) records its NotImplementedError."""
+    C; cell B's (deepseek-v2-236b) three run, each cut here to one layer
+    and one microbatch, and the variant without EP counts no
+    all-to-all."""
     from repro_torch.launch import perf
-    names = [v[1] for v in perf.variants()]
+    full = perf.variants()
+    names = [v[1] for v in full]
     assert len(names) == 12 and names[0] == "A1_bigger_attn_blocks"
+
+    def cut(item):
+        cell, name, eo, tf = item[:4]
+        return (cell, name, eo, lambda c: dataclasses.replace(
+            tf(c) if tf else c, n_layers=1), 1)
+    monkeypatch.setattr(perf, "variants", lambda: [cut(v) for v in full])
     out = tmp_path / "perf.jsonl"
     perf.main(["--only", "deepseek", "--out", str(out)])
     recs = [json.loads(x) for x in out.read_text().splitlines()]
     assert [r["variant"] for r in recs] == [
         "B1_no_ep_expert_tp", "B2_capacity_1.0", "B3_ep_and_cap1_bigblocks"]
-    assert all(not r["ok"] and r["error"].startswith("NotImplementedError")
-               for r in recs)
+    assert all(r["ok"] for r in recs), [r.get("error") for r in recs]
+    a2a = [r["collective_bytes_by_type"].get("all-to-all", 0) for r in recs]
+    assert a2a[0] == 0 and a2a[1] > 0 and a2a[1] == a2a[2], a2a

@@ -27,6 +27,7 @@ from repro_torch.core.easgd import EASGDConfig
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime import serve, train
+from repro_torch.utils import faults
 
 JOIN_S = 240
 _FAULTS = None    # the rank's faulthandler file, open until it exits
@@ -139,8 +140,9 @@ def train_world(payload) -> dict:
 
 def serve_world(payload) -> dict:
     """Prefill and one greedy decode step on a ``(data, model)`` mesh from
-    the reference's params; then the layer kinds that do not run on the
-    mesh, each of whose builds must raise ``NotImplementedError``."""
+    the reference's params; then the train and serve builds of the layer
+    kinds that serving does not run on the mesh: the message of each
+    ``NotImplementedError`` (None where the build succeeds)."""
     d, m = payload["shape"]
     mesh = mesh_lib.make_host_mesh(d, m, device="cpu")
     cfg = _cfg("float32")
@@ -173,6 +175,107 @@ def serve_world(payload) -> dict:
             "tok": tok.numpy(), "raised": raised,
             "cache_shape": tuple(caches["stacked"][0]["k"].shape),
             "specs": (build.token_spec, build.cache_spec_tree is not None)}
+
+
+def kind_cfg(case: dict):
+    """A mesh-kinds case's reduced config (the port's), with the case's
+    compute dtype and overrides (a dict overrides the fields of a nested
+    config: ``moe``, ``ssm``)."""
+    base = configs.get(case["arch"]).reduced
+    kw = {k: dataclasses.replace(getattr(base, k), **v)
+          if isinstance(v, dict) else v
+          for k, v in case.get("cfg", {}).items()}
+    return dataclasses.replace(base, compute_dtype=getattr(
+        torch, case["compute"]), **kw)
+
+
+def kinds_world(payload) -> dict:
+    """The mesh-kinds cases on a ``(data, model)`` mesh: per case, the
+    reference's initial state carried across, ``steps`` steps on one
+    batch, the gathered state's leaves and the last step's metrics (with
+    the case's planted fault, if any, in force for its steps)."""
+    mesh = mesh_lib.make_host_mesh(*payload["shape"], device="cpu")
+    out = {}
+    for case in payload["cases"]:
+        cfg = kind_cfg(case)
+        ecfg = elastic.ElasticConfig(
+            easgd=EASGDConfig(**payload["easgd"]), packed=True)
+        build = train.build_train_step(
+            cfg, ecfg, n_pods=1, per_pod_batch=payload["batch"],
+            seq=payload["seq"], device="cpu", mesh=mesh)
+        state = elastic.state_from_jax(payload["states"][case["ref"]],
+                                       device="cpu", mesh=mesh,
+                                       param_specs=build.param_specs)
+        restore = faults.plant(case.get("fault"))
+        try:
+            metrics = []
+            for _ in range(payload["steps"]):
+                state, m = build.step(state, payload["batches"][case["ref"]])
+                metrics.append({k: float(v) for k, v in m.items()})
+        finally:
+            restore()
+        full = elastic.gather_state(state, mesh, build.param_specs)
+        out[case["name"]] = {"leaves": elastic.state_leaves(full),
+                             "metrics": metrics,
+                             "local": tuple(state.params.shape)}
+    return out
+
+
+def collectives_world(payload) -> dict:
+    """The new collectives of ``models.tp`` on a world of 2, each inside a
+    function whose gradient is held against the unsharded function (every
+    rank computing it whole): returns per collective the largest
+    differences of the output and of the input's gradient."""
+    from repro_torch.models import tp
+    rank = dist.get_rank()
+    group = dist.group.WORLD
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(4, 6, 8, generator=g, dtype=torch.float64)
+    w = torch.randn(4, 6, 8, generator=g, dtype=torch.float64)
+    out = {}
+
+    # all_to_all: rank r holds rows [2r, 2r + 2) of x; dim 1's blocks go
+    # to the ranks, so rank r gets x[:, 3r:3r + 3] whole over dim 0
+    a = x[2 * rank:2 * rank + 2].clone().requires_grad_(True)
+    y = tp.all_to_all(a, 1, 0, group)
+    want = x[:, 3 * rank:3 * rank + 3]
+    (y * w[:, 3 * rank:3 * rank + 3]).sum().backward()
+    out["all_to_all"] = (float((y - want).abs().max()),
+                         float((a.grad - w[2 * rank:2 * rank + 2]).abs()
+                               .max()))
+    # reduce_scatter: every rank's partial product, summed, its block
+    parts = x * (rank + 1)
+    a = parts.clone().requires_grad_(True)
+    y = tp.reduce_scatter(a, 2, group)
+    want = (x * 3)[:, :, 4 * rank:4 * rank + 4]
+    wt = w[:, :, 4 * rank:4 * rank + 4]
+    (y * wt).sum().backward()
+    # d loss / d parts_r = every rank's weight on its block
+    out["reduce_scatter"] = (float((y - want).abs().max()),
+                             float((a.grad - w).abs().max()))
+    # model_sum: a sum of squares that both ranks feed and read
+    lay = tp.Layout(model_group=group, model_size=2, model_rank=rank,
+                    data_group=None, data_size=1, heads=False,
+                    kv_heads=False, ff=False, vocab=False, n_heads=1,
+                    n_kv_heads=1, vocab_size=1)
+    a = x[..., 4 * rank:4 * rank + 4].clone().requires_grad_(True)
+    s = tp.model_sum(a.square().sum(-1, keepdim=True), lay)
+    y = a * torch.rsqrt(s)
+    (y * w[..., 4 * rank:4 * rank + 4]).sum().backward()
+    b = x.clone().requires_grad_(True)
+    yb = b * torch.rsqrt(b.square().sum(-1, keepdim=True))
+    (yb * w).sum().backward()
+    out["model_sum"] = (
+        float((y - yb[..., 4 * rank:4 * rank + 4]).abs().max()),
+        float((a.grad - b.grad[..., 4 * rank:4 * rank + 4]).abs().max()))
+    # gather_whole: a split leaf that both ranks read whole
+    a = w[:, :, 4 * rank:4 * rank + 4].clone().requires_grad_(True)
+    y = tp.gather_whole(a, 2, group)
+    (y * x).sum().backward()
+    out["gather_whole"] = (
+        float((y - w).abs().max()),
+        float((a.grad - x[:, :, 4 * rank:4 * rank + 4]).abs().max()))
+    return out
 
 
 class RefState(NamedTuple):
