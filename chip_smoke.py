@@ -131,7 +131,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    (reported); (c) tracing's cost on the thread plane (AlexNet, traced
    and untraced in turns); (d) ``launch.train --transport tcp
    --sync-plane p2p --trace`` and ``launch.cluster`` as subprocesses
-   (started beside 19e's);
+   (started beside 17a's runs, with 19e's and 24c's);
    (e) reduced gemma3-4b over tcp p2p, P = 2, 16 rounds, attention and
    cross-entropy launched in the workers and counted exactly;
 18. the live telemetry plane and elastic membership over tcp: (a) on the
@@ -169,8 +169,8 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    shares, bytes against the prediction, each wid's paced exchange time
    against its measured one, exact launches; (e) ``launch.cluster
    --topology 2x2 --sync-plane p2p`` and ``launch.train --model jax-mlp
-   --transport tcp`` as subprocesses, and jax-mlp on the card against the
-   CPU (relative 1e-5);
+   --transport tcp`` as subprocesses (started beside 17a's runs), and
+   jax-mlp on the card against the CPU (relative 1e-5);
 20. per-slot remat and six more model families (every LM phase above runs
    with the configs' remat "full": each period slot's layer checkpointed,
    its attention or SSD forward launched again in the backward): (a) the
@@ -269,7 +269,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    estimate): each record ok and fitting the device, its roofline terms
    printed as counts priced on the H100's data sheet; (c)
    ``examples/elastic_restart_torch.py --device cuda`` exits 0 (started
-   beside 19e's entry points);
+   beside 17a's runs in check child a);
 25. the MoE, MLA, SSM and RG-LRU layer kinds on meshes (``models.tp``):
    (a) the kernels at the ranks' local shapes against their plain
    versions: the SSD at 24 heads, MLA's attention at 64, the
@@ -291,11 +291,35 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    the gated norm's variance without its sum and with its sum in the
    forward only, the RG-LRU gate partials all-reduced with the identity
    backward, the dispatch all-to-all skipped, a local aux loss.
+   (c) serving on the same two ranks (``runtime.serve`` on the mesh,
+   every kind; flash-decoding where a cache's time dim splits): a
+   prefill and 16 decode steps of mamba2-780m (2 layers, ``model`` 2, B
+   2, prompt 2048), recurrentgemma-2b (3, ``model`` 2, B 2, prompt 4096:
+   its local ring of 2048 split over ``model``; bf16 read, f32 held),
+   deepseek-v2-236b (1, ``data`` 2, B 2 bf16 read and f32 held, and B 1:
+   the latent cache's time over ``data``), grok-1-314b (1, ``data`` 2, B
+   2, FSDP on) and gemma3-4b (6, ``data`` 2, B 1, prompt 8192 into
+   32768: every cache's time over ``data``), each call's logits held by
+   relative norm against the same serving in this process (1e-2 bf16,
+   1e-4 f32), the greedy tokens equal wherever the top-2 gap exceeds
+   twice the error, exact launches per prefill (the attention and SSD
+   forward kernels at the ranks' local shapes, none in a decode step),
+   ms per prefill and decode step, the peak and the cache bytes per rank
+   against the un-meshed run's; the combine without its max rescale, and
+   with a block's partial left out, each read ten times the f32 limit.
 
 Each phase prints its seconds (and each sub-phase's from 16 on). Phase
 17a's sync runs share their worker start-ups with the thread ↔ master ↔
-p2p triangle, 17d's two entry points and 24c's example start beside
-19e's two (all checked for their paths, not timed), and a gradient
+p2p triangle. The runs of phases 17-19 that are held bit for bit or
+counted exactly and not timed run in two processes of their own
+(``check_child``, each with its own launch counters), beside phases
+that time no kernel and hold little of the card's memory: 17a, with
+17d's and 19e's entry points and 24c's example started beside it,
+runs beside phases 8, 11 and 15's reduced paths (moved after 14 for
+it), and 17e, 18a and 19c beside phase 22; a child's lines print when
+it is collected, and the host-clocked times of the phases beside it
+carry its load. Every interpreter the script starts keeps its compiled
+bytecode under ``build/pycache`` (``keep_bytecode``). A gradient
 above 4.5 B parameters is compared over two leaf groups (phase 20b's
 gemma3-27b, 21b) rather than parked in host memory.
 
@@ -324,6 +348,7 @@ import types
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
+PYCACHE = Path(__file__).resolve().parent / "build" / "pycache"
 
 # data-sheet peaks per card (memory bytes/s, f64 operations/s outside the
 # tensor cores, dense bf16 tensor-core operations/s, f32 operations/s
@@ -3134,13 +3159,11 @@ def phase_topology_alexnet(torch, runtime, zoo, kernels, costmodel,
     return totals
 
 
-def phase_topology_entry_points(torch, runtime, problems, zoo, kernels,
-                                EASGDConfig, device="cuda") -> dict:
-    """(19e) ``launch.cluster --workers 4 --topology 2x2 --sync-plane p2p``
-    and ``launch.train --mode ps --model jax-mlp --transport tcp
-    --ps-workers 2`` as subprocesses on the card; then jax-mlp on the
-    thread plane, the card's run against the CPU's within the tests'
-    f32 limit (relative norm of the center's move 1e-5)."""
+def start_topology_entry_points(device="cuda") -> tuple:
+    """(19e) Start ``launch.cluster --workers 4 --topology 2x2 --sync-plane
+    p2p`` and ``launch.train --mode ps --model jax-mlp --transport tcp
+    --ps-workers 2`` as subprocesses on the card, both at once. Returns
+    what ``phase_topology_entry_points`` checks."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
     cmds = ((["-m", "repro_torch.launch.cluster", "--workers", "4",
@@ -3158,6 +3181,17 @@ def phase_topology_entry_points(torch, runtime, problems, zoo, kernels,
     procs = [subprocess.Popen([sys.executable, *args], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for args, _, _ in cmds]
+    return cmds, procs, t
+
+
+def phase_topology_entry_points(started, torch, runtime, problems, zoo,
+                                kernels, EASGDConfig,
+                                device="cuda") -> dict:
+    """(19e) The two entry points that ``start_topology_entry_points``
+    started: each exits 0 with its result line; then jax-mlp on the
+    thread plane, the card's run against the CPU's within the tests' f32
+    limit (relative norm of the center's move 1e-5)."""
+    cmds, procs, t = started
     errs = []
     for proc, (args, tag, field) in zip(procs, cmds):
         out, err_out = proc.communicate(timeout=600)
@@ -4418,15 +4452,58 @@ KIND_JOBS = (("mamba2-780m", 2, "step", ((1, 2),), (), None),
               ((0, "gate_identity"),), None),
              ("deepseek-v2-236b", 1, "gradient", ((1, 2), (2, 1)),
               ((1, "all_to_all"), (1, "local_aux")), None),
-             ("grok-1-314b", 1, "gradient", ((1, 2), (2, 1)), (), None))
+             ("grok-1-314b", 1, "gradient", ((1, 2), (2, 1)), (), None),
+             ("mamba2-780m", 2, "serve", ((1, 2),), (), None,
+              {"B": 2, "prompt": 2048, "max_len": 2064}),
+             ("recurrentgemma-2b", 3, "serve", ((1, 2),), (), None,
+              {"B": 2, "prompt": 4096, "max_len": 4112, "held": False}),
+             ("recurrentgemma-2b", 3, "serve", ((1, 2),),
+              ((0, "combine_no_rescale"), (0, "combine_drop")), "float32",
+              {"B": 2, "prompt": 4096, "max_len": 4112}),
+             ("deepseek-v2-236b", 1, "serve", ((2, 1),), (), None,
+              {"B": 2, "prompt": 4096, "max_len": 4112, "fsdp": False,
+               "held": False}),
+             ("deepseek-v2-236b", 1, "serve", ((2, 1),), (), "float32",
+              {"B": 2, "prompt": 4096, "max_len": 4112, "fsdp": False}),
+             ("deepseek-v2-236b", 1, "serve", ((2, 1),), (), None,
+              {"B": 1, "prompt": 4096, "max_len": 4112, "fsdp": False}),
+             ("grok-1-314b", 1, "serve", ((2, 1),), (), None,
+              {"B": 2, "prompt": 4096, "max_len": 4112}),
+             ("gemma3-4b", 6, "serve", ((2, 1),), (), None,
+              {"B": 1, "prompt": 8192, "max_len": 32768, "fsdp": False}))
+# the "serve" hold: ``runtime.serve`` on the mesh, one prefill of B rows
+# of a prompt into caches of max_len (the job's last entry) and then
+# SERVE_STEPS decode steps, each call's logits held by relative norm
+# against the same serving without a mesh. Where B is not a multiple of
+# data (deepseek-v2-236b and gemma3-4b at B 1) and where a kv head count
+# does not divide model (recurrentgemma-2b's one), the caches split their
+# time dim and decode is flash-decoding: gemma3-4b's global cache of
+# 32768 slots splits over data in blocks of 16384, so rank 1's block
+# holds no valid slot in its decode steps; its local ring buffers of 1024
+# wrap, and recurrentgemma-2b's of 2048 split over model. A job that is
+# not "held" is read beside the f32 job that is: at bf16 the `model` 2 TP
+# sums of recurrentgemma-2b read 1.456e-2, and deepseek-v2-236b's rows
+# split over data 2.072e-2 (its routing follows the bf16 rounding of a
+# batch of 1 against one of 2), above serving's 1e-2. FSDP's per-layer
+# weight gathers, which gloo stages through the host on every decode
+# step (1.24 s a gemma3-4b step), serve on grok-1-314b's job and are off
+# on the others
+SERVE_STEPS = 16
 PHASE25_DIR = Path(__file__).resolve().parent / "build" / "phase25"
 # the kernels at the local shapes of phase 25's ranks, held once: the SSD
-# at 24 of mamba2's 48 heads, MLA's attention at 64 of 128 heads, the
-# cross-entropy on a vocab shard (grok-1-314b's and deepseek-v2-236b's at
-# model 2)
-SSD_LOCAL_CASES = ((1, 24, 4096, 64, 128, 256, 1.0, False),)
+# at 24 of mamba2's 48 heads (a step's B 1 and S 4096, a serve job's
+# prefill of B 2 and S 2048), MLA's attention at 64 of 128 heads, the
+# serve jobs' prefills (recurrentgemma-2b's local layer at 5 of its 10
+# heads, grok-1-314b's 48 heads, gemma3-4b at S 8192), the cross-entropy
+# on a vocab shard (grok-1-314b's and deepseek-v2-236b's at model 2)
+SSD_LOCAL_CASES = ((1, 24, 4096, 64, 128, 256, 1.0, False),
+                   (2, 24, 2048, 64, 128, 256, 1.0, False))
 ATTN_LOCAL_CASES = ((1, 4096, 64, 64, (192, 128), True, 0, "bfloat16",
-                     False),)
+                     False),
+                    (2, 4096, 5, 1, 256, True, 2048, "bfloat16", False),
+                    (1, 4096, 48, 8, 128, True, 0, "bfloat16", False),
+                    (1, 8192, 8, 4, 256, True, 1024, "bfloat16", False),
+                    (1, 8192, 8, 4, 256, True, 0, "bfloat16", False))
 CE_LOCAL_CASES = ((4096, 6144, 65536, "bfloat16", False),
                   (4096, 5120, 51200, "bfloat16", False))
 # relative norms of the error, from the card's readings (PERF.md):
@@ -4440,20 +4517,22 @@ CE_LOCAL_CASES = ((4096, 6144, 65536, "bfloat16", False),
 # at most; a local aux loss reads 0.171)
 KIND_TOL = {"params": 5e-2, "momentum": 5e-2, "center": 5e-2,
             "momentum ssm": 5e-2, "momentum wa+wi": 5e-2,
-            "gradient model": 5e-2, "gradient data": 1e-2, "aux": 1e-3}
+            "gradient model": 5e-2, "gradient data": 1e-2, "aux": 1e-3,
+            "logits": 1e-2}
 # the same at f32 compute (mamba2-780m read 5.4e-6, 2.7e-6, 1.1e-4 and
 # 2.8e-6 in its SSM leaves: the limits about ten times that, for another
 # card's choice of GEMM algorithms; the variance left unsummed reads
 # 0.263 there, its sum in the forward only 0.178)
 KIND_TOL_F32 = {"params": 5e-5, "momentum": 3e-5, "center": 1e-3,
-                "momentum ssm": 3e-5}
+                "momentum ssm": 3e-5, "logits": 1e-4}
 # a step job's leaves whose momentum is also held apart: the SSM blocks
 # (the norm's variance feeds them all) and the RG-LRU gates' weights
 KIND_GROUP = {"mamba2-780m": ("ssm",), "recurrentgemma-2b": ("wa", "wi")}
 # what each planted fault must read at least ten times the limit of
 FAULT_READS = {"norm_local": "momentum ssm", "norm_sum": "momentum ssm",
                "gate_identity": "momentum wa+wi",
-               "all_to_all": "gradient data", "local_aux": "aux"}
+               "all_to_all": "gradient data", "local_aux": "aux",
+               "combine_no_rescale": "logits", "combine_drop": "logits"}
 
 
 def kind_cfg(configs, arch: str, layers: int, reduced: bool = False,
@@ -4474,6 +4553,87 @@ def kind_label(arch: str, compute) -> str:
 
 def kind_tol(compute) -> dict:
     return KIND_TOL_F32 if compute == "float32" else KIND_TOL
+
+
+def job_label(arch: str, compute, hold: str, serve) -> str:
+    label = kind_label(arch, compute)
+    if hold != "serve":
+        return label
+    return f"{label} serve B {serve[0]['B']}" + (
+        "" if serve_held(serve) else " (read)")
+
+
+def serve_shape(serve, reduced: bool) -> tuple:
+    """A serve job's ``(B, prompt, max_len)``; a rehearsal on the reduced
+    configs prefills 12 into 32 (its local windows of 8 wrap)."""
+    job = serve[0]
+    return (job["B"], 12, 32) if reduced else (job["B"], job["prompt"],
+                                                job["max_len"])
+
+
+def serve_held(serve) -> bool:
+    """Whether a serve job is held to its limit (else read beside the job
+    that is: a bf16 job whose sums cannot reach serving's 1e-2)."""
+    return serve[0].get("held", True)
+
+
+def job_cfg(configs, arch, layers, reduced, compute, serve):
+    """``kind_cfg``, with a serve job's FSDP setting where it has one."""
+    cfg = kind_cfg(configs, arch, layers, reduced, compute)
+    if serve and "fsdp" in serve[0]:
+        cfg = dataclasses.replace(cfg, fsdp=serve[0]["fsdp"])
+    return cfg
+
+
+def serve_job(torch, np, tfm, common, timing, kernels, serve, cfg, shape,
+              dev, mesh=None):
+    """One serve job on ``mesh`` (None: on one device): the params
+    ``seeded_row`` draws (this rank's blocks) cast for serving, a seeded
+    prompt prefilled and SERVE_STEPS seeded tokens decoded. Returns the
+    logits of every call (calls, B, V) f32, the caches' bytes, the ms of
+    the prefill and of each decode step, and the launches of the prefill
+    and of the decode steps."""
+    from repro_torch.runtime import sharding as shd
+    B, prompt, max_len = shape
+    pspecs = shd.param_specs(cfg, mesh) if mesh is not None else None
+    row = seeded_row(torch, tfm, common, cfg, dev, mesh, pspecs)
+    layout = shd.local_layout(cfg, mesh) if mesh is not None else None
+    with torch.inference_mode():
+        params = tfm.cast_for_serving(cfg, tfm.unflatten(row, cfg, layout))
+    build = serve.build_serve_steps(cfg, batch=B, max_len=max_len,
+                                    device=dev, mesh=mesh)
+    toks = torch.from_numpy(np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (B, prompt + SERVE_STEPS))).to(dev)
+    timing.synchronize(dev)
+    kernels.reset_launch_counts()
+    with timing.Timer(dev) as tm:
+        logits, caches = build.prefill(params, toks[:, :prompt], {})
+    ms, out = [1e3 * tm.elapsed], [logits]
+    counts = [kernels.launch_counts()]
+    kernels.reset_launch_counts()
+    for i in range(SERVE_STEPS):
+        pos = torch.full((B,), prompt + i, dtype=torch.int64, device=dev)
+        with timing.Timer(dev) as tm:
+            logits, caches = build.decode(
+                params, caches, toks[:, prompt + i:prompt + i + 1], pos, {})
+        ms.append(1e3 * tm.elapsed)
+        out.append(logits)
+    counts.append(kernels.launch_counts())
+    return (torch.stack(out), tree_bytes(common, caches), ms, counts)
+
+
+def held_logits(torch, got, want) -> tuple:
+    """``(||got - want||^2, ||want||^2)`` over every call's logits, and the
+    greedy tokens: ``(equal, rows)`` over the rows whose top-2 gap in
+    ``want`` exceeds twice their largest error."""
+    err = (got - want).float()
+    top2 = want.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    sure = gap > 2 * err.abs().amax(dim=-1)
+    same = got.argmax(-1) == want.argmax(-1)
+    return ((float(torch.linalg.vector_norm(err)) ** 2,
+             float(torch.linalg.vector_norm(want)) ** 2),
+            (int((same & sure).sum()), int(sure.sum())))
 
 
 def seeded_row(torch, tfm, common, cfg, dev, mesh=None, pspecs=None):
@@ -4596,6 +4756,7 @@ def kinds_rank(rank: int, store: str, jobs, S: int, reduced: bool,
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import common, moe
     from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import serve as serve_lib
     from repro_torch.runtime import sharding as shd
     from repro_torch.runtime import train
     from repro_torch.utils import faults, timing
@@ -4610,18 +4771,20 @@ def kinds_rank(rank: int, store: str, jobs, S: int, reduced: bool,
         dist.init_process_group("gloo", store=dist.FileStore(store, 2),
                                 rank=rank, world_size=2,
                                 timeout=datetime.timedelta(seconds=300))
-        for arch, layers, hold, meshes, planted, compute in jobs:
-            cfg = kind_cfg(configs, arch, layers, reduced, compute)
+        for arch, layers, hold, meshes, planted, compute, *serve in jobs:
+            cfg = job_cfg(configs, arch, layers, reduced, compute, serve)
             views, ref_route = refs.get()
             runs = [(m, None) for m in range(len(meshes))] + list(planted)
             for m, fault in runs:
                 data, model = meshes[m]
-                name = f"{kind_label(arch, compute)} data {data} model " \
-                    f"{model}" + (f" fault {fault}" if fault else "")
+                name = f"{job_label(arch, compute, hold, serve)} data " \
+                    f"{data} model {model}" + (
+                        f" fault {fault}" if fault else "")
                 mesh = mesh_lib.make_host_mesh(data, model, n_pods=1,
                                                device=dev)
                 restore = faults.plant(fault)
                 r = result[name] = {}
+                t_run = time.perf_counter()
                 try:
                     peak_reset(torch, dev)
                     if hold == "step":
@@ -4645,6 +4808,16 @@ def kinds_rank(rank: int, store: str, jobs, S: int, reduced: bool,
                                               build.param_specs,
                                               group=KIND_GROUP[arch])
                         del build, state
+                    elif hold == "serve":
+                        logits, r["cache_bytes"], r["ms"], r["counts"] = \
+                            serve_job(torch, np, tfm, common, timing,
+                                      kernels, serve_lib, cfg,
+                                      serve_shape(serve, reduced), dev, mesh)
+                        r["peak"] = peak_of(torch, dev)
+                        sums, r["greedy"] = held_logits(torch, logits,
+                                                        views[0])
+                        r["sums"] = {"logits": sums}
+                        del logits
                     else:
                         pspecs = shd.param_specs(cfg, mesh)
                         pl = train._placement(cfg, mesh, pspecs)
@@ -4676,6 +4849,7 @@ def kinds_rank(rank: int, store: str, jobs, S: int, reduced: bool,
                     restore()
                 if cuda:
                     torch.cuda.empty_cache()
+                r["s"] = time.perf_counter() - t_run
                 print(f"phase 25 rank {rank}: {name} ran", flush=True)
             up.put((rank, "held"))
             del views
@@ -4764,13 +4938,25 @@ def phase_mesh_kinds(torch, np, configs, tfm, common, elastic, EASGDConfig,
     deadline = time.monotonic() + 900
     un = {}
     try:
-        for arch, layers, hold, meshes, planted, compute in jobs:
-            cfg = kind_cfg(configs, arch, layers, reduced, compute)
+        for arch, layers, hold, meshes, planted, compute, *serve in jobs:
+            cfg = job_cfg(configs, arch, layers, reduced, compute, serve)
+            label = job_label(arch, compute, hold, serve)
             t = time.perf_counter()
             peak_reset(torch, dev)
             kernels.reset_launch_counts()
             route = None
-            if hold == "step":
+            aux = cache_bytes = None
+            if hold == "serve":
+                from repro_torch.runtime import serve as serve_lib
+                logits, cache_bytes, ms, served = serve_job(
+                    torch, np, tfm, common, timing, kernels, serve_lib, cfg,
+                    serve_shape(serve, reduced), dev)
+                check(not cuda or served == [serve_counts(cfg),
+                                             lm_counts(cfg, 0)],
+                      f"{label} un-meshed launched {served}")
+                views, mets = (logits,), None
+                del logits
+            elif hold == "step":
                 build = train.build_train_step(
                     cfg, mesh_easgd(elastic, EASGDConfig), n_pods=2,
                     per_pod_batch=1, seq=S, device=dev)
@@ -4790,11 +4976,13 @@ def phase_mesh_kinds(torch, np, configs, tfm, common, elastic, EASGDConfig,
                     moe, lambda: train._pod_gradient(cfg, row, batch))
                 views, aux = (grad,), mets["aux"].item()
                 del row, batch, loss
-            counts = kernels.launch_counts()
+            counts = kernels.launch_counts() if hold != "serve" \
+                else served[0]
             timing.synchronize(dev)
-            un[kind_label(arch, compute)] = {
-                "s": time.perf_counter() - t, "aux": aux,
-                        "peak": peak_of(torch, dev)}
+            un[label] = {"s": time.perf_counter() - t, "aux": aux,
+                         "peak": peak_of(torch, dev),
+                         "cache_bytes": cache_bytes,
+                         "ms": ms if hold == "serve" else None}
             add_counts(totals, counts)
             del mets
             if cuda:
@@ -4805,7 +4993,7 @@ def phase_mesh_kinds(torch, np, configs, tfm, common, elastic, EASGDConfig,
             del views
             if hold == "step":
                 del state, c0
-            else:
+            elif hold == "gradient":
                 del grad
             if cuda:
                 torch.cuda.ipc_collect()
@@ -4825,9 +5013,10 @@ def phase_mesh_kinds(torch, np, configs, tfm, common, elastic, EASGDConfig,
         check("error" not in out, f"phase 25 rank {r}: {out.get('error')}")
     check(codes == [0, 0], f"phase 25 ranks exit codes {codes} after "
           f"writing their results (the teardown failed)")
-    for arch, layers, hold, meshes, planted, compute in jobs:
-        cfg = kind_cfg(configs, arch, layers, reduced, compute)
-        label, tol = kind_label(arch, compute), kind_tol(compute)
+    failed = []     # the serve jobs' failed holds, raised after every line
+    for arch, layers, hold, meshes, planted, compute, *serve in jobs:
+        cfg = job_cfg(configs, arch, layers, reduced, compute, serve)
+        label, tol = job_label(arch, compute, hold, serve), kind_tol(compute)
         runs = [(m, None) for m in range(len(meshes))] + list(planted)
         for m, fault in runs:
             data, model = meshes[m]
@@ -4837,6 +5026,14 @@ def phase_mesh_kinds(torch, np, configs, tfm, common, elastic, EASGDConfig,
             rel = {k: math.sqrt(sum(row["sums"][k][0] for row in rows)
                                 / sum(row["sums"][k][1] for row in rows))
                    for k in rows[0]["sums"]}
+            if hold == "serve":
+                try:
+                    report_serve(rows, un[label], rel, tol, name, cfg,
+                                 layers, serve_shape(serve, reduced), fault,
+                                 totals, cuda, serve_held(serve))
+                except RuntimeError as e:
+                    failed.append(str(e))
+                continue
             if hold == "gradient":
                 rel["aux"] = abs(rows[0]["aux"] - un[label]["aux"]) / abs(
                     un[label]["aux"])
@@ -4877,7 +5074,50 @@ def phase_mesh_kinds(torch, np, configs, tfm, common, elastic, EASGDConfig,
               f"{un[label]['peak'] / 2**30:.2f} GiB", flush=True)
     print(f"phase 25: {time.perf_counter() - t0:.1f} s from the spawn"
           + (f" ({card_line()})" if cuda else ""), flush=True)
+    check(not failed, "; ".join(failed))
     return totals
+
+
+def report_serve(rows, un, rel, tol, name, cfg, layers, shape, fault,
+                 totals, cuda=True, held=True) -> None:
+    """Print and hold one serve job's meshed run (``rows``, a rank each)
+    against its un-meshed run ``un``: the logits' relative error (unless
+    the job is only read), the greedy tokens, the ranks' launches on the
+    card (clean runs); a planted fault must read ten times the limit."""
+    B, prompt, max_len = shape
+    k = "logits"
+    r0 = rows[0]
+    print(f"mesh kinds {name} (gloo, 2 processes on one card): {cfg.name} "
+          f"{layers} layer(s) {str(cfg.compute_dtype).split('.')[-1]} "
+          f"compute, serving B {B}, prompt {prompt}, max_len {max_len}, "
+          f"{SERVE_STEPS} decode steps: logits vs no mesh {rel[k]:.3e} "
+          + (f"(limit {tol[k]})" if held else "(read, not held)")
+          + f"; greedy tokens equal / rows whose top-2 gap "
+          f"exceeds twice their error {[row['greedy'] for row in rows]}; "
+          f"ms per prefill {r0['ms'][0]:.1f} and per decode step "
+          f"{statistics.median(r0['ms'][1:]):.2f} on rank 0 (no mesh "
+          f"{un['ms'][0]:.1f}, {statistics.median(un['ms'][1:]):.2f}); "
+          f"s a run per rank {[round(row['s'], 1) for row in rows]} (no "
+          f"mesh {un['s']:.1f}); "
+          f"peak per rank {[round(row['peak'] / 2**30, 2) for row in rows]}"
+          f" GiB (no mesh {un['peak'] / 2**30:.2f}); cache bytes per rank "
+          f"{[row['cache_bytes'] for row in rows]} (no mesh "
+          f"{un['cache_bytes']}); prefill launches per rank "
+          f"{ {k: v for k, v in r0['counts'][0].items() if v} }",
+          flush=True)
+    if fault is not None:
+        check(rel[k] >= 10 * tol[k], f"{name}: the planted fault reads "
+              f"{rel[k]:.3e} in {k}, under ten times its limit {tol[k]}")
+        return
+    for r_, row in enumerate(rows):
+        check(not cuda or row["counts"] == [serve_counts(cfg),
+                                            lm_counts(cfg, 0)],
+              f"{name} rank {r_} launched {row['counts']} (prefill, decode)")
+        add_counts(totals, row["counts"][0])
+        check(row["greedy"][0] == row["greedy"][1],
+              f"{name} rank {r_}: greedy tokens {row['greedy']}")
+    check(not held or rel[k] <= tol[k], f"{name}: {k} vs no mesh "
+          f"{rel[k]:.3e}, limit {tol[k]}")
 
 
 SOURCES = {"fused_sync_easgd_update": "elastic_update.cu",
@@ -5093,6 +5333,103 @@ def phase_dryrun_cells(proc, wait_s: float = 900.0) -> dict:
     return json.loads(DRYRUN_OUT.with_suffix(".estimate.json").read_text())
 
 
+CHECK_DIR = Path(__file__).resolve().parent / "build"
+
+
+def check_child(part: str) -> int:
+    """``chip_smoke.py --check-child a|b``: the runs of phases 17-19 that
+    are held bit for bit or counted exactly and not timed, in a process
+    of their own with its own launch counters, beside phases of the
+    script that are neither timed for the kernels' rows nor heavy on the
+    card's memory. Part a: 17a, with 17d's and 19e's entry points and
+    24c's example started beside it; part b: 17e, 18a and 19c. Prints
+    what they print; writes their launches to ``check_child_<part>.json``
+    under ``build``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    from repro_torch import configs, kernels
+    from repro_torch.core import costmodel
+    from repro_torch.comm import schedules as comm_schedules
+    from repro_torch.core.easgd import EASGDConfig
+    from repro_torch.net import peer
+    from repro_torch.ps import problems, runtime, zoo
+    launches = {k.__name__: 0 for k in kernels.KERNELS}
+    t = time.perf_counter()
+    if part == "a":
+        tcp_entry = start_tcp_entry_points()
+        topo_entry = start_topology_entry_points()
+        restart = start_elastic_restart()
+        add_counts(launches, phase_tcp_bitwise(torch, runtime, problems,
+                                               kernels, EASGDConfig))
+        print(f"phase 17a: {time.perf_counter() - t:.1f} s", flush=True)
+        t = time.perf_counter()
+        phase_tcp_entry_points(tcp_entry)
+        add_counts(launches, phase_topology_entry_points(
+            topo_entry, torch, runtime, problems, zoo, kernels, EASGDConfig))
+        phase_elastic_restart(restart)
+        print(f"phase 17d, 19e and 24c, after 17a: "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+    else:
+        add_counts(launches, phase_tcp_lm(torch, runtime, zoo, kernels,
+                                          configs, EASGDConfig))
+        print(f"phase 17e: {time.perf_counter() - t:.1f} s", flush=True)
+        t = time.perf_counter()
+        add_counts(launches, phase_elastic_bitwise(torch, runtime, problems,
+                                                   kernels, costmodel,
+                                                   EASGDConfig))
+        print(f"phase 18a: {time.perf_counter() - t:.1f} s", flush=True)
+        t = time.perf_counter()
+        add_counts(launches, phase_topology_tcp(
+            torch, runtime, problems, kernels, costmodel, comm_schedules,
+            peer, EASGDConfig))
+        print(f"phase 19c: {time.perf_counter() - t:.1f} s", flush=True)
+    (CHECK_DIR / f"check_child_{part}.json").write_text(json.dumps(launches))
+    return 0
+
+
+def start_check_child(part: str) -> tuple:
+    """Start ``check_child(part)``, its output in ``check_child_<part>.log``
+    under ``build``; stopped at exit if still running."""
+    CHECK_DIR.mkdir(parents=True, exist_ok=True)
+    out = CHECK_DIR / f"check_child_{part}"
+    for ext in (".log", ".json"):
+        out.with_suffix(ext).unlink(missing_ok=True)
+    log = open(out.with_suffix(".log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--check-child",
+         part], stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    return part, proc, time.perf_counter()
+
+
+def phase_check_child(started, beside: str, wait_s: float = 900.0) -> dict:
+    """The check child's lines and launches, once it has exited 0."""
+    part, proc, t0 = started
+    t = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=wait_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise RuntimeError(f"check child {part} not done after {wait_s:g} s "
+                           f"more")
+    waited = time.perf_counter() - t
+    out = CHECK_DIR / f"check_child_{part}"
+    log = out.with_suffix(".log").read_text()
+    print(log, end="", flush=True)
+    check(rc == 0, f"check child {part} exit {rc}: {log[-3000:]}")
+    print(f"check child {part}: exit 0, {time.perf_counter() - t0:.1f} s "
+          f"from its start beside {beside}, {waited:.1f} s waited for here",
+          flush=True)
+    return json.loads(out.with_suffix(".json").read_text())
+
+
 def start_elastic_restart(device="cuda") -> tuple:
     """Phase 24c: start ``examples/elastic_restart_torch.py`` on the
     card."""
@@ -5132,14 +5469,28 @@ def kernel_rows(rows: dict, launches: dict) -> list:
     return out
 
 
+def keep_bytecode() -> None:
+    """Let this process and every interpreter it starts (the tcp workers,
+    the ranks, the entry points) keep compiled bytecode under
+    ``build/pycache``. Where the environment sets
+    ``PYTHONDONTWRITEBYTECODE``, each fresh interpreter compiles torch's
+    Python sources again, and phases 16-25 start scores of them."""
+    prefix = str(PYCACHE)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = prefix
+
+
 def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
-        return 1
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found — run from a "
               f"checkout of the repository", file=sys.stderr)
+        return 1
+    keep_bytecode()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
     import numpy as np
@@ -5212,11 +5563,6 @@ def main() -> int:
                      timing, dev, flat_row=True)
     print(f"phase full width: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
-    add_counts(launches, phase_lm_main_path(
-        torch, runtime, zoo, kernels, comm_rounds, EASGDConfig, timing,
-        configs.get("gemma3-4b").reduced))
-    print(f"phase lm main path: {time.perf_counter() - t:.1f} s", flush=True)
-    t = time.perf_counter()
     rows.update(phase_elastic_kernel(torch, eu, timing, dev, bw, f32))
     print(f"phase elastic kernel: {time.perf_counter() - t:.1f} s",
           flush=True)
@@ -5229,12 +5575,6 @@ def main() -> int:
         ms_in_step=multi["update_ms"],
         bound_ms_in_step=multi["update_bound_ms"])
     print(f"phase multi-pod: {time.perf_counter() - t:.1f} s", flush=True)
-    t = time.perf_counter()
-    add_counts(launches, phase_launcher_path(
-        torch, np, configs, elastic, EASGDConfig, train, launcher, kernels,
-        dev))
-    print(f"phase launcher path: {time.perf_counter() - t:.1f} s",
-          flush=True)
 
     # the Mamba-2 slice (phases 12-15)
     t = time.perf_counter()
@@ -5260,6 +5600,22 @@ def main() -> int:
         bound_ms_in_step_mamba2=multi["update_bound_ms"])
     print(f"phase mamba2 multi-pod: {time.perf_counter() - t:.1f} s",
           flush=True)
+
+    # the reduced main paths of phases 8, 11 and 15, untimed and light on
+    # the card, run beside check child a
+    release_card(torch, "before phases 8, 11 and 15's launcher path")
+    checks = start_check_child("a")
+    t = time.perf_counter()
+    add_counts(launches, phase_lm_main_path(
+        torch, runtime, zoo, kernels, comm_rounds, EASGDConfig, timing,
+        configs.get("gemma3-4b").reduced))
+    print(f"phase lm main path: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    add_counts(launches, phase_launcher_path(
+        torch, np, configs, elastic, EASGDConfig, train, launcher, kernels,
+        dev))
+    print(f"phase launcher path: {time.perf_counter() - t:.1f} s",
+          flush=True)
     t = time.perf_counter()
     add_counts(launches, phase_launcher_path(
         torch, np, configs, elastic, EASGDConfig, train, launcher, kernels,
@@ -5270,6 +5626,7 @@ def main() -> int:
         algos=(("sync_easgd", 16),)))
     print(f"phase mamba2 launcher path: {time.perf_counter() - t:.1f} s",
           flush=True)
+    add_counts(launches, phase_check_child(checks, "phases 8, 11 and 15"))
 
     # the asynchronous slice (phase 16)
     release_card(torch, "before phase 16")
@@ -5285,12 +5642,9 @@ def main() -> int:
     add_counts(launches, phase_ps_launcher(launcher, kernels))
     print(f"phase async: {time.perf_counter() - t:.1f} s", flush=True)
 
-    # the tcp slice (phase 17)
+    # the tcp slice (phase 17; 17a and 17d run in check child a, 17e in b)
     release_card(torch, "before phase 17")
     t = time.perf_counter()
-    add_counts(launches, phase_tcp_bitwise(torch, runtime, problems, kernels,
-                                           EASGDConfig))
-    print(f"phase 17a: {time.perf_counter() - t:.1f} s", flush=True)
     t17 = time.perf_counter()
     notes: dict = {}
     add_counts(launches, phase_tcp_alexnet(torch, runtime, zoo, kernels,
@@ -5301,19 +5655,12 @@ def main() -> int:
     add_counts(launches, phase_trace_cost(torch, runtime, zoo, kernels,
                                           EASGDConfig))
     print(f"phase 17c: {time.perf_counter() - t17:.1f} s", flush=True)
-    t17 = time.perf_counter()
-    add_counts(launches, phase_tcp_lm(torch, runtime, zoo, kernels, configs,
-                                      EASGDConfig))
-    print(f"phase 17e: {time.perf_counter() - t17:.1f} s", flush=True)
-    print(f"phase tcp (17): {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"phase tcp (17b-c): {time.perf_counter() - t:.1f} s", flush=True)
 
-    # the live plane and elastic membership (phase 18)
+    # the live plane and elastic membership (phase 18; 18a runs in check
+    # child b)
     release_card(torch, "before phase 18")
     t = time.perf_counter()
-    add_counts(launches, phase_elastic_bitwise(torch, runtime, problems,
-                                               kernels, costmodel,
-                                               EASGDConfig))
-    print(f"phase 18a: {time.perf_counter() - t:.1f} s", flush=True)
     t18 = time.perf_counter()
     add_counts(launches, phase_live(torch, runtime, zoo, problems, kernels,
                                     costmodel, EASGDConfig, notes))
@@ -5323,9 +5670,11 @@ def main() -> int:
                                        kernels, comm_rounds, eu, server,
                                        costmodel, EASGDConfig))
     print(f"phase 18c: {time.perf_counter() - t18:.1f} s", flush=True)
-    print(f"phase elastic (18): {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"phase elastic (18b-c): {time.perf_counter() - t:.1f} s",
+          flush=True)
 
-    # topology-aware scale-out and the jax-mlp problem (phase 19)
+    # topology-aware scale-out and the jax-mlp problem (phase 19; 19c runs
+    # in check child b, 19e in a)
     release_card(torch, "before phase 19")
     t = time.perf_counter()
     add_counts(launches, phase_topology_thread(
@@ -5333,27 +5682,12 @@ def main() -> int:
         comm_schedules, EASGDConfig))
     print(f"phase 19a-b: {time.perf_counter() - t:.1f} s", flush=True)
     t19 = time.perf_counter()
-    add_counts(launches, phase_topology_tcp(
-        torch, runtime, problems, kernels, costmodel, comm_schedules, peer,
-        EASGDConfig))
-    print(f"phase 19c: {time.perf_counter() - t19:.1f} s", flush=True)
-    t19 = time.perf_counter()
     add_counts(launches, phase_topology_alexnet(
         torch, runtime, zoo, kernels, costmodel, comm_rounds, comm_schedules,
         peer, wire, EASGDConfig))
     print(f"phase 19d: {time.perf_counter() - t19:.1f} s", flush=True)
-    t19 = time.perf_counter()
-    # 17d's entry points and 24c's example start beside 19e's entry
-    # points: all are checked for their paths, not timed
-    tcp_entry = start_tcp_entry_points()
-    restart = start_elastic_restart()
-    add_counts(launches, phase_topology_entry_points(
-        torch, runtime, problems, zoo, kernels, EASGDConfig))
-    phase_tcp_entry_points(tcp_entry)
-    phase_elastic_restart(restart)
-    print(f"phase 19e, with 17d and 24c: {time.perf_counter() - t19:.1f} s",
+    print(f"phase topology (19a-b, d): {time.perf_counter() - t:.1f} s",
           flush=True)
-    print(f"phase topology (19): {time.perf_counter() - t:.1f} s", flush=True)
 
     # per-slot remat and six more model families (phase 20)
     release_card(torch, "before phase 20")
@@ -5416,14 +5750,17 @@ def main() -> int:
     print(f"phase moe families (21): {time.perf_counter() - t:.1f} s",
           flush=True)
 
-    # serving: prefill and decode with caches (phase 22)
+    # serving: prefill and decode with caches (phase 22), beside check
+    # child b
     release_card(torch, "before phase 22")
+    checks = start_check_child("b")
     t = time.perf_counter()
     counts, serve_rows = phase_serving(torch, np, configs, tfm, common, fa,
                                        sc, kernels, timing, dev, bw)
     add_counts(launches, counts)
     merge_rows(rows, serve_rows)
     print(f"phase serving (22): {time.perf_counter() - t:.1f} s", flush=True)
+    add_counts(launches, phase_check_child(checks, "phase 22"))
 
     # multi-device placement on a world of one (phase 23)
     release_card(torch, "before phase 23")
@@ -5476,4 +5813,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(dryrun_child() if sys.argv[1:] == ["--dryrun-cells"]
+             else check_child(sys.argv[2]) if sys.argv[1:2] == ["--check-child"]
              else main())

@@ -22,11 +22,12 @@ fake tensors (``FakeTensorMode``: shapes and dtypes, no storage) under
   device, the step's state included.
 
 Every number in a record is a count of rank 0's step priced on
-``costmodel.H100_SXM``, not a time taken. A cell the port cannot place
-(a layer kind that serving does not place on a mesh,
-``runtime.sharding.require_serve_kinds``; a cache split over its time
-dim) is recorded ``ok: false`` with its error. Training places every
-kind; the MoE dispatch's all-to-all counts under ``"all-to-all"``.
+``costmodel.H100_SXM``, not a time taken. Training and serving place
+every layer kind; the MoE dispatch's all-to-all counts under
+``"all-to-all"``, and a serving cell whose caches split their time dim
+counts flash-decoding's combine under ``collectives_by_tag``
+(``"softmax-combine"``) as well as under ``"all-reduce"``. A cell that
+fails to trace is recorded ``ok: false`` with its error.
 """
 from __future__ import annotations
 
@@ -259,6 +260,7 @@ def analyze(costs, peak: int, meta: dict, cfg, chips: int, ecfg=None,
     rec["collective_bytes_by_dtype"] = costs.collective_bytes_by_dtype
     rec["cross_pod_bytes_by_dtype"] = costs.cross_pod_bytes_by_dtype
     rec["kernel_regions"] = costs.regions
+    rec["collectives_by_tag"] = costs.by_tag
 
     n_total, n_active = count_params(cfg)
     rec["n_params"] = n_total

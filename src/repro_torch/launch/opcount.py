@@ -24,8 +24,9 @@ so every op is seen as often as it runs and no trip counts are needed.
   holds: the kernels' outputs, not a plain version's temporaries;
 * collectives: each ``torch.distributed`` call of the port reports itself
   (``utils.opcount_hook.collective``): bytes and counts by kind and by
-  dtype, and a collective whose group spans ranks of different pods
-  (``pod_stride`` ranks a pod) counts as cross-pod.
+  dtype (and by the tag a caller gives, such as flash-decoding's
+  ``models.tp.COMBINE``), and a collective whose group spans ranks of
+  different pods (``pod_stride`` ranks a pod) counts as cross-pod.
 """
 from __future__ import annotations
 
@@ -77,6 +78,7 @@ class OpCosts:
     collective_bytes_by_dtype: dict = dataclasses.field(default_factory=dict)
     cross_pod_bytes_by_dtype: dict = dataclasses.field(default_factory=dict)
     regions: dict = dataclasses.field(default_factory=dict)
+    by_tag: dict = dataclasses.field(default_factory=dict)
 
     @property
     def launches(self) -> dict:
@@ -121,6 +123,7 @@ class OpCounter(TorchDispatchMode):
         self._coll_dt = defaultdict(float)
         self._cross = 0.0
         self._cross_dt = defaultdict(float)
+        self._tags = defaultdict(lambda: {"count": 0, "bytes": 0.0})
         self._prevs = []        # the counters this one replaced, entered
 
     def __enter__(self):
@@ -176,8 +179,11 @@ class OpCounter(TorchDispatchMode):
                  else dist.get_process_group_ranks(group))
         return len({r // self.pod_stride for r in ranks}) > 1
 
-    def collective(self, kind: str, tensor, group=None) -> None:
+    def collective(self, kind: str, tensor, group=None, tag=None) -> None:
         b = _nbytes(tensor)
+        if tag is not None:
+            self._tags[tag]["count"] += 1
+            self._tags[tag]["bytes"] += b
         dt = _DTYPE_NAMES.get(tensor.dtype, str(tensor.dtype))
         self._coll[kind] += b
         self._coll_n[kind] += 1
@@ -195,4 +201,5 @@ class OpCounter(TorchDispatchMode):
             cross_pod_bytes=self._cross,
             collective_bytes_by_dtype=dict(self._coll_dt),
             cross_pod_bytes_by_dtype=dict(self._cross_dt),
-            regions={k: dict(v) for k, v in self._regions.items()})
+            regions={k: dict(v) for k, v in self._regions.items()},
+            by_tag={k: dict(v) for k, v in self._tags.items()})

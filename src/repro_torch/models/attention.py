@@ -42,8 +42,20 @@ each rank projects, attends and caches its own heads, and the output
 projection's partial sum leaves through ``reduce_out``. Where ``model``
 splits the q heads but not the kv heads (GQA with ``n_kv_heads`` not a
 multiple of it), the rank takes the kv heads its q heads read
-(``Layout.kv_index``) from the replicated projection. ``sctx.shard``
-stands at the reference's points.
+(``Layout.kv_index``) from the replicated projection; serving, its cache
+holds every kv head, so it projects them all, and a decode step gathers
+every head's query over ``model``, attends and keeps its own heads.
+``sctx.shard`` stands at the reference's points.
+
+Flash-decoding: where the cache specs split a cache's time dim
+(``Layout.time_split``), the rank holds one block of it. A decode step
+writes the new token's k / v only on the rank whose block holds its
+global slot, masks on global slot indices, and ``decode_partials`` leaves
+the softmax open (its max, its sum over valid slots and the
+un-normalised context) for ``tp.softmax_combine``; a block with no valid
+slot yet weighs nothing. The prefill attends whole, as on one device,
+and each rank writes the part of the (rolled, for a ring) window its
+block covers (``fill_block``).
 """
 from __future__ import annotations
 
@@ -143,6 +155,28 @@ def product_f32(a, b):
     return torch.bmm(a, b).float()
 
 
+def _decode_scores(q, k_cache, valid_mask, cap):
+    """(B, KVH, G, S) f32 scores of q (B, 1, H, D) against the cache, soft-
+    capped, the slots outside ``valid_mask`` at ``NEG_INF``."""
+    B, _, H, D = q.shape
+    KVH = k_cache.shape[2]
+    qg = q.reshape(B, KVH, H // KVH, D).to(k_cache.dtype)
+    # one product per KV head, on the cache's strided (B, D, S) views
+    s = torch.stack([product_f32(qg[:, h], k_cache[:, :, h].transpose(1, 2))
+                     for h in range(KVH)], dim=1) * (1.0 / math.sqrt(D))
+    s = softcap(s, cap)
+    if valid_mask.dim() == 1:
+        valid_mask = valid_mask[None]
+    return torch.where(valid_mask[:, None, None, :], s, NEG_INF)
+
+
+def _decode_context(p, v_cache):
+    """(B, KVH, G, Dv) f32: the weights p (B, KVH, G, S), in the cache's
+    dtype, times the cache."""
+    return torch.stack([product_f32(p[:, h], v_cache[:, :, h])
+                        for h in range(v_cache.shape[2])], dim=1)
+
+
 def decode_attention(q, k_cache, v_cache, valid_mask, cap=0.0):
     """Single-position attention against a cache. q: (B, 1, H, D);
     k_cache: (B, S, KVH, D); v_cache: (B, S, KVH, Dv); valid_mask: (B, S)
@@ -150,22 +184,68 @@ def decode_attention(q, k_cache, v_cache, valid_mask, cap=0.0):
     Scores are f32 (see the module docstring), soft-capped by ``cap``; the
     softmax is f32 and ``p`` is rounded to the cache's dtype before
     ``p·v``."""
-    B, _, H, D = q.shape
-    KVH, Dv = k_cache.shape[2], v_cache.shape[-1]
-    G = H // KVH
-    scale = 1.0 / math.sqrt(D)
-    qg = q.reshape(B, KVH, G, D).to(k_cache.dtype)
-    # one product per KV head, on the cache's strided (B, D, S) views
-    s = torch.stack([product_f32(qg[:, h], k_cache[:, :, h].transpose(1, 2))
-                     for h in range(KVH)], dim=1) * scale     # (B,KVH,G,S)
-    s = softcap(s, cap)
-    if valid_mask.dim() == 1:
-        valid_mask = valid_mask[None]
-    s = torch.where(valid_mask[:, None, None, :], s, NEG_INF)
+    B, _, H, _ = q.shape
+    s = _decode_scores(q, k_cache, valid_mask, cap)
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
-    out = torch.stack([product_f32(p[:, h], v_cache[:, :, h])
-                       for h in range(KVH)], dim=1)           # (B,KVH,G,Dv)
-    return out.reshape(B, 1, H, Dv)
+    return _decode_context(p, v_cache).reshape(B, 1, H, v_cache.shape[-1])
+
+
+def partial_softmax(s, valid):
+    """The open softmax of scores ``s`` (..., S) over one block of the
+    time dim, ``valid`` (broadcast to s) the slots that take part:
+    ``(m, l, e)``, the running max (...), the sum of ``e = e^{s−m}`` over
+    the valid slots (...) and ``e`` (..., S), 0 off them. A block with no
+    valid slot has ``m = NEG_INF`` and ``l = 0``: it weighs nothing in
+    ``tp.softmax_combine``, where a plain softmax of its masked scores
+    would spread its weight evenly."""
+    m = s.amax(dim=-1)
+    e = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    return m, e.sum(dim=-1), e
+
+
+def decode_partials(q, k_cache, v_cache, valid_mask, cap=0.0):
+    """``decode_attention`` over one block of the cache's time dim with
+    the softmax left open (flash-decoding): ``(m, l, o)``, each
+    (B, KVH, G[, Dv]), ``o`` the un-normalised ``Σ e^{s−m} v`` with the
+    weights rounded to the cache's dtype; ``tp.softmax_combine`` finishes
+    them over the ranks' blocks."""
+    s = _decode_scores(q, k_cache, valid_mask, cap)
+    valid = valid_mask if valid_mask.dim() == 2 else valid_mask[None]
+    m, l, e = partial_softmax(s, valid[:, None, None, :])
+    return m, l, _decode_context(e.to(v_cache.dtype), v_cache)
+
+
+def write_slot(cache, pos, value, split=None):
+    """Write ``value`` (B, ...) into row b's slot ``pos[b]`` of ``cache``
+    (B, Sc, ...), in place. With a time ``split`` (``tp.TimeSplit``) the
+    cache is this rank's block and ``pos`` a global slot: only the rank
+    whose block holds it writes."""
+    bidx = torch.arange(cache.shape[0], device=cache.device)
+    value = value.to(cache.dtype)
+    if split is None:
+        cache[bidx, pos] = value
+        return
+    off, blk = split.offset, split.block
+    own = (pos >= off) & (pos < off + blk)
+    local = (pos - off).clamp(0, blk - 1)
+    keep = own.reshape((-1,) + (1,) * (value.dim() - 1))
+    cache[bidx, local] = torch.where(keep, value, cache[bidx, local])
+
+
+def fill_block(cache, src, split=None):
+    """A prefill's write of ``src`` (B, n, ...), the values of global slots
+    ``[0, n)``, into ``cache`` (B, Sc, ...), in place: with a time
+    ``split`` the part of them that this rank's block covers."""
+    off = split.offset if split is not None else 0
+    n = max(0, min(cache.shape[1], src.shape[1] - off))
+    if n:
+        cache[:, :n] = src[:, off:off + n]
+
+
+def slot_positions(n: int, split, device):
+    """The global slot indices of a cache's ``n`` local slots."""
+    off = split.offset if split is not None else 0
+    return off + torch.arange(n, device=device)
 
 
 def attention_defs(cfg: ModelConfig) -> dict:
@@ -190,12 +270,12 @@ def attention_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-def _tp_inputs(cfg: ModelConfig, p):
+def _tp_inputs(cfg: ModelConfig, p, all_kv: bool = False):
     """The params a model-parallel attention block reads: the replicated
     ones (qk-norm scales; kv projections and biases that ``model`` does not
-    split, cut to the kv heads this rank's q heads read) through
-    ``copy_in``, whose backward sums their partial gradients over the
-    ranks' heads. Unchanged without such a layout."""
+    split, cut to the kv heads this rank's q heads read unless ``all_kv``)
+    through ``copy_in``, whose backward sums their partial gradients over
+    the ranks' heads. Unchanged without such a layout."""
     lay = tp.current()
     if lay is None or not lay.heads:
         return p
@@ -203,7 +283,7 @@ def _tp_inputs(cfg: ModelConfig, p):
     for name in ("q_norm", "k_norm"):
         if name in p:
             p[name] = tp.copy_in(p[name])
-    if not lay.kv_heads:
+    if not lay.kv_heads and not all_kv:
         idx = lay.kv_index()
         for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
             if name in p:
@@ -213,9 +293,9 @@ def _tp_inputs(cfg: ModelConfig, p):
 
 
 def _project_qkv(cfg: ModelConfig, p, x, positions, *, theta,
-                 mrope_positions=None):
+                 mrope_positions=None, all_kv=False):
     cd = cfg.compute_dtype
-    p = _tp_inputs(cfg, p)
+    p = _tp_inputs(cfg, p, all_kv)
     if tp.current() is not None and tp.current().heads:
         x = tp.copy_in(x)
     q = sctx.shard(torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd)),
@@ -240,6 +320,41 @@ def _project_qkv(cfg: ModelConfig, p, x, positions, *, theta,
     return q, k, v
 
 
+def _decode(cfg: ModelConfig, q, k, v, cache, cache_pos, window, split,
+            kv_whole):
+    """A decode step's attention (B, 1, H_rank, Dv) f32, writing k / v into
+    the cache in place: on the whole cache, or with a time ``split`` on the
+    rank's block, finished over its axes by ``tp.softmax_combine``. With
+    ``kv_whole`` every rank attends with every q head (gathered over
+    ``model``: the cache block holds every kv head) and keeps its own."""
+    k_c, v_c = cache["k"], cache["v"]
+    Sc = split.length if split else k_c.shape[1]
+    pos = cache_pos.to(torch.int64)
+    slot = pos % Sc if window else pos
+    write_slot(k_c, slot, k[:, 0], split)
+    write_slot(v_c, slot, v[:, 0], split)
+    valid = slot_positions(k_c.shape[1], split, q.device)[None, :] \
+        <= pos[:, None]
+    if window:
+        # ring buffer: before the wrap only slots 0..pos are written;
+        # after it every slot holds one of the last Sc tokens
+        valid = valid | (pos[:, None] >= Sc)
+    cd = cfg.compute_dtype
+    lay = tp.current()
+    hl = q.shape[2]
+    if kv_whole:
+        q = tp.gather_dim(q, 2, lay.model_group)
+    if split is None:
+        out = decode_attention(q, k_c.to(cd), v_c.to(cd), valid, cap=0.0)
+    else:
+        out = tp.softmax_combine(*decode_partials(
+            q, k_c.to(cd), v_c.to(cd), valid), split)
+        out = out.reshape(q.shape[:3] + (v_c.shape[-1],))
+    if kv_whole:
+        out = out.narrow(2, lay.model_rank * hl, hl)
+    return out
+
+
 def attention_block(cfg: ModelConfig, p, x, positions, *, kind="attn",
                     cache=None, cache_pos=None, mrope_positions=None):
     """One attention block -> ``(y, cache)``.
@@ -257,47 +372,42 @@ def attention_block(cfg: ModelConfig, p, x, positions, *, kind="attn",
     window = cfg.window if kind == "local" else 0
     theta = cfg.rope_theta if kind == "local" or not cfg.rope_theta_global \
         else cfg.rope_theta_global
+    lay = tp.current()
+    # serving on a mesh whose model axis splits the q heads but not the kv
+    # heads: the cache holds every kv head, so the rank projects them all
+    kv_whole = cache is not None and lay is not None and lay.heads \
+        and not lay.kv_heads
+    split = lay.time_split(kind) if cache is not None and lay is not None \
+        else None
     q, k, v = _project_qkv(cfg, p, x, positions, theta=theta,
-                           mrope_positions=mrope_positions)
+                           mrope_positions=mrope_positions, all_kv=kv_whole)
     if cache is None:
         out = flash_attention_train(q, k, v, causal=True, window=window,
                                     q_block=cfg.attn_q_block,
                                     kv_block=cfg.attn_kv_block)
     elif x.shape[1] == 1:
-        k_c, v_c = cache["k"], cache["v"]
-        Sc = k_c.shape[1]
-        pos = cache_pos.to(torch.int64)
-        slot = pos % Sc if window else pos
-        bidx = torch.arange(x.shape[0], device=x.device)
-        k_c[bidx, slot] = k[:, 0].to(k_c.dtype)
-        v_c[bidx, slot] = v[:, 0].to(v_c.dtype)
-        slots = torch.arange(Sc, device=x.device)
-        valid = slots[None, :] <= pos[:, None]
-        if window:
-            # ring buffer: before the wrap only slots 0..pos are written;
-            # after it every slot holds one of the last Sc tokens
-            valid = valid | (pos[:, None] >= Sc)
-        out = decode_attention(q, k_c.to(cd), v_c.to(cd), valid, cap=0.0)
+        out = _decode(cfg, q, k, v, cache, cache_pos, window, split,
+                      kv_whole)
     else:
-        out, _ = fa.flash_attention_fwd(q.contiguous(), k.contiguous(),
-                                        v.contiguous(), True, window)
-        k_c, v_c = cache["k"], cache["v"]
-        Sc, S = k_c.shape[1], x.shape[1]
+        kq, vq = k, v
+        if kv_whole:
+            idx = torch.tensor(lay.kv_index(), device=x.device)
+            kq, vq = k.index_select(2, idx), v.index_select(2, idx)
+        out, _ = fa.flash_attention_fwd(q.contiguous(), kq.contiguous(),
+                                        vq.contiguous(), True, window)
+        Sc, S = (split.length if split else cache["k"].shape[1]), x.shape[1]
         if S >= Sc:
-            k_w, v_w = k[:, S - Sc:], v[:, S - Sc:]
+            k, v = k[:, S - Sc:], v[:, S - Sc:]
             if window and Sc:
                 # keep the ring buffer's alignment: token t at slot t % Sc
-                k_w = torch.roll(k_w, S % Sc, dims=1)
-                v_w = torch.roll(v_w, S % Sc, dims=1)
-            k_c.copy_(k_w)
-            v_c.copy_(v_w)
-        else:
-            k_c[:, :S] = k
-            v_c[:, :S] = v
+                k = torch.roll(k, S % Sc, dims=1)
+                v = torch.roll(v, S % Sc, dims=1)
+        fill_block(cache["k"], k, split)
+        fill_block(cache["v"], v, split)
     if cache is not None:
-        cache = {"k": k_c, "v": v_c}
+        cache = {"k": cache["k"], "v": cache["v"]}
     out = sctx.shard(out.to(cd), "batch", "seq", "heads", "head_dim")
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd))
-    if tp.current() is not None and tp.current().heads:
+    if lay is not None and lay.heads:
         y = tp.reduce_out(y)
     return sctx.shard(y, "batch", "seq", "embed"), cache

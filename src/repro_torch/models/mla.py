@@ -40,8 +40,12 @@ count, and ``wo``'s contraction over them leaves through ``reduce_out``.
 The latents ``c_q``, ``c_kv`` and ``k_pe`` come from leaves that
 ``model`` does not split (``w_dq``, ``w_dkv`` and the norms), so they
 enter the region through ``copy_in``, whose backward sums their partial
-gradients over the ranks' heads. Serving on such a mesh raises
-(``runtime.serve``).
+gradients over the ranks' heads. Serving on a mesh, the cache is the
+rank's block of ``cache_specs``: ``ckv``'s latent rank over ``model``
+(else its time dim), the time dims over ``data`` where the batch does
+not split; the prefill writes the rank's block, and the absorbed decode
+(``_absorbed_decode``) redistributes the decode-sized queries and
+context and finishes a split time dim by flash-decoding.
 """
 from __future__ import annotations
 
@@ -50,8 +54,10 @@ import math
 import torch
 
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models.attention import (NEG_INF, apply_rope,
-                                          flash_attention_train, product_f32)
+from repro_torch.models.attention import (NEG_INF, apply_rope, fill_block,
+                                          flash_attention_train,
+                                          partial_softmax, product_f32,
+                                          slot_positions, write_slot)
 from repro_torch.models import sctx, tp
 from repro_torch.models.common import ModelConfig, ParamDef, rms_norm
 
@@ -108,6 +114,91 @@ def _kv_compress(cfg: ModelConfig, p, x, positions):
     return c_kv, k_pe
 
 
+def _splits(lay):
+    """The time splits of the ``ckv`` and ``kpe`` caches (None: whole)."""
+    if lay is None:
+        return None, None
+    return lay.time_split("ckv"), lay.time_split("kpe")
+
+
+def _rank_block(c, ckv, lay):
+    """The columns of the latent ``c`` (..., kv_lora_rank) that the cache
+    block ``ckv`` holds: the rank's block where ``model`` splits the rank,
+    else all of them."""
+    n = ckv.shape[-1]
+    if n == c.shape[-1]:
+        return c
+    return c.narrow(-1, lay.model_rank * n, n)
+
+
+def _absorbed_decode(cfg: ModelConfig, p, q_nope, q_pe, c_kv, k_pe, cache,
+                     cache_pos):
+    """The absorbed decode step (B, 1, H_rank, v) f32, writing the new
+    token's latents into the cache in place.
+
+    On a mesh (``Layout.time`` and the cache's block) three cases meet:
+    ``model`` splits the latent rank (the scores are partial sums over
+    it: every head's on every rank, all-reduced over ``model``, the
+    queries brought to the rank's rank block by an all-to-all and the
+    context back to the rank's heads by another); ``model`` splits the
+    ``ckv`` time dim while it splits the heads (every head's queries
+    gathered, the rank's heads kept); and a time split of ``ckv`` / ``kpe``
+    (over ``data``, and ``model`` where the rank does not divide), read by
+    flash-decoding. ``kpe``'s time split is never finer than ``ckv``'s,
+    so the rank reads the part of its ``kpe`` block under its ``ckv``
+    block."""
+    a = cfg.mla
+    cd = cfg.compute_dtype
+    lay = tp.current()
+    ckv, kpe = cache["ckv"], cache["kpe"]
+    split_c, split_k = _splits(lay)
+    pos = cache_pos.to(torch.int64)
+    write_slot(ckv, pos, _rank_block(c_kv[:, 0], ckv, lay), split_c)
+    write_slot(kpe, pos, k_pe[:, 0], split_k)
+    rank_split = ckv.shape[-1] != a.kv_lora_rank
+    heads = lay is not None and lay.heads
+    gather = heads and not rank_split and split_c is not None \
+        and split_c.over_model
+    # absorb W_uk into q: (B,1,H,nope) x (rank,H,nope) -> (B,H,rank)
+    q_abs = torch.einsum("bshk,rhk->bhr", q_nope, p["w_uk"].to(cd))
+    q_pe = q_pe[:, 0]                                        # (B, H, rope)
+    hl = q_abs.shape[1]
+    if rank_split and heads:
+        q_abs = tp.all_to_all(q_abs, 2, 1, lay.model_group)  # (B,H,rank/m)
+        q_pe = tp.gather_dim(q_pe, 1, lay.model_group)
+    elif rank_split:
+        q_abs = _rank_block(q_abs, ckv, lay)
+    elif gather:
+        q_abs = tp.gather_dim(q_abs, 1, lay.model_group)
+        q_pe = tp.gather_dim(q_pe, 1, lay.model_group)
+    n = ckv.shape[1]
+    if split_c is not None:
+        start = split_c.offset - (split_k.offset if split_k else 0)
+        kpe = kpe[:, start:start + n]
+    scale = 1.0 / math.sqrt(a.qk_nope_head_dim + a.qk_rope_head_dim)
+    s = product_f32(q_abs.to(ckv.dtype), ckv.transpose(1, 2))
+    if rank_split:
+        s = tp.reduce_out(s)
+    s = (s + product_f32(q_pe.to(kpe.dtype), kpe.transpose(1, 2))) * scale
+    valid = slot_positions(n, split_c, s.device)[None, :] <= pos[:, None]
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    if split_c is None:
+        prob = torch.softmax(s, dim=-1)
+        ctx = product_f32(prob.to(ckv.dtype), ckv)           # (B, H, rank)
+    else:
+        m, l, e = partial_softmax(s, valid[:, None, :])
+        ctx = tp.softmax_combine(m, l, product_f32(e.to(ckv.dtype), ckv),
+                                 split_c)
+    if rank_split and heads:
+        ctx = tp.all_to_all(ctx, 1, 2, lay.model_group)     # (B, H/m, rank)
+    elif rank_split:
+        ctx = tp.gather_dim(ctx, 2, lay.model_group)
+    elif gather:
+        ctx = ctx.narrow(1, lay.model_rank * hl, hl)
+    return torch.einsum("bhr,rhv->bhv", ctx.to(cd),
+                        p["w_uv"].to(cd))[:, None]          # (B,1,H,v)
+
+
 def mla_block(cfg: ModelConfig, p, x, positions, *, cache=None,
               cache_pos=None, **_unused):
     """One MLA block -> ``(y, cache)``, with ``attention_block``'s modes.
@@ -119,26 +210,9 @@ def mla_block(cfg: ModelConfig, p, x, positions, *, cache=None,
     q_nope, q_pe = _q_proj(cfg, p, x, positions)
     c_kv, k_pe = _kv_compress(cfg, p, x, positions)
     if cache is not None and S == 1:
-        # ---- absorbed decode ---------------------------------------------
-        ckv, kpe = cache["ckv"], cache["kpe"]
-        pos = cache_pos.to(torch.int64)
-        bidx = torch.arange(B, device=x.device)
-        ckv[bidx, pos] = c_kv[:, 0].to(ckv.dtype)
-        kpe[bidx, pos] = k_pe[:, 0].to(kpe.dtype)
-        Sc = ckv.shape[1]
-        valid = torch.arange(Sc, device=x.device)[None, :] <= pos[:, None]
-        # absorb W_uk into q: (B,1,H,nope) x (rank,H,nope) -> (B,H,rank)
-        q_abs = torch.einsum("bshk,rhk->bhr", q_nope, p["w_uk"].to(cd))
-        scale = 1.0 / math.sqrt(a.qk_nope_head_dim + a.qk_rope_head_dim)
-        s = (product_f32(q_abs.to(ckv.dtype), ckv.transpose(1, 2))
-             + product_f32(q_pe[:, 0].to(kpe.dtype), kpe.transpose(1, 2))
-             ) * scale                                       # (B, H, Sc)
-        s = torch.where(valid[:, None, :], s, NEG_INF)
-        prob = torch.softmax(s, dim=-1)
-        ctx = product_f32(prob.to(ckv.dtype), ckv)            # (B, H, rank)
-        out = torch.einsum("bhr,rhv->bhv", ctx.to(cd),
-                           p["w_uv"].to(cd))[:, None]        # (B,1,H,v)
-        cache = {"ckv": ckv, "kpe": kpe}
+        out = _absorbed_decode(cfg, p, q_nope, q_pe, c_kv, k_pe, cache,
+                               cache_pos)
+        cache = {"ckv": cache["ckv"], "kpe": cache["kpe"]}
     else:
         # ---- training / prefill: expand the latent, the attention kernel
         k_nope = sctx.shard(
@@ -157,10 +231,12 @@ def mla_block(cfg: ModelConfig, p, x, positions, *, cache=None,
         else:
             out, _ = fa.flash_attention_fwd(q.contiguous(), k.contiguous(),
                                             v.contiguous(), True, 0)
-            Sc = cache["ckv"].shape[1]
-            cache["ckv"][:, :S] = c_kv[:, :Sc]
-            cache["kpe"][:, :S] = k_pe[:, :Sc]
-            cache = {"ckv": cache["ckv"], "kpe": cache["kpe"]}
+            lay = tp.current()
+            ckv, kpe = cache["ckv"], cache["kpe"]
+            split_c, split_k = _splits(lay)
+            fill_block(ckv, _rank_block(c_kv, ckv, lay), split_c)
+            fill_block(kpe, k_pe, split_k)
+            cache = {"ckv": ckv, "kpe": kpe}
     out = sctx.shard(out.to(cd), "batch", "seq", "heads", "head_dim")
     y = torch.einsum("bshv,hvd->bsd", out, p["wo"].to(cd))
     if _region():

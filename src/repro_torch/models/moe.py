@@ -164,9 +164,16 @@ def _mesh_route(cfg: ModelConfig, router, x, lay):
     (its own groups, or every rank's tokens gathered over ``data``), their
     routing at the microbatch's ``G`` and ``C`` with this rank's share of
     the aux loss, and the slice of the routed rows that are its own (None:
-    all of them)."""
+    all of them, each rank routing its own groups). Where every rank
+    holds every row (``Layout.data_rows`` off: serving a batch that
+    ``data`` does not split) it routes them all as one device would, and
+    its aux loss is the whole batch's."""
     m = cfg.moe
     B, S, d = x.shape
+    if not lay.data_rows:
+        # serving with B not a multiple of data: every rank holds every
+        # row, so its tokens are the whole batch's
+        return x, route(cfg, router, x), slice(None)
     T, D = B * S, lay.data_size
     # the reference counts the groups and their capacity from every token
     # of the microbatch

@@ -35,7 +35,8 @@ channels, and its backward all-gathers the gradient (an all-reduce with
 the identity backward would drop the other ranks' parts of it).
 ``w_out``'s contraction leaves through ``reduce_out``. Where ``model``
 does not split the width every leaf is whole and every rank runs the
-block. Serving on a mesh raises (``runtime.serve``).
+block. Serving on a mesh, the conv and state caches split the width as
+the block does, so each rank reads and writes its own channels.
 """
 from __future__ import annotations
 

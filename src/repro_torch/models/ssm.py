@@ -42,7 +42,11 @@ rank's heads; the gated norm's variance over the split ``d_inner`` is a
 ``w_out`` split as the heads do, and ``w_out``'s contraction leaves
 through ``reduce_out``. Where ``model`` does not split the heads every
 rank runs the block whole, reading each model-split leaf through
-``tp.gather_whole``. Serving on a mesh raises (``runtime.serve``).
+``tp.gather_whole``. Serving on a mesh, the state cache holds the rank's
+heads; the conv cache's ``conv_dim`` columns split over ``model`` in
+blocks that are not the rank's heads' either, so the decode reads the
+history gathered and each step writes its block of the new inputs, the
+x columns gathered over ``model`` (``_conv_read`` / ``_conv_write``).
 """
 from __future__ import annotations
 
@@ -212,6 +216,44 @@ def _mesh_params(cfg: ModelConfig, p, lay):
     return out, dl, hl
 
 
+def _conv_read(cfg: ModelConfig, conv, lay, heads: bool):
+    """The conv history that this rank's block reads, from its block of the
+    conv cache: the cache's ``conv_dim`` columns gathered over ``model``
+    where the cache splits them (its blocks are not the rank's heads'
+    columns), then the rank's heads' x columns with the whole of B and C
+    where ``model`` splits the heads. Unchanged without a mesh."""
+    if lay is None or lay.model_group is None:
+        return conv
+    d_inner, _, conv_dim = _dims(cfg)
+    if conv.shape[-1] != conv_dim:
+        conv = tp.gather_dim(conv, 2, lay.model_group)
+    if not heads:
+        return conv
+    dl = d_inner // lay.model_size
+    return torch.cat([conv[..., lay.model_rank * dl:
+                           (lay.model_rank + 1) * dl],
+                      conv[..., d_inner:]], dim=-1)
+
+
+def _conv_write(cfg: ModelConfig, conv, rows, lay, heads: bool):
+    """Write the conv inputs ``rows`` (B, K−1, ·), in the rank's columns,
+    into its block of the conv cache, in place: the x columns gathered
+    over ``model`` where it splits the heads, then the cache block's
+    columns of the whole ``conv_dim``."""
+    if lay is None or lay.model_group is None:
+        conv.copy_(rows)
+        return
+    d_inner, _, conv_dim = _dims(cfg)
+    if heads:
+        dl = d_inner // lay.model_size
+        rows = torch.cat([tp.gather_dim(rows[..., :dl].contiguous(), 2,
+                                        lay.model_group),
+                          rows[..., dl:]], dim=-1)
+    n = conv.shape[-1]
+    conv.copy_(rows if n == conv_dim
+               else rows[..., lay.model_rank * n:(lay.model_rank + 1) * n])
+
+
 def _gated_norm(y, gamma, d_inner: int, eps=1e-6):
     """``rms_norm`` over a ``d_inner`` that ``model`` splits: the sum of
     squares of the rank's channels summed over ``model`` both ways."""
@@ -249,7 +291,8 @@ def ssm_block(cfg: ModelConfig, p, x, positions=None, *, cache=None,
     A = -torch.exp(p["A_log"].float())
     if cache is not None and S == 1:
         # decode: the sliding conv history, then the recurrent SSD step
-        conv_hist = torch.cat([cache["conv"], xbc], dim=1)     # (B, K, ·)
+        conv_hist = torch.cat([_conv_read(cfg, cache["conv"], lay, heads),
+                               xbc], dim=1)                    # (B, K, ·)
         conv_out = torch.einsum("bkc,kc->bc", conv_hist.to(cd),
                                 p["conv_w"].to(cd)) + p["conv_b"].to(cd)
         xi, Bm, Cm = torch.split(F.silu(conv_out),
@@ -259,7 +302,7 @@ def ssm_block(cfg: ModelConfig, p, x, positions=None, *, cache=None,
         state, y = ssd_step(cache["state"], xh, dt_t, A, Bm, Cm)
         y = y + p["D"].float()[None, :, None] * xh
         y = y.reshape(B_, 1, dl)
-        cache["conv"].copy_(conv_hist[:, 1:])
+        _conv_write(cfg, cache["conv"], conv_hist[:, 1:], lay, heads)
         cache["state"].copy_(state)
     else:
         conv_out = F.silu(_causal_conv(xbc.to(cd), p["conv_w"].to(cd),
@@ -273,7 +316,8 @@ def ssm_block(cfg: ModelConfig, p, x, positions=None, *, cache=None,
         y = y + p["D"].float()[None, None, :, None] * xh
         y = y.reshape(B_, S, dl)
         if cache is not None:
-            cache["conv"].copy_(xbc[:, -(s.d_conv - 1):])
+            _conv_write(cfg, cache["conv"], xbc[:, -(s.d_conv - 1):], lay,
+                        heads)
             cache["state"].copy_(state)
     if cache is not None:
         cache = {"conv": cache["conv"], "state": cache["state"]}

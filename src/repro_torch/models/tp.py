@@ -37,7 +37,12 @@ is explicit here, at the points of the reference's ``sctx.shard`` calls:
 * ``gather_whole(x, dim, group)``: a model-split leaf of a block that every
   rank computes whole (a kind whose heads do not split): the backward
   keeps the rank's own block of the identical gradients;
-* ``data_sum``: a detached metric summed over ``data``.
+* ``data_sum``: a detached metric summed over ``data``;
+* ``softmax_combine(m, l, o, split)``: serving's flash-decoding, the
+  partial softmax terms of each rank's block of a cache whose time dim
+  the cache specs split (``TimeSplit``) finished over the axes that split
+  it: the counterpart of GSPMD's reduction of the reference's
+  ``decode_attention`` over a sharded time dim.
 
 ``use(layout)`` installs the rank's ``Layout`` for a forward; without one
 (one device, or a mesh whose ``data`` and ``model`` sizes are 1) every
@@ -57,6 +62,29 @@ import torch.distributed as dist
 from repro_torch.utils import opcount_hook
 
 _ctx = contextvars.ContextVar("tensor_parallel", default=None)
+
+
+@dataclasses.dataclass(frozen=True)
+class TimeSplit:
+    """One serving cache's time dim split over mesh axes
+    (``runtime.sharding.time_splits``): the axes in the spec's nesting
+    order (``data`` outside ``model``) with their process groups, this
+    rank's block index (``data_rank · model_size + model_rank`` over
+    both), the block's slots and the whole dim's."""
+    axes: tuple
+    groups: tuple
+    index: int
+    block: int
+    length: int
+
+    @property
+    def offset(self) -> int:
+        """The global slot of the block's first."""
+        return self.index * self.block
+
+    @property
+    def over_model(self) -> bool:
+        return "model" in self.axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +108,14 @@ class Layout:
     experts: bool = False      # the MoE experts over data (EP)
     expert_ff: bool = False    # each expert's ff dim over model
     shared_ff: bool = False    # the shared experts' ff dim over model
+    data_rows: bool = True     # data splits the batch rows (serving: B a
+    #                            multiple of data; else every rank holds all)
+    time: tuple = ()           # serving: (cache name, TimeSplit) pairs
+
+    def time_split(self, name: str) -> TimeSplit | None:
+        """The time split of cache ``name`` (``attn``, ``local``, ``ckv``,
+        ``kpe``), or None where its time dim is whole on every rank."""
+        return dict(self.time).get(name)
 
     @property
     def vocab_start(self) -> int:
@@ -349,3 +385,32 @@ def gather_whole(x, dim: int, group):
     ``group`` runs whole: each rank's gradient is already the whole one,
     so the backward keeps this rank's block of it."""
     return _GatherWhole.apply(x, dim, group)
+
+
+COMBINE = "softmax-combine"      # the combine's tag in an op count
+
+
+def _combine_weight(m, M, split: TimeSplit):
+    """``e^{m_r − M}``: a rank's share of the combined softmax (0 for a
+    block with no valid slot, whose ``m_r`` is the finite ``NEG_INF``)."""
+    return torch.exp(m - M)
+
+
+def softmax_combine(m, l, o, split: TimeSplit):
+    """Flash-decoding's combine over the axes of ``split``: each rank holds
+    its block's running max ``m`` (...), its sum ``l = Σ e^{s−m}`` over its
+    valid slots (...) and its un-normalised ``o = Σ e^{s−m} v`` (..., D);
+    the result is ``Σ e^{m_r−M} o_r / Σ e^{m_r−M} l_r`` with ``M = max
+    m_r``, the softmax-weighted sum over the whole time dim (no autograd:
+    serving). Two all-reduces a group: the max, then the rescaled terms
+    and sums in one tensor."""
+    M = m.clone()
+    for g in split.groups:
+        opcount_hook.collective("all-reduce", M, g, tag=COMBINE)
+        dist.all_reduce(M, op=dist.ReduceOp.MAX, group=g)
+    w = _combine_weight(m, M, split)
+    both = torch.cat([o * w[..., None], (l * w)[..., None]], dim=-1)
+    for g in split.groups:
+        opcount_hook.collective("all-reduce", both, g, tag=COMBINE)
+        dist.all_reduce(both, group=g)
+    return both[..., :-1] / both[..., -1:]

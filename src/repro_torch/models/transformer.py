@@ -52,7 +52,11 @@ return the tree they were given, filled. Decode positions come from
 ``cache_pos`` when S is 1. Serving runs with autograd off
 (``torch.inference_mode()`` in ``runtime.serve``), where no layer is
 checkpointed and the prefill's attention and SSD forward kernels are
-called directly.
+called directly. On a mesh ``runtime.serve`` hands ``prefill`` and
+``decode_step`` the rank's blocks of the caches (``init_cache_defs``'
+shapes cut by ``cache_specs``), and each layer reads how its cache is
+split, its time dim's for flash-decoding included, from the installed
+``tp.Layout``, each kind's (global and ``local`` layers apart).
 
 ``cast_for_serving`` makes, once, each leaf in the dtype the reference
 casts it to at its every use (``p["wq"].astype(cd)``): the blocks'

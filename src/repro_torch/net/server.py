@@ -376,6 +376,9 @@ class MasterServer:
         self.peer_addrs: dict[int, list] = {}
         self.bye_stats: dict[int, dict] = {}
         self.events: queue.Queue = queue.Queue()
+        # events of READY workers that came before every worker was READY,
+        # handed on, in order, ahead of the queue once the run serves
+        self._early: list = []
         # host staging, one buffer per wid and direction: n elements each
         # (never the padded row), so a reconfiguration that changes P and
         # the padding leaves them valid — a rejoiner reuses its wid's
@@ -627,6 +630,11 @@ class MasterServer:
         ready = set()
         while len(ready) < P:
             wid, kind, detail = self._next_event(deadline - time.monotonic())
+            if kind != "ready" and wid in ready:
+                # a READY worker already at work (the p2p plane needs no
+                # word from the master): its event waits for the serve loop
+                self._early.append((wid, kind, detail))
+                continue
             if kind != "ready":
                 raise RuntimeError(
                     f"worker {wid} failed during rendezvous: {kind} {detail}")
@@ -741,6 +749,8 @@ class MasterServer:
         instead of hanging the launcher — unless elastic membership is on
         and the disciplines run, when a loss becomes a ``member_lost``
         event the serve loop absorbs."""
+        if self._early and self._serving:
+            return self._early.pop(0)
         deadline = time.monotonic() + max(timeout, 0.0)
         absorb = self.elastic and self._serving
         while True:

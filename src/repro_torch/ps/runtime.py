@@ -854,6 +854,12 @@ def run_ps(problem, easgd: EASGDConfig, cfg: PSConfig, device=None,
         if live is not None:
             live.close()
         _fail("ps run failed")
+    it = ctx.iters.value
+    if it - last_eval >= cfg.eval_every_iters:
+        # the point of the last eval interval the run crossed, where it
+        # ended between two polls (a short run under load can end before
+        # the first): stamped at the run's end
+        history.append((total_time, it, float(eval_fn(v.center.clone()))))
     if launch_slots is not None:
         kernels.add_launch_counts(
             {k: s.value for k, s in launch_slots.items()})

@@ -16,16 +16,20 @@ on.
 
 With a ``mesh`` (``launch.mesh``) the steps run on every rank of it and
 the sharding fields are filled: ``cast_params`` keeps this rank's shards
-of the params (``param_specs``), the caches are the rank's blocks
-(``cache_specs``: batch over ``data``, kv heads over ``model``), each rank
-takes its rows of the tokens (``token_spec``), the model runs on local
-shards (``models.tp``) and the logits come back whole on every rank,
-gathered over ``model`` (vocab) and ``data`` (batch). A cache whose time
-dim the specs split (flash-decoding: B not a multiple of ``data``, or kv
-heads that ``model`` does not divide) raises ``NotImplementedError``, as
-does a layer kind outside ``sharding.SERVE_MESH_KINDS`` (training places
-every kind; serving them needs their caches placed). On one device the
-sharding fields are None.
+of the params (``param_specs``), each rank takes its rows of the tokens
+(``token_spec``: the batch over ``data`` where B is a multiple of it, else
+every rank holds every row), the model runs on local shards
+(``models.tp``) and the logits come back whole on every rank, gathered
+over ``model`` (vocab) and ``data`` (batch). Every layer kind serves. The
+caches are the rank's blocks of ``cache_specs``: the batch over ``data``;
+attention's kv heads, MLA's latent rank, the SSM's conv columns and heads
+and the RG-LRU width over ``model``; and where those do not divide, the
+time dim of the attention and MLA caches over ``data`` and / or
+``model``. A cache split along time is read by flash-decoding: each rank
+attends over its block and ``tp.softmax_combine`` finishes the partial
+softmax terms over the axes that split it (``sharding.time_splits``
+gives each rank its block, ``Layout.time`` carries it to the layers).
+On one device the sharding fields are None.
 """
 from __future__ import annotations
 
@@ -68,15 +72,6 @@ def _extra_kwargs(cfg: ModelConfig, B: int, S: int) -> dict:
     return extras
 
 
-def _seq_split(cspecs) -> bool:
-    """True when a cache spec splits a time dim (stacked: dim 2; a
-    remainder layer's: dim 1)."""
-    stacked = spec_leaves(cspecs["stacked"])
-    rem = spec_leaves(cspecs["rem"])
-    return any(len(s) > 3 and s[2] is not None for s in stacked) or any(
-        len(s) > 2 and s[1] is not None for s in rem)
-
-
 def build_serve_steps(cfg: ModelConfig, *, batch: int, max_len: int,
                       device=None, mesh=None) -> ServeBuild:
     """The prefill and decode steps for ``batch`` rows of at most
@@ -89,21 +84,21 @@ def build_serve_steps(cfg: ModelConfig, *, batch: int, max_len: int,
     specs = {}
     cache_defs = tfm.init_cache_defs(cfg, batch, max_len)
     if mesh is not None:
-        shd.require_serve_kinds(cfg, mesh)
         sizes = shd.mesh_axis_sizes(mesh)
         pspecs = shd.param_specs(cfg, mesh)
         cspecs = shd.cache_specs(cfg, mesh, batch, max_len)
         tspec = shd.serve_token_specs(cfg, mesh, batch)
         specs = dict(param_specs=pspecs, cache_spec_tree=cspecs,
                      token_spec=tspec)
-        if _seq_split(cspecs):
-            raise NotImplementedError(
-                f"{cfg.name} at B {batch} on {sizes}: the cache specs split "
-                f"a time dim (flash-decoding), which the port does not run "
-                f"(ROADMAP.md)")
         layout = tp.layout_for(cfg, mesh)
         if layout is not None:
             constrain = shd.block_constrainer(cfg, mesh)
+            layout = dataclasses.replace(
+                layout, data_rows=tspec[0] == "data",
+                time=tuple((name, tp.TimeSplit(
+                    axes, tuple(mesh.get_group(a) for a in axes), *where))
+                    for name, (axes, *where) in shd.time_splits(
+                        cfg, mesh, batch, max_len).items()))
         if tspec[0] == "data":
             n = batch // sizes["data"]
             rows = slice(mesh.get_local_rank("data") * n,

@@ -16,6 +16,8 @@ What carries a spec out on the port's mesh of processes:
 * ``local_shape`` / ``local_shard``: the block of a global tensor that this
   rank holds (even blocks, DTensor's layout), ``gather_full`` the global
   tensor back (``DTensor.from_local(...).full_tensor()``);
+* ``time_splits``: where a serving cache's block lies along its time dim,
+  for flash-decoding (``models.tp.TimeSplit``);
 * ``with_sharding_constraint``: a local tensor gathered over the axes its
   source spec names and the target does not (the streaming-FSDP
   all-gather of ``block_constrainer``, whose backward is the
@@ -54,29 +56,6 @@ def local_layout(cfg: ModelConfig, mesh) -> list:
     specs = spec_leaves(param_specs(cfg, mesh))
     return [(path, local_shape(shape, spec, sizes)) for (path, shape), spec
             in zip(tfm.ravel_layout(cfg), specs)]
-
-
-SERVE_MESH_KINDS = ("attn", "local")
-
-
-def require_serve_kinds(cfg: ModelConfig, mesh) -> None:
-    """Raise ``NotImplementedError`` naming the layer kinds of ``cfg``
-    that serving does not run on ``mesh``: on a mesh whose ``data`` or
-    ``model`` size is above 1 it serves dense attention layers with a
-    dense FFN only. Training places every kind; serving the others needs
-    each kind's cache split by ``cache_specs`` (ROADMAP.md queue 1)."""
-    sizes = mesh_axis_sizes(mesh)
-    if sizes.get("data", 1) == 1 and sizes.get("model", 1) == 1:
-        return
-    kinds = set(cfg.pattern) | set(cfg.remainder_kinds)
-    bad = sorted(kinds - set(SERVE_MESH_KINDS)) + (
-        ["moe"] if cfg.moe else [])
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: serving layer kind(s) {bad} on a mesh of data "
-            f"{sizes.get('data', 1)} / model {sizes.get('model', 1)}: "
-            f"serving places only {SERVE_MESH_KINDS} with a dense FFN; "
-            f"their caches' placement is ROADMAP.md queue 1's next item")
 
 
 def _div(n: int, size: int) -> bool:
@@ -230,6 +209,31 @@ def local_slices(mesh, shape, spec) -> tuple:
         block = dim // n
         out.append(slice(idx * block, (idx + 1) * block))
     return tuple(out)
+
+
+def time_splits(cfg: ModelConfig, mesh, B: int, max_len: int) -> dict:
+    """The caches whose time dim ``cache_specs`` splits (flash-decoding),
+    as ``{cache: (axes, block index, block length, whole length)}``, keyed
+    ``attn`` / ``local`` (a dense layer's ``k`` and ``v``), ``ckv`` and
+    ``kpe`` (MLA's): the axes in the spec's nesting order, the rest read
+    off this rank's block by ``local_slices``. Every layer of a kind has
+    its kind's split."""
+    specs = cache_specs(cfg, mesh, B, max_len)
+    defs = tfm.init_cache_defs(cfg, B, max_len)
+    out = {}
+    for kinds, part, lead in ((cfg.pattern, "stacked", 1),
+                              (cfg.remainder_kinds, "rem", 0)):
+        for kind, spec, d in zip(kinds, specs[part], defs[part]):
+            for name in ("k", "ckv", "kpe"):
+                if name not in spec or spec[name][lead + 1] is None:
+                    continue
+                shape = d[name].shape
+                sl = local_slices(mesh, shape, spec[name])[lead + 1]
+                block = sl.stop - sl.start
+                out[kind if name == "k" else name] = (
+                    _axes_of(spec[name][lead + 1]), sl.start // block, block,
+                    shape[lead + 1])
+    return out
 
 
 def local_shard(t, mesh, spec):

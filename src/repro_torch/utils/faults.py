@@ -1,10 +1,12 @@
 """Planted faults: one collective of the layer kinds on a mesh broken in
 this process, so that a holder of the meshed step against the un-meshed
 one can show that its limit catches what it must (``chip_smoke.py``'s
-phase 25 and ``tests/test_torch_mesh_kinds*.py`` plant them).
+phase 25 and ``tests/test_torch_mesh_kinds*.py`` and
+``tests/test_torch_mesh_serve.py`` plant them).
 """
 from __future__ import annotations
 
+import torch
 import torch.distributed as dist
 
 from repro_torch.models import moe, tp
@@ -26,7 +28,12 @@ def plant(fault):
     * ``norm_local``: the gated norm's variance without its sum (each
       rank's channels alone);
     * ``gate_identity``: the RG-LRU gate partials all-reduced with the
-      identity backward."""
+      identity backward;
+    * ``combine_no_rescale``: flash-decoding's combine without the max
+      rescale (each rank's terms summed as they are, against their own
+      running max);
+    * ``combine_drop``: flash-decoding's combine with the last block's
+      partial left out."""
     saved = []
 
     def patch(obj, name, value):
@@ -63,6 +70,13 @@ def plant(fault):
             return tp.reduce_out(x).narrow(dim, lay.model_rank * block,
                                            block)
         patch(tp, "reduce_scatter", identity)
+    elif fault == "combine_no_rescale":
+        patch(tp, "_combine_weight", lambda m, M, split: torch.ones_like(m))
+    elif fault == "combine_drop":
+        def drop(m, M, split):
+            last = split.index == split.length // split.block - 1
+            return torch.exp(m - M) * (0.0 if last else 1.0)
+        patch(tp, "_combine_weight", drop)
     elif fault is not None:
         raise ValueError(fault)
 

@@ -5,8 +5,9 @@ do not show to an op count (``launch.opcount.OpCounter``):
   wrapper as one region: the counter adds ``work(*args, **kwargs)``, the
   kernel's ``(bytes, operations)`` from ``core.costmodel``, once, and
   none of the ops inside (the plain version's, where it runs);
-* ``collective(kind, tensor, group)``, called where the port makes a
-  ``torch.distributed`` collective, adds its bytes by kind and dtype.
+* ``collective(kind, tensor, group, tag)``, called where the port makes
+  a ``torch.distributed`` collective, adds its bytes by kind and dtype
+  (and by ``tag``, where one is given).
 
 With no counter active each hook is one read of a module global: nothing
 on the step's path changes. The counter in force is a global, not a
@@ -55,11 +56,12 @@ def kernel_region(work, outputs=None):
     return wrap
 
 
-def collective(kind: str, tensor, group=None) -> None:
+def collective(kind: str, tensor, group=None, tag=None) -> None:
     """Report one collective of ``kind`` (the reference's HLO names:
     ``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``,
     ``collective-permute``) whose result, or sent buffer, is ``tensor``,
-    over ``group`` (None: the world)."""
+    over ``group`` (None: the world); ``tag`` names the part of the
+    step it belongs to, which the counter also sums apart."""
     counter = _active
     if counter is not None:
-        counter.collective(kind, tensor, group)
+        counter.collective(kind, tensor, group, tag)

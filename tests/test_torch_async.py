@@ -215,6 +215,22 @@ def test_every_algorithm_runs_thread(algo):
         assert res.counters["wire_bytes"] == 2 * 40 * res.center.numel() * 8
 
 
+def test_monitor_point_of_a_run_that_ends_before_the_first_poll(
+        monkeypatch):
+    """A run that ends before the monitor's first look (a short run under
+    load) still has the point of the eval interval it crossed, stamped at
+    the run's end, beside the final one."""
+    monkeypatch.setattr(runtime, "any", lambda alive: False, raising=False)
+    cfg = runtime.PSConfig(algorithm="async_sgd", n_workers=2,
+                           total_iters=40, schedule="ring",
+                           eval_every_iters=20)
+    res = runtime.run_ps(problems.NUMPY_MLP, CFG, cfg, device="cpu")
+    assert res.total_iters == 40
+    assert [it for _, it, _ in res.history] == [40, 40]
+    assert res.history[0][0] == res.history[1][0]
+    assert all(np.isfinite(m) for _, _, m in res.history)
+
+
 @pytest.mark.parametrize("algo,deterministic,extra", [
     ("original_easgd", False, 0),    # computes inside its turn
     ("async_easgd", True, 2),        # ahead of its turn: one spare each

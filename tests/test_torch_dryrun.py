@@ -1,6 +1,7 @@
 """The port's dry run (``repro_torch.launch.dryrun``) against the
 reference's: its cells, parameter counts and model FLOPs; one full-config
-cell on a fake world of 256 ranks; a cell the port cannot place; and the
+cell on a fake world of 256 ranks; serving cells that place (flash-
+decoding's among them); and the
 FLOP count of two reduced cells held against ``repro.launch.hloparse`` on
 the compiled reference step.
 
@@ -117,20 +118,31 @@ def test_full_config_cell_on_a_fake_world(tmp_path):
     assert json.loads(out.read_text().splitlines()[-1])["ok"]
 
 
-@pytest.mark.parametrize("arch,shape,mesh_kind,what", [
-    ("mamba2-780m", "prefill_32k", "pod", "['ssm']"),
-    ("deepseek-v2-236b", "decode_32k", "multipod", "['mla', 'moe']"),
-    ("gemma3-4b", "long_500k", "pod", "flash-decoding"),
+@pytest.mark.parametrize("arch,shape,mesh_kind", [
+    ("mamba2-780m", "prefill_32k", "pod"),
+    ("deepseek-v2-236b", "decode_32k", "multipod"),
+    ("gemma3-4b", "long_500k", "pod"),
 ])
-def test_unplaced_cell_is_recorded_not_skipped(arch, shape, mesh_kind,
-                                               what):
-    """Serving cells of the kinds that serving does not place on a mesh
-    (training places them: the next test), and a cache split over its
-    time dim."""
-    rec = dryrun.run_cell(arch, shape, mesh_kind)
-    assert rec["ok"] is False
-    assert rec["error"].startswith("NotImplementedError") and \
-        what in rec["error"]
+def test_serving_cell_places(arch, shape, mesh_kind):
+    """Serving cells at one layer: the SSM's and MLA / MoE's caches placed
+    by their specs, and gemma3-4b's ``long_500k`` (B 1), whose one local
+    layer's ring buffer of 1024 slots splits its time over ``(data,
+    model)`` in blocks of 4: flash-decoding's combine is two all-reduces
+    a group, the max (B, KVH, G) and then the rescaled terms and sums
+    (B, KVH, G, D + 1), f32, and no other cell's collectives carry its
+    tag."""
+    cfg = dataclasses.replace(configs.get(arch).config, n_layers=1)
+    rec = dryrun.run_cell(arch, shape, mesh_kind, cfg_override=cfg)
+    assert rec["ok"], rec.get("traceback")
+    combine = rec["collectives_by_tag"].get("softmax-combine")
+    if arch != "gemma3-4b":
+        assert combine is None, combine
+        return
+    assert cfg.remainder_kinds == ("local",)
+    B, KVH, G = 1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    per_group = 4 * B * KVH * G * (1 + cfg.resolved_head_dim + 1)
+    assert combine == {"count": 4, "bytes": 2 * per_group}, combine
+    assert rec["collective_counts"]["all-reduce"] >= 4
 
 
 def test_placed_moe_cell_counts_its_all_to_all():

@@ -140,9 +140,9 @@ def train_world(payload) -> dict:
 
 def serve_world(payload) -> dict:
     """Prefill and one greedy decode step on a ``(data, model)`` mesh from
-    the reference's params; then the train and serve builds of the layer
-    kinds that serving does not run on the mesh: the message of each
-    ``NotImplementedError`` (None where the build succeeds)."""
+    the reference's params; then the train and serve builds of the other
+    layer kinds' configs: the error of each (None where the build
+    succeeds)."""
     d, m = payload["shape"]
     mesh = mesh_lib.make_host_mesh(d, m, device="cpu")
     cfg = _cfg("float32")
@@ -156,7 +156,7 @@ def serve_world(payload) -> dict:
     tok = torch.argmax(logits, -1)[:, None]
     pos = torch.full((B,), L - 4, dtype=torch.int64)
     logits2, caches = build.decode(p, caches, tok, pos, {})
-    raised = {}
+    built = {}
     ecfg = elastic.ElasticConfig(easgd=EASGDConfig(**payload["easgd"]))
     for arch in payload["other_archs"]:
         rc = configs.get(arch).reduced
@@ -168,11 +168,11 @@ def serve_world(payload) -> dict:
                     rc, batch=2, max_len=8, device="cpu", mesh=mesh))):
             try:
                 fn()
-                raised[(arch, what)] = None
-            except NotImplementedError as e:
-                raised[(arch, what)] = str(e)
+                built[(arch, what)] = None
+            except Exception as e:
+                built[(arch, what)] = f"{type(e).__name__}: {e}"
     return {"logits": logits.numpy(), "logits2": logits2.numpy(),
-            "tok": tok.numpy(), "raised": raised,
+            "tok": tok.numpy(), "built": built,
             "cache_shape": tuple(caches["stacked"][0]["k"].shape),
             "specs": (build.token_spec, build.cache_spec_tree is not None)}
 
@@ -218,6 +218,69 @@ def kinds_world(payload) -> dict:
         out[case["name"]] = {"leaves": elastic.state_leaves(full),
                              "metrics": metrics,
                              "local": tuple(state.params.shape)}
+    return out
+
+
+def serve_kinds_world(payload) -> dict:
+    """Serving every layer kind on a ``(data 2, model 2)`` mesh: per case,
+    the reference's params carried across, the prefill of the case's
+    prompt and one decode step per token of ``decode`` (at the positions
+    after the prompt), with the case's planted fault, if any, in force.
+    Every rank returns the logits of each call (gathered, whole) and
+    whether each of its cache leaves has its spec's ``local_shape``; then
+    flash-decoding's combine alone at a position below rank 1's block of
+    a time dim split over ``data``."""
+    from repro_torch.models import attention, common, tp
+    from repro_torch.runtime import sharding as shd
+    mesh = mesh_lib.make_host_mesh(2, 2, device="cpu")
+    sizes = shd.mesh_axis_sizes(mesh)
+    out = {}
+    for case in payload["cases"]:
+        cfg = kind_cfg(case)
+        B, L = case["B"], payload["L"]
+        build = serve.build_serve_steps(cfg, batch=B, max_len=L,
+                                        device="cpu", mesh=mesh)
+        params, _ = tfm.params_from_jax(payload["params"][case["arch"]],
+                                        cfg, device="cpu")
+        p = build.cast_params(params)
+        prompt = torch.from_numpy(case["prompt"]).long()
+        decode = torch.from_numpy(case["decode"]).long()
+        restore = faults.plant(case.get("fault"))
+        try:
+            lg, caches = build.prefill(p, prompt, {})
+            logits = [lg.numpy()]
+            for i in range(decode.shape[1]):
+                pos = torch.full((B,), prompt.shape[1] + i, dtype=torch.int64)
+                lg, caches = build.decode(p, caches, decode[:, i:i + 1], pos,
+                                          {})
+                logits.append(lg.numpy())
+        finally:
+            restore()
+        shapes = [(tuple(t.shape), shd.local_shape(d.shape, sp, sizes))
+                  for (_, t), (_, d), sp in zip(
+                      common.tree_leaves_with_path(caches),
+                      common.tree_leaves_with_path(build.abstract_caches),
+                      common.spec_leaves(build.cache_spec_tree))]
+        out[case["name"]] = {
+            "logits": logits, "shapes": shapes,
+            "time": {k: v[:3] for k, v in
+                     shd.time_splits(cfg, mesh, B, L).items()}}
+    # the combine alone: 16 slots over data in blocks of 8, position 5
+    g = torch.Generator().manual_seed(9)
+    q = torch.randn(2, 1, 4, 8, generator=g)
+    k, v = torch.randn(2, 16, 2, 8, generator=g), torch.randn(
+        2, 16, 2, 8, generator=g)
+    r = mesh.get_local_rank("data")
+    split = tp.TimeSplit(("data",), (mesh.get_group("data"),), r, 8, 16)
+    valid = torch.arange(16) <= 5
+    m, l, o = attention.decode_partials(q, k[:, 8 * r:8 * r + 8],
+                                        v[:, 8 * r:8 * r + 8],
+                                        valid[8 * r:8 * r + 8])
+    got = tp.softmax_combine(m, l, o, split).reshape(2, 1, 4, 8)
+    want = attention.decode_attention(q, k, v, valid)
+    out["empty_block"] = {"err": float((got - want).abs().max()),
+                          "l": float(l.abs().max()), "m": float(m.max()),
+                          "rank": r}
     return out
 
 

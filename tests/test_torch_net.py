@@ -13,6 +13,7 @@ reference (``repro.net``, ``repro.ps``).
     cuts the wire bytes at matched loss; the workers' kernel launch counts
     come home in BYE.
 """
+import queue
 import socket
 import threading
 
@@ -333,6 +334,60 @@ def test_tcp_tau2_stacked_frames_bitwise(algo):
     np.testing.assert_array_equal(tcp.center.numpy(), ref.center)
     np.testing.assert_array_equal(tcp.workers.numpy(), ref.workers)
     assert torch.equal(tcp.center, thread.center)
+
+
+class _LateReady(queue.Queue):
+    """The master's event queue with worker 1's READY, and what follows it,
+    held back until worker 0, READY before it, has sent an event of its
+    run: the order a loaded machine can give the p2p plane, whose workers
+    start without a word from the master."""
+
+    def __init__(self):
+        super().__init__()
+        self.held = []
+        self.early = []
+        self.order = threading.Lock()    # the links' readers put at once
+
+    def put(self, item, *args, **kwargs):
+        wid, kind, _ = item
+        with self.order:
+            if wid == 1 and not self.early and (self.held
+                                                or kind == "ready"):
+                self.held.append(item)
+                return
+            super().put(item, *args, **kwargs)
+            if wid == 0 and kind != "ready" and not self.early:
+                # worker 1's READY is held, or has not come yet
+                self.early.append(kind)
+                for held in self.held:
+                    super().put(held)
+                self.held = []
+
+
+def test_tcp_rendezvous_holds_a_ready_workers_early_event(monkeypatch):
+    """A READY worker's event that reaches the master before every worker
+    is READY waits for the serve loop: the p2p run finishes and equals the
+    same run in the usual order bit for bit."""
+    from repro_torch.net import server
+    kw = dict(sync_plane="p2p", eval_every_iters=10**9)
+    plain = runtime.run_ps(problems.NUMPY_MLP, CFG,
+                           _tcp_cfg("sync_easgd", iters=24, **kw),
+                           device="cpu")
+    queues = []
+    init = server.MasterServer.__init__
+
+    def late(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self.events = _LateReady()
+        queues.append(self.events)
+    monkeypatch.setattr(server.MasterServer, "__init__", late)
+    res = runtime.run_ps(problems.NUMPY_MLP, CFG,
+                         _tcp_cfg("sync_easgd", iters=24, **kw),
+                         device="cpu")
+    assert len(queues) == 1 and queues[0].early, "no event came early"
+    assert res.total_iters == plain.total_iters == 24
+    assert torch.equal(res.center, plain.center)
+    assert torch.equal(res.workers, plain.workers)
 
 
 def test_tcp_emulated_wire_changes_clock_not_math():
